@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
+
+The sources under `adder_tpu_torch/csrc/` have a plain C interface (no
+PyTorch headers to compile), so one nvcc call builds them. The shared library
+lands in `adder_tpu_torch/build/`, named by a digest of the sources and the
+flags, so an edited source never loads a stale build. Pointers and the CUDA
+stream cross the boundary as `c_void_p` (a plain int would cut them to 32
+bits).
+
+Flags that keep the kernels bit-exact with the reference:
+  --fmad=false   no contraction of a product and a sum into one FMA;
+  --prec-div=true and --ftz=false   IEEE division, subnormals kept.
+`--use_fast_math` and `-ftz=true` must never be added.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("fused_resident.cu",)
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "--fmad=false",
+    "--prec-div=true",
+    "--ftz=false",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_lib = None
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or (
+        "/usr/local/cuda"
+    )
+    return os.path.join(home, "bin", "nvcc")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libadder_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(out: pathlib.Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            *(str(CSRC / s) for s in SOURCES)]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources unless this exact build exists; the compiler's
+    resource report (-Xptxas=-v: registers, spills) goes beside it."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    tmp.replace(so)
+    return so
+
+
+def build_log() -> str:
+    """The last build's compiler output (empty when none is on disk)."""
+    log = library_path().with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C signatures."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.adder_resident_chunk.argtypes = [ctypes.c_void_p,
+                                                 ctypes.c_void_p]
+            lib.adder_resident_chunk.restype = ctypes.c_int
+            lib.adder_exclusive_scan.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p,
+            ]
+            lib.adder_exclusive_scan.restype = ctypes.c_int
+            lib.adder_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.adder_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def error_string(code: int) -> str:
+    return f"{code} ({load().adder_cuda_error_string(code).decode()})"

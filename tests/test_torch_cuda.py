@@ -1,0 +1,81 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda` and skipped without a GPU. This file imports no jax, so on a
+machine without jax it runs with `python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py` (tests/conftest.py imports jax).
+Tolerance: none; every comparison is bit for bit.
+"""
+
+import io
+
+import pytest
+import torch
+
+import adder_tpu_torch as at
+from adder_tpu_torch import testing
+from adder_tpu_torch.ops import fused_resident as FR
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def test_kernels_match_plain_every_mode(cuda):
+    assert testing.check_kernels_against_plain(cuda) == 0.0
+
+
+def test_scan_matches_plain_past_int32(cuda):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    counts = torch.randint(0, 2816, (64, 24300), generator=gen,
+                           dtype=torch.int32)
+    got = FR.exclusive_scan(counts.to(cuda))
+    want = FR.exclusive_scan_plain(counts)
+    assert int(want[-1]) > 2 ** 31
+    assert torch.equal(got.cpu(), want)
+
+
+def _raw_bytes(frames, device):
+    src = at.FramedArray(frames, 30.0, chunk_frames=4, device=device)
+    src.auto_time_parameters(255, 255 * 24, at.TimeMode.DeltaT)
+    src.quality_manual(0, 0, 24, 1, 0)
+    buf = io.BytesIO()
+    src.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                  at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                  at.EncoderOptions.default(src.video.plane), buf)
+    while True:
+        try:
+            src.consume_batch()
+        except EOFError:
+            break
+    src.video.end_write_stream()
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_video_cuda_bytes_equal_cpu(cuda, channels):
+    frames = testing.walk_frames(channels, 12, 33 * 17 * channels)
+    frames = frames.reshape(12, 17, 33, channels)
+    FR.reset_launch_counts()
+    on_card = _raw_bytes(frames, cuda)
+    assert FR.LAUNCHES["adder_resident_chunk"] == 6  # COUNT + WRITE x 3
+    assert on_card == _raw_bytes(frames, "cpu")
+    assert len(on_card) > 1000
+
+
+def test_cuda_wrapper_rejects_bad_input(cuda):
+    st = at.Video(at.PlaneSize(8, 4, 1), at.Mode.FramePerfect,
+                  device=cuda).state
+    frames = torch.zeros((3, 32), dtype=torch.uint8, device=cuda)
+    p = FR.ops.TranscodeParams()
+    with pytest.raises(ValueError):
+        FR.fused_chunk_resident(st, frames.to(torch.int32), 255.0, p)
+    with pytest.raises(ValueError):
+        FR.fused_chunk_resident(st, frames[:, :16], 255.0, p)
+    cpu_state = st._replace(length=st.length.cpu())
+    with pytest.raises(ValueError):
+        FR.group_chunk_resident(cpu_state, frames, 255.0, p)

@@ -7,8 +7,13 @@ by import rather than rewritten; they import no jax.
 
 Layers, entry point first:
   transcoder/framed.py  FramedArray: (T, H, W, C) u8 frames -> Video
+  transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks -> Video's
+                        encoder
   transcoder/video.py   Video: chunked submit/collect, depth rerun, encoder
-  ops/fused_resident.py one chunk: plain torch version and the CUDA wrappers
+  ops/fused_resident.py one chunk (framed or DVS lanes): plain torch version
+                        and the CUDA wrappers
+  ops/dvs_batch.py      masked DVS sub-steps, the lane plan (shared native
+                        planner)
   ops/integrate.py      PixelState, TranscodeParams, the interval logic
   ops/cuda_build.py     nvcc build of csrc/ at first use, ctypes binding
   csrc/                 the Hopper kernels (CUDA C++, sm_90a)
@@ -52,4 +57,5 @@ from adder_tpu.core.types import (  # noqa: E402,F401
 )
 
 from .transcoder.framed import FramedArray  # noqa: E402,F401
+from .transcoder.prophesee import Prophesee  # noqa: E402,F401
 from .transcoder.video import Video  # noqa: E402,F401

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
 
 The sources under `adder_tpu_torch/csrc/` have a plain C interface (no
-PyTorch headers to compile), so one nvcc call builds them. The shared library
-lands in `adder_tpu_torch/build/`, named by a digest of the sources and the
-flags, so an edited source never loads a stale build. Pointers and the CUDA
-stream cross the boundary as `c_void_p` (a plain int would cut them to 32
-bits).
+PyTorch headers to compile). Each `.cu` compiles to an object in its own
+nvcc process, all started together, and one more nvcc call links the
+objects into a shared library. The library lands in `adder_tpu_torch/build/`,
+named by a digest of the sources, the headers and the flags, so an edited
+source never loads a stale build. Pointers and the CUDA stream cross the
+boundary as `c_void_p` (a plain int would cut them to 32 bits).
 
 Flags that keep the kernels bit-exact with the reference:
   --fmad=false   no contraction of a product and a sum into one FMA;
@@ -26,7 +27,8 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fused_resident.cu",)
+SOURCES = ("fused_resident.cu", "dvs_resident.cu")
+HEADERS = ("adder_interval.cuh",)
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -36,7 +38,6 @@ NVCC_FLAGS = (
     "--prec-div=true",
     "--ftz=false",
     "-Xptxas=-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 )
@@ -57,14 +58,19 @@ def nvcc_path() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libadder_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: pathlib.Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-            *(str(CSRC / s) for s in SOURCES)]
+def nvcc_command(out: pathlib.Path, source: str = SOURCES[0]) -> list:
+    """The command that compiles one source into the object `out`."""
+    return [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(out), str(CSRC / source)]
+
+
+def link_command(out: pathlib.Path, objects) -> list:
+    return [nvcc_path(), "-gencode=arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(out), *(str(o) for o in objects)]
 
 
 def build() -> pathlib.Path:
@@ -74,13 +80,29 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{pathlib.Path(s).stem}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen(nvcc_command(o, s), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for o, s in zip(objects, SOURCES)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, log)
+              for s, p, log in zip(SOURCES, procs, logs) if p.returncode]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    if not failed:
+        link = subprocess.run(link_command(tmp, objects), capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append(("link", link.returncode, link.stderr))
+    so.with_suffix(".ptxas.txt").write_text("".join(logs))
+    for o in objects:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{s} ({rc}):\n{log[-4000:]}" for s, rc, log in failed))
     tmp.replace(so)
     return so
 
@@ -97,9 +119,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.adder_resident_chunk.argtypes = [ctypes.c_void_p,
-                                                 ctypes.c_void_p]
-            lib.adder_resident_chunk.restype = ctypes.c_int
+            for entry in ("adder_resident_chunk", "adder_dvs_chunk"):
+                fn = getattr(lib, entry)
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.adder_exclusive_scan.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_void_p,

@@ -423,9 +423,13 @@ def _set_d_for_continuous(s: _S, intensity, mask, p: TranscodeParams):
 # --- integrate (ref: event_pixel_tree.rs:317-479) ---------------------------
 
 
-def _integrate(s: _S, intensity, time: float, p: TranscodeParams):
+def _integrate(s: _S, intensity, time, p: TranscodeParams, ovf_mask=None):
     """Vectorized PixelArena::integrate over all pixels. `time` is a host
-    scalar already rounded to f32."""
+    scalar already rounded to f32 (framed intervals) or an (N,) f32 tensor
+    of per-pixel ticks spanned (DVS sub-steps). `ovf_mask`, when given,
+    limits the depth-overflow counter to those pixels: DVS callers roll
+    back the other pixels' state, but not the scalar counter."""
+    per_pixel = isinstance(time, torch.Tensor)
     tail_virgin = (s.tail_pick(s.ndt, 0.0) == 0.0) & (
         s.tail_pick(s.ni, 0.0) == 0.0
     )
@@ -436,7 +440,7 @@ def _integrate(s: _S, intensity, time: float, p: TranscodeParams):
         )
 
     i_cur = intensity.to(_f32)
-    t_cur = torch.full_like(i_cur, time)
+    t_cur = time.to(_f32) if per_pixel else torch.full_like(i_cur, time)
     s.running_t = s.running_t + t_cur
     active = torch.ones_like(i_cur, dtype=torch.bool)
     collapse_brk = (
@@ -512,7 +516,8 @@ def _integrate(s: _S, intensity, time: float, p: TranscodeParams):
             s.ndt[k + 1] = torch.where(fire, 0.0, s.ndt[k + 1])
             s.bd[k + 1] = torch.where(fire, -1, s.bd[k + 1])
         else:
-            s.overflow = s.overflow + fire.sum(dtype=_i32)
+            fire_c = fire if ovf_mask is None else fire & ovf_mask
+            s.overflow = s.overflow + fire_c.sum(dtype=_i32)
         s.length = torch.where(fire, k + 2, s.length)
 
         # break conditions for the next iteration (idx = k+1)
@@ -553,8 +558,11 @@ def _integrate(s: _S, intensity, time: float, p: TranscodeParams):
     s.dtm_reached = s.ndt[0] >= float(np.float32(p.delta_t_max))
     s.need_pop = (s.nd[0] == D_MAX) | (s.dtm_reached & ~s.popped_dtm)
 
-    # adaptive c_thresh (ref: :402-412); the scalar parts are host integers
-    vel_m1, c_inc = c_thresh_scalars(time, p)
+    # adaptive c_thresh (ref: :402-412); for a scalar time the increment is
+    # a host integer, for per-pixel time it is computed per pixel
+    vel_m1, c_inc = c_thresh_scalars(0.0 if per_pixel else time, p)
+    if per_pixel:
+        c_inc = ((_as_u32(time.to(_f32)) // max(p.ref_time, 1)) % 256).to(_i32)
     adapting = s.c_thresh < p.c_thresh_max
     bump_c = adapting & (s.cic >= vel_m1)
     s.c_thresh = torch.where(
@@ -598,11 +606,11 @@ def integrate_interval(
     return s.restack(), slot_d, slot_t, slot_m
 
 
-def _interval_core(s: _S, intensity, frame_val, time: float,
-                   p: TranscodeParams):
+def _interval_core(s: _S, intensity, frame_val, time, p: TranscodeParams,
+                   ovf_mask=None):
     """The interval logic on an unstacked state (the reference's
-    `emit_running=False` branch). Mutates `s`; returns the K = depth + 3
-    slots as [(d, t, mask)]."""
+    `emit_running=False` branch). `time` and `ovf_mask` as in `_integrate`.
+    Mutates `s`; returns the K = depth + 3 slots as [(d, t, mask)]."""
     intensity = intensity.to(_f32)
 
     # 1. pre-integration pop_top
@@ -625,7 +633,7 @@ def _interval_core(s: _S, intensity, frame_val, time: float,
         m7 = torch.zeros_like(m0)
 
     # 3. integrate
-    _integrate(s, intensity, time, p)
+    _integrate(s, intensity, time, p, ovf_mask=ovf_mask)
 
     # 4. post-integration pop_top
     d8, t8, m8 = _pop_top_event(s, intensity, s.need_pop, p)

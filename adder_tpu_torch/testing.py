@@ -11,6 +11,7 @@ import math
 import numpy as np
 import torch
 
+from .ops import dvs_batch
 from .ops import fused_resident as FR
 from .ops import integrate as ops
 
@@ -159,3 +160,126 @@ def check_kernels_against_plain(device, H: int = 150, W: int = 200,
               compare_chunks(v, want._replace(pixd=None, t=None),
                              "forced overflow void"))
     return err
+
+
+# --- DVS (Prophesee) inputs and checks -----------------------------------------
+
+
+def dvs_stream(seed, W: int, H: int, duration_us: int, n_hot: int = 0,
+               hot_events: int = 0, band_events: int = 0,
+               background_events: int = 0, band_width: int = 24):
+    """A seeded synthetic DVS stream as (t u32 us, x u16, y u16, p u8),
+    sorted by time: `n_hot` hot pixels with `hot_events` events each, a
+    `band_width`-pixel vertical band that sweeps the width once over the
+    duration with `band_events` events, and `background_events` uniform
+    events; random polarity. Times start at 3 us (every pixel's chain
+    starts at t = 2)."""
+    rng = np.random.default_rng(seed)
+    hot = rng.choice(W * H, n_hot, replace=False)
+    hot_pix = np.repeat(hot, hot_events)
+    t_hot = rng.integers(0, duration_us, len(hot_pix))
+    t_band = rng.integers(0, duration_us, band_events)
+    edge = (t_band * (W - band_width) // max(duration_us, 1)).astype(np.int64)
+    band_pix = ((rng.integers(0, H, band_events)) * W
+                + edge + rng.integers(0, band_width, band_events))
+    bg_pix = rng.integers(0, W * H, background_events)
+    t_bg = rng.integers(0, duration_us, background_events)
+    pix = np.concatenate([hot_pix, band_pix, bg_pix]).astype(np.int64)
+    t = np.concatenate([t_hot, t_band, t_bg]).astype(np.int64) + 3
+    order = np.argsort(t, kind="stable")
+    t, pix = t[order], pix[order]
+    p = rng.integers(0, 2, len(t)).astype(np.uint8)
+    return (t.astype(np.uint32), (pix % W).astype(np.uint16),
+            (pix // W).astype(np.uint16), p)
+
+
+def write_prophesee_raw(path, W: int, H: int, t, x, y, p) -> None:
+    """Write a Prophesee RAW file: the %-header, the (type 0, size 8) bytes,
+    then (t, p << 28 | y << 14 | x) little-endian u32 records."""
+    rec = np.empty((len(t), 2), dtype="<u4")
+    rec[:, 0] = t
+    rec[:, 1] = ((np.asarray(p, np.uint32) << 28)
+                 | (np.asarray(y, np.uint32) << 14) | np.asarray(x, np.uint32))
+    with open(path, "wb") as f:
+        f.write(b"%% Height %d\n%% Width %d\n" % (H, W))
+        f.write(bytes([0, 8]))
+        f.write(rec.tobytes())
+
+
+def _dvs_params(multi_mode: int) -> ops.TranscodeParams:
+    """The Prophesee path's parameters (ref_time 20, delta_t_max 40) with an
+    adapting c_thresh, so the per-pixel c_thresh increment is exercised."""
+    return ops.TranscodeParams(mode=1, multi_mode=multi_mode, time_mode=1,
+                               ref_time=20, delta_t_max=40, c_thresh_max=6,
+                               c_increase_velocity=2)
+
+
+def dvs_group_planes(plan, lane_lo: int, lane_hi: int, n: int, device,
+                     ref_time: int = 20):
+    """Lanes [lane_lo, lane_hi) of a plan as (T, n) planes on `device`,
+    through the carrier the Prophesee path ships."""
+    g = plan.lane_slice(lane_lo, lane_hi)
+    carrier = torch.from_numpy(FR.pack_dvs_plan(g)).to(device)
+    return FR.build_dvs_planes(2 * (lane_hi - lane_lo), n,
+                               *FR.unpack_dvs_carrier(carrier),
+                               ref_time=ref_time)
+
+
+def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
+                                   lanes=(1, 19, 64), seed: int = 0) -> float:
+    """The K3 kernel (WRITE and VOID) against its plain version on the same
+    inputs, bit for bit: for Normal and Collapse, the bootstrap chunk (T = 2
+    of constant planes), then for each lane count L two chained groups of
+    T = 2 L sub-steps planned by the port's planner from a seeded stream;
+    then a forced depth-16 overflow. Raises on any difference; returns the
+    largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    need = 2 * sum(lanes)
+    ts, xs, ys, ps = dvs_stream(seed, W, H, 200_000, n_hot=3,
+                                hot_events=need + 8,
+                                background_events=max(n // 4, 64))
+    last_t = np.full(n, 2, np.uint32)
+    last_ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
+    plan = dvs_batch.plan_dvs_compact(ts, xs, ys, ps, W, last_t, last_ln,
+                                      0.02, 20)
+    if plan.n_lanes < need:
+        raise AssertionError(f"stream planned {plan.n_lanes} lanes < {need}")
+    err = 0.0
+
+    def both(st_k, st_p, planes, p, what):
+        k = FR.dvs_chunk_resident(st_k, *planes, p)
+        v = FR.dvs_chunk_resident(st_k, *planes, p, events=False)
+        want = FR.dvs_chunk_resident_plain(st_p, *planes, p)
+        e = max(compare_chunks(k, want, what),
+                compare_chunks(v, want._replace(pixd=None, t=None),
+                               what + " void"))
+        return k.state, want, e
+
+    def const_planes(T):
+        return tuple(torch.full((T, n), v, dtype=dt, device=dev) for v, dt in
+                     ((128.0, torch.float32), (20.0, torch.float32),
+                      (128 | 1 << 8, torch.int32)))
+
+    for multi in (0, 1):
+        p = _dvs_params(multi)
+        st_k = st_p = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
+        st_k, want, e = both(st_k, st_p, const_planes(2), p,
+                             f"bootstrap multi {multi}")
+        st_p, err = want.state, max(err, e)
+        lo = 0
+        for L in lanes:
+            for rep in range(2):
+                planes = dvs_group_planes(plan, lo, lo + L, n, dev)
+                st_k, want, e = both(st_k, st_p, planes, p,
+                                     f"multi {multi} T {2 * L} group {rep}")
+                st_p, err = want.state, max(err, e)
+                lo += L
+    st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
+                                          device=dev), n // 10,
+                               depth=FR.DVS_DEPTH)
+    _, want, e = both(st, st, const_planes(2), _dvs_params(1),
+                      "forced depth-16 overflow")
+    if not (int(want.pmax) >> 16) & 1:
+        raise AssertionError("the forced overflow did not overflow")
+    return max(err, e)

@@ -79,3 +79,38 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
     cpu_state = st._replace(length=st.length.cpu())
     with pytest.raises(ValueError):
         FR.group_chunk_resident(cpu_state, frames, 255.0, p)
+
+
+def test_dvs_kernel_matches_plain(cuda):
+    """K3 against its plain version: bootstrap, T = 2, 38 and 128 in two
+    chained groups, Normal and Collapse, WRITE and VOID, forced overflow."""
+    assert testing.check_dvs_kernel_against_plain(cuda) == 0.0
+
+
+def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
+    t, x, y, p = testing.dvs_stream(2, 64, 48, 40_000, n_hot=4,
+                                    hot_events=90, band_events=3000,
+                                    background_events=1500)
+    path = str(tmp_path / "s.raw")
+    testing.write_prophesee_raw(path, 64, 48, t, x, y, p)
+
+    def run(device):
+        src = at.Prophesee(20, path, device=device)
+        src.crf(3)
+        buf = io.BytesIO()
+        src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                      at.EncoderOptions.default(src.plane), buf)
+        while True:
+            try:
+                src.consume()
+            except EOFError:
+                break
+        src.end_write_stream()
+        return buf.getvalue()
+
+    FR.reset_launch_counts()
+    on_card = run(cuda)
+    assert FR.LAUNCHES["adder_dvs_chunk"] > 0
+    assert on_card == run("cpu")
+    assert len(on_card) > 1000

@@ -182,7 +182,7 @@ def test_wrappers_run_plain_on_cpu_tensors():
     w = _port_chunk(st, frames, pp, FR.fused_chunk_resident)
     v = _port_chunk(st, frames, pp, FR.group_chunk_resident)
     ref = _port_chunk(st, frames, pp)
-    assert FR.LAUNCHES == {"adder_resident_chunk": 0, "adder_exclusive_scan": 0}
+    assert set(FR.LAUNCHES.values()) == {0}
     assert torch.equal(w.pixd, ref.pixd) and torch.equal(w.t, ref.t)
     assert torch.equal(v.per_interval, ref.per_interval)
     counts = torch.from_numpy(

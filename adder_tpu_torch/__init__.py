@@ -1,53 +1,34 @@
 """adder_tpu_torch — the ADΔER transcoder on PyTorch, with CUDA kernels for Hopper.
 
 The port of `adder_tpu` (JAX on a TPU) to PyTorch and an NVIDIA H100. This
-package imports torch and never jax. Host-only numpy modules of `adder_tpu`
-(core types, the codec and its encoder/decoder, the CRF tables) are shared
-by import rather than rewritten; they import no jax.
+package imports torch and never jax, and nothing of `adder_tpu`: the host
+modules it needs (core types, the codec, the native planners, the aedat4
+container, EDI) are copies of the JAX package's, each naming its source.
 
 Layers, entry point first:
-  transcoder/framed.py  FramedArray: (T, H, W, C) u8 frames -> Video
-  transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks -> Video's
-                        encoder
-  transcoder/video.py   Video: chunked submit/collect, depth rerun, encoder
-  ops/fused_resident.py one chunk (framed or DVS lanes): plain torch version
-                        and the CUDA wrappers
-  ops/dvs_batch.py      masked DVS sub-steps, the lane plan (shared native
-                        planner)
-  ops/integrate.py      PixelState, TranscodeParams, the interval logic
-  ops/cuda_build.py     nvcc build of csrc/ at first use, ctypes binding
-  csrc/                 the Hopper kernels (CUDA C++, sm_90a)
-  convert.py            state to and from the JAX package through numpy
+  transcoder/framed.py    FramedArray: (T, H, W, C) u8 frames -> Video
+  transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks (K3)
+  transcoder/davis.py     Davis: DAVIS packets (APS frames + DVS events)
+                          -> lane chunks (K4) and frame chunks (K3)
+  transcoder/edi.py       EdiReconstructor: aedat4 -> deblurred packets
+  transcoder/video.py     Video: chunked submit/collect, depth rerun, encoder
+  ops/fused_resident.py   one chunk (framed, DVS or DAVIS lanes): plain
+                          torch version and the CUDA wrappers
+  ops/dvs_batch.py        masked DVS / DAVIS sub-steps, the lane plans
+  ops/integrate.py        PixelState, TranscodeParams, the interval logic
+  ops/cuda_build.py       nvcc build of csrc/ at first use, ctypes binding
+  ops/native_build.py     g++ build of the host C++ helpers at first use
+  csrc/                   the Hopper kernels (CUDA C++, sm_90a)
+  codec/, core/, utils/   the codec, the core types, aedat4 (copies)
+  convert.py              state to and from the JAX package through numpy
 
-Every constructor that allocates takes an explicit `device`.
+Every entry point runs on the card (`device="cuda"`) unless the caller asks
+for the CPU; without CUDA a CUDA device raises.
 """
 
-import os as _os
-
-
-def _import_shared_package() -> None:
-    """Import `adder_tpu` without jax. Its package init imports jax, where
-    jax is installed, to set the platform (ADDER_TPU_PLATFORM) and the
-    compilation cache (skipped when ADDER_TPU_XLA_CACHE is "0"). The port
-    needs neither, so both are switched off for this one import; a process
-    that imported `adder_tpu` first keeps its configuration."""
-    keys = ("ADDER_TPU_PLATFORM", "ADDER_TPU_XLA_CACHE")
-    saved = {k: _os.environ.pop(k, None) for k in keys}
-    _os.environ["ADDER_TPU_XLA_CACHE"] = "0"
-    try:
-        import adder_tpu  # noqa: F401
-    finally:
-        for k, v in saved.items():
-            _os.environ.pop(k, None)
-            if v is not None:
-                _os.environ[k] = v
-
-
-_import_shared_package()
-
-from adder_tpu.codec.decoder import open_file_decoder  # noqa: E402,F401
-from adder_tpu.codec.encoder import EncoderOptions, EncoderType  # noqa: E402,F401
-from adder_tpu.core.types import (  # noqa: E402,F401
+from .codec.decoder import open_file_decoder  # noqa: F401
+from .codec.encoder import EncoderOptions, EncoderType  # noqa: F401
+from .core.types import (  # noqa: F401
     EventArray,
     Mode,
     PixelMultiMode,
@@ -55,7 +36,8 @@ from adder_tpu.core.types import (  # noqa: E402,F401
     SourceCamera,
     TimeMode,
 )
-
-from .transcoder.framed import FramedArray  # noqa: E402,F401
-from .transcoder.prophesee import Prophesee  # noqa: E402,F401
-from .transcoder.video import Video  # noqa: E402,F401
+from .transcoder.davis import Davis, TranscoderMode  # noqa: F401
+from .transcoder.edi import EdiReconstructor  # noqa: F401
+from .transcoder.framed import FramedArray  # noqa: F401
+from .transcoder.prophesee import Prophesee  # noqa: F401
+from .transcoder.video import Video  # noqa: F401

@@ -1,11 +1,14 @@
 // The per-pixel ADΔER state machine shared by the Hopper chunk kernels
-// (fused_resident.cu: framed, K1/K2; dvs_resident.cu: DVS lanes, K3).
+// (fused_resident.cu: framed, K1/K2; dvs_resident.cu: DVS lanes, K3;
+// davis_resident.cu: DAVIS lanes, K4).
 //
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
-// (:638-678) and its helpers (:219-613), emit_running=False branch; the
-// plain PyTorch version the kernels are held against is
-// adder_tpu_torch/ops/integrate.py. The design notes, and what each kernel
-// replaces, are in the two .cu files. Everything here sits in an anonymous
+// (:638-678) and its helpers (:219-613), emit_running=False branch, and the
+// DAVIS step adder_tpu/ops/dvs_batch.py::davis_event_interval (:520-572),
+// composed from the same helpers; the plain PyTorch versions the kernels
+// are held against are adder_tpu_torch/ops/integrate.py and
+// adder_tpu_torch/ops/dvs_batch.py. The design notes, and what each kernel
+// replaces, are in the .cu files. Everything here sits in an anonymous
 // namespace: each translation unit instantiates what it launches.
 //
 // Exactness (each line is a place where the reference's f32 semantics could
@@ -50,6 +53,8 @@ constexpr float F32_EPS = 1.1920929e-07f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 enum { PASS_COUNT = 0, PASS_WRITE = 1, PASS_VOID = 2 };
+// What a sub-step reads: a framed u8 plane, the DVS planes or the DAVIS planes
+enum { SRC_FRAMED = 0, SRC_DVS = 1, SRC_DAVIS = 2 };
 
 struct Params {
   float time;   // framed: ticks spanned by one interval
@@ -99,9 +104,10 @@ struct KArgs {
   StateIn in;
   StateOut out;
   const uint8_t* frames;  // framed: (T, n) u8
-  const float* inten;     // DVS: (T, n) f32 intensity
-  const float* tspan;     // DVS: (T, n) f32 ticks spanned
-  const int* fvw;         // DVS: (T, n) i32 fv | active << 8
+  const float* inten;     // DVS: (T, n) f32 intensity; DAVIS: first_int
+  const float* tspan;     // DVS: (T, n) f32 ticks spanned; DAVIS: dt_ticks
+  const int* fvw;         // DVS, DAVIS: (T, n) i32 fv | active << 8
+  const float* fval;      // DAVIS: (T, n) f32 post-ln-step frame value
   long long n;
   int T;
   int nblk;
@@ -205,9 +211,10 @@ __device__ __forceinline__ void pop_top(Pixel<D>& s, float next_i,
 }
 
 // --- pop_best_events (integrate.py:346-420); called where the contrast
-// threshold is crossed. Fills slots 1..D of sd/st and their bits in m. -------
+// threshold is crossed. Fills slots OFF..OFF+D-1 of sd/st and their bits in
+// m (OFF is 1 in the framed slot order, 2 in the DAVIS one). ----------------
 
-template <int D, bool FP, bool ABS, bool COLLAPSE>
+template <int D, bool FP, bool ABS, bool COLLAPSE, int OFF>
 __device__ __forceinline__ void pop_best(Pixel<D>& s, float intensity,
                                          const Params& P, int (&sd)[D + 3],
                                          unsigned (&st)[D + 3], unsigned& m) {
@@ -218,11 +225,11 @@ __device__ __forceinline__ void pop_best(Pixel<D>& s, float intensity,
     const bool zero_ev = !has_best && s.ndt[k] > 0.0f && s.ni[k] == 0.0f;
     const bool emit = k < s.length && (has_best || zero_ev);
     float new_lft;
-    sd[1 + k] = has_best ? s.bd[k] : D_ZERO;
-    st[1 + k] = emit_abs<FP, ABS>(s.lft, has_best ? s.bdt[k] : s.ndt[k],
-                                  P.ref_u, new_lft);
+    sd[OFF + k] = has_best ? s.bd[k] : D_ZERO;
+    st[OFF + k] = emit_abs<FP, ABS>(s.lft, has_best ? s.bdt[k] : s.ndt[k],
+                                    P.ref_u, new_lft);
     if (emit) {
-      m |= 1u << (1 + k);
+      m |= 1u << (OFF + k);
       if (ABS) s.lft = new_lft;
     }
     any_emit = any_emit || emit;
@@ -237,18 +244,18 @@ __device__ __forceinline__ void pop_best(Pixel<D>& s, float intensity,
     bool found = false;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      const bool e = (m >> (1 + k)) & 1u;
+      const bool e = (m >> (OFF + k)) & 1u;
       if (e && !found) {
-        first_d = sd[1 + k];
-        first_t = st[1 + k];
+        first_d = sd[OFF + k];
+        first_t = st[OFF + k];
       }
       found = found || e;
     }
-    sd[1] = first_d;
-    st[1] = first_t;
-    sd[2] = D_EMPTY;
-    st[2] = as_u32(s.running_t);
-    m = (m & ~(((1u << D) - 1u) << 1)) | (1u << 1) | (1u << 2);
+    sd[OFF] = first_d;
+    st[OFF] = first_t;
+    sd[OFF + 1] = D_EMPTY;
+    st[OFF + 1] = as_u32(s.running_t);
+    m = (m & ~(((1u << D) - 1u) << OFF)) | (1u << OFF) | (1u << (OFF + 1));
     s.lft = s.running_t;
   }
   // arena reset: normal -> arena[0] = tail node; collapse -> fresh node
@@ -445,7 +452,7 @@ __device__ __forceinline__ unsigned run_interval(
   }
   const int bv = s.base_val, c = s.c_thresh;
   if (fv < max(bv - c, 0) || fv > min(bv + c, 255)) {
-    pop_best<D, FP, ABS, COLLAPSE>(s, intensity, P, sd, st, m);
+    pop_best<D, FP, ABS, COLLAPSE, 1>(s, intensity, P, sd, st, m);
     s.base_val = fv;
     if (!FP && set_d_for_continuous<D, ABS>(s, intensity, P, st[D + 1])) {
       sd[D + 1] = D_EMPTY;
@@ -456,6 +463,43 @@ __device__ __forceinline__ unsigned run_interval(
   if (s.need_pop) {
     pop_top<D, FP, ABS>(s, intensity, P, sd[D + 2], st[D + 2]);
     m |= 1u << (D + 2);
+  }
+  return m;
+}
+
+// --- one DAVIS DVS event for one pixel (dvs_batch.py::davis_event_interval,
+// :520-572; ref davis.rs:235-465). Continuous mode. The op order differs
+// from run_interval: pop_top, integrate the held intensity first_int over
+// the gap dt_ticks, pop_top, then the contrast stage against the
+// post-ln-step frame value (fv8 for the threshold test, fval for pop_best
+// and set_d). Slot k of the pixel's chronological order is bit k of the
+// returned mask: 0 pre-integration pop_top, 1 post-integration pop_top,
+// 2..D+1 pop_best, D+2 set_d filler. --------------------------------------
+
+template <int D, bool COLLAPSE, bool ABS>
+__device__ __forceinline__ unsigned run_davis_event(
+    Pixel<D>& s, float first_int, float dt_ticks, float fval, int fv8,
+    int c_inc, const Params& P, int (&sd)[D + 3], unsigned (&st)[D + 3],
+    bool& ovf) {
+  unsigned m = 0;
+  if (s.need_pop) {
+    pop_top<D, false, ABS>(s, first_int, P, sd[0], st[0]);
+    m |= 1u;
+  }
+  ovf = integrate<D, false, COLLAPSE>(s, first_int, dt_ticks, c_inc, P);
+  if (s.need_pop) {
+    pop_top<D, false, ABS>(s, first_int, P, sd[1], st[1]);
+    m |= 2u;
+  }
+  // base_val and c_thresh as integrate left them (the adaptive update)
+  const int bv = s.base_val, c = s.c_thresh;
+  if (fv8 < max(bv - c, 0) || fv8 > min(bv + c, 255)) {
+    pop_best<D, false, ABS, COLLAPSE, 2>(s, fval, P, sd, st, m);
+    s.base_val = fv8;
+    if (set_d_for_continuous<D, ABS>(s, fval, P, st[D + 2])) {
+      sd[D + 2] = D_EMPTY;
+      m |= 1u << (D + 2);
+    }
   }
   return m;
 }
@@ -516,12 +560,13 @@ __device__ __forceinline__ V warp_inclusive_scan(V x, int lane) {
 }
 
 // --- the chunk kernel: one thread per pixel, the arena in registers across
-// the T intervals (framed) or sub-steps (DVS). DVS sub-steps read the three
-// planes; a pixel whose active bit is clear skips the sub-step, which equals
-// the reference's compute-then-restore (every field restored, every slot
-// masked, no overflow count: ovf_mask = active). -----------------------------
+// the T intervals (framed) or sub-steps (DVS, DAVIS). DVS sub-steps read
+// three planes, DAVIS sub-steps four; a pixel whose active bit is clear
+// skips the sub-step, which equals the reference's compute-then-restore
+// (every field restored, every slot masked, no overflow count: ovf_mask =
+// active). -------------------------------------------------------------------
 
-template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, bool DVS>
+template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, int SRC>
 __global__ void __launch_bounds__(kBlock)
     adder_resident_chunk_kernel(const KArgs a) {
   constexpr int K = D + 3;
@@ -549,15 +594,21 @@ __global__ void __launch_bounds__(kBlock)
     if (valid) {
       const long long idx = (long long)t * n + pix;
       bool ovf = false;
-      if constexpr (DVS) {
+      if constexpr (SRC == SRC_DVS || SRC == SRC_DAVIS) {
         const int w = a.fvw[idx];
         if ((w >> 8) & 1) {
           const float tspan = a.tspan[idx];
           // (u32(time) // ref_time) % 256 per pixel (integrate.py:606-609)
           const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
-          m = run_interval<D, FP, COLLAPSE, ABS>(s, a.inten[idx], w & 0xFF,
-                                                 tspan, c_inc, a.P, sd, st,
-                                                 ovf);
+          if constexpr (SRC == SRC_DVS) {
+            m = run_interval<D, FP, COLLAPSE, ABS>(s, a.inten[idx], w & 0xFF,
+                                                   tspan, c_inc, a.P, sd, st,
+                                                   ovf);
+          } else {
+            m = run_davis_event<D, COLLAPSE, ABS>(s, a.inten[idx], tspan,
+                                                  a.fval[idx], w & 0xFF,
+                                                  c_inc, a.P, sd, st, ovf);
+          }
         }
       } else {
         const int fv = a.frames[idx];
@@ -641,10 +692,11 @@ struct AdderChunkArgs {
   void* out_pixd;
   void* out_t;
   void* flags;
-  int dvs;         // 0: framed entry point; 1: DVS entry point
+  int dvs;         // which entry point: SRC_FRAMED, SRC_DVS or SRC_DAVIS
   const void* inten;
   const void* tspan;
   const void* fvw;
+  const void* fval;  // DAVIS only
 };
 
 }  // extern "C"
@@ -693,6 +745,7 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   k.inten = (const float*)a->inten;
   k.tspan = (const float*)a->tspan;
   k.fvw = (const int*)a->fvw;
+  k.fval = (const float*)a->fval;
   k.n = a->n;
   k.T = a->T;
   k.nblk = (int)((a->n + kBlock - 1) / kBlock);
@@ -712,16 +765,16 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
 }
 
 // One launch of PASS for one template instantiation.
-template <int D, bool FP, bool CO, bool AB, bool DVS>
+template <int D, bool FP, bool CO, bool AB, int SRC>
 void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
   if (pass == PASS_COUNT) {
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT, DVS>
+    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   } else if (pass == PASS_WRITE) {
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, DVS>
+    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   } else {
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, DVS>
+    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   }
 }

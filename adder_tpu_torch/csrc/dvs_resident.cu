@@ -51,7 +51,7 @@ constexpr int kDvsDepth = 16;
 extern "C" {
 
 int adder_dvs_chunk(const AdderChunkArgs* a, void* stream) {
-  if (!chunk_args_ok(a) || a->dvs != 1 || a->depth != kDvsDepth ||
+  if (!chunk_args_ok(a) || a->dvs != SRC_DVS || a->depth != kDvsDepth ||
       a->mode != 1 || a->abs_time != 1 || a->inten == nullptr ||
       a->tspan == nullptr || a->fvw == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -59,9 +59,9 @@ int adder_dvs_chunk(const AdderChunkArgs* a, void* stream) {
   const KArgs k = make_kargs(a);
   cudaStream_t st = (cudaStream_t)stream;
   if (a->multi_mode == 1) {
-    launch_pass<kDvsDepth, false, true, true, true>(k, a->pass, st);
+    launch_pass<kDvsDepth, false, true, true, SRC_DVS>(k, a->pass, st);
   } else {
-    launch_pass<kDvsDepth, false, false, true, true>(k, a->pass, st);
+    launch_pass<kDvsDepth, false, false, true, SRC_DVS>(k, a->pass, st);
   }
   return (int)cudaGetLastError();
 }

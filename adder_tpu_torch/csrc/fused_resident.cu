@@ -99,9 +99,9 @@ __global__ void __launch_bounds__(kScanThreads)
 template <int D, bool FP, bool CO>
 void launch_time(const KArgs& k, int pass, bool abs_time, cudaStream_t st) {
   if (abs_time) {
-    launch_pass<D, FP, CO, true, false>(k, pass, st);
+    launch_pass<D, FP, CO, true, SRC_FRAMED>(k, pass, st);
   } else {
-    launch_pass<D, FP, CO, false, false>(k, pass, st);
+    launch_pass<D, FP, CO, false, SRC_FRAMED>(k, pass, st);
   }
 }
 
@@ -130,7 +130,8 @@ void launch_mode(const KArgs& k, int pass, bool fp, bool collapse,
 extern "C" {
 
 int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
-  if (!chunk_args_ok(a) || a->dvs != 0 || (a->depth != 6 && a->depth != 8)) {
+  if (!chunk_args_ok(a) || a->dvs != SRC_FRAMED ||
+      (a->depth != 6 && a->depth != 8)) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);

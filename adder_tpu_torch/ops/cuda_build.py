@@ -27,7 +27,7 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fused_resident.cu", "dvs_resident.cu")
+SOURCES = ("fused_resident.cu", "dvs_resident.cu", "davis_resident.cu")
 HEADERS = ("adder_interval.cuh",)
 
 NVCC_FLAGS = (
@@ -119,7 +119,8 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for entry in ("adder_resident_chunk", "adder_dvs_chunk"):
+            for entry in ("adder_resident_chunk", "adder_dvs_chunk",
+                          "adder_davis_chunk"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int

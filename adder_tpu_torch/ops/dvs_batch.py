@@ -14,22 +14,42 @@ src/transcoder/source/prophesee.rs:116-297):
   pixel is its k-th event in the window; each planned row drives up to two
   sub-steps, the held intensity over the gap (sub-step 2k) and one source
   tick of the new intensity (sub-step 2k + 1). The sequential f64 ln chain
-  is walked on the host by the JAX package's native planner
-  (`adder_tpu/ops/native/dvs_plan.cpp`, shared by import); there is no
-  numpy fallback here, so a missing planner raises.
+  is walked on the host by the native planner (`ops/native/dvs_plan.cpp`,
+  a copy of the JAX package's); there is no numpy fallback here, so a
+  missing planner raises.
+- `davis_event_interval`, `DavisCompact` and `plan_davis_events_compact`:
+  the DAVIS counterparts (`adder_tpu/ops/dvs_batch.py:520-654`, ref:
+  davis.rs:235-465). One lane is one sub-step per pixel, in the DAVIS op
+  order: pop_top, integrate the held intensity over the gap, pop_top, then
+  the contrast stage against the post-ln-step frame value.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from adder_tpu.ops import native_dvs_plan as _native
-
 from . import integrate as ops
+from . import native_dvs_plan as _native
+
+
+def _snapshot(s: ops._S) -> dict:
+    """Every per-pixel field of `s` (the overflow counter aside), for
+    `_rollback`."""
+    old = {f: getattr(s, f) for f in ops._S.__slots__ if f != "overflow"}
+    return {f: list(v) if isinstance(v, list) else v for f, v in old.items()}
+
+
+def _rollback(s: ops._S, old: dict, mask: torch.Tensor) -> None:
+    """Restore every field of the pixels outside `mask` from `old`."""
+    for f, v in old.items():
+        new = getattr(s, f)
+        if isinstance(v, list):
+            setattr(s, f, [torch.where(mask, a, b) for a, b in zip(new, v)])
+        else:
+            setattr(s, f, torch.where(mask, new, v))
 
 
 def masked_step(s: ops._S, intensity, frame_val, time, mask,
@@ -38,16 +58,10 @@ def masked_step(s: ops._S, intensity, frame_val, time, mask,
     integrate: every field of the other pixels is restored and their slots
     are masked off; the depth-overflow counter counts masked pixels only.
     Mutates `s`; returns the K slots as [(d, t, mask)]."""
-    old = {f: getattr(s, f) for f in ops._S.__slots__ if f != "overflow"}
-    old = {f: list(v) if isinstance(v, list) else v for f, v in old.items()}
+    old = _snapshot(s)
     slots = ops._interval_core(s, intensity, frame_val, time, p,
                                ovf_mask=mask)
-    for f, v in old.items():
-        new = getattr(s, f)
-        if isinstance(v, list):
-            setattr(s, f, [torch.where(mask, a, b) for a, b in zip(new, v)])
-        else:
-            setattr(s, f, torch.where(mask, new, v))
+    _rollback(s, old, mask)
     return [(d, t, m & mask) for d, t, m in slots]
 
 
@@ -103,65 +117,115 @@ def plan_dvs_compact(ts, xs, ys, ps, width: int, last_t: np.ndarray,
                      last_ln: np.ndarray, theta: float, ref: int,
                      val_cache: np.ndarray | None = None) -> DvsCompact:
     """Plan one batch of time-ordered DVS events (ref: prophesee.rs:175-249)
-    through the shared native planner, with the argument list of
+    through the native planner, with the argument list of
     `adder_tpu.ops.native_dvs_plan.plan_dvs_native`.
 
     Mutates the chain state in place: last_t (N,) uint32, last_ln (N,)
     float64 and, when given, val_cache (N,) float64 (the exp(last_ln) memo,
     NaN = not cached). Raises RuntimeError when the planner cannot be built
-    or loaded (it needs g++)."""
-    lib = _native._get_lib()
-    if lib is None:
-        raise RuntimeError(
-            "the native DVS planner (adder_tpu/ops/native/dvs_plan.cpp) is "
-            "unavailable: it is built with g++ at first use, and "
-            "ADDER_TPU_NATIVE_DVS_PLAN=0 disables it"
-        )
+    (it needs g++)."""
     if last_t.dtype != np.uint32 or last_ln.dtype != np.float64:
         raise ValueError("last_t must be uint32 and last_ln float64")
     if not (last_t.flags.c_contiguous and last_ln.flags.c_contiguous):
         raise ValueError("last_t and last_ln must be contiguous")
-    n = len(last_t)
-    if val_cache is None:
-        val_cache = np.full(n, np.nan, np.float64)
-    if val_cache.dtype != np.float64 or len(val_cache) != n or len(last_ln) != n:
-        raise ValueError("last_ln and val_cache must be (N,) float64")
-    n_ev = len(ts)
-    t64 = np.ascontiguousarray(ts, dtype=np.int64)
-    pix = np.ascontiguousarray(
-        np.asarray(ys, np.int64) * width + np.asarray(xs, np.int64), np.int32
-    )
-    pol = np.ascontiguousarray(np.asarray(ps) != 0, dtype=np.uint8)
-    out = DvsCompact(
-        np.empty(n_ev, np.int32), np.empty(n_ev, np.int32),
-        np.empty(n_ev, np.uint8), np.empty(n_ev, np.int32),
-        np.empty(n_ev, np.float32), np.empty(n_ev, np.float32),
-        np.empty(n_ev, np.uint8), np.empty(n_ev, np.int32),
-        np.empty(n_ev, np.float32), np.empty(n_ev, np.float32),
-        np.empty(n_ev, np.float32), np.empty(n_ev, np.int64),
-    )
+    if len(last_ln) != len(last_t):
+        raise ValueError("last_t and last_ln must have one length")
+    return _native.plan_dvs_native(ts, xs, ys, ps, width, last_t, last_ln,
+                                   theta, ref, val_cache)
 
-    def ptr(a, ctype):
-        return a.ctypes.data_as(ctypes.POINTER(ctype))
 
-    ctype_of = {np.dtype(np.int32): ctypes.c_int32,
-                np.dtype(np.uint8): ctypes.c_uint8,
-                np.dtype(np.float32): ctypes.c_float,
-                np.dtype(np.int64): ctypes.c_int64}
-    rows = lib.adder_plan_dvs(
-        ptr(t64, ctypes.c_int64), ptr(pix, ctypes.c_int32),
-        ptr(pol, ctypes.c_uint8), ctypes.c_long(n_ev), ctypes.c_long(n),
-        ptr(last_t, ctypes.c_uint32), ptr(last_ln, ctypes.c_double),
-        ptr(val_cache, ctypes.c_double),
-        ctypes.c_double(theta), ctypes.c_double(ref),
-        *(ptr(a, ctype_of[a.dtype]) for a in out),
-    )
-    if rows < 0:
-        raise ValueError("adder_plan_dvs: pixel index out of range")
-    r = int(rows)
-    out = DvsCompact(*(a[:r] for a in out))
-    return out._replace(gap_on=out.gap_on.view(bool),
-                        tick_on=out.tick_on.view(bool))
+# --- DAVIS (ref: adder-codec-rs/src/transcoder/source/davis.rs) -------------
+
+
+def davis_masked_step(s: ops._S, first_int, dt_ticks, frame_val, fv8, mask,
+                      p: ops.TranscodeParams):
+    """One DAVIS DVS event per masked pixel on an unstacked state (port of
+    `davis_event_interval`, `adder_tpu/ops/dvs_batch.py:520-572`): pop_top,
+    integrate the held intensity `first_int` over `dt_ticks` (per-pixel
+    time, so a per-pixel c_thresh increment), pop_top, then the contrast
+    stage (pop_best, base_val, set_d) against the post-ln-step frame value
+    (`frame_val` f32, `fv8` its int32 truncation). Unmasked pixels are
+    restored from a snapshot; the overflow counter counts masked pixels
+    only. Mutates `s`; returns the K = depth + 3 slots in the pixel's
+    chronological order (d0, d8, pop_best..., d7) as [(d, t, mask)]."""
+    old = _snapshot(s)
+    inten = first_int.to(torch.float32)
+    d0, t0, m0 = ops._pop_top_event(s, inten, s.need_pop, p)
+    ops._integrate(s, inten, dt_ticks, p, ovf_mask=mask)
+    d8, t8, m8 = ops._pop_top_event(s, inten, s.need_pop, p)
+    fv_f = frame_val.to(torch.float32)
+    bv, c = s.base_val, s.c_thresh
+    changed = mask & ((fv8 < torch.clamp(bv - c, min=0))
+                      | (fv8 > torch.clamp(bv + c, max=255)))
+    pop_slots = ops._pop_best_events(s, fv_f, changed, p)
+    s.base_val = torch.where(changed, fv8.to(torch.int32), s.base_val)
+    d7, t7, m7 = ops._set_d_for_continuous(s, fv_f, changed, p)
+    _rollback(s, old, mask)
+    slots = [(d0, t0, m0), (d8, t8, m8)] + list(pop_slots) + [(d7, t7, m7)]
+    return [(d, t, m & mask) for d, t, m in slots]
+
+
+def davis_event_interval(state: ops.PixelState, first_int: torch.Tensor,
+                         dt_ticks: torch.Tensor, frame_val: torch.Tensor,
+                         fv8: torch.Tensor, mask: torch.Tensor,
+                         p: ops.TranscodeParams):
+    """`davis_masked_step` on a stacked state: first_int, dt_ticks and
+    frame_val (N,) f32, fv8 (N,) int32, mask (N,) bool. Returns (state,
+    slot_d (K, N) int32, slot_t (K, N) int64 holding u32 values, slot_m
+    (K, N) bool), as `adder_tpu.ops.dvs_batch.davis_event_interval`."""
+    s = ops._S.unstack(state)
+    slots = davis_masked_step(s, first_int, dt_ticks, frame_val, fv8, mask, p)
+    slot_d = torch.stack([x[0] for x in slots]).to(torch.int32)
+    slot_t = torch.stack([x[1] for x in slots]).to(torch.int64)
+    slot_m = torch.stack([x[2] for x in slots])
+    return s.restack(), slot_d, slot_t, slot_m
+
+
+class DavisCompact(NamedTuple):
+    """Compact DAVIS lane plan: one row per event that does device work (one
+    sub-step of lane `lane` at pixel `pix`), lane-major. Fields, dtypes and
+    meaning equal `adder_tpu.ops.dvs_batch.DavisCompact`."""
+
+    pix: np.ndarray  # (E,) int32
+    lane: np.ndarray  # (E,) int32
+    active: np.ndarray  # (E,) bool
+    first_int: np.ndarray  # (E,) float32 held intensity over the gap
+    dt_ticks: np.ndarray  # (E,) float32 ticks spanned by the gap
+    fval: np.ndarray  # (E,) float32 post-ln-step frame value
+    fv8: np.ndarray  # (E,) int32 its truncation
+
+    @property
+    def n_lanes(self) -> int:
+        return int(self.lane.max()) + 1 if len(self.lane) else 0
+
+    def lane_slice(self, lane_lo: int, lane_hi: int) -> "DavisCompact":
+        """Rows whose lane falls in [lane_lo, lane_hi), rebased to 0."""
+        sel = (self.lane >= lane_lo) & (self.lane < lane_hi)
+        out = DavisCompact(*(f[sel] for f in self))
+        return out._replace(lane=(out.lane - lane_lo).astype(np.int32))
+
+
+def plan_davis_events_compact(ts, xs, ys, ons, width: int,
+                              last_t: np.ndarray, last_ln: np.ndarray,
+                              dvs_c: float, ref: int, ticks_per_micro: float,
+                              val_cache: np.ndarray | None = None
+                              ) -> DavisCompact:
+    """Plan one batch of time-ordered DAVIS DVS events (ref:
+    davis.rs:235-465) through the native planner: the argument list of
+    `adder_tpu.ops.dvs_batch.plan_davis_events_compact` without its `n`.
+
+    Mutates the chain state in place: last_t (N,) int64 microseconds,
+    last_ln (N,) float64 and, when given, val_cache (N,) float64 (the
+    exp(last_ln) memo, NaN = not cached). Raises RuntimeError when the
+    planner cannot be built (it needs g++)."""
+    if last_t.dtype != np.int64 or last_ln.dtype != np.float64:
+        raise ValueError("last_t must be int64 and last_ln float64")
+    if not (last_t.flags.c_contiguous and last_ln.flags.c_contiguous):
+        raise ValueError("last_t and last_ln must be contiguous")
+    if len(last_ln) != len(last_t):
+        raise ValueError("last_t and last_ln must have one length")
+    return _native.plan_davis_native(ts, xs, ys, ons, width, last_t, last_ln,
+                                     dvs_c, ref, ticks_per_micro, val_cache)
 
 
 def wire_to_events(pixd: np.ndarray, t: np.ndarray, width: int):

@@ -2,21 +2,25 @@
 
 Counterpart of `adder_tpu/ops/fused_resident.py` in its two framed modes,
 `make_fused_chunk_resident` (events fetched) and `make_group_chunk_resident`
-(the Empty sink, where only counts and the depth flag are read), and in its
+(the Empty sink, where only counts and the depth flag are read), in its
 DVS mode, `make_dvs_chunk_resident` (lane sub-steps with per-pixel
-intensity, ticks spanned and an active flag, at depth 16).
+intensity, ticks spanned and an active flag, at depth 16), and in its DAVIS
+mode, `make_davis_chunk_resident_compact` (one DAVIS event per pixel and
+sub-step, from four planes, at depth 16).
 
 Each entry point has two implementations:
 
 - the plain PyTorch version (`fused_chunk_resident_plain`,
-  `group_chunk_resident_plain`, `dvs_chunk_resident_plain`): a Python loop
-  over the T intervals of `integrate._interval_core` (for DVS,
-  `dvs_batch.masked_step`), then the per-interval slots compacted into the
-  reference's single-thread order (interval, raster pixel, slot);
+  `group_chunk_resident_plain`, `dvs_chunk_resident_plain`,
+  `davis_chunk_resident_plain`): a Python loop over the T intervals of
+  `integrate._interval_core` (for DVS, `dvs_batch.masked_step`; for DAVIS,
+  `dvs_batch.davis_masked_step`), then the per-interval slots compacted
+  into the reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk` and
   `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_chunk` in
-  dvs_resident.cu), reached through the wrappers `fused_chunk_resident`,
-  `group_chunk_resident` and `dvs_chunk_resident`.
+  dvs_resident.cu, `adder_davis_chunk` in davis_resident.cu), reached
+  through the wrappers `fused_chunk_resident`, `group_chunk_resident`,
+  `dvs_chunk_resident` and `davis_chunk_resident`.
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
@@ -44,7 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from adder_tpu.core.types import Mode, TimeMode
+from ..core.types import Mode, TimeMode
 
 from . import cuda_build, dvs_batch
 from . import integrate as ops
@@ -54,11 +58,12 @@ MAX_T = 128  # intervals per chunk (the kernel's shared count array)
 MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
 
 PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2
-DVS_DEPTH = 16  # the arena depth of the DVS path, the one the K3 kernel takes
+DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
+SRC_FRAMED, SRC_DVS, SRC_DAVIS = 0, 1, 2  # AdderChunkArgs.dvs
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"adder_resident_chunk": 0, "adder_exclusive_scan": 0,
-            "adder_dvs_chunk": 0}
+            "adder_dvs_chunk": 0, "adder_davis_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -234,6 +239,90 @@ def unpack_dvs_carrier(packed: torch.Tensor):
     )
 
 
+# --- DAVIS lane chunks (K4) -------------------------------------------------
+
+
+def davis_chunk_resident_plain(state: ops.PixelState, first_int: torch.Tensor,
+                               dt_ticks: torch.Tensor, fval: torch.Tensor,
+                               fvw: torch.Tensor, p: ops.TranscodeParams,
+                               events: bool = True) -> ChunkResult:
+    """Plain version of the DAVIS lane chunk
+    (`make_davis_chunk_resident_compact`,
+    `adder_tpu/ops/fused_resident.py:1361`): T sub-steps of
+    `dvs_batch.davis_masked_step`, the literal snapshot-and-restore
+    rollback, on the (T, N) planes first_int f32, dt_ticks f32, fval f32
+    and `fv8 | active << 8` int32. Events in (sub-step, raster pixel, slot)
+    order, the slots of a sub-step in the pixel's chronological order."""
+
+    def step(s, i):
+        w = fvw[i]
+        active = ((w >> 8) & 1) != 0
+        return dvs_batch.davis_masked_step(s, first_int[i], dt_ticks[i],
+                                           fval[i], w & 0xFF, active, p)
+
+    return _chunk_plain(state, first_int.shape[0], step, events)
+
+
+def pack_davis_plan(plan) -> np.ndarray:
+    """A DavisCompact (or a lane slice of one) -> the (5, E) int32 carrier
+    of `pack_davis_plan` (`adder_tpu/ops/fused_resident.py:1445`), 20 bytes
+    per row, so a lane group reaches the card in one host -> device copy:
+      row 0: pix | lane << 20 | active << 27
+      row 1: fv8
+      rows 2-4: the bits of first_int, dt_ticks, fval."""
+    E = len(plan.pix)
+    if E and (int(plan.pix.max()) >= 1 << 20 or int(plan.lane.max()) >= 128):
+        raise ValueError("the carrier holds pixels < 2^20 and lanes < 128")
+    packed = np.empty((5, E), np.int32)
+    packed[0] = (plan.pix | (plan.lane << 20)
+                 | (plan.active.astype(np.int32) << 27))
+    packed[1] = plan.fv8
+    packed[2] = plan.first_int.view(np.int32)
+    packed[3] = plan.dt_ticks.view(np.int32)
+    packed[4] = plan.fval.view(np.int32)
+    return packed
+
+
+def unpack_davis_carrier(packed: torch.Tensor):
+    """The (5, E) carrier -> the seven row fields of `build_davis_planes`
+    (pix, lane, active, first_int, dt_ticks, fval, fv8), with torch bit ops
+    on the carrier's device (port of `fused_resident.py:1430-1440`)."""
+    meta = packed[0]
+    return (
+        meta & 0xFFFFF,
+        (meta >> 20) & 0x7F,
+        ((meta >> 27) & 1) != 0,
+        packed[2].view(torch.float32),
+        packed[3].view(torch.float32),
+        packed[4].view(torch.float32),
+        packed[1],
+    )
+
+
+def build_davis_planes(T: int, n: int, pix, lane, active, first_int,
+                       dt_ticks, fval, fv8):
+    """Scatter compact DAVIS rows into the (T, N) lane planes [first_int,
+    dt_ticks, fval, fv8 | active << 8]: lane k goes to row k (port of
+    `build_davis_planes`, `adder_tpu/ops/fused_resident.py:1465`). Inactive
+    rows go to a discarded slot past the planes."""
+    dev = pix.device
+    dst = torch.where(active, lane.to(torch.int64) * n + pix.to(torch.int64),
+                      T * n)
+
+    def plane(v, dtype):
+        z = torch.zeros(T * n + 1, dtype=dtype, device=dev)
+        z.index_put_((dst,), v.to(dtype))
+        return z[: T * n].view(T, n)
+
+    return (
+        plane(first_int, torch.float32),
+        plane(dt_ticks, torch.float32),
+        plane(fval, torch.float32),
+        plane(fv8.to(torch.int32) | (active.to(torch.int32) << 8),
+              torch.int32),
+    )
+
+
 # --- wrappers ---------------------------------------------------------------
 
 
@@ -261,6 +350,17 @@ def dvs_chunk_resident(state, inten, tspan, fvw, p,
     if not inten.is_cuda:
         return dvs_chunk_resident_plain(state, inten, tspan, fvw, p, events)
     return _dvs_chunk_cuda(state, inten, tspan, fvw, p, events)
+
+
+def davis_chunk_resident(state, first_int, dt_ticks, fval, fvw, p,
+                         events: bool = True) -> ChunkResult:
+    """One DAVIS lane chunk: the plain version for CPU tensors; for CUDA
+    tensors the K4 kernel `adder_davis_chunk`, COUNT -> scan -> WRITE when
+    `events`, the VOID pass (state, counts and flags only) otherwise."""
+    if not first_int.is_cuda:
+        return davis_chunk_resident_plain(state, first_int, dt_ticks, fval,
+                                          fvw, p, events)
+    return _davis_chunk_cuda(state, first_int, dt_ticks, fval, fvw, p, events)
 
 
 class _ChunkArgs(ctypes.Structure):
@@ -292,6 +392,7 @@ class _ChunkArgs(ctypes.Structure):
         ("inten", ctypes.c_void_p),
         ("tspan", ctypes.c_void_p),
         ("fvw", ctypes.c_void_p),
+        ("fval", ctypes.c_void_p),
     ]
 
 
@@ -393,6 +494,7 @@ def _chunk_cuda(state, frames, time, p, events: bool) -> ChunkResult:
     T, n = frames.shape
     time = float(np.float32(time))
     a, out_state = _chunk_args(state, p, T, n)
+    a.dvs = SRC_FRAMED
     a.time = time
     a.vel_m1, a.c_inc = ops.c_thresh_scalars(time, p)
     a.frames = frames.data_ptr()
@@ -400,24 +502,48 @@ def _chunk_cuda(state, frames, time, p, events: bool) -> ChunkResult:
                        frames.device, events)
 
 
-def _dvs_chunk_cuda(state, inten, tspan, fvw, p, events: bool) -> ChunkResult:
-    _check_plane(inten, torch.float32, "inten")
-    _check_plane(tspan, torch.float32, "tspan")
-    _check_plane(fvw, torch.int32, "fvw")
-    if not inten.shape == tspan.shape == fvw.shape:
-        raise ValueError("inten, tspan and fvw must have one shape")
-    if not inten.device == tspan.device == fvw.device:
-        raise ValueError("inten, tspan and fvw must be on one device")
+def _lane_chunk_args(state, planes: dict, p):
+    """Checks and the argument block shared by the DVS and DAVIS chunks:
+    `planes` maps each plane's name to (tensor, dtype)."""
+    for name, (x, dtype) in planes.items():
+        _check_plane(x, dtype, name)
+    first = next(iter(planes.values()))[0]
+    if any(x.shape != first.shape for x, _ in planes.values()):
+        raise ValueError(f"{', '.join(planes)} must have one shape")
+    if any(x.device != first.device for x, _ in planes.values()):
+        raise ValueError(f"{', '.join(planes)} must be on one device")
     if p.mode != int(Mode.Continuous) or p.time_mode != int(TimeMode.AbsoluteT):
-        raise ValueError("the DVS kernel is built for Continuous, AbsoluteT")
-    _check_state(state, inten, (DVS_DEPTH,))
-    T, n = inten.shape
+        raise ValueError("the lane kernels are built for Continuous, AbsoluteT")
+    _check_state(state, first, (DVS_DEPTH,))
+    T, n = first.shape
     a, out_state = _chunk_args(state, p, T, n)
     a.vel_m1, _ = ops.c_thresh_scalars(0.0, p)
-    a.dvs = 1
+    return a, out_state, T, n
+
+
+def _dvs_chunk_cuda(state, inten, tspan, fvw, p, events: bool) -> ChunkResult:
+    a, out_state, T, n = _lane_chunk_args(
+        state, {"inten": (inten, torch.float32),
+                "tspan": (tspan, torch.float32),
+                "fvw": (fvw, torch.int32)}, p)
+    a.dvs = SRC_DVS
     a.inten, a.tspan, a.fvw = inten.data_ptr(), tspan.data_ptr(), fvw.data_ptr()
     return _run_passes("adder_dvs_chunk", a, out_state, T, n, inten.device,
                        events)
+
+
+def _davis_chunk_cuda(state, first_int, dt_ticks, fval, fvw, p,
+                      events: bool) -> ChunkResult:
+    a, out_state, T, n = _lane_chunk_args(
+        state, {"first_int": (first_int, torch.float32),
+                "dt_ticks": (dt_ticks, torch.float32),
+                "fval": (fval, torch.float32),
+                "fvw": (fvw, torch.int32)}, p)
+    a.dvs = SRC_DAVIS
+    a.inten, a.tspan = first_int.data_ptr(), dt_ticks.data_ptr()
+    a.fval, a.fvw = fval.data_ptr(), fvw.data_ptr()
+    return _run_passes("adder_davis_chunk", a, out_state, T, n,
+                       first_int.device, events)
 
 
 def exclusive_scan(counts: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from adder_tpu.core.types import Mode, PixelMultiMode, TimeMode
+from ..core.types import Mode, PixelMultiMode, TimeMode
 
 DEPTH = 8  # reference SmallVec inline capacity is 6 but can heap-grow
 K_SLOTS = DEPTH + 3  # pop_top, DEPTH pop_best nodes, set_d filler, pop_top

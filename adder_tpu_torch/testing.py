@@ -283,3 +283,167 @@ def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)
+
+
+# --- DAVIS (aedat4 -> EDI -> Davis) inputs and checks --------------------------
+
+
+DAVIS_BAR_WIDTH = 24  # pixels
+DAVIS_BACKGROUND, DAVIS_BAR = 60.0, 200.0  # grey levels
+
+
+def davis_stream(seed, W: int, H: int, duration_us: int, n_frames: int,
+                 exposure_us: int, n_hot: int = 0, hot_events: int = 0,
+                 edge_events: int = 0, background_events: int = 0):
+    """A seeded DAVIS scene: a DAVIS_BAR_WIDTH-pixel vertical bar of
+    DAVIS_BAR on a DAVIS_BACKGROUND grey sweeping the width once over
+    `duration_us`.
+
+    Returns (events, frames). events = (t int64 us sorted, x int16, y int16,
+    on int8): `n_hot` hot pixels with `hot_events` events each, random
+    polarity; `edge_events` on the bar's edges, ON at the leading edge and
+    OFF at the trailing one; `background_events` uniform events of random
+    polarity. frames = [(t, exposure_begin, exposure_end, (H, W) u8)]: one
+    every duration / n_frames, the last exposure ending at `duration_us`,
+    each the scene averaged over its exposure."""
+    rng = np.random.default_rng(seed)
+    bar_width = DAVIS_BAR_WIDTH
+    span = W - bar_width
+
+    def bar_x(t):
+        return np.asarray(t, np.float64) * span / max(duration_us, 1)
+
+    hot = rng.choice(W * H, n_hot, replace=False)
+    hot_pix = np.repeat(hot, hot_events)
+    t_hot = rng.integers(0, duration_us, len(hot_pix))
+    on_hot = rng.integers(0, 2, len(hot_pix))
+    t_edge = rng.integers(0, duration_us, edge_events)
+    lead = rng.random(edge_events) < 0.5
+    col = np.where(lead, bar_x(t_edge) + bar_width, bar_x(t_edge))
+    col = np.clip(col.astype(np.int64) + rng.integers(0, 2, edge_events),
+                  0, W - 1)
+    edge_pix = rng.integers(0, H, edge_events) * W + col
+    bg_pix = rng.integers(0, W * H, background_events)
+    t_bg = rng.integers(0, duration_us, background_events)
+    on_bg = rng.integers(0, 2, background_events)
+    pix = np.concatenate([hot_pix, edge_pix, bg_pix]).astype(np.int64)
+    t = np.concatenate([t_hot, t_edge, t_bg]).astype(np.int64)
+    on = np.concatenate([on_hot, lead, on_bg]).astype(np.int8)
+    order = np.argsort(t, kind="stable")
+    t, pix, on = t[order], pix[order], on[order]
+    events = (t, (pix % W).astype(np.int16), (pix // W).astype(np.int16), on)
+
+    period = duration_us // n_frames
+    cols = np.arange(W, dtype=np.float64)
+    frames = []
+    for i in range(n_frames):
+        end = (i + 1) * period if i + 1 < n_frames else duration_us
+        begin = end - exposure_us
+        samples = np.linspace(begin, end, 16, endpoint=False)
+        x0 = bar_x(samples)[:, None]
+        cover = ((cols >= x0) & (cols < x0 + bar_width)).mean(axis=0)
+        row = DAVIS_BACKGROUND + (DAVIS_BAR - DAVIS_BACKGROUND) * cover
+        img = np.repeat(row[None, :], H, axis=0).astype(np.uint8)
+        frames.append(((begin + end) // 2, begin, end, img))
+    return events, frames
+
+
+def write_davis_aedat4(path, W: int, H: int, events, frames,
+                       compression: int = 0) -> None:
+    """Write `davis_stream`'s output as an aedat4 file: before each frame,
+    one event packet with the events up to the frame's exposure end."""
+    from .utils.aedat4 import Aedat4Writer
+
+    t, x, y, on = events
+    w = Aedat4Writer(path, W, H, compression=compression)
+    try:
+        lo = 0
+        for ft, begin, end, img in frames:
+            hi = int(np.searchsorted(t, end))
+            if hi > lo:
+                w.write_events(t[lo:hi], x[lo:hi], y[lo:hi], on[lo:hi])
+            w.write_frame(ft, begin, end, img)
+            lo = hi
+    finally:
+        w.close()
+
+
+def _davis_params(multi_mode: int) -> ops.TranscodeParams:
+    """The DAVIS CLI's time base (ref_time 255, delta_t_max 3921 x 255)
+    with an adapting c_thresh, so the per-pixel increment is exercised."""
+    return ops.TranscodeParams(mode=1, multi_mode=multi_mode, time_mode=1,
+                               ref_time=255, delta_t_max=3921 * 255,
+                               c_thresh_max=6, c_increase_velocity=2)
+
+
+def davis_plan(seed, W: int, H: int, lanes: int) -> dvs_batch.DavisCompact:
+    """A seeded burst planned by the port's DAVIS planner into at least
+    `lanes` lanes: a hot pixel with `lanes` + 8 events and a quarter of the
+    plane in background events, on chains that start active."""
+    n = W * H
+    ts, xs, ys, ps = dvs_stream(seed, W, H, 200_000, n_hot=3,
+                                hot_events=lanes + 8,
+                                background_events=max(n // 4, 64))
+    last_t = np.ones(n, np.int64)
+    last_ln = np.full(n, np.log1p(0.5), np.float64)
+    plan = dvs_batch.plan_davis_events_compact(
+        ts.astype(np.int64), xs, ys, ps != 0, W, last_t, last_ln, 0.15, 255,
+        255.0)
+    if plan.n_lanes < lanes:
+        raise AssertionError(f"burst planned {plan.n_lanes} lanes < {lanes}")
+    return plan
+
+
+def davis_group_planes(plan, lane_lo: int, lane_hi: int, n: int, device):
+    """Lanes [lane_lo, lane_hi) of a DAVIS plan as (T, n) planes on
+    `device`, through the carrier the Davis path ships."""
+    g = plan.lane_slice(lane_lo, lane_hi)
+    carrier = torch.from_numpy(FR.pack_davis_plan(g)).to(device)
+    return FR.build_davis_planes(lane_hi - lane_lo, n,
+                                 *FR.unpack_davis_carrier(carrier))
+
+
+def check_davis_kernel_against_plain(device, H: int = 47, W: int = 61,
+                                     lanes=(1, 37, 128),
+                                     seed: int = 0) -> float:
+    """The K4 kernel (WRITE and VOID) against its plain version on the same
+    inputs, bit for bit: for Normal and Collapse and each lane count T, two
+    chained groups of T sub-steps planned by the port's DAVIS planner from a
+    seeded burst on a ragged plane; then a forced depth-16 overflow. Raises
+    on any difference; returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    plan = davis_plan(seed, W, H, 2 * sum(lanes))
+    err = 0.0
+
+    def both(st_k, st_p, planes, p, what):
+        k = FR.davis_chunk_resident(st_k, *planes, p)
+        v = FR.davis_chunk_resident(st_k, *planes, p, events=False)
+        want = FR.davis_chunk_resident_plain(st_p, *planes, p)
+        e = max(compare_chunks(k, want, what),
+                compare_chunks(v, want._replace(pixd=None, t=None),
+                               what + " void"))
+        return k.state, want, e
+
+    for multi in (0, 1):
+        p = _davis_params(multi)
+        st_k = st_p = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
+        lo = 0
+        for L in lanes:
+            for rep in range(2):
+                planes = davis_group_planes(plan, lo, lo + L, n, dev)
+                st_k, want, e = both(st_k, st_p, planes, p,
+                                     f"multi {multi} T {L} group {rep}")
+                st_p, err = want.state, max(err, e)
+                lo += L
+    st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
+                                          device=dev), n // 10,
+                               depth=FR.DVS_DEPTH)
+    planes = tuple(torch.full((1, n), v, dtype=dt, device=dev) for v, dt in
+                   ((1000.0, torch.float32), (255.0, torch.float32),
+                    (128.0, torch.float32), (128 | 1 << 8, torch.int32)))
+    _, want, e = both(st, st, planes, _davis_params(1),
+                      "forced depth-16 overflow")
+    if not (int(want.pmax) >> 16) & 1:
+        raise AssertionError("the forced overflow did not overflow")
+    return max(err, e)

@@ -11,17 +11,17 @@ from typing import Optional
 
 import numpy as np
 
-from adder_tpu.core.types import Mode, PlaneSize, TimeMode
+from ..core.types import Mode, PlaneSize, TimeMode
 
 from .video import SourceError, Video
 
 
 class FramedArray:
     """Array-backed framed source: (T, H, W, C) uint8 frames, transcoded on
-    the torch `device` the caller names."""
+    the torch `device` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, frames: np.ndarray, source_fps: float = 30.0,
-                 chunk_frames: int = 8, *, device):
+                 chunk_frames: int = 8, *, device="cuda"):
         frames = np.asarray(frames)
         if frames.ndim == 3:
             frames = frames[..., None]

@@ -8,7 +8,7 @@ the held intensity over the gap, steps the log intensity by +-camera_theta
 and integrates one source tick of the new intensity.
 
 A window of events (1 / view_fps of the stream) is planned on the host by
-the shared native planner (`ops/dvs_batch.plan_dvs_compact`) into lanes:
+the native planner (`ops/dvs_batch.plan_dvs_compact`) into lanes:
 lane k holds each pixel's k-th event. Lanes run in groups of at most 64 as
 one chunk of T = 2 x lanes sub-steps (`ops/fused_resident.dvs_chunk_resident`:
 the K3 kernel on a CUDA device, its plain version on the CPU). A group's
@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adder_tpu.core.types import (
+from ..core.types import (
     NO_CHANNEL,
     EventArray,
     Mode,
@@ -58,7 +58,7 @@ def parse_header(f) -> tuple:
     """Parse the %-comment header; returns (bod, ev_type, ev_size, (h, w)).
 
     Copy of `adder_tpu/transcoder/prophesee.py:42-74` (ref:
-    prophesee.rs:367-422); that module imports jax, so it is not shared."""
+    prophesee.rs:367-422)."""
     f.seek(0)
     height = width = None
     n_comment = 0
@@ -105,9 +105,52 @@ def decode_events_np(buf: bytes) -> tuple:
     return t.astype(np.uint32), x, y, p
 
 
+def lane_params(v: Video) -> ops.TranscodeParams:
+    """The lane chunks' parameters from the Video's time base and CRF:
+    Continuous mode, AbsoluteT."""
+    crf = v.encoder.options.crf.get_parameters()
+    return ops.TranscodeParams(
+        mode=int(Mode.Continuous),
+        multi_mode=int(v.pixel_multi_mode),
+        time_mode=int(TimeMode.AbsoluteT),
+        ref_time=int(v.ref_time),
+        delta_t_max=int(v.delta_t_max),
+        c_thresh_max=int(crf.c_thresh_max),
+        c_increase_velocity=max(int(crf.c_increase_velocity), 1),
+    )
+
+
+def run_lane_chunk(fn, state, planes, p, void: bool, width: int):
+    """One lane chunk of the wrapper `fn` (`dvs_chunk_resident` or
+    `davis_chunk_resident`) on `state`: (the new state, its events as
+    (x, y, d, t) host arrays, or None when `void`: the VOID pass, no
+    fetch)."""
+    res = fn(state, *planes, p, events=not void)
+    if void:
+        return res.state, None
+    pixd = res.pixd.cpu().numpy().view(np.uint32)
+    t = res.t.cpu().numpy().view(np.uint32)
+    return res.state, dvs_batch.wire_to_events(pixd, t, width)
+
+
+def ingest_parts(encoder, parts: list) -> EventArray:
+    """Concatenate (x, y, d, t) parts (None for a void chunk) in order into
+    one EventArray and feed it to `encoder`."""
+    parts = [q for q in parts if q is not None]
+    if parts:
+        x, y, d, t = (np.concatenate([q[i] for q in parts]) for i in range(4))
+    else:
+        x = y = np.zeros(0, np.uint16)
+        d = np.zeros(0, np.uint8)
+        t = np.zeros(0, np.uint32)
+    arr = EventArray(x, y, np.full(len(x), NO_CHANNEL, np.uint8), d, t)
+    encoder.ingest_event_array(arr)
+    return arr
+
+
 class Prophesee:
-    """Prophesee RAW -> ADΔER transcoder (ref: prophesee.rs:25-323) on an
-    explicit torch `device`.
+    """Prophesee RAW -> ADΔER transcoder (ref: prophesee.rs:25-323) on the
+    torch `device` (the card unless the caller asks for the CPU).
 
     view_fps sets how much of the stream one consume() call takes: events
     until t passes running_t + 1 s / view_fps (60 mirrors the reference's
@@ -116,7 +159,7 @@ class Prophesee:
     events never leave the device: no fetch, no host sync."""
 
     def __init__(self, ref_time: int, input_path: str, view_fps: int = 60,
-                 *, device):
+                 *, device="cuda"):
         self.device = resolve_device(device)
         with open(input_path, "rb") as f:
             bod, _, _, (h, w) = parse_header(f)
@@ -183,17 +226,7 @@ class Prophesee:
     # -- internals --
 
     def _params(self) -> ops.TranscodeParams:
-        v = self.video
-        crf = v.encoder.options.crf.get_parameters()
-        return ops.TranscodeParams(
-            mode=int(Mode.Continuous),
-            multi_mode=int(v.pixel_multi_mode),
-            time_mode=int(TimeMode.AbsoluteT),
-            ref_time=int(v.ref_time),
-            delta_t_max=int(v.delta_t_max),
-            c_thresh_max=int(crf.c_thresh_max),
-            c_increase_velocity=max(int(crf.c_increase_velocity), 1),
-        )
+        return lane_params(self.video)
 
     def load_events(self) -> None:
         """Decode the whole stream into host arrays (once)."""
@@ -228,14 +261,10 @@ class Prophesee:
     def _run_chunk(self, inten, tspan, fvw, p):
         """One K3 chunk on the carried state; its events as (x, y, d, t)
         host arrays, or None on the void path."""
-        res = FR.dvs_chunk_resident(self.state, inten, tspan, fvw, p,
-                                    events=not self.void_events)
-        self.state = res.state
-        if self.void_events:
-            return None
-        pixd = res.pixd.cpu().numpy().view(np.uint32)
-        t = res.t.cpu().numpy().view(np.uint32)
-        return dvs_batch.wire_to_events(pixd, t, self.plane.width)
+        self.state, events = run_lane_chunk(
+            FR.dvs_chunk_resident, self.state, (inten, tspan, fvw), p,
+            self.void_events, self.plane.width)
+        return events
 
     def _run_group(self, g: dvs_batch.DvsCompact, n_lanes: int, p):
         carrier = torch.from_numpy(FR.pack_dvs_plan(g)).to(self.device)
@@ -257,17 +286,7 @@ class Prophesee:
         )
 
     def _ingest(self, parts: list) -> EventArray:
-        parts = [q for q in parts if q is not None]
-        if parts:
-            x, y, d, t = (np.concatenate([q[i] for q in parts])
-                          for i in range(4))
-        else:
-            x = y = np.zeros(0, np.uint16)
-            d = np.zeros(0, np.uint8)
-            t = np.zeros(0, np.uint32)
-        arr = EventArray(x, y, np.full(len(x), NO_CHANNEL, np.uint8), d, t)
-        self.video.encoder.ingest_event_array(arr)
-        return arr
+        return ingest_parts(self.video.encoder, parts)
 
     def _bootstrap(self) -> EventArray:
         """Integrate two mid-grey (128) ticks in every pixel at t = 0

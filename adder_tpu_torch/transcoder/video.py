@@ -2,7 +2,7 @@
 
 Port of `adder_tpu/transcoder/video.py` (ref: adder-codec-rs
 src/transcoder/source/video.rs). The encoder, the codec and the CRF tables
-are the JAX package's host-only modules, shared by import.
+are the port's copies (adder_tpu_torch/codec).
 """
 
 from __future__ import annotations
@@ -13,15 +13,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adder_tpu.codec.encoder import (
+from ..codec.encoder import (
     Encoder,
     EncoderOptions,
     EncoderType,
     RawOutput,
 )
-from adder_tpu.codec.header import LATEST_CODEC_VERSION, CodecMetadata
-from adder_tpu.codec.rate_controller import Crf
-from adder_tpu.core.types import (
+from ..codec.header import LATEST_CODEC_VERSION, CodecMetadata
+from ..codec.rate_controller import Crf
+from ..core.types import (
     NO_CHANNEL,
     EventArray,
     Mode,
@@ -52,7 +52,8 @@ class Roi:
 
 
 def resolve_device(device) -> torch.device:
-    """The caller's device, checked: no automatic choice, no silent CPU."""
+    """The caller's device, checked: a CUDA device without a card raises;
+    nothing falls back to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -62,8 +63,8 @@ def resolve_device(device) -> torch.device:
 
 
 class Video:
-    """Shared transcoder engine (ref: video.rs:322-1301), on an explicit
-    torch `device`.
+    """Shared transcoder engine (ref: video.rs:322-1301), on the torch
+    `device` (the card unless the caller asks for the CPU).
 
     Each chunk of T frames goes through one call of
     `ops.fused_resident.fused_chunk_resident` (or `group_chunk_resident`
@@ -85,7 +86,7 @@ class Video:
     """
 
     def __init__(self, plane: PlaneSize, pixel_tree_mode: Mode,
-                 chunk_frames: int = 8, *, device):
+                 chunk_frames: int = 8, *, device="cuda"):
         self.device = resolve_device(device)
         self.plane = plane
         self.n = plane.volume()

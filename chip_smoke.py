@@ -31,7 +31,24 @@ Phases (any failure raises and the script exits non-zero):
      Empty sink, void) must run segmented windows and T = 128 groups;
   7. timings: K3 against plain on one 64-lane group at 640x480 (T = 128);
      end-to-end Mev/s (windowed Raw, bulk void); a stage breakdown of the
-     windowed Raw run.
+     windowed Raw run;
+  8. the DAVIS lane kernel (K4) against its plain version, bit for bit: a
+     ragged 61x47 plane, lanes planned from a seeded burst by the port's
+     planner, T = 1, 37 and 128 in two chained groups, Normal and Collapse,
+     WRITE and VOID, a forced depth-16 overflow;
+  9. the DAVIS path at 346x260 (the DAVIS346 of MVSEC) with the CLI
+     settings of tools/davis_to_adder.py -t raw-davis (ref_time 255, tps
+     255e6, delta_t_max 255e6, the manual quality 5, 5, 3921, 1, 2.0, Raw
+     sink) on a seeded, uncompressed aedat4 stream (1.0 s, 1,000,000 DVS
+     events, 40 APS frames of 10 ms), through Davis(EdiReconstructor(path),
+     device="cuda"): the K4 and K3 launch counters must rise and the
+     decoded event count must equal the kernels'; the first 4 packets must
+     give the same bytes on the card and on the CPU; a void run must end in
+     the fetched run's state;
+  10. timings: K4 against plain on the largest packet's chunk; end-to-end
+     Mev/s and APS frames/s; a stage breakdown; the device's busy share.
+Every kernel of the record carries its bound: the larger of the bytes it
+must move over 3.35 TB/s and a floor of its f32 operations over 67 TFLOP/s.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit, and the one before that the kernels'
 record. Without CUDA the script exits non-zero and prints no result.
@@ -39,6 +56,7 @@ record. Without CUDA the script exits non-zero and prints no result.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -52,6 +70,16 @@ T_CHUNK = 16
 N_FRAMES = 64
 DVS_W, DVS_H = 640, 480
 DVS_PREFIX_US = 50_000
+DAVIS_W, DAVIS_H = 346, 260
+DAVIS_FRAMES = 40
+DAVIS_PREFIX_PACKETS = 4
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the least f32 work of one active (pixel, sub-step): the first node of the
+# integrate walk (sum, payload division, two products, three differences)
+F32_OPS_PER_STEP = 8
 
 
 def log(msg: str) -> None:
@@ -84,6 +112,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def state_bytes(state) -> int:
+    """Bytes of a PixelState's per-pixel fields (the overflow scalar aside)."""
+    return sum(x.numel() * x.element_size() for x in state[:-1])
+
+
+def bound(nbytes: int, active_steps: int) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the f32 operation floor over the f32 rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = F32_OPS_PER_STEP * active_steps / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def chunk_bound(state, planes, n_events: int, active_steps: int) -> tuple:
+    """The bound of one fetched chunk: each input plane read once, the state
+    read and written once, each event's (pix << 8 | d, t) pair written once."""
+    nbytes = (sum(x.numel() * x.element_size() for x in planes)
+              + 2 * state_bytes(state) + 8 * n_events)
+    return bound(nbytes, active_steps)
+
+
+def kernel_source(name: str) -> str:
+    """Which chunk kernel a mangled name instantiates: its last template
+    argument is the source (adder_interval.cuh SRC_FRAMED / DVS / DAVIS)."""
+    m = re.search(r"ELi(\d)E+v", name)
+    return {"0": "framed (K1/K2)", "1": "DVS (K3)", "2": "DAVIS (K4)"}.get(
+        m.group(1) if m else "", "other")
 
 
 def ptxas_report(text: str) -> dict:
@@ -212,6 +269,66 @@ def prophesee_run(at, path, device, raw_path=None, view_fps=60,
             f.close()
 
 
+class Stages:
+    """Host-clock stage timers for a staged run: each wrapper synchronises
+    after the call it times. `seconds` maps stage name -> seconds."""
+
+    def __init__(self, names):
+        self.seconds = {k: 0.0 for k in names}
+        self.packed_at = 0.0
+        self.carrier_bytes = 0
+
+    def timed(self, stage):
+        def make(orig):
+            def f(*a, **k):
+                t0 = time.perf_counter()
+                r = orig(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[stage] += time.perf_counter() - t0
+                return r
+            return f
+        return make
+
+    def pack(self, orig):
+        """The carrier pack; the h2d copy runs from its end to unpack."""
+        def f(g):
+            t0 = time.perf_counter()
+            r = orig(g)
+            self.packed_at = time.perf_counter()
+            self.seconds["pack"] += self.packed_at - t0
+            self.carrier_bytes += r.nbytes
+            return r
+        return f
+
+    def unpack(self, orig):
+        """The carrier unpack, timed as scatter; the copy before it as h2d."""
+        def f(carrier):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.seconds["h2d"] += t0 - self.packed_at
+            r = orig(carrier)
+            torch.cuda.synchronize()
+            self.seconds["scatter"] += time.perf_counter() - t0
+            return r
+        return f
+
+    def kernels(self, stage):
+        """A chunk wrapper timed as `stage`, its event fetch as fetch."""
+        def make(orig):
+            def f(*a, **k):
+                t0 = time.perf_counter()
+                r = orig(*a, **k)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                self.seconds[stage] += t1 - t0
+                if r.pixd is not None:
+                    r = r._replace(pixd=r.pixd.cpu(), t=r.t.cpu())
+                self.seconds["fetch"] += time.perf_counter() - t1
+                return r
+            return f
+        return make
+
+
 def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     """The windowed Raw run with every stage timed on the host clock and a
     synchronise after it: decode, the window search, plan, pack, host ->
@@ -219,65 +336,17 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     + WRITE, with the host read of the total), event fetch, unpacking the
     wire pairs to x, y, d, t, encode; "other" is the rest of the wall (the
     loop, event arrays, the bootstrap and end-of-stream planes)."""
-    st = {k: 0.0 for k in ("decode", "window", "plan", "pack", "h2d",
-                           "scatter", "kernels", "fetch", "unpack",
-                           "encode")}
-    mark = {"packed": 0.0}
-    bytes_h2d = [0]
+    S = Stages(("decode", "window", "plan", "pack", "h2d", "scatter",
+                "kernels", "fetch", "unpack", "encode"))
+    st = S.seconds
     P = Patches()
-
-    def timed(stage):
-        def make(orig):
-            def f(*a, **k):
-                t0 = time.perf_counter()
-                r = orig(*a, **k)
-                torch.cuda.synchronize()
-                st[stage] += time.perf_counter() - t0
-                return r
-            return f
-        return make
-
-    def pack(orig):
-        def f(g):
-            t0 = time.perf_counter()
-            r = orig(g)
-            mark["packed"] = time.perf_counter()
-            st["pack"] += mark["packed"] - t0
-            bytes_h2d[0] += r.nbytes
-            return r
-        return f
-
-    def unpack(orig):
-        def f(carrier):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st["h2d"] += t0 - mark["packed"]
-            r = orig(carrier)
-            torch.cuda.synchronize()
-            st["scatter"] += time.perf_counter() - t0
-            return r
-        return f
-
-    def kernels(orig):
-        def f(*a, **k):
-            t0 = time.perf_counter()
-            r = orig(*a, **k)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            st["kernels"] += t1 - t0
-            if r.pixd is not None:
-                r = r._replace(pixd=r.pixd.cpu(), t=r.t.cpu())
-            st["fetch"] += time.perf_counter() - t1
-            return r
-        return f
-
-    P.wrap(TP, "decode_events_np", timed("decode"))
-    P.wrap(dvs_batch, "plan_dvs_compact", timed("plan"))
-    P.wrap(FR, "pack_dvs_plan", pack)
-    P.wrap(FR, "unpack_dvs_carrier", unpack)
-    P.wrap(FR, "build_dvs_planes", timed("scatter"))
-    P.wrap(FR, "dvs_chunk_resident", kernels)
-    P.wrap(dvs_batch, "wire_to_events", timed("unpack"))
+    P.wrap(TP, "decode_events_np", S.timed("decode"))
+    P.wrap(dvs_batch, "plan_dvs_compact", S.timed("plan"))
+    P.wrap(FR, "pack_dvs_plan", S.pack)
+    P.wrap(FR, "unpack_dvs_carrier", S.unpack)
+    P.wrap(FR, "build_dvs_planes", S.timed("scatter"))
+    P.wrap(FR, "dvs_chunk_resident", S.kernels("kernels"))
+    P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
 
     def window(orig):
         def f():  # the decode runs inside the first call: not counted twice
@@ -288,7 +357,7 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
         return f
 
     def before(src):
-        P.wrap(src.video.encoder, "ingest_event_array", timed("encode"))
+        P.wrap(src.video.encoder, "ingest_event_array", S.timed("encode"))
         P.wrap(src, "_next_dvs_batch", window)
 
     try:
@@ -296,12 +365,13 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     finally:
         P.restore()
     st["other"] = wall - sum(st.values())
-    return wall, st, bytes_h2d[0]
+    return wall, st, S.carrier_bytes
 
 
 def dvs_phases(dev, card):
     """Phases 5-7 (the Prophesee path). Returns (K3's max abs err against
-    plain, the windowed run's launch counts, K3 ms, plain ms at T = 128)."""
+    plain, the windowed run's launch counts, K3's timings and bound at
+    T = 128)."""
     import numpy as np
 
     import adder_tpu_torch as at
@@ -457,12 +527,17 @@ def dvs_phases(dev, card):
             st_dvs, *planes, p_dvs, events=False), 10)
         k3p_ms = cuda_ms(lambda: FR.dvs_chunk_resident_plain(
             st_dvs, *planes, p_dvs), 1)
+        k3_active = int(((planes[2] >> 8) & 1).sum())
+        k3_bound, k3_by = chunk_bound(st_dvs, planes, len(want.pixd),
+                                      k3_active)
+        k3v_bound, k3v_by = chunk_bound(st_dvs, planes, 0, k3_active)
         sc_ms = cuda_ms(lambda: FR.build_dvs_planes(FR.MAX_T, n, *fields,
                                                     ref_time=20), 10)
         h2d_ms = cuda_ms(lambda: torch.from_numpy(packed).to(dev), 10)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
         log(f"#   K3 fetched (COUNT+scan+WRITE) {k3_ms} ms, void {k3v_ms} "
-            f"ms, plain {k3p_ms} ms")
+            f"ms, plain {k3p_ms} ms; bound {k3_bound} ms ({k3_by}), void "
+            f"bound {k3v_bound} ms ({k3v_by})")
         log(f"#   carrier h2d {packed.nbytes} bytes in {h2d_ms} ms "
             f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable); unpack + "
             f"scatter into 3 x (128, {n}) planes {sc_ms} ms")
@@ -476,7 +551,257 @@ def dvs_phases(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    return dvs_err, dvs_launches, k3_ms, k3p_ms
+    return dvs_err, dvs_launches, dict(ms=k3_ms, plain_ms=k3p_ms,
+                                       bound_ms=k3_bound, bound_by=k3_by)
+
+
+def davis_run(at, path, device, raw_path=None, before=None):
+    """tools/davis_to_adder.py -t raw-davis with its defaults: Davis over
+    EdiReconstructor(path) on its worker thread, Collapse, AbsoluteT, the
+    manual quality the CLI sets without --crf; a Raw sink into `raw_path`,
+    or with None the Empty sink and void events. `before(src)` runs after
+    write_out. Returns (seconds from the source's construction, which
+    starts the reader thread, to the closed stream; the source)."""
+    t0 = time.perf_counter()
+    src = at.Davis(at.EdiReconstructor(path), ref_time=255, tps=255_000_000,
+                   delta_t_max=255_000_000, mode=at.TranscoderMode.RawDavis,
+                   device=device)
+    f = open(raw_path, "wb") if raw_path else None
+    try:
+        src.write_out(at.SourceCamera.DavisU8, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Collapse, None,
+                      at.EncoderType.Raw if f else at.EncoderType.Empty,
+                      at.EncoderOptions.default(src.plane), f)
+        src.get_video_ref().update_quality_manual(5, 5, 3921, 1, 2.0)
+        src.void_events = f is None
+        if before:
+            before(src)
+        while True:
+            try:
+                src.consume()
+            except EOFError:
+                break
+        src.end_write_stream()
+        sync(device)
+        return time.perf_counter() - t0, src
+    finally:
+        if f:
+            f.close()
+
+
+def staged_davis_run(at, path, dev, raw_path, dvs_batch, FR):
+    """The Raw run with every stage timed on the host clock and a
+    synchronise after it: set-up (the source's construction, write_out and
+    the quality call, up to the first consume), the wait on the aedat4 +
+    EDI worker thread, plan, pack, host -> device carrier copy, unpack +
+    scatter into planes, K4 chunks (COUNT + scan + WRITE, with the host
+    read of the total), the K3 frame and gap chunks, event fetch, the frame
+    and gap planes on the host and their copy to the card ("frame host":
+    the gap and frame steps less their chunks and fetches), unpacking the
+    wire pairs, encode; "other" is the rest of the wall (the consume loop,
+    event arrays, the end of the stream)."""
+    S = Stages(("set-up", "provider", "plan", "pack", "h2d", "scatter",
+                "K4", "K3 frames", "fetch", "frame host", "unpack", "encode"))
+    st = S.seconds
+    P = Patches()
+    P.wrap(dvs_batch, "plan_davis_events_compact", S.timed("plan"))
+    P.wrap(FR, "pack_davis_plan", S.pack)
+    P.wrap(FR, "unpack_davis_carrier", S.unpack)
+    P.wrap(FR, "build_davis_planes", S.timed("scatter"))
+    P.wrap(FR, "davis_chunk_resident", S.kernels("K4"))
+    P.wrap(FR, "dvs_chunk_resident", S.kernels("K3 frames"))
+    P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
+
+    def provider(orig_iter):
+        class Timed:
+            def __next__(self):
+                t0 = time.perf_counter()
+                try:
+                    return next(orig_iter)
+                finally:
+                    st["provider"] += time.perf_counter() - t0
+        return Timed()
+
+    def frame_host(orig):
+        def f(*a, **k):
+            inner = st["K3 frames"] + st["fetch"]
+            t0 = time.perf_counter()
+            r = orig(*a, **k)
+            torch.cuda.synchronize()
+            st["frame host"] += (time.perf_counter() - t0
+                                 - (st["K3 frames"] + st["fetch"] - inner))
+            return r
+        return f
+
+    def before(src):
+        P.wrap(src.video.encoder, "ingest_event_array", S.timed("encode"))
+        P.wrap(src, "_integrate_frame_gaps", frame_host)
+        P.wrap(src, "_integrate_frame", frame_host)
+        src._iter = provider(src._iter)
+        st["set-up"] = time.perf_counter() - t_start
+
+    t_start = time.perf_counter()
+    try:
+        wall, src = davis_run(at, path, dev, raw_path, before=before)
+    finally:
+        P.restore()
+    st["other"] = wall - sum(st.values())
+    return wall, st
+
+
+def davis_phases(dev, card):
+    """Phases 8-10 (the DAVIS path). Returns the K4 record entry's numbers
+    and the DAVIS run's launch counts."""
+    import numpy as np
+
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import dvs_batch
+    from adder_tpu_torch.ops import fused_resident as FR
+
+    # -- phase 8: the DAVIS lane kernel (K4) against plain, bit for bit ----
+    t0 = time.perf_counter()
+    k4_err = testing.check_davis_kernel_against_plain(dev)
+    torch.cuda.synchronize()
+    log(f"# phase 8: K4 == plain on 61x47: T = 1/37/128 x 2 chained groups, "
+        f"Normal and Collapse, WRITE and VOID, forced depth-16 overflow "
+        f"(max abs err {k4_err}); {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9: the DAVIS path at 346x260 ----------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_davis_")
+    try:
+        t0 = time.perf_counter()
+        events, frames = testing.davis_stream(
+            21, DAVIS_W, DAVIS_H, 1_000_000, n_frames=DAVIS_FRAMES,
+            exposure_us=10_000, n_hot=100, hot_events=1000,
+            edge_events=600_000, background_events=300_000)
+        n_in = len(events[0])
+        path = os.path.join(tmp, "davis.aedat4")
+        testing.write_davis_aedat4(path, DAVIS_W, DAVIS_H, events, frames)
+        k = int(np.searchsorted(events[0],
+                                frames[DAVIS_PREFIX_PACKETS - 1][2]))
+        prefix = os.path.join(tmp, "prefix.aedat4")
+        testing.write_davis_aedat4(prefix, DAVIS_W, DAVIS_H,
+                                   tuple(a[:k] for a in events),
+                                   frames[:DAVIS_PREFIX_PACKETS])
+        log(f"# phase 9: aedat4 {DAVIS_W}x{DAVIS_H}, {n_in} DVS events and "
+            f"{len(frames)} APS frames over 1.0 s ({os.path.getsize(path)} "
+            f"bytes, uncompressed) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        out = os.path.join(tmp, "davis.adder")
+        kernel_events, biggest = [], {}
+        P = Patches()
+
+        def count_events(orig):
+            def f(*a, **kw):
+                r = orig(*a, **kw)
+                kernel_events.append(r.per_interval.sum())
+                return r
+            return f
+
+        def keep_biggest(orig):
+            def f(state, *planes_p, **kw):
+                T = planes_p[0].shape[0]
+                if T > biggest.get("T", 0):
+                    biggest.update(T=T, state=state, args=planes_p[:4])
+                return orig(state, *planes_p, **kw)
+            return f
+
+        P.wrap(FR, "dvs_chunk_resident", count_events)
+        P.wrap(FR, "davis_chunk_resident", count_events)
+        P.wrap(FR, "davis_chunk_resident", keep_biggest)
+        FR.reset_launch_counts()
+        try:
+            first_s, fetched = davis_run(at, path, dev, out)
+        finally:
+            P.restore()
+        launches = dict(FR.LAUNCHES)
+        if min(launches["adder_davis_chunk"], launches["adder_dvs_chunk"],
+               launches["adder_exclusive_scan"]) < 1:
+            raise AssertionError(f"DAVIS path missed a kernel: {launches}")
+        n_kernel = int(sum(int(x) for x in kernel_events))
+        n_decoded = len(at.open_file_decoder(out).digest_all())
+        if n_decoded != n_kernel or n_kernel == 0:
+            raise AssertionError(f"decoded {n_decoded} ADΔER events, the "
+                                 f"kernels counted {n_kernel}")
+        log(f"# phase 9: Raw: {n_kernel} ADΔER events, "
+            f"{os.path.getsize(out)} bytes, {first_s:.3f} s (first run), "
+            f"launches {launches}")
+
+        _, void = davis_run(at, path, dev, None)
+        for name, a, b in zip(fetched.state._fields, fetched.state,
+                              void.state):
+            if not torch.equal(a, b):
+                raise AssertionError(f"void run state.{name} differs from "
+                                     f"the fetched run's")
+        log("# phase 9: the void run (Empty sink) ends in the fetched run's "
+            "state")
+
+        a, b = os.path.join(tmp, "cuda.adder"), os.path.join(tmp, "cpu.adder")
+        davis_run(at, prefix, dev, a)
+        cpu_s, _ = davis_run(at, prefix, "cpu", b)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"first {DAVIS_PREFIX_PACKETS} packets: "
+                                     f"card and CPU .adder differ")
+        log(f"# phase 9: first {DAVIS_PREFIX_PACKETS} packets byte-identical "
+            f"on card and CPU ({os.path.getsize(a)} bytes; CPU plain run "
+            f"{cpu_s:.1f} s)")
+
+        # -- phase 10: timings -------------------------------------------------
+        p = fetched._params()
+        st, planes = biggest["state"], biggest["args"]
+        want = FR.davis_chunk_resident_plain(st, *planes, p)
+        k4_err = max(
+            k4_err,
+            testing.compare_chunks(FR.davis_chunk_resident(st, *planes, p),
+                                   want, "largest DAVIS chunk"),
+            testing.compare_chunks(
+                FR.davis_chunk_resident(st, *planes, p, events=False),
+                want._replace(pixd=None, t=None), "largest DAVIS void chunk"),
+        )
+        active = int(((planes[3] >> 8) & 1).sum())
+        k4_ms = cuda_ms(lambda: FR.davis_chunk_resident(st, *planes, p), 10)
+        k4v_ms = cuda_ms(lambda: FR.davis_chunk_resident(
+            st, *planes, p, events=False), 10)
+        k4p_ms = cuda_ms(lambda: FR.davis_chunk_resident_plain(
+            st, *planes, p), 1)
+        k4_bound, k4_by = chunk_bound(st, planes, len(want.pixd), active)
+        k4v_bound, k4v_by = chunk_bound(st, planes, 0, active)
+        log(f"# phase 10: largest DAVIS chunk T={biggest['T']} at "
+            f"{DAVIS_W}x{DAVIS_H} ({active} active (sub-step, pixel) of "
+            f"{planes[0].numel()}, {len(want.pixd)} events) [{card}]:")
+        log(f"#   K4 fetched (COUNT+scan+WRITE) {k4_ms} ms, void {k4v_ms} ms, "
+            f"plain {k4p_ms} ms; bound {k4_bound} ms ({k4_by}), void bound "
+            f"{k4v_bound} ms ({k4v_by})")
+
+        wall, _ = davis_run(at, path, dev, out)
+        log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
+            f"Mev/s, {len(frames) / wall} APS frames/s ({wall} s for {n_in} "
+            f"DVS events and {len(frames)} frames) [{card}]")
+        t0 = time.perf_counter()
+        n_pk = sum(1 for _ in at.EdiReconstructor(path))
+        edi_s = time.perf_counter() - t0
+        log(f"# phase 10: aedat4 read + EDI alone (one thread): {edi_s} s "
+            f"for {n_pk} packets [{card}]")
+        busy = device_busy_seconds(lambda: davis_run(at, path, dev, out))
+        log(f"# phase 10: Raw run under torch.profiler: device busy {busy} s "
+            f"(kernels and copies), {busy / wall:.2%} of the second run's "
+            f"wall [{card}]" if busy else
+            "# phase 10: device busy share not measured (the profiler saw "
+            "no device time)")
+        wall, stages = staged_davis_run(at, path, dev, out, dvs_batch, FR)
+        log(f"# phase 10: Raw stage breakdown, {wall} s wall "
+            f"({n_in / wall / 1e6} Mev/s with a synchronise after each "
+            f"stage) [{card}]:")
+        for name, sec in stages.items():
+            log(f"#   {name:9s} {sec:.6f} s  {sec / wall:.1%}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
+                bound_by=k4_by), launches
 
 
 def main() -> int:
@@ -504,10 +829,9 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what, sel in (("framed", lambda k: "Li16E" not in k),
-                      ("DVS depth 16", lambda k: "Li16E" in k)):
+    for what in ("framed (K1/K2)", "DVS (K3)", "DAVIS (K4)"):
         ks = {k: v for k, v in ptx.items()
-              if "chunk_kernel" in k and sel(k)}
+              if "chunk_kernel" in k and kernel_source(k) == what}
         if ks:
             regs = [v["regs"] for v in ks.values()]
             log(f"# ptxas {what}: {len(ks)} kernels, registers "
@@ -515,7 +839,7 @@ def main() -> int:
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
     for k, v in ptx.items():
-        if "Li16E" in k:
+        if kernel_source(k) != "framed (K1/K2)":
             log(f"#   {k}: {v}")
 
     # -- phase 2: kernels against plain, bit for bit ----------------------
@@ -607,10 +931,16 @@ def main() -> int:
     vp_ms = cuda_ms(lambda: FR.group_chunk_resident_plain(st, f16, 255.0, p), 2)
     s_ms = cuda_ms(lambda: FR.exclusive_scan(counts), 50)
     sp_ms = cuda_ms(lambda: FR.exclusive_scan_plain(counts), 50)
+    # the library yardstick: one torch.cumsum of the same counts (int64)
+    s_lib_ms = cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
+    k_bound, k_by = chunk_bound(st, [f16], len(want.pixd), f16.numel())
+    v_bound, v_by = chunk_bound(st, [f16], 0, f16.numel())
+    s_bound, s_by = bound(counts.numel() * 4 + (counts.numel() + 1) * 8, 0)
     log(f"# phase 4: 1080p mono T={T_CHUNK} chunk [{card}]:")
-    log(f"#   fetched chunk (COUNT+scan+WRITE) {k_ms} ms, plain {p_ms} ms; "
-        f"void chunk {v_ms} ms, plain {vp_ms} ms; scan {s_ms} ms, plain "
-        f"{sp_ms} ms")
+    log(f"#   fetched chunk (COUNT+scan+WRITE) {k_ms} ms, plain {p_ms} ms, "
+        f"bound {k_bound} ms ({k_by}); void chunk {v_ms} ms, plain {vp_ms} "
+        f"ms, bound {v_bound} ms ({v_by}); scan {s_ms} ms, plain {sp_ms} ms, torch.cumsum {s_lib_ms} ms, "
+        f"bound {s_bound} ms ({s_by})")
     log(f"#   device-only: void {H * W * T_CHUNK / v_ms / 1e3} Mpx/s, "
         f"fetched {H * W * T_CHUNK / k_ms / 1e3} Mpx/s")
     mono = void_mpx(at, frames, T_CHUNK, dev)
@@ -622,28 +952,44 @@ def main() -> int:
     log(f"# phase 4: void path (host frames in, Empty sink) 1080p mono "
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
 
-    dvs_err, dvs_launches, k3_ms, k3p_ms = dvs_phases(dev, card)
+    dvs_err, dvs_launches, k3 = dvs_phases(dev, card)
+    k4, davis_launches = davis_phases(dev, card)
 
     record = {"kernels": [
         {"name": "adder_resident_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",
          "launches": launches["adder_resident_chunk"],
-         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms},
+         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k_bound, "bound_by": k_by, "library_ms": None},
         {"name": "adder_exclusive_scan", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",
          "launches": (launches["adder_exclusive_scan"]
-                      + dvs_launches["adder_exclusive_scan"]),
-         "max_abs_err": scan_err, "ms": s_ms, "plain_ms": sp_ms},
+                      + dvs_launches["adder_exclusive_scan"]
+                      + davis_launches["adder_exclusive_scan"]),
+         "max_abs_err": scan_err, "ms": s_ms, "plain_ms": sp_ms,
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib_ms},
         {"name": "adder_dvs_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1017",
-         "launches": dvs_launches["adder_dvs_chunk"],
-         "max_abs_err": dvs_err, "ms": k3_ms, "plain_ms": k3p_ms},
+         "launches": (dvs_launches["adder_dvs_chunk"]
+                      + davis_launches["adder_dvs_chunk"]),
+         "max_abs_err": dvs_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
+        {"name": "adder_davis_chunk", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/davis_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:1361",
+         "launches": davis_launches["adder_davis_chunk"],
+         "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": None},
     ]}
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "adder_tpu"))
+    if imported:
+        raise AssertionError(f"imported {imported[:5]}")
     print(json.dumps(record), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

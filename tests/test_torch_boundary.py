@@ -1,5 +1,6 @@
-"""The port's boundary: it runs without jax, and its CUDA build keeps the
-flags that hold the kernels to IEEE f32."""
+"""The port's boundary: it runs without jax and without the JAX package
+`adder_tpu`, and its CUDA build keeps the flags that hold the kernels to
+IEEE f32."""
 
 import pathlib
 import re
@@ -17,7 +18,8 @@ _TINY_RUN = r"""
 import io, sys
 import numpy as np
 if sys.argv[1] == "block":
-    sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    # any `import jax` or `import adder_tpu` now raises ImportError
+    sys.modules["jax"] = sys.modules["adder_tpu"] = None
 import adder_tpu_torch as at
 frames = np.random.default_rng(0).integers(0, 256, (6, 4, 5, 1)).astype(np.uint8)
 src = at.FramedArray(frames, chunk_frames=3, device="cpu")
@@ -33,7 +35,7 @@ while True:
         break
 src.video.end_write_stream()
 assert n > 0 and len(buf.getvalue()) > 9 * n
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "adder_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK", n)
 """
@@ -41,8 +43,8 @@ print("OK", n)
 
 @pytest.mark.parametrize("jax_state", ["block", "installed"])
 def test_port_runs_without_importing_jax(jax_state):
-    """With jax blocked, and with jax installed: a tiny CPU transcode runs
-    and no jax module gets imported."""
+    """With jax and adder_tpu blocked, and with both importable: a tiny CPU
+    transcode runs and no jax or adder_tpu module gets imported."""
     proc = subprocess.run(
         [sys.executable, "-c", _TINY_RUN, jax_state], cwd=REPO,
         capture_output=True, text=True, timeout=300,
@@ -52,10 +54,16 @@ def test_port_runs_without_importing_jax(jax_state):
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+    """No module of the port, and not chip_smoke.py, imports jax or the JAX
+    package (`adder_tpu`, as opposed to `adder_tpu_torch`)."""
+    pat = re.compile(r"^\s*(import\s+(jax|adder_tpu)\b|"
+                     r"from\s+(jax|adder_tpu)[\s.])", re.M)
+    assert pat.search("from adder_tpu.codec import raw")
+    assert pat.search("    import adder_tpu  # noqa")
+    assert not pat.search("from adder_tpu_torch.ops import integrate")
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
     offenders = [
-        str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
-        if pat.search(p.read_text())
+        str(p.relative_to(REPO)) for p in sources if pat.search(p.read_text())
     ]
     assert offenders == []
 

@@ -114,3 +114,44 @@ def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
     assert FR.LAUNCHES["adder_dvs_chunk"] > 0
     assert on_card == run("cpu")
     assert len(on_card) > 1000
+
+
+def test_davis_kernel_matches_plain(cuda):
+    """K4 against its plain version: T = 1, 37 and 128 in two chained
+    groups on a ragged 61 x 47 plane, Normal and Collapse, WRITE and VOID,
+    forced depth-16 overflow."""
+    assert testing.check_davis_kernel_against_plain(cuda) == 0.0
+
+
+def test_davis_cuda_bytes_equal_cpu(cuda, tmp_path):
+    """aedat4 -> EdiReconstructor -> Davis (raw-davis, the CLI's manual
+    quality) on the card and on the CPU: the same bytes."""
+    events, frames = testing.davis_stream(
+        4, 64, 48, 100_000, n_frames=4, exposure_us=10_000, n_hot=4,
+        hot_events=60, edge_events=6000, background_events=2000)
+    path = str(tmp_path / "s.aedat4")
+    testing.write_davis_aedat4(path, 64, 48, events, frames)
+
+    def run(device):
+        src = at.Davis(at.EdiReconstructor(path), ref_time=255,
+                       tps=255_000_000, delta_t_max=255_000_000,
+                       mode=at.TranscoderMode.RawDavis, device=device)
+        buf = io.BytesIO()
+        src.write_out(at.SourceCamera.DavisU8, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                      at.EncoderOptions.default(src.plane), buf)
+        src.get_video_ref().update_quality_manual(5, 5, 3921, 1, 2.0)
+        while True:
+            try:
+                src.consume()
+            except EOFError:
+                break
+        src.end_write_stream()
+        return buf.getvalue()
+
+    FR.reset_launch_counts()
+    on_card = run(cuda)
+    assert FR.LAUNCHES["adder_davis_chunk"] > 0
+    assert FR.LAUNCHES["adder_dvs_chunk"] > 0
+    assert on_card == run("cpu")
+    assert len(on_card) > 1000

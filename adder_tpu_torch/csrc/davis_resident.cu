@@ -26,15 +26,17 @@
 // Collapse} x {COUNT, WRITE, VOID} = 6 kernels.
 //
 // What bounds it. A DAVIS346 sub-step has a few hundred active pixels of
-// 89,960, so most threads read one word of fvw and move on: the kernel reads
-// the dense planes (16 bytes per pixel per sub-step; 184 MB for T = 128)
-// once per pass and runs the full state machine for a warp whenever one of
-// its 32 pixels is active. It is bound by those reads and by divergence, not
-// by arithmetic; the state (347 bytes per pixel at depth 16) is read once
-// and written once per chunk. The depth-16 arena and the 19 slot pairs of
-// the WRITE pass press on the register limit of __launch_bounds__(256);
-// ptxas -v reports any spill. Walking each pixel's own rows instead of dense
-// planes would remove the plane scatter and most of the reads.
+// 89,960, so most threads read one word of fvw and move on, and a warp runs
+// the full state machine whenever one of its 32 pixels is active. What the
+// data needs is small: 20 bytes per active cell (the carrier row) plus the
+// state of the active pixels (347 bytes each at depth 16), read once and
+// written once. The kernel moves far more: the fvw word of every cell (46 MB
+// for T = 128) and the state of all 89,960 pixels, once per pass, and it
+// diverges; it is not bound by arithmetic. The depth-16 arena and the 19
+// slot pairs of the WRITE pass press on the register limit of
+// __launch_bounds__(256); ptxas -v reports any spill. Walking each pixel's
+// own rows instead of dense planes would remove the plane scatter and most
+// of the reads.
 
 #include "adder_interval.cuh"
 

@@ -30,15 +30,17 @@
 //     AbsoluteT x {Normal, Collapse} x {COUNT, WRITE, VOID} = 6 kernels.
 //
 // What bounds it. Lanes are sparse: a typical sub-step has a few percent of
-// the plane active, so most threads read three words and move on, and a warp
-// runs the full state machine whenever one of its 32 pixels is active. The
-// dense planes are 12 bytes per pixel per sub-step (472 MB for T = 128 at
-// 640 x 480), read once per pass: the kernel is bound by that read and by
-// divergence, not by arithmetic. The depth-16 arena (80 values) and the 19
-// slot pairs of the WRITE pass press on the 255-register limit of
-// __launch_bounds__(256); ptxas -v reports any spill. Walking each pixel's
-// own rows instead of dense planes is the redesign that removes both the
-// plane scatter and most of the reads.
+// the plane active, so most threads read one word of fvw and move on, and a
+// warp runs the full state machine whenever one of its 32 pixels is active.
+// What the data needs is small: 16 bytes per active cell (its pixel and
+// three plane words) plus the state of the active pixels, read once and
+// written once. The kernel moves far more: the fvw word of every cell (157
+// MB for T = 128 at 640 x 480) and the state of every pixel, once per pass,
+// and it diverges; it is not bound by arithmetic. The depth-16 arena (80
+// values) and the 19 slot pairs of the WRITE pass press on the 255-register
+// limit of __launch_bounds__(256); ptxas -v reports any spill. Walking each
+// pixel's own rows instead of dense planes is the redesign that removes both
+// the plane scatter and most of the reads.
 
 #include "adder_interval.cuh"
 

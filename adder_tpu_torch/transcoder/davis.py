@@ -42,7 +42,7 @@ from ..core.types import EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
-from .prophesee import ingest_parts, lane_params, run_lane_chunk
+from .lanes import ingest_parts, lane_params, run_lane_chunk
 from .video import SourceError, Video, resolve_device
 
 LANE_GROUP = 128  # lanes per K4 chunk: one sub-step per lane, T <= FR.MAX_T

@@ -47,8 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      the fetched run's state;
   10. timings: K4 against plain on the largest packet's chunk; end-to-end
      Mev/s and APS frames/s; a stage breakdown; the device's busy share.
-Every kernel of the record carries its bound: the larger of the bytes it
-must move over 3.35 TB/s and a floor of its f32 operations over 67 TFLOP/s.
+Every kernel of the record carries its bound: the bytes it must move over
+3.35 TB/s, counted for the lane kernels (K3, K4) from the active cells
+and pixels of the chunk (the dense-plane figure is logged beside it).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit, and the one before that the kernels'
 record. Without CUDA the script exits non-zero and prints no result.
@@ -73,13 +74,8 @@ DVS_PREFIX_US = 50_000
 DAVIS_W, DAVIS_H = 346, 260
 DAVIS_FRAMES = 40
 DAVIS_PREFIX_PACKETS = 4
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor
-# cores
+# H100 SXM HBM3 peak (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# the least f32 work of one active (pixel, sub-step): the first node of the
-# integrate walk (sum, payload division, two products, three differences)
-F32_OPS_PER_STEP = 8
 
 
 def log(msg: str) -> None:
@@ -119,20 +115,32 @@ def state_bytes(state) -> int:
     return sum(x.numel() * x.element_size() for x in state[:-1])
 
 
-def bound(nbytes: int, active_steps: int) -> tuple:
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the f32 operation floor over the f32 rate."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = F32_OPS_PER_STEP * active_steps / F32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+def bound(nbytes: int) -> float:
+    """Milliseconds to move `nbytes` at the HBM rate. No kernel of the port
+    multiplies matrices, so the bytes bound them."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def chunk_bound(state, planes, n_events: int, active_steps: int) -> tuple:
-    """The bound of one fetched chunk: each input plane read once, the state
-    read and written once, each event's (pix << 8 | d, t) pair written once."""
-    nbytes = (sum(x.numel() * x.element_size() for x in planes)
-              + 2 * state_bytes(state) + 8 * n_events)
-    return bound(nbytes, active_steps)
+def chunk_bound(state, planes, n_events: int) -> float:
+    """The bound of one chunk over dense inputs (a framed chunk, where every
+    pixel runs every interval): each input plane read once, the state read
+    and written once, each event's (pix << 8 | d, t) pair written once."""
+    return bound(sum(x.numel() * x.element_size() for x in planes)
+                 + 2 * state_bytes(state) + 8 * n_events)
+
+
+def lane_chunk_bound(state, planes, n_events: int) -> float:
+    """The bound of one lane chunk (K3, K4; the last plane is fv | active <<
+    8) from what this chunk's data needs. An inactive (sub-step, pixel) cell
+    carries nothing the function reads, so the inputs are each active cell's
+    pixel index and plane values (4 B each: 16 B for K3, the 20-byte carrier
+    row for K4); the state of each pixel active in the chunk is read once
+    and written once; each event's (pix << 8 | d, t) pair is written once."""
+    active = ((planes[-1] >> 8) & 1).bool()
+    n_pix = active.shape[1]
+    cells, pixels = int(active.sum()), int(active.any(0).sum())
+    return bound(cells * 4 * (1 + len(planes))
+                 + 2 * pixels * state_bytes(state) // n_pix + 8 * n_events)
 
 
 def kernel_source(name: str) -> str:
@@ -527,17 +535,17 @@ def dvs_phases(dev, card):
             st_dvs, *planes, p_dvs, events=False), 10)
         k3p_ms = cuda_ms(lambda: FR.dvs_chunk_resident_plain(
             st_dvs, *planes, p_dvs), 1)
-        k3_active = int(((planes[2] >> 8) & 1).sum())
-        k3_bound, k3_by = chunk_bound(st_dvs, planes, len(want.pixd),
-                                      k3_active)
-        k3v_bound, k3v_by = chunk_bound(st_dvs, planes, 0, k3_active)
+        k3_bound = lane_chunk_bound(st_dvs, planes, len(want.pixd))
+        k3v_bound = lane_chunk_bound(st_dvs, planes, 0)
+        k3_dense = chunk_bound(st_dvs, planes, len(want.pixd))
         sc_ms = cuda_ms(lambda: FR.build_dvs_planes(FR.MAX_T, n, *fields,
                                                     ref_time=20), 10)
         h2d_ms = cuda_ms(lambda: torch.from_numpy(packed).to(dev), 10)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
         log(f"#   K3 fetched (COUNT+scan+WRITE) {k3_ms} ms, void {k3v_ms} "
-            f"ms, plain {k3p_ms} ms; bound {k3_bound} ms ({k3_by}), void "
-            f"bound {k3v_bound} ms ({k3v_by})")
+            f"ms, plain {k3p_ms} ms; bound {k3_bound} ms, void bound "
+            f"{k3v_bound} ms (active cells and pixels; dense-plane format "
+            f"{k3_dense} ms)")
         log(f"#   carrier h2d {packed.nbytes} bytes in {h2d_ms} ms "
             f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable); unpack + "
             f"scatter into 3 x (128, {n}) planes {sc_ms} ms")
@@ -552,7 +560,7 @@ def dvs_phases(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
     return dvs_err, dvs_launches, dict(ms=k3_ms, plain_ms=k3p_ms,
-                                       bound_ms=k3_bound, bound_by=k3_by)
+                                       bound_ms=k3_bound)
 
 
 def davis_run(at, path, device, raw_path=None, before=None):
@@ -767,14 +775,17 @@ def davis_phases(dev, card):
             st, *planes, p, events=False), 10)
         k4p_ms = cuda_ms(lambda: FR.davis_chunk_resident_plain(
             st, *planes, p), 1)
-        k4_bound, k4_by = chunk_bound(st, planes, len(want.pixd), active)
-        k4v_bound, k4v_by = chunk_bound(st, planes, 0, active)
+        k4_bound = lane_chunk_bound(st, planes, len(want.pixd))
+        k4v_bound = lane_chunk_bound(st, planes, 0)
+        k4_dense = chunk_bound(st, planes, len(want.pixd))
+        pixels = int(((planes[3] >> 8) & 1).any(0).sum())
         log(f"# phase 10: largest DAVIS chunk T={biggest['T']} at "
             f"{DAVIS_W}x{DAVIS_H} ({active} active (sub-step, pixel) of "
-            f"{planes[0].numel()}, {len(want.pixd)} events) [{card}]:")
+            f"{planes[0].numel()}, {pixels} active pixels, "
+            f"{len(want.pixd)} events) [{card}]:")
         log(f"#   K4 fetched (COUNT+scan+WRITE) {k4_ms} ms, void {k4v_ms} ms, "
-            f"plain {k4p_ms} ms; bound {k4_bound} ms ({k4_by}), void bound "
-            f"{k4v_bound} ms ({k4v_by})")
+            f"plain {k4p_ms} ms; bound {k4_bound} ms, void bound {k4v_bound} "
+            f"ms (active cells and pixels; dense-plane format {k4_dense} ms)")
 
         wall, _ = davis_run(at, path, dev, out)
         log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
@@ -800,8 +811,8 @@ def davis_phases(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    return dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
-                bound_by=k4_by), launches
+    return dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms,
+                bound_ms=k4_bound), launches
 
 
 def main() -> int:
@@ -933,14 +944,14 @@ def main() -> int:
     sp_ms = cuda_ms(lambda: FR.exclusive_scan_plain(counts), 50)
     # the library yardstick: one torch.cumsum of the same counts (int64)
     s_lib_ms = cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
-    k_bound, k_by = chunk_bound(st, [f16], len(want.pixd), f16.numel())
-    v_bound, v_by = chunk_bound(st, [f16], 0, f16.numel())
-    s_bound, s_by = bound(counts.numel() * 4 + (counts.numel() + 1) * 8, 0)
+    k_bound = chunk_bound(st, [f16], len(want.pixd))
+    v_bound = chunk_bound(st, [f16], 0)
+    s_bound = bound(counts.numel() * 4 + (counts.numel() + 1) * 8)
     log(f"# phase 4: 1080p mono T={T_CHUNK} chunk [{card}]:")
     log(f"#   fetched chunk (COUNT+scan+WRITE) {k_ms} ms, plain {p_ms} ms, "
-        f"bound {k_bound} ms ({k_by}); void chunk {v_ms} ms, plain {vp_ms} "
-        f"ms, bound {v_bound} ms ({v_by}); scan {s_ms} ms, plain {sp_ms} ms, torch.cumsum {s_lib_ms} ms, "
-        f"bound {s_bound} ms ({s_by})")
+        f"bound {k_bound} ms; void chunk {v_ms} ms, plain {vp_ms} ms, bound "
+        f"{v_bound} ms; scan {s_ms} ms, plain {sp_ms} ms, torch.cumsum "
+        f"{s_lib_ms} ms, bound {s_bound} ms")
     log(f"#   device-only: void {H * W * T_CHUNK / v_ms / 1e3} Mpx/s, "
         f"fetched {H * W * T_CHUNK / k_ms / 1e3} Mpx/s")
     mono = void_mpx(at, frames, T_CHUNK, dev)
@@ -961,7 +972,7 @@ def main() -> int:
          "replaces": "adder_tpu/ops/fused_resident.py:676",
          "launches": launches["adder_resident_chunk"],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-         "bound_ms": k_bound, "bound_by": k_by, "library_ms": None},
+         "bound_ms": k_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "adder_exclusive_scan", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",
@@ -969,21 +980,21 @@ def main() -> int:
                       + dvs_launches["adder_exclusive_scan"]
                       + davis_launches["adder_exclusive_scan"]),
          "max_abs_err": scan_err, "ms": s_ms, "plain_ms": sp_ms,
-         "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib_ms},
+         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib_ms},
         {"name": "adder_dvs_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1017",
          "launches": (dvs_launches["adder_dvs_chunk"]
                       + davis_launches["adder_dvs_chunk"]),
          "max_abs_err": dvs_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "adder_davis_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/davis_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1361",
          "launches": davis_launches["adder_davis_chunk"],
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "bound_ms": k4["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]}
     imported = sorted(m for m in sys.modules

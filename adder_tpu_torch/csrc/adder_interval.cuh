@@ -64,6 +64,8 @@ struct Params {
   int c_thresh_max;
   int vel_m1;  // (c_increase_velocity - 1) % 256
   int c_inc;   // framed: (u32(time) // ref_time) % 256
+  int view_mode;  // display intensity: 0 Intensity, 1 D, 2 DeltaT, 3 SAE
+  float pdm;      // D view: f32(log2(255 * delta_t_max / ref_time))
 };
 
 struct StateIn {
@@ -504,6 +506,29 @@ __device__ __forceinline__ unsigned run_davis_event(
   return m;
 }
 
+// --- the display intensity (integrate.py:681-707) of a pixel whose root
+// holds a best event (s.bd[0] >= 0): every division __fdiv_rn, the product
+// after it __fmul_rn, then a truncating clip to u8. --------------------------
+
+template <int D>
+__device__ __forceinline__ uint8_t running_intensity(const Pixel<D>& s,
+                                                     const Params& P) {
+  const int bd = s.bd[0];
+  const float bdt = s.bdt[0];
+  float val;
+  if (P.view_mode == 1) {  // D
+    val = __fmul_rn(__fdiv_rn(__int2float_rn(bd), P.pdm), 255.0f);
+  } else if (P.view_mode == 2) {  // DeltaT
+    val = __fmul_rn(__fdiv_rn(bdt, P.dtm_f), 255.0f);
+  } else if (P.view_mode == 3) {  // SAE
+    val = __fmul_rn(__fdiv_rn(__fsub_rn(s.running_t, s.lft), P.dtm_f),
+                    255.0f);
+  } else {  // Intensity: 2^d / dt * ticks per frame
+    val = __fmul_rn(__fdiv_rn(dshift(bd), bdt == 0.0f ? 1.0f : bdt), P.ref_f);
+  }
+  return (uint8_t)__float2int_rz(fminf(fmaxf(val, 0.0f), 255.0f));
+}
+
 template <int D>
 __device__ __forceinline__ void load_state(Pixel<D>& s, const StateIn& in,
                                            long long pix, long long n) {
@@ -776,6 +801,165 @@ void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
   } else {
     adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
+  }
+}
+
+}  // namespace
+
+// --- the one-interval kernels (fused_interval.cu: K5; interval_slots.cu:
+// K6): one frame, one thread per pixel-channel. ------------------------------
+
+extern "C" {
+
+// Mirrored by adder_tpu_torch/ops/pallas_kernel.py::IntervalArgs.
+struct AdderIntervalArgs {
+  int mode;        // Mode: 0 FramePerfect, 1 Continuous
+  int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
+  int abs_time;    // TimeMode == AbsoluteT
+  int depth;       // K5: 6 or 8; K6: 8
+  long long n;
+  long long n_real;  // K5: events only from pixels below it
+  float time;
+  int ref_time;
+  int delta_t_max;
+  int c_thresh_max;
+  int vel_m1;
+  int c_inc;
+  int view_mode;
+  float pdm;
+  int emit_running;  // K5: write the display intensity (K6 always does)
+  int pack;          // K5: events kept per pixel, 1..16
+  long long cap;     // K5: length of out_pixd / out_t
+  const void* frame;  // (n,) u8
+  const void* state_in[14];
+  void* state_out[14];
+  void* run_val;     // (n,) u8
+  void* run_has;     // (n,) u8 (bool)
+  void* slot_d;      // K6: (K, n) i32
+  void* slot_t;      // K6: (K, n) u32
+  void* slot_m;      // K6: (K, n) u8 (bool)
+  void* overflow;    // K6: i32 arena-overflow count, added to
+  const void* offset_in;  // K5: i64 running offset before the interval
+  void* offset_out;       // K5: i64 running offset after it
+  void* out_pixd;    // K5: (cap,) u32 pix << 8 | d
+  void* out_t;       // K5: (cap,) u32 event t
+  void* flags;       // K5: i32 [max per-pixel count, depth overflow]
+  void* scratch;     // K5: (nblk + 1) i64 zeroed: look-back words, ticket
+};
+
+}  // extern "C"
+
+namespace {
+
+struct IArgs {
+  StateIn in;
+  StateOut out;
+  const uint8_t* frame;
+  long long n, n_real, cap;
+  int nblk, pack;
+  Params P;
+  uint8_t* run_val;
+  uint8_t* run_has;
+  int* slot_d;
+  unsigned* slot_t;
+  uint8_t* slot_m;
+  int* overflow;
+  const long long* offset_in;
+  long long* offset_out;
+  unsigned* out_pixd;
+  unsigned* out_t;
+  int* flags;
+  unsigned long long* tile;  // (nblk,) look-back words: value << 2 | status
+  int* ticket;               // blocks in the order they start
+};
+
+inline bool interval_args_ok(const AdderIntervalArgs* a) {
+  return a->n >= 1 && a->n < (1LL << 24) && a->n_real >= 0 &&
+         a->n_real <= a->n && a->ref_time >= 1 && a->view_mode >= 0 &&
+         a->view_mode <= 3;
+}
+
+inline IArgs make_iargs(const AdderIntervalArgs* a) {
+  IArgs k;
+  k.in.nd = (const int*)a->state_in[0];
+  k.in.ni = (const float*)a->state_in[1];
+  k.in.ndt = (const float*)a->state_in[2];
+  k.in.bd = (const int*)a->state_in[3];
+  k.in.bdt = (const float*)a->state_in[4];
+  k.in.length = (const int*)a->state_in[5];
+  k.in.base_val = (const int*)a->state_in[6];
+  k.in.c_thresh = (const int*)a->state_in[7];
+  k.in.cic = (const int*)a->state_in[8];
+  k.in.lft = (const float*)a->state_in[9];
+  k.in.running_t = (const float*)a->state_in[10];
+  k.in.need_pop = (const uint8_t*)a->state_in[11];
+  k.in.dtm_reached = (const uint8_t*)a->state_in[12];
+  k.in.popped_dtm = (const uint8_t*)a->state_in[13];
+  k.out.nd = (int*)a->state_out[0];
+  k.out.ni = (float*)a->state_out[1];
+  k.out.ndt = (float*)a->state_out[2];
+  k.out.bd = (int*)a->state_out[3];
+  k.out.bdt = (float*)a->state_out[4];
+  k.out.length = (int*)a->state_out[5];
+  k.out.base_val = (int*)a->state_out[6];
+  k.out.c_thresh = (int*)a->state_out[7];
+  k.out.cic = (int*)a->state_out[8];
+  k.out.lft = (float*)a->state_out[9];
+  k.out.running_t = (float*)a->state_out[10];
+  k.out.need_pop = (uint8_t*)a->state_out[11];
+  k.out.dtm_reached = (uint8_t*)a->state_out[12];
+  k.out.popped_dtm = (uint8_t*)a->state_out[13];
+  k.frame = (const uint8_t*)a->frame;
+  k.n = a->n;
+  k.n_real = a->n_real;
+  k.cap = a->cap;
+  k.nblk = (int)((a->n + kBlock - 1) / kBlock);
+  k.pack = a->pack;
+  k.P.time = a->time;
+  k.P.ref_f = (float)a->ref_time;
+  k.P.dtm_f = (float)a->delta_t_max;
+  k.P.ref_u = (unsigned)a->ref_time;
+  k.P.c_thresh_max = a->c_thresh_max;
+  k.P.vel_m1 = a->vel_m1;
+  k.P.c_inc = a->c_inc;
+  k.P.view_mode = a->view_mode;
+  k.P.pdm = a->pdm;
+  k.run_val = (uint8_t*)a->run_val;
+  k.run_has = (uint8_t*)a->run_has;
+  k.slot_d = (int*)a->slot_d;
+  k.slot_t = (unsigned*)a->slot_t;
+  k.slot_m = (uint8_t*)a->slot_m;
+  k.overflow = (int*)a->overflow;
+  k.offset_in = (const long long*)a->offset_in;
+  k.offset_out = (long long*)a->offset_out;
+  k.out_pixd = (unsigned*)a->out_pixd;
+  k.out_t = (unsigned*)a->out_t;
+  k.flags = (int*)a->flags;
+  k.tile = (unsigned long long*)a->scratch;
+  k.ticket = (int*)((unsigned long long*)a->scratch + k.nblk);
+  return k;
+}
+
+// Host dispatch over the three mode switches, the rest of the template
+// arguments fixed by the caller: L::template go<FP, CO, AB>() launches.
+template <class L>
+void dispatch_modes(const AdderIntervalArgs* a, L& l) {
+  const bool fp = a->mode == 0, co = a->multi_mode == 1, ab = a->abs_time;
+  if (fp) {
+    if (co) {
+      ab ? l.template go<true, true, true>() : l.template go<true, true, false>();
+    } else {
+      ab ? l.template go<true, false, true>()
+         : l.template go<true, false, false>();
+    }
+  } else {
+    if (co) {
+      ab ? l.template go<false, true, true>()
+         : l.template go<false, true, false>();
+    } else {
+      ab ? l.template go<false, false, true>()
+         : l.template go<false, false, false>();
+    }
   }
 }
 

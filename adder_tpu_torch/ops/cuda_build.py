@@ -27,7 +27,8 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fused_resident.cu", "dvs_resident.cu", "davis_resident.cu")
+SOURCES = ("fused_resident.cu", "dvs_resident.cu", "davis_resident.cu",
+           "fused_interval.cu", "interval_slots.cu")
 HEADERS = ("adder_interval.cuh",)
 
 NVCC_FLAGS = (
@@ -120,7 +121,8 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for entry in ("adder_resident_chunk", "adder_dvs_chunk",
-                          "adder_davis_chunk"):
+                          "adder_davis_chunk", "adder_fused_interval",
+                          "adder_interval_slots"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int

@@ -1,9 +1,11 @@
 """Dense ADΔER integration: the whole pixel plane as one state machine, in torch.
 
 The plain PyTorch counterpart of `adder_tpu/ops/integrate.py` (the state
-layout, the per-interval logic `_interval_core` and its helpers). It is what
-the port runs on the CPU, and what the CUDA kernel in
-`adder_tpu_torch/csrc/fused_resident.cu` is held against on the card.
+layout, the per-interval logic `_interval_core` and its helpers, the
+display intensity `_running_intensity`, and the interval-slot engine's
+chunk glue `transcode_chunk`). It is what the port runs on the CPU, and
+what the CUDA kernels in `adder_tpu_torch/csrc/` are held against on the
+card.
 
 Same design as the JAX reference: struct-of-arrays state over the flattened
 H*W*C plane; the per-pixel arena walk unrolled into DEPTH masked elementwise
@@ -596,21 +598,22 @@ def integrate_interval(
     """One input interval over all pixels (ref: video.rs:1317-1380).
 
     Returns (state, slot_d (K, N) int32, slot_t (K, N) int64 holding u32
-    values, slot_mask (K, N) bool). The display intensity that the JAX
-    function also returns is not ported."""
+    values, slot_mask (K, N) bool, (run_val (N,) u8, run_has (N,) bool))."""
     s = _S.unstack(state)
     slots = _interval_core(s, intensity, frame_val, float(np.float32(time)), p)
     slot_d = torch.stack([x[0] for x in slots]).to(_i32)
     slot_t = torch.stack([x[1] for x in slots]).to(_i64)
     slot_m = torch.stack([x[2] for x in slots])
-    return s.restack(), slot_d, slot_t, slot_m
+    return s.restack(), slot_d, slot_t, slot_m, _running_intensity(s, p)
 
 
 def _interval_core(s: _S, intensity, frame_val, time, p: TranscodeParams,
                    ovf_mask=None):
-    """The interval logic on an unstacked state (the reference's
-    `emit_running=False` branch). `time` and `ovf_mask` as in `_integrate`.
-    Mutates `s`; returns the K = depth + 3 slots as [(d, t, mask)]."""
+    """The interval logic on an unstacked state, without the display
+    intensity (the reference's `emit_running=False` branch; callers that
+    show it follow with `_running_intensity(s, p)`). `time` and `ovf_mask`
+    as in `_integrate`. Mutates `s`; returns the K = depth + 3 slots as
+    [(d, t, mask)]."""
     intensity = intensity.to(_f32)
 
     # 1. pre-integration pop_top
@@ -639,3 +642,150 @@ def _interval_core(s: _S, intensity, frame_val, time, p: TranscodeParams,
     d8, t8, m8 = _pop_top_event(s, intensity, s.need_pop, p)
 
     return [(d0, t0, m0)] + list(pop_slots) + [(d7, t7, m7), (d8, t8, m8)]
+
+
+def _running_intensity(s: _S, p: TranscodeParams):
+    """Per-pixel display value from the root's best event (ref:
+    video.rs:713-730, scale_intensity.rs:54-109). Returns (run_val (N,) u8,
+    run_has (N,) bool); pixels without a best event get 0, and the caller
+    keeps their previous value through the mask.
+
+    Each division divides by a full tensor, never by a Python scalar: torch's
+    CUDA division by a host scalar multiplies by its reciprocal, which is not
+    the IEEE quotient."""
+    bd, bdt = s.bd[0], s.bdt[0]
+    has = bd >= 0
+    if p.view_mode == 1:  # D
+        pdm = float(np.float32(
+            np.log2(255.0 * (p.delta_t_max / max(p.ref_time, 1)))))
+        val = bd.to(_f32) / torch.full_like(bdt, pdm) * 255.0
+    elif p.view_mode == 2:  # DeltaT
+        val = bdt / torch.full_like(bdt, float(p.delta_t_max)) * 255.0
+    elif p.view_mode == 3:  # SAE
+        val = ((s.running_t - s.lft)
+               / torch.full_like(bdt, float(p.delta_t_max)) * 255.0)
+    else:  # Intensity: 2^d / dt * ticks per frame
+        dt = torch.where(bdt == 0.0, 1.0, bdt)
+        val = _dshift_f32(bd) / dt * float(np.float32(p.ref_time))
+    # truncating u8 clip (integrate.py:706)
+    val = torch.clamp(val, 0.0, 255.0).to(_i32)
+    return torch.where(has, val, 0).to(torch.uint8), has
+
+
+# --- chunk glue of the interval-slot engine (integrate.py:713-784) -----------
+
+
+class IntervalChunk(NamedTuple):
+    """What a one-interval engine's chunk returns (the fields of
+    `make_transcode_chunk` / `make_fused_chunk` the runtime reads)."""
+
+    state: PixelState
+    pixd: torch.Tensor  # (event_cap,) int32: u32 pix << 8 | d
+    t: torch.Tensor  # (event_cap,) int32: u32 event t
+    total: torch.Tensor  # 0-d int64: events the chunk produced (> cap: lost)
+    per_interval: torch.Tensor  # (T,) int64 event counts
+    runnings: torch.Tensor  # (T, N) u8 display frame after each interval
+    pmax: torch.Tensor  # 0-d int64: max slots per pixel | depth flag << 16
+
+
+def per_interval_take(event_cap: int, n_intervals: int) -> int:
+    """Per-interval compaction prefix length for a chunk of n_intervals
+    (4x tighter than the buffer; an interval with more events raises the
+    caller's overflow check and the chunk is rerun with a doubled cap)."""
+    return max(event_cap // max(n_intervals, 1) // 4, 1)
+
+
+def _pack_slots(slot_d, slot_t, slot_m, pack: int):
+    """Left-pack each pixel's K slots into `pack` lanes, keeping slot order.
+    Returns the packed (pack, N) arrays and the per-pixel event count; a
+    count above `pack` means events were dropped (the caller reruns with
+    the unpacked graph)."""
+    rank = torch.cumsum(slot_m, 0, dtype=_i32) - slot_m.to(_i32)
+    place = slot_m & (rank < pack)
+    row = torch.where(place, rank, pack).to(_i64)  # row `pack` is discarded
+
+    def packed(x):
+        out = torch.zeros((pack + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+        return out.scatter_(0, row, x)[:pack]
+
+    return (packed(slot_d), packed(slot_t), packed(place),
+            slot_m.sum(0, dtype=_i32))
+
+
+def _compact_interval(slot_d, slot_t, slot_m, take: int):
+    """One interval's events in (pixel, slot) order: the first `take` of
+    them as (pixd (take,) int32 u32 `pix << 8 | d`, t (take,) int32 u32,
+    n_ev 0-d). n_ev > take signals overflow (events dropped). A rank by
+    cumsum places each event, so nothing waits for the device; entries past
+    n_ev are 0."""
+    K, N = slot_d.shape
+    m = slot_m.t().reshape(-1)  # pixel-major
+    rank = torch.cumsum(m, 0, dtype=_i32) - 1
+    dst = torch.where(m & (rank < take), rank, take).to(_i64)
+    pix = torch.arange(N, dtype=_i64, device=m.device)[:, None]
+    pixd = ((pix << 8) | (slot_d.t().to(_i64) & 0xFF)).reshape(-1)
+
+    def compact(x):
+        out = torch.zeros(take + 1, dtype=_i64, device=m.device)
+        return out.scatter_(0, dst, x)[:take].to(_i32)
+
+    return compact(pixd), compact(slot_t.t().reshape(-1).to(_i64)), m.sum()
+
+
+def _merge_prefix(bufs, offset, pixd_s, t_s, n_ev, take: int):
+    """Write an interval's compacted prefix into the chunk buffers (in
+    place) at the running offset; the window start is clamped so the
+    `take` entries fit, as XLA's dynamic_update_slice clamps it."""
+    buf_pixd, buf_t = bufs
+    dev = buf_pixd.device
+    lane = torch.arange(take, dtype=_i64, device=dev)
+    idx = torch.clamp(offset, 0, buf_pixd.shape[0] - take) + lane
+    valid = lane < n_ev
+    buf_pixd[idx] = torch.where(valid, pixd_s, buf_pixd[idx])
+    buf_t[idx] = torch.where(valid, t_s, buf_t[idx])
+    return bufs, offset + n_ev
+
+
+def transcode_chunk(state: PixelState, frames: torch.Tensor, time: float,
+                    run0: torch.Tensor, p: TranscodeParams, event_cap: int,
+                    pack: int = 4, n_real: int = 0) -> IntervalChunk:
+    """T frames through the interval-slot engine (counterpart of
+    `make_transcode_chunk`, integrate.py:872-963): per frame the K6 wrapper
+    `pallas_kernel.interval_slots` (the kernel for CUDA tensors, its plain
+    version on the CPU), then pad-pixel masking, the display frame, the
+    slot pack (when 0 < pack < K_SLOTS), the compaction and the merge into
+    (event_cap,) buffers at a running offset kept on the device.
+
+    Overflow (events lost; the caller reruns from the pre-chunk state with a
+    larger cap or pack): total > event_cap, or an interval count above
+    per_interval_take(event_cap, T); pmax above `pack`."""
+    from . import pallas_kernel
+
+    T, n = frames.shape
+    dev = frames.device
+    take = per_interval_take(event_cap, T)
+    bufs = (torch.zeros(event_cap, dtype=_i32, device=dev),
+            torch.zeros(event_cap, dtype=_i32, device=dev))
+    offset = torch.zeros((), dtype=_i64, device=dev)
+    max_cnt = torch.zeros((), dtype=_i32, device=dev)
+    live = None
+    if n_real and n_real < n:
+        live = torch.arange(n, device=dev) < n_real
+    run, counts, runnings = run0, [], []
+    for i in range(T):
+        state, sd, stt, sm, (rval, rhas) = pallas_kernel.interval_slots(
+            state, frames[i], time, p)
+        if live is not None:
+            sm = sm & live
+        run = torch.where(rhas, rval, run)
+        if 0 < pack < K_SLOTS:
+            sd, stt, sm, cnt = _pack_slots(sd, stt, sm, pack)
+            max_cnt = torch.maximum(max_cnt, cnt.max())
+        take_i = min(take, sd.shape[0] * sd.shape[1])
+        pixd_i, t_i, n_ev = _compact_interval(sd, stt, sm, take_i)
+        bufs, offset = _merge_prefix(bufs, offset, pixd_i, t_i, n_ev, take_i)
+        counts.append(n_ev)
+        runnings.append(run)
+    return IntervalChunk(state, bufs[0], bufs[1], offset,
+                         torch.stack(counts).to(_i64), torch.stack(runnings),
+                         max_cnt.to(_i64))

@@ -12,8 +12,10 @@ import numpy as np
 import torch
 
 from .ops import dvs_batch
+from .ops import fused_kernel as FK
 from .ops import fused_resident as FR
 from .ops import integrate as ops
+from .ops import pallas_kernel as PK
 
 
 def walk_frames(seed, T: int, n: int) -> np.ndarray:
@@ -446,4 +448,157 @@ def check_davis_kernel_against_plain(device, H: int = 47, W: int = 61,
                       "forced depth-16 overflow")
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
+    return max(err, e)
+
+
+# --- the one-interval kernels (K5 fused interval, K6 interval slots) -----------
+
+
+def state_max_err(got: ops.PixelState, want: ops.PixelState,
+                  what: str) -> float:
+    """`bitwise_max_err` over every field of two states."""
+    return max(bitwise_max_err(getattr(got, f), getattr(want, f),
+                               f"{what} {f}") for f in ops.PixelState._fields)
+
+
+def _fused_lockstep(st, frames, p, pack, emit, offset0, cap, n_real,
+                    what) -> tuple:
+    """K5 and its plain version interval by interval from one state, both
+    writing chained intervals into their own buffers from `offset0`;
+    compares every output of every interval, then the buffers. Returns
+    (max abs err, the plain side's last step)."""
+    dev = frames.device
+    sides = []
+    for _ in range(2):
+        bufs = (torch.full((cap,), -1, dtype=torch.int32, device=dev),
+                torch.full((cap,), -1, dtype=torch.int32, device=dev))
+        sides.append([st, torch.tensor(offset0, device=dev), FK.new_flags(dev),
+                      bufs])
+    err = 0.0
+    for i in range(frames.shape[0]):
+        steps = []
+        for fn, side in zip((FK.fused_interval, FK.fused_interval_plain),
+                            sides):
+            r = fn(side[0], frames[i], 255.0, side[1], side[3], p, pack, emit,
+                   n_real, side[2])
+            side[:3] = [r.state, r.offset, r.flags]
+            steps.append(r)
+        k, w = steps
+        w_i = f"{what} interval {i}"
+        err = max(err, state_max_err(k.state, w.state, w_i),
+                  bitwise_max_err(k.offset, w.offset, f"{w_i} offset"),
+                  bitwise_max_err(k.flags, w.flags, f"{w_i} flags"),
+                  bitwise_max_err(k.run_val, w.run_val, f"{w_i} run_val"),
+                  bitwise_max_err(k.run_has, w.run_has, f"{w_i} run_has"))
+    for j, name in enumerate(("pixd", "t")):
+        err = max(err, bitwise_max_err(sides[0][3][j], sides[1][3][j],
+                                       f"{what} {name}"))
+    return err, steps[1]
+
+
+def check_fused_interval_against_plain(device, H: int = 150, W: int = 200,
+                                       T: int = 8, chunks: int = 2,
+                                       seed: int = 0) -> float:
+    """K5 against its plain version on the same inputs, bit for bit, on a
+    ragged plane: every mode case at depth 6 and 8 with pack 4 and 16,
+    `chunks` chained chunks of T intervals written from a non-zero offset
+    (the odd cases with plane padding, n_real = N - 37; view modes cycling;
+    the display off in two cases); then pack 2 overflowing, a forced depth-6
+    overflow and a buffer too small for the events. Raises on any
+    difference; returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    frames = torch.from_numpy(walk_frames(seed, T * chunks, n)).to(dev)
+    cap = ops.K_SLOTS * n * T * chunks + 1000
+    err = 0.0
+    for i, p in enumerate(MODE_CASES):
+        p = p._replace(view_mode=i % 4)
+        for depth in (6, 8):
+            for pack in (4, 16):
+                st = ops.set_initial_d(
+                    ops.init_state(n, dev, c_thresh=3, depth=depth),
+                    frames[0].to(torch.int32))
+                e, _ = _fused_lockstep(
+                    st, frames, p, pack, i < 6, 1000 + i, cap,
+                    n - 37 if i % 2 else 0,
+                    f"mode {tuple(p[:3])} depth {depth} pack {pack}")
+                err = max(err, e)
+    st = ops.set_initial_d(ops.init_state(n, dev, c_thresh=0, depth=8),
+                           frames[0].to(torch.int32))
+    p2 = ops.TranscodeParams(mode=1, multi_mode=0, time_mode=1, ref_time=255,
+                             delta_t_max=255, c_thresh_max=0,
+                             c_increase_velocity=1)
+    e, last = _fused_lockstep(st, frames[:T], p2, 2, True, 5, cap, 0, "pack 2")
+    if int(last.flags[0]) <= 2:
+        raise AssertionError("the pack-2 case did not overflow its lanes")
+    e_small, last_small = _fused_lockstep(st, frames[:T], p2, 16, True, 5, 999,
+                                          0, "cap 999")
+    if int(last_small.offset) <= 999:
+        raise AssertionError("the small buffer did not overflow")
+    p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
+                            delta_t_max=255 * 24, c_thresh_max=0,
+                            c_increase_velocity=1)
+    st = forced_overflow_state(frames[0], n // 10)
+    e_ovf, last = _fused_lockstep(st, frames[:T], p, 4, True, 0, cap, 0,
+                                  "forced overflow")
+    if int(last.flags[1]) != 1:
+        raise AssertionError("the forced overflow did not overflow")
+    return max(err, e, e_small, e_ovf)
+
+
+def check_interval_slots_against_plain(device, H: int = 150, W: int = 200,
+                                       T: int = 8, chunks: int = 2,
+                                       seed: int = 0) -> float:
+    """K6 against its plain version on the same inputs, bit for bit, on a
+    ragged plane: every mode case at depth 8, chunks x T chained intervals,
+    view modes cycling; a forced depth-8 overflow (the overflow count); then
+    the slot engine's chunk (`transcode_chunk`, pack 4, plane padding) on
+    the card against the same chunk on the CPU. Raises on any difference;
+    returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    frames = torch.from_numpy(walk_frames(seed, T * chunks, n)).to(dev)
+
+    def lockstep(st, frames, p, what):
+        st_k = st_p = st
+        err = 0.0
+        for i in range(frames.shape[0]):
+            k = PK.interval_slots(st_k, frames[i], 255.0, p)
+            w = PK.interval_slots_plain(st_p, frames[i], 255.0, p)
+            w_i = f"{what} interval {i}"
+            err = max(err, state_max_err(k[0], w[0], w_i), *(
+                bitwise_max_err(a, b, f"{w_i} {name}") for a, b, name in zip(
+                    (*k[1:4], *k[4]), (*w[1:4], *w[4]),
+                    ("slot_d", "slot_t", "slot_m", "run_val", "run_has"))))
+            st_k, st_p = k[0], w[0]
+        return err, st_p
+
+    err = 0.0
+    for i, p in enumerate(MODE_CASES):
+        p = p._replace(view_mode=i % 4)
+        st = ops.set_initial_d(ops.init_state(n, dev, c_thresh=3),
+                               frames[0].to(torch.int32))
+        err = max(err, lockstep(st, frames, p, f"mode {tuple(p[:3])}")[0])
+    p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
+                            delta_t_max=255 * 24, c_thresh_max=0,
+                            c_increase_velocity=1)
+    e, st = lockstep(forced_overflow_state(frames[0], n // 10, depth=8),
+                     frames[:1], p, "forced overflow")
+    if int(st.overflow) == 0:
+        raise AssertionError("the forced overflow did not overflow")
+    p = MODE_CASES[5]
+    st = ops.set_initial_d(ops.init_state(n, dev, c_thresh=3),
+                           frames[0].to(torch.int32))
+    run0 = torch.zeros(n, dtype=torch.uint8, device=dev)
+    cap = ops.K_SLOTS * n * T
+    got = ops.transcode_chunk(st, frames[:T], 255.0, run0, p, cap, 4, n - 37)
+    want = ops.transcode_chunk(
+        ops.PixelState(*(x.cpu() for x in st)), frames[:T].cpu(), 255.0,
+        run0.cpu(), p, cap, 4, n - 37)
+    for f in ops.IntervalChunk._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "state":
+            e = max(e, state_max_err(a, b, "slot chunk"))
+        else:
+            e = max(e, bitwise_max_err(a, b, f"slot chunk {f}"))
     return max(err, e)

@@ -7,6 +7,7 @@ are the port's copies (adder_tpu_torch/codec).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -31,10 +32,28 @@ from ..core.types import (
     TimeMode,
 )
 
-from ..ops import fused_resident
+from ..ops import fused_kernel, fused_resident
 from ..ops import integrate as ops
 
 SHALLOW_DEPTH = 6  # the reference's SmallVec inline capacity
+
+# The engines, named as the JAX package's `Video` selects them
+# (adder_tpu/transcoder/video.py:120-136).
+RESIDENT, FUSED, SLOTS = "resident", "fused", "slots"
+# chunks of at most this many pixel-intervals get the full capacity
+# (K_SLOTS events per pixel-interval) at once, so they never rerun for it
+FULL_CAP_VOLUME = 1 << 20
+
+
+def engine_from_env() -> str:
+    """`ADDER_TPU_FUSED=0` selects the interval-slot engine (K6 and the
+    torch compaction), else `ADDER_TPU_RESIDENT=0` the fused one-interval
+    engine (K5); the default is the resident chunk engine (K1/K2)."""
+    if os.environ.get("ADDER_TPU_FUSED") == "0":
+        return SLOTS
+    if os.environ.get("ADDER_TPU_RESIDENT") == "0":
+        return FUSED
+    return RESIDENT
 
 
 class SourceError(Exception):
@@ -66,23 +85,41 @@ class Video:
     """Shared transcoder engine (ref: video.rs:322-1301), on the torch
     `device` (the card unless the caller asks for the CPU).
 
-    Each chunk of T frames goes through one call of
-    `ops.fused_resident.fused_chunk_resident` (or `group_chunk_resident`
-    when `void_events` is set: the Empty-sink path, where events are never
-    fetched). On a CUDA device that is the hand-written kernel; on the CPU
-    its plain PyTorch version. Events come back in the reference's order, so
-    there is no capacity or pack rerun and no host assembler. The arena
-    starts at depth 6 and a chunk that overflows it is rerun at depth 8 from
-    its pre-chunk state, as are the chunks submitted after it.
+    Three engines, chosen at construction from the environment as the JAX
+    package chooses them (`engine_from_env`). Each runs a chunk of T frames
+    through hand-written kernels on a CUDA device and through their plain
+    PyTorch versions on the CPU; all three write the same events.
+    - resident (default): `fused_resident.fused_chunk_resident` (or
+      `group_chunk_resident` when `void_events` is set: the Empty sink,
+      where events are never fetched). Events come back in the reference's
+      order and sized to the chunk, so there is no capacity or pack rerun;
+      the chunk call waits once for the device (the event total sizes the
+      buffers).
+    - fused (`ADDER_TPU_RESIDENT=0`): `fused_kernel.fused_chunk`, one K5
+      launch per frame, events at a running offset kept on the device.
+    - slots (`ADDER_TPU_FUSED=0`): `integrate.transcode_chunk`, one K6
+      launch per frame and the slot compaction in torch; depth 8 from the
+      start.
+    The one-interval engines write into buffers of `_cap_mult` x N x T
+    events and keep the JAX runtime's rerun contract (`_collect_interval`):
+    capacity doubling, the per-interval `take` limit (slots), pack overflow
+    (4 lanes, then 16 on fused, K_SLOTS on slots) and capacity decay.
+    The arena starts at depth 6 on the resident and fused engines; a chunk
+    that outgrows it is rerun at depth 8 from its pre-chunk state, as are
+    the chunks submitted after it.
+
+    The display frame: with `_keep_running_frame = True` (a one-interval
+    engine only; the resident kernel's display output is not ported and
+    raises NotImplementedError), `running_intensities` holds the (H, W, C)
+    u8 frame after the last collected chunk, and the next chunk starts from
+    the previous in-flight chunk's last frame on the device.
+    `_last_runnings` is the last collected chunk's (T, N) frames.
 
     Two chunks may be in flight: `submit_chunk` launches a chunk on the state
-    the previous one left, before that one's events are fetched. On the
-    fetched path the chunk call itself waits once for the device: the
-    event total, read between the kernel's COUNT and WRITE passes, sizes the
-    event buffers. That one sync per chunk is accepted.
+    the previous one left, before that one's events are fetched.
 
-    Not ported (raise NotImplementedError): feature detection and the
-    display intensity it needs, save_checkpoint / load_checkpoint.
+    Not ported (raise NotImplementedError): feature detection,
+    save_checkpoint / load_checkpoint.
     """
 
     def __init__(self, plane: PlaneSize, pixel_tree_mode: Mode,
@@ -104,7 +141,14 @@ class Video:
         self.in_interval_count = 0
         self.chunk_frames = chunk_frames
         self.roi: Optional[Roi] = None
-        self.state = ops.init_state(self.n, self.device, depth=SHALLOW_DEPTH)
+        self.engine = engine_from_env()
+        depth = ops.DEPTH if self.engine == SLOTS else SHALLOW_DEPTH
+        self.state = ops.init_state(self.n, self.device, depth=depth)
+        self._cap_mult = 1  # event capacity = _cap_mult * N * T per chunk
+        self._pack = 4  # slot-packing lanes
+        self._keep_running = False
+        self.running_intensities = np.zeros(plane.shape, dtype=np.uint8)
+        self._last_runnings = None
 
         meta = self._make_meta()
         self.encoder = Encoder.new_empty(meta, EncoderOptions.default(plane))
@@ -113,6 +157,20 @@ class Video:
         # With an Empty encoder, events can stay on the device ("the void",
         # matching the reference's EmptyOutput bench mode)
         self.void_events = False
+
+    @property
+    def _keep_running_frame(self) -> bool:
+        return self._keep_running
+
+    @_keep_running_frame.setter
+    def _keep_running_frame(self, on: bool) -> None:
+        if on and self.engine == RESIDENT:
+            raise NotImplementedError(
+                "the display frame runs on the one-interval engines "
+                "(ADDER_TPU_RESIDENT=0 or ADDER_TPU_FUSED=0); the resident "
+                "kernel's display output is not ported yet"
+            )
+        self._keep_running = bool(on)
 
     # -- builder methods (ref: video.rs:271-317 VideoBuilder) --
 
@@ -277,10 +335,20 @@ class Video:
             c_increase_velocity=max(p.c_increase_velocity, 1),
         )
 
-    def _run_chunk(self, state, pending: dict) -> fused_resident.ChunkResult:
-        fn = (fused_resident.group_chunk_resident if pending["group"]
-              else fused_resident.fused_chunk_resident)
-        return fn(state, pending["frames"], pending["t"], self._params())
+    def _run_chunk(self, state, pending: dict):
+        """One chunk from `state` on the Video's engine, at the pending
+        chunk's capacity and pack (the one-interval engines)."""
+        p, frames, t = self._params(), pending["frames"], pending["t"]
+        if self.engine == RESIDENT:
+            fn = (fused_resident.group_chunk_resident if pending["group"]
+                  else fused_resident.fused_chunk_resident)
+            return fn(state, frames, t, p)
+        if self.engine == FUSED:
+            return fused_kernel.fused_chunk(
+                state, frames, t, pending["run0"], p, pending["cap"],
+                pending["pack"], emit_running=self._keep_running)
+        return ops.transcode_chunk(state, frames, t, pending["run0"], p,
+                                   pending["cap"], pending["pack"])
 
     def integrate_matrix(self, matrix: np.ndarray,
                          time_spanned: float) -> EventArray:
@@ -320,9 +388,18 @@ class Video:
         pending = {
             "frames": frames_t,
             "t": float(np.float32(time_spanned)),
-            "group": bool(self.void_events),
+            "group": bool(self.void_events) and self.engine == RESIDENT,
             "state_before": self.state,
+            "T": T,
         }
+        if self.engine != RESIDENT:
+            # capacity in power-of-two multiples of N * T; K_SLOTS * N * T
+            # bounds every chunk, so small planes get it at once
+            mult = min(self._cap_mult, ops.K_SLOTS)
+            if self.n * T <= FULL_CAP_VOLUME:
+                mult = ops.K_SLOTS
+            pending.update(mult=mult, cap=mult * self.n * T, pack=self._pack,
+                           run0=self._run0())
         pending["outs"] = self._run_chunk(self.state, pending)
         self.state = pending["outs"].state
         self._inflight.append(pending)
@@ -340,8 +417,22 @@ class Video:
             raise SourceError("collect_chunk: unknown pending handle")
         return ev
 
+    def _run0(self) -> torch.Tensor:
+        """The display frame a new chunk starts from: the last in-flight
+        chunk's last frame, on the device, when the display is kept; else
+        the host frame."""
+        if self._keep_running and self._inflight:
+            return self._inflight[-1]["outs"].runnings[-1]
+        return torch.from_numpy(
+            self.running_intensities.reshape(-1).copy()).to(self.device)
+
     def _collect_oldest(self) -> EventArray:
         pending = self._inflight.pop(0)
+        if self.engine == RESIDENT:
+            return self._collect_resident(pending)
+        return self._collect_interval(pending)
+
+    def _collect_resident(self, pending: dict) -> EventArray:
         outs = pending["outs"]
         shallow = pending["state_before"].node_d.shape[0] < ops.DEPTH
         if (int(outs.pmax) >> 16) & 1 and shallow:
@@ -359,8 +450,75 @@ class Video:
             self.state = st
         if pending["group"]:
             return EventArray.empty()
-        pixd = outs.pixd.cpu().numpy().view(np.uint32)
-        t = outs.t.cpu().numpy().view(np.uint32)
+        return self._ingest(outs.pixd, outs.t)
+
+    def _collect_interval(self, pending: dict) -> EventArray:
+        """The rerun contract of the JAX runtime's one-interval engines
+        (adder_tpu/transcoder/video.py:561-660): one host read of the
+        control scalars per pass; reruns go from the untouched pre-chunk
+        state."""
+        T, mult = pending["T"], pending["mult"]
+        fused = self.engine == FUSED
+        depth_rerun = False
+        while True:
+            outs = pending["outs"]
+            total, per_max, pmax = (int(x) for x in torch.stack(
+                [outs.total, outs.per_interval.max(), outs.pmax]).tolist())
+            cap, pack = pending["cap"], pending["pack"]
+            if fused:  # any interval may fill the rest of the buffer
+                take = cap
+                overflowed = total > cap
+            else:
+                take = ops.per_interval_take(cap, T)
+                overflowed = total > cap or per_max > min(
+                    take, ops.K_SLOTS * self.n)
+            depth_overflow = fused and bool(pmax >> 16)
+            pack_overflow = pack < ops.K_SLOTS and (pmax & 0xFFFF) > pack
+            if not overflowed and not pack_overflow:
+                # decay the capacity once a burst has passed
+                if per_max * 8 < take and self._cap_mult > 1:
+                    self._cap_mult //= 2
+            shallow = pending["state_before"].node_d.shape[0] < ops.DEPTH
+            if depth_overflow and shallow:
+                # the carried state is wrong: the chunks submitted on top of
+                # it are recomputed below
+                depth_rerun = True
+                pending["state_before"] = ops.pad_state_depth(
+                    pending["state_before"], ops.DEPTH)
+            elif pack_overflow:
+                self._pack = pending["pack"] = 16 if fused else ops.K_SLOTS
+            elif not overflowed or mult >= ops.K_SLOTS:
+                break
+            else:  # capacity overflow: grow the buffer
+                mult *= 2
+                self._cap_mult = mult
+                pending["cap"] = min(mult, ops.K_SLOTS) * self.n * T
+            pending["outs"] = self._run_chunk(pending["state_before"], pending)
+        if depth_rerun and self._inflight:
+            st, run_prev = outs.state, outs.runnings
+            for p2 in self._inflight:
+                p2["state_before"] = st
+                p2["pack"] = self._pack
+                if self._keep_running:  # the device-chained frame is stale
+                    p2["run0"] = run_prev[-1]
+                p2["outs"] = self._run_chunk(st, p2)
+                st, run_prev = p2["outs"].state, p2["outs"].runnings
+            self.state = st
+        elif not self._inflight:
+            self.state = outs.state
+        self._last_runnings = outs.runnings
+        if self._keep_running:
+            self.running_intensities = (
+                outs.runnings[-1].cpu().numpy().reshape(self.plane.shape))
+        if self.void_events:
+            return EventArray.empty()
+        return self._ingest(outs.pixd[:total], outs.t[:total])
+
+    def _ingest(self, pixd: torch.Tensor, t: torch.Tensor) -> EventArray:
+        """Fetch wire events (`pix << 8 | d`, t as int32 u32 patterns) and
+        feed them to the encoder."""
+        pixd = pixd.cpu().numpy().view(np.uint32)
+        t = t.cpu().numpy().view(np.uint32)
         events = self._events_from_flat(
             (pixd >> 8).astype(np.int64), (pixd & 0xFF).astype(np.uint8), t
         )

@@ -46,15 +46,40 @@ Phases (any failure raises and the script exits non-zero):
      give the same bytes on the card and on the CPU; a void run must end in
      the fetched run's state;
   10. timings: K4 against plain on the largest packet's chunk; end-to-end
-     Mev/s and APS frames/s; a stage breakdown; the device's busy share.
+     Mev/s and APS frames/s; a stage breakdown; the device's busy share;
+  11. the fused one-interval kernel (K5) against its plain version, bit for
+     bit: a ragged 200x150 plane, 2 chained chunks of T = 8 written from a
+     non-zero offset, all 8 mode cases, depth 6 and 8, pack 4 and 16, plane
+     padding, the four view modes, the display on and off; pack 2
+     overflowing, a forced depth-6 overflow, a buffer too small;
+  12. the interval-slot kernel (K6) against its plain version, bit for bit:
+     the same plane, 16 chained intervals, all 8 mode cases at depth 8, the
+     four view modes, a forced overflow (the count); the slot chunk on the
+     card against the CPU;
+  13. the main path of phase 3 once per one-interval engine
+     (ADDER_TPU_RESIDENT=0: fused, K5; ADDER_TPU_FUSED=0: interval slots,
+     K6) with the display frame kept (`_keep_running_frame = True`): the
+     engine's launch counter must rise by at least 64, the decoded event
+     count must equal the engine's, the .adder bytes must equal the
+     resident engine's from phase 3, and the first 8 frames (two chunks of
+     4, the display frame chained on the card) must give the same bytes and
+     display frames on the card and on the CPU;
+  14. timings: K5 and K6 against plain at 1080p mono, mid-stream, with
+     their bounds; the slot engine's compaction glue per interval; each
+     engine's Raw Mpx/s, stage breakdown and device busy share, and the
+     resident engine's stage breakdown beside them.
 Every kernel of the record carries its bound: the bytes it must move over
 3.35 TB/s, counted for the lane kernels (K3, K4) from the active cells
-and pixels of the chunk (the dense-plane figure is logged beside it).
+and pixels of the chunk (the dense-plane figure is logged beside it), for
+K5 from the interval's state and its event count, for K6 from its state
+and its dense slot planes.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit, and the one before that the kernels'
 record. Without CUDA the script exits non-zero and prints no result.
 """
 
+import contextlib
+import hashlib
 import json
 import os
 import re
@@ -94,6 +119,26 @@ def card_line() -> str:
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def file_digest(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@contextlib.contextmanager
+def engine_env(name):
+    """The JAX package's engine switch `name` set to 0 inside the block
+    (Video reads it when it is built)."""
+    old = os.environ.get(name)
+    os.environ[name] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -144,8 +189,13 @@ def lane_chunk_bound(state, planes, n_events: int) -> float:
 
 
 def kernel_source(name: str) -> str:
-    """Which chunk kernel a mangled name instantiates: its last template
-    argument is the source (adder_interval.cuh SRC_FRAMED / DVS / DAVIS)."""
+    """Which kernel a mangled name instantiates: a one-interval kernel by its
+    name, a chunk kernel by its last template argument, the source
+    (adder_interval.cuh SRC_FRAMED / DVS / DAVIS)."""
+    if "adder_fused_interval_kernel" in name:
+        return "fused interval (K5)"
+    if "adder_interval_slots_kernel" in name:
+        return "interval slots (K6)"
     m = re.search(r"ELi(\d)E+v", name)
     return {"0": "framed (K1/K2)", "1": "DVS (K3)", "2": "DAVIS (K4)"}.get(
         m.group(1) if m else "", "other")
@@ -157,9 +207,10 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         if "Compiling entry function" in line:
             cur = line.split("'")[1]
-            out[cur] = {"regs": 0, "spill_st": 0, "spill_ld": 0}
+            out[cur] = {"regs": 0, "stack": 0, "spill_st": 0, "spill_ld": 0}
         elif cur and "spill stores" in line:
             words = line.replace(",", "").split()
+            out[cur]["stack"] = int(words[0])
             out[cur]["spill_st"] = int(words[words.index("spill") - 2])
             out[cur]["spill_ld"] = int(words[-4])
         elif cur and "Used" in line and "registers" in line:
@@ -176,15 +227,21 @@ def bench_source(at, frames, device, chunk):
     return src
 
 
-def transcode_raw(at, frames, device, path, chunk):
+def transcode_raw(at, frames, device, path, chunk, keep_running=False,
+                  before=None):
     """Frames -> .adder file through FramedArray / Video submit-collect
-    (two chunks in flight). Returns (seconds, kernel event count)."""
+    (two chunks in flight), the display frame kept if `keep_running`;
+    `before(video)` runs after write_out. Returns (seconds, kernel event
+    count, the Video)."""
     src = bench_source(at, frames, device, chunk)
     with open(path, "wb") as f:
         src.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
                       at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
                       at.EncoderOptions.default(src.video.plane), f)
         video = src.get_video_mut()
+        video._keep_running_frame = keep_running
+        if before:
+            before(video)
         t0 = time.perf_counter()
         pendings = [video.submit_chunk(frames[i : i + chunk])
                     for i in range(0, len(frames), chunk)]
@@ -192,7 +249,7 @@ def transcode_raw(at, frames, device, path, chunk):
         sync(device)
         dt = time.perf_counter() - t0
     n_kernel = sum(int(p["outs"].per_interval.sum()) for p in pendings)
-    return dt, n_kernel
+    return dt, n_kernel, video
 
 
 def void_mpx(at, frames, chunk, device) -> float:
@@ -815,6 +872,259 @@ def davis_phases(dev, card):
                 bound_ms=k4_bound), launches
 
 
+def staged_framed_run(at, frames, dev, path, keep_running=True):
+    """The 1080p Raw run (the display kept if `keep_running`; the resident
+    engine cannot keep it) with each stage timed on the host
+    clock and a synchronise after it: chunks (every chunk call, reruns
+    included: the kernels and, on the slot engine, the compaction), fetch
+    (the events' device -> host copy), unpack (wire pairs to x, y, c, d, t),
+    encode, and submit (submit_chunk less the stages inside it: the frames'
+    host -> device copy, the initial state, and the control reads and
+    display fetch of the chunks it collects); "other" is the rest of the
+    wall (the end of the stream's control reads and display fetches, the
+    loop). Returns (wall seconds, stage -> seconds)."""
+    S = Stages(("submit", "chunks", "fetch", "unpack", "encode"))
+    st = S.seconds
+    P = Patches()
+
+    def less_inner(stage, inner):
+        def make(orig):
+            def f(*a, **k):
+                i0, t0 = sum(st[s] for s in inner), time.perf_counter()
+                r = orig(*a, **k)
+                torch.cuda.synchronize()
+                st[stage] += (time.perf_counter() - t0
+                              - (sum(st[s] for s in inner) - i0))
+                return r
+            return f
+        return make
+
+    def before(video):
+        P.wrap(video, "_run_chunk", S.timed("chunks"))
+        P.wrap(video, "_events_from_flat", S.timed("unpack"))
+        P.wrap(video.encoder, "ingest_event_array", S.timed("encode"))
+        P.wrap(video, "_ingest", less_inner("fetch", ("unpack", "encode")))
+        P.wrap(video, "submit_chunk", less_inner(
+            "submit", ("chunks", "fetch", "unpack", "encode")))
+
+    try:
+        wall, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                   keep_running=keep_running, before=before)
+    finally:
+        P.restore()
+    st["other"] = wall - sum(st.values())
+    return wall, st
+
+
+def interval_phases(dev, card, scene, main_digest, st6, p):
+    """Phases 11-14 (the one-interval engines). `scene` is phase 3's (T, H,
+    W) u8 scene on the card, `main_digest` the resident engine's .adder
+    digest, `st6` phase 4's mid-stream depth-6 state (after the scene's
+    first chunk), `p` the bench parameters. Returns the K5 and K6 record
+    entries."""
+    import numpy as np
+
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import fused_kernel as FK
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.ops import integrate as ops
+    from adder_tpu_torch.ops import pallas_kernel as PK
+
+    # -- phases 11-12: K5 and K6 against plain, bit for bit ---------------
+    t0 = time.perf_counter()
+    k5_err = testing.check_fused_interval_against_plain(dev)
+    torch.cuda.synchronize()
+    log(f"# phase 11: K5 == plain on 200x150: 8 modes x depth 6/8 x pack "
+        f"4/16, 2 chained chunks of T = 8 from a non-zero offset, plane "
+        f"padding, 4 view modes, display on and off; pack-2 overflow, forced "
+        f"depth-6 overflow, a buffer too small (max abs err {k5_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k6_err = testing.check_interval_slots_against_plain(dev)
+    torch.cuda.synchronize()
+    log(f"# phase 12: K6 == plain on 200x150: 8 modes at depth 8, 16 chained "
+        f"intervals, 4 view modes, forced overflow count; the slot chunk on "
+        f"the card == on the CPU (max abs err {k6_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- phase 13: the 1080p path once per one-interval engine -------------
+    frames = scene.cpu().numpy()[..., None]
+    engines = (("fused", "ADDER_TPU_RESIDENT", FK, "adder_fused_interval"),
+               ("slots", "ADDER_TPU_FUSED", PK, "adder_interval_slots"))
+    launches, mpx = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "engine.adder")
+        for engine, env, mod, name in engines:
+            with engine_env(env):
+                mod.reset_launch_counts()
+                FR.reset_launch_counts()
+                raw_s, n_kernel, video = transcode_raw(
+                    at, frames, dev, path, T_CHUNK, keep_running=True)
+                launches[name] = mod.LAUNCHES[name]
+                if video.engine != engine or launches[name] < N_FRAMES:
+                    raise AssertionError(
+                        f"{engine} engine: {video.engine}, {launches[name]} "
+                        f"{name} launches for {N_FRAMES} frames")
+                if FR.LAUNCHES["adder_resident_chunk"]:
+                    raise AssertionError(f"{engine} engine ran the resident "
+                                         f"kernel")
+                n_decoded = len(at.open_file_decoder(path).digest_all())
+                if n_decoded != n_kernel or n_kernel == 0:
+                    raise AssertionError(
+                        f"{engine}: decoded {n_decoded} events, the engine "
+                        f"counted {n_kernel}")
+                if file_digest(path) != main_digest:
+                    raise AssertionError(f"{engine}: the .adder bytes differ "
+                                         f"from the resident engine's")
+                shown = video.running_intensities
+                if shown.shape != (H, W, 1) or not shown.any():
+                    raise AssertionError(f"{engine}: display frame "
+                                         f"{shown.shape}, all zero")
+                log(f"# phase 13: {engine} engine ({env}=0), 1080p mono Raw, "
+                    f"display kept: {n_kernel} events, the resident engine's "
+                    f"{os.path.getsize(path)} bytes exactly, {raw_s:.3f} s "
+                    f"(first run), {launches[name]} {name} launches, capacity "
+                    f"x{video._cap_mult}, pack {video._pack}, depth "
+                    f"{video.state.node_d.shape[0]}")
+
+                a = os.path.join(tmp, "cuda8.adder")
+                b = os.path.join(tmp, "cpu8.adder")
+                _, _, va = transcode_raw(at, frames[:8], dev, a, 4,
+                                         keep_running=True)
+                t0 = time.perf_counter()
+                _, _, vb = transcode_raw(at, frames[:8], "cpu", b, 4,
+                                         keep_running=True)
+                cpu_s = time.perf_counter() - t0
+                if file_digest(a) != file_digest(b):
+                    raise AssertionError(f"{engine}: first 8 frames, card and "
+                                         f"CPU .adder differ")
+                if not (np.array_equal(va.running_intensities,
+                                       vb.running_intensities)
+                        and torch.equal(va._last_runnings.cpu(),
+                                        vb._last_runnings)):
+                    raise AssertionError(f"{engine}: first 8 frames, card and "
+                                         f"CPU display frames differ")
+                log(f"# phase 13: {engine}: first 8 frames (2 chunks of 4) "
+                    f"byte-identical on card and CPU, display frames equal "
+                    f"({os.path.getsize(a)} bytes; CPU plain run "
+                    f"{cpu_s:.1f} s)")
+
+                raw_s2, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                             keep_running=True)
+                mpx[engine] = H * W * N_FRAMES / raw_s2 / 1e6
+                log(f"# phase 14: {engine} engine Raw-sink path, display "
+                    f"kept: {mpx[engine]} Mpx/s ({raw_s2} s for {N_FRAMES} "
+                    f"frames, second run) [{card}]")
+                busy = device_busy_seconds(lambda: transcode_raw(
+                    at, frames, dev, path, T_CHUNK, keep_running=True))
+                log(f"# phase 14: {engine} Raw run under torch.profiler: "
+                    f"device busy {busy} s (kernels and copies), "
+                    f"{busy / raw_s2:.2%} of the second run's wall [{card}]"
+                    if busy else
+                    f"# phase 14: {engine} device busy share not measured "
+                    f"(the profiler saw no device time)")
+                wall, stages = staged_framed_run(at, frames, dev, path)
+                log(f"# phase 14: {engine} Raw stage breakdown, {wall} s wall "
+                    f"({H * W * N_FRAMES / wall / 1e6} Mpx/s with a "
+                    f"synchronise after each stage) [{card}]:")
+                for s, sec in stages.items():
+                    log(f"#   {s:7s} {sec:.6f} s  {sec / wall:.1%}")
+        # the same breakdown on the default engine, for comparison
+        wall, stages = staged_framed_run(at, frames, dev, path,
+                                         keep_running=False)
+        log(f"# phase 14: resident engine Raw stage breakdown (display off), "
+            f"{wall} s wall ({H * W * N_FRAMES / wall / 1e6} Mpx/s with a "
+            f"synchronise after each stage) [{card}]:")
+        for s, sec in stages.items():
+            log(f"#   {s:7s} {sec:.6f} s  {sec / wall:.1%}")
+
+    # -- phase 14: K5 and K6 at 1080p mono, mid-stream ---------------------
+    n = H * W
+    frame = scene[T_CHUNK].reshape(-1).contiguous()
+    st8 = ops.pad_state_depth(st6, ops.DEPTH)
+    cap = ops.K_SLOTS * n
+
+    def k5(fn, bufs, emit=True):
+        return fn(st6, frame, 255.0, torch.tensor(7, device=dev), bufs, p, 4,
+                  emit)
+
+    def new_bufs():
+        return (torch.full((cap,), -1, dtype=torch.int32, device=dev),
+                torch.full((cap,), -1, dtype=torch.int32, device=dev))
+
+    got_b, want_b = new_bufs(), new_bufs()
+    got, want = k5(FK.fused_interval, got_b), k5(FK.fused_interval_plain,
+                                                  want_b)
+    k5_err = max(k5_err, testing.state_max_err(got.state, want.state, "1080p K5"),
+                 *(testing.bitwise_max_err(getattr(got, f), getattr(want, f),
+                                           f"1080p K5 {f}")
+                   for f in ("offset", "flags", "run_val", "run_has")),
+                 testing.bitwise_max_err(got_b[0], want_b[0], "1080p K5 pixd"),
+                 testing.bitwise_max_err(got_b[1], want_b[1], "1080p K5 t"))
+    n_ev5 = int(want.offset) - 7
+    k5_ms = cuda_ms(lambda: k5(FK.fused_interval, got_b), 20)
+    k5p_ms = cuda_ms(lambda: k5(FK.fused_interval_plain, want_b), 2)
+    # frame read; state read and written; run_val, run_has written; events
+    k5_bound = bound(n + 2 * state_bytes(st6) + 2 * n + 8 * n_ev5)
+
+    got = PK.interval_slots(st8, frame, 255.0, p)
+    want = PK.interval_slots_plain(st8, frame, 255.0, p)
+    k6_err = max(k6_err, testing.state_max_err(got[0], want[0], "1080p K6"), *(
+        testing.bitwise_max_err(a, b, f"1080p K6 {f}") for a, b, f in zip(
+            (*got[1:4], *got[4]), (*want[1:4], *want[4]),
+            ("slot_d", "slot_t", "slot_m", "run_val", "run_has"))))
+    n_ev6 = int(want[3].sum())
+    k6_ms = cuda_ms(lambda: PK.interval_slots(st8, frame, 255.0, p), 20)
+    k6p_ms = cuda_ms(lambda: PK.interval_slots_plain(st8, frame, 255.0, p), 2)
+    # frame read; state read and written; K slot planes (i32, u32, u8) and
+    # run_val, run_has written
+    k6_bound = bound(n + 2 * state_bytes(st8) + 9 * ops.K_SLOTS * n + 2 * n)
+
+    _, sd, stt, sm, _ = got
+    take = ops.per_interval_take(n * T_CHUNK, T_CHUNK)
+    glue_bufs = new_bufs()
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def glue():
+        packed = ops._pack_slots(sd, stt, sm, 4)
+        pixd_i, t_i, n_ev = ops._compact_interval(*packed[:3], take)
+        ops._merge_prefix(glue_bufs, zero, pixd_i, t_i, n_ev, take)
+
+    glue_ms = cuda_ms(glue, 10)
+    f16 = scene[T_CHUNK : 2 * T_CHUNK].reshape(T_CHUNK, -1).contiguous()
+    run0 = torch.zeros(n, dtype=torch.uint8, device=dev)
+    fused_ms = cuda_ms(lambda: FK.fused_chunk(st6, f16, 255.0, run0, p,
+                                              n * T_CHUNK), 5)
+    slots_ms = cuda_ms(lambda: ops.transcode_chunk(st8, f16, 255.0, run0, p,
+                                                   n * T_CHUNK), 5)
+    log(f"# phase 14: K5 == plain, K6 == plain at 1080p mono mid-stream "
+        f"({n_ev5} and {n_ev6} events in the interval)")
+    log(f"# phase 14: 1080p mono, one interval [{card}]:")
+    log(f"#   K5 (depth 6, pack 4, display) {k5_ms} ms, plain {k5p_ms} ms, "
+        f"bound {k5_bound} ms")
+    log(f"#   K6 (depth 8) {k6_ms} ms, plain {k6p_ms} ms, bound {k6_bound} ms")
+    log(f"#   slot glue (pack 4, compact, merge; take {take}) {glue_ms} ms")
+    log(f"# phase 14: 1080p mono T={T_CHUNK} chunk, device-only [{card}]: "
+        f"fused {fused_ms} ms ({n * T_CHUNK / fused_ms / 1e3} Mpx/s), slots "
+        f"{slots_ms} ms ({n * T_CHUNK / slots_ms / 1e3} Mpx/s)")
+
+    return [
+        {"name": "adder_fused_interval", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/fused_interval.cu",
+         "replaces": "adder_tpu/ops/fused_kernel.py:526",
+         "launches": launches["adder_fused_interval"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5p_ms, "bound_ms": k5_bound,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "adder_interval_slots", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/interval_slots.cu",
+         "replaces": "adder_tpu/ops/pallas_kernel.py:114",
+         "launches": launches["adder_interval_slots"], "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6p_ms, "bound_ms": k6_bound,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -840,17 +1150,19 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "DVS (K3)", "DAVIS (K4)"):
+    for what in ("framed (K1/K2)", "DVS (K3)", "DAVIS (K4)",
+                 "fused interval (K5)", "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
-              if "chunk_kernel" in k and kernel_source(k) == what}
+              if "_kernel" in k and kernel_source(k) == what}
         if ks:
             regs = [v["regs"] for v in ks.values()]
             log(f"# ptxas {what}: {len(ks)} kernels, registers "
-                f"{min(regs)}..{max(regs)}, spill stores max "
+                f"{min(regs)}..{max(regs)}, stack frame max "
+                f"{max(v['stack'] for v in ks.values())} bytes, spill stores max "
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
     for k, v in ptx.items():
-        if kernel_source(k) != "framed (K1/K2)":
+        if kernel_source(k) in ("DVS (K3)", "DAVIS (K4)", "other"):
             log(f"#   {k}: {v}")
 
     # -- phase 2: kernels against plain, bit for bit ----------------------
@@ -876,7 +1188,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "main.adder")
         FR.reset_launch_counts()
-        raw_s, n_kernel = transcode_raw(at, frames, dev, path, T_CHUNK)
+        raw_s, n_kernel, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
         launches = dict(FR.LAUNCHES)
         if min(launches["adder_resident_chunk"],
                launches["adder_exclusive_scan"]) < 1:
@@ -889,9 +1201,10 @@ def main() -> int:
                 f"decoded {n_decoded} events, the kernel counted {n_kernel}"
             )
         size = os.path.getsize(path)
+        main_digest = file_digest(path)
         log(f"# phase 3: 1080p mono Raw: {N_FRAMES} frames, {n_kernel} events"
             f", {size} bytes, {raw_s:.3f} s (first run), launches {launches}")
-        raw_s2, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
+        raw_s2, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
         raw_mpx = H * W * N_FRAMES / raw_s2 / 1e6
         log(f"# phase 3: Raw-sink path {raw_mpx} Mpx/s ({raw_s2} s for "
             f"{N_FRAMES} frames, second run) [{card}]")
@@ -965,6 +1278,7 @@ def main() -> int:
 
     dvs_err, dvs_launches, k3 = dvs_phases(dev, card)
     k4, davis_launches = davis_phases(dev, card)
+    k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
 
     record = {"kernels": [
         {"name": "adder_resident_chunk", "route": "cuda",
@@ -996,6 +1310,7 @@ def main() -> int:
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        *k5_k6,
     ]}
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "adder_tpu"))

@@ -15,26 +15,36 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "adder_tpu_torch"
 
 _TINY_RUN = r"""
-import io, sys
+import io, os, sys
 import numpy as np
 if sys.argv[1] == "block":
     # any `import jax` or `import adder_tpu` now raises ImportError
     sys.modules["jax"] = sys.modules["adder_tpu"] = None
 import adder_tpu_torch as at
+from adder_tpu_torch.ops import fused_kernel, pallas_kernel
 frames = np.random.default_rng(0).integers(0, 256, (6, 4, 5, 1)).astype(np.uint8)
-src = at.FramedArray(frames, chunk_frames=3, device="cpu")
-buf = io.BytesIO()
-src.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
-              at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
-              at.EncoderOptions.default(src.video.plane), buf)
-n = 0
-while True:
-    try:
-        n += len(src.consume_batch())
-    except EOFError:
-        break
-src.video.end_write_stream()
-assert n > 0 and len(buf.getvalue()) > 9 * n
+for env in (None, "ADDER_TPU_RESIDENT", "ADDER_TPU_FUSED"):
+    # the resident engine, then the fused and the interval-slot engines
+    if env:
+        os.environ[env] = "0"
+    src = at.FramedArray(frames, chunk_frames=3, device="cpu")
+    buf = io.BytesIO()
+    src.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+                  at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                  at.EncoderOptions.default(src.video.plane), buf)
+    if env:
+        src.video._keep_running_frame = True
+    n = 0
+    while True:
+        try:
+            n += len(src.consume_batch())
+        except EOFError:
+            break
+    src.video.end_write_stream()
+    assert n > 0 and len(buf.getvalue()) > 9 * n
+    if env:
+        assert src.video.running_intensities.any()
+        del os.environ[env]
 assert not any(m.split(".")[0] in ("jax", "adder_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("OK", n)
@@ -44,7 +54,8 @@ print("OK", n)
 @pytest.mark.parametrize("jax_state", ["block", "installed"])
 def test_port_runs_without_importing_jax(jax_state):
     """With jax and adder_tpu blocked, and with both importable: a tiny CPU
-    transcode runs and no jax or adder_tpu module gets imported."""
+    transcode through each of the three Video engines runs and no jax or
+    adder_tpu module gets imported."""
     proc = subprocess.run(
         [sys.executable, "-c", _TINY_RUN, jax_state], cwd=REPO,
         capture_output=True, text=True, timeout=300,

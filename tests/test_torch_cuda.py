@@ -155,3 +155,59 @@ def test_davis_cuda_bytes_equal_cpu(cuda, tmp_path):
     assert FR.LAUNCHES["adder_dvs_chunk"] > 0
     assert on_card == run("cpu")
     assert len(on_card) > 1000
+
+
+def test_fused_interval_matches_plain(cuda):
+    """K5 against its plain version: 8 modes x depth 6/8 x pack 4/16, two
+    chained chunks from a non-zero offset on a ragged 200 x 150 plane (plane
+    padding, view modes, the display off), pack-2 overflow, a forced depth-6
+    overflow and a buffer too small."""
+    assert testing.check_fused_interval_against_plain(cuda) == 0.0
+
+
+def test_interval_slots_matches_plain(cuda):
+    """K6 against its plain version: 8 modes at depth 8, 16 chained
+    intervals on a ragged 200 x 150 plane, a forced depth-8 overflow, and
+    the slot chunk on the card against the CPU."""
+    assert testing.check_interval_slots_against_plain(cuda) == 0.0
+
+
+@pytest.mark.parametrize("env", ["ADDER_TPU_RESIDENT", "ADDER_TPU_FUSED"])
+def test_one_interval_engines_cuda_bytes_equal_cpu(cuda, env, monkeypatch):
+    """Each one-interval engine of Video: the same bytes and display frames
+    on the card and on the CPU, through its kernel."""
+    from adder_tpu_torch.ops import fused_kernel, pallas_kernel
+
+    monkeypatch.setenv(env, "0")
+    frames = testing.walk_frames(5, 12, 33 * 17).reshape(12, 17, 33, 1)
+
+    def run(device):
+        src = at.FramedArray(frames, 30.0, chunk_frames=4, device=device)
+        src.auto_time_parameters(255, 255 * 24, at.TimeMode.DeltaT)
+        src.quality_manual(0, 0, 24, 1, 0)
+        buf = io.BytesIO()
+        src.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                      at.EncoderOptions.default(src.video.plane), buf)
+        src.video._keep_running_frame = True
+        shown = []
+        while True:
+            try:
+                src.consume_batch()
+            except EOFError:
+                break
+            shown.append(src.video.running_intensities.copy())
+        src.video.end_write_stream()
+        return buf.getvalue(), shown
+
+    fused_kernel.reset_launch_counts()
+    pallas_kernel.reset_launch_counts()
+    on_card, shown_card = run(cuda)
+    launches = (fused_kernel.LAUNCHES["adder_fused_interval"]
+                if env == "ADDER_TPU_RESIDENT"
+                else pallas_kernel.LAUNCHES["adder_interval_slots"])
+    assert launches == 12
+    on_cpu, shown_cpu = run("cpu")
+    assert on_card == on_cpu and len(on_card) > 1000
+    for a, b in zip(shown_card, shown_cpu):
+        assert (a == b).all()

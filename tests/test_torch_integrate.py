@@ -65,7 +65,7 @@ def _run_port(frames, p, c0):
     out = []
     for t in range(T):
         fv = torch.from_numpy(frames[t].astype(np.int32))
-        st, sd, stt, sm = P.integrate_interval(
+        st, sd, stt, sm, _ = P.integrate_interval(
             st, fv.to(torch.float32), fv, float(p.ref_time), p
         )
         out.extend(_port_events(t, sd, stt, sm))
@@ -125,7 +125,7 @@ def test_port_matches_jax_integrate_interval(cfg):
             jnp.asarray(fv.astype(np.int32)), jnp.float32(255.0), kp,
         )
         fvt = torch.from_numpy(fv.astype(np.int32))
-        ts, td, tt, tm = P.integrate_interval(
+        ts, td, tt, tm, _ = P.integrate_interval(
             ts, fvt.to(torch.float32), fvt, 255.0, pp
         )
         jm = np.asarray(jm)

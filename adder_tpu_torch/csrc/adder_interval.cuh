@@ -1,6 +1,8 @@
 // The per-pixel ADΔER state machine shared by the Hopper chunk kernels
-// (fused_resident.cu: framed, K1/K2; dvs_resident.cu: DVS lanes, K3;
-// davis_resident.cu: DAVIS lanes, K4).
+// (fused_resident.cu: framed, K1/K2, and the exclusive scan;
+// dvs_resident.cu: DVS lanes, K3, from planes and by rows;
+// davis_resident.cu: DAVIS lanes, K4) and by the one-interval kernels
+// (fused_interval.cu: K5; interval_slots.cu: K6).
 //
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
 // (:638-678) and its helpers (:219-613), emit_running=False branch, and the
@@ -304,9 +306,12 @@ __device__ __forceinline__ bool set_d_for_continuous(Pixel<D>& s,
 }
 
 // --- integrate (integrate.py:441-613). Returns whether the last node fired
-// (the arena outgrew DEPTH). -------------------------------------------------
+// (the arena outgrew DEPTH). With SKIP the walk branches over the nodes past
+// its end instead of running them predicated off: the same function (a
+// node past the end changes nothing), cheaper where the threads of a warp
+// do not walk in step anyway (the row walk). ----------------------------------
 
-template <int D, bool FP, bool COLLAPSE>
+template <int D, bool FP, bool COLLAPSE, bool SKIP = false>
 __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
                                           float time, int c_inc,
                                           const Params& P) {
@@ -339,6 +344,7 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
 
 #pragma unroll
   for (int k = 0; k < D; ++k) {
+    if (SKIP && !active) continue;
     const int d = s.nd[k];
     const float integ = s.ni[k], dt = s.ndt[k];
     const float total = __fadd_rn(integ, i_cur);
@@ -443,7 +449,7 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
 // intervals pass intensity = f32(fv) and the chunk's time; DVS sub-steps
 // pass their per-pixel planes. -----------------------------------------------
 
-template <int D, bool FP, bool COLLAPSE, bool ABS>
+template <int D, bool FP, bool COLLAPSE, bool ABS, bool SKIP = false>
 __device__ __forceinline__ unsigned run_interval(
     Pixel<D>& s, float intensity, int fv, float time, int c_inc,
     const Params& P, int (&sd)[D + 3], unsigned (&st)[D + 3], bool& ovf) {
@@ -461,7 +467,7 @@ __device__ __forceinline__ unsigned run_interval(
       m |= 1u << (D + 1);
     }
   }
-  ovf = integrate<D, FP, COLLAPSE>(s, intensity, time, c_inc, P);
+  ovf = integrate<D, FP, COLLAPSE, SKIP>(s, intensity, time, c_inc, P);
   if (s.need_pop) {
     pop_top<D, FP, ABS>(s, intensity, P, sd[D + 2], st[D + 2]);
     m |= 1u << (D + 2);
@@ -582,6 +588,54 @@ __device__ __forceinline__ V warp_inclusive_scan(V x, int lane) {
     if (lane >= o) x += y;
   }
   return x;
+}
+
+// --- decoupled look-back: the exclusive prefix of one block's total across
+// the blocks of a single launch (fused_interval.cu: K5's event offsets;
+// fused_resident.cu: the exclusive scan). `blk` is the block's ticket (an
+// atomic counter taken on entry), so a block waits only on blocks that
+// started before it, whatever order the hardware schedules them in. A word
+// of `tile` (zeroed before the launch) is value << 2 | status in one 64-bit
+// location, written with atomicExch and read volatile, so a status is never
+// seen without its value and no fence is needed. Every lane of one warp
+// calls this with the same arguments; the warp reads 32 predecessors at a
+// time and stops at the nearest one that has published its inclusive
+// prefix. Block 0 starts from `first`. -----------------------------------
+
+constexpr unsigned long long kAggregate = 1, kInclusive = 2;
+
+__device__ __forceinline__ void lookback_publish(unsigned long long* word,
+                                                 unsigned long long status,
+                                                 long long value) {
+  atomicExch(word, ((unsigned long long)value << 2) | status);
+}
+
+__device__ __forceinline__ long long lookback_exclusive(
+    unsigned long long* tile, int blk, long long total, long long first,
+    int lane) {
+  long long excl = first;
+  if (blk > 0) {
+    if (lane == 0) lookback_publish(&tile[blk], kAggregate, total);
+    excl = 0;
+    for (int base = blk - 1; base >= 0; base -= 32) {
+      const int j = base - lane;
+      unsigned long long w = kInclusive;  // before block 0: a prefix of 0
+      if (j >= 0) {
+        do {
+          w = *(volatile unsigned long long*)&tile[j];
+        } while ((w & 3ull) == 0);
+      }
+      const unsigned inc = __ballot_sync(kFull, (w & 3ull) == kInclusive);
+      const int stop = inc ? __ffs(inc) - 1 : 31;
+      long long v = lane <= stop ? (long long)(w >> 2) : 0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+      excl += v;
+      if (inc) break;
+    }
+  }
+  if (lane == 0) lookback_publish(&tile[blk], kInclusive, excl + total);
+  return excl;
 }
 
 // --- the chunk kernel: one thread per pixel, the arena in registers across
@@ -801,6 +855,190 @@ void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
   } else {
     adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
+  }
+}
+
+}  // namespace
+
+// --- the row-walk lane kernel (dvs_resident.cu: adder_dvs_rows): a lane
+// group given as its carrier rows, not as dense (T, n) planes. One thread
+// per pixel that has rows; it walks that pixel's rows in lane order. ------
+
+extern "C" {
+
+// Mirrored by adder_tpu_torch/ops/fused_resident.py::_RowsArgs. Every index
+// array is i64 on the device, as torch's sort, cumsum and searchsorted
+// leave it.
+struct AdderRowsArgs {
+  int pass;        // PASS_COUNT, PASS_WRITE, PASS_VOID
+  int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
+  int depth;       // 16
+  int src;         // SRC_DVS
+  long long n;     // pixels of the plane
+  long long rows;  // E >= 1 carrier rows
+  int ref_time;
+  int delta_t_max;
+  int c_thresh_max;
+  int vel_m1;
+  void* state[14];        // read and, on WRITE and VOID, written in place
+  const void* carrier;    // (5, E) i32, pack_dvs_plan's layout
+  const void* order;      // (E,) rows sorted by (pixel, lane)
+  const void* row_start;  // (E + 2,) run starts in `order`, one per
+                          // pixel that has rows, then E
+  const void* n_active;   // (1,) number of pixels that have rows
+  const void* cell_gap;   // (E,) each row's gap cell in (sub-step, pixel)
+  const void* cell_tick;  //      order, and its tick cell
+  void* cell_counts;      // (2 E,) i32 events per cell: COUNT, VOID
+  const void* offsets;    // (2 E + 1,) i64 exclusive offsets: WRITE
+  void* out_pixd;
+  void* out_t;
+  void* flags;            // [max per-cell count, depth overflow]
+};
+
+}  // extern "C"
+
+namespace {
+
+constexpr int kRowsBlock = 64;  // threads per block of the row walk
+
+struct RArgs {
+  StateIn in;
+  StateOut out;
+  const int* carrier;
+  const long long* order;
+  const long long* row_start;
+  const long long* n_active;
+  const long long* cell_gap;
+  const long long* cell_tick;
+  long long n, rows;
+  Params P;
+  int* cell_counts;
+  const long long* offsets;
+  unsigned* out_pixd;
+  unsigned* out_t;
+  int* flags;
+};
+
+inline RArgs make_rargs(const AdderRowsArgs* a) {
+  // the state pointers through the chunk kernels' own mapping
+  AdderChunkArgs c = {};
+  for (int i = 0; i < 14; ++i) {
+    c.state_in[i] = a->state[i];
+    c.state_out[i] = a->state[i];
+  }
+  c.n = a->n;
+  c.ref_time = a->ref_time;
+  c.delta_t_max = a->delta_t_max;
+  c.c_thresh_max = a->c_thresh_max;
+  c.vel_m1 = a->vel_m1;
+  const KArgs k = make_kargs(&c);
+  RArgs r;
+  r.in = k.in;
+  r.out = k.out;
+  r.P = k.P;
+  r.carrier = (const int*)a->carrier;
+  r.order = (const long long*)a->order;
+  r.row_start = (const long long*)a->row_start;
+  r.n_active = (const long long*)a->n_active;
+  r.cell_gap = (const long long*)a->cell_gap;
+  r.cell_tick = (const long long*)a->cell_tick;
+  r.n = a->n;
+  r.rows = a->rows;
+  r.cell_counts = (int*)a->cell_counts;
+  r.offsets = (const long long*)a->offsets;
+  r.out_pixd = (unsigned*)a->out_pixd;
+  r.out_t = (unsigned*)a->out_t;
+  r.flags = (int*)a->flags;
+  return r;
+}
+
+// One thread per pixel that has rows: gather its state, walk its rows in
+// lane order (per row the gap sub-step, then the tick sub-step; a half that
+// is off counts 0 events), scatter its state back. No loop over T and no
+// barrier: a thread's events of one cell go to that cell's own offset.
+// SRC picks what a row holds; SRC_DVS is the (5, E) carrier of
+// pack_dvs_plan, two sub-steps of run_interval per row.
+template <int D, bool COLLAPSE, int PASS, int SRC>
+__global__ void __launch_bounds__(kRowsBlock)
+    adder_lane_rows_kernel(const RArgs a) {
+  static_assert(SRC == SRC_DVS, "the row walk is built for the DVS carrier");
+  constexpr int K = D + 3;
+  const int lane = threadIdx.x & 31;
+  const long long j = (long long)blockIdx.x * kRowsBlock + threadIdx.x;
+  int maxcnt = 0;
+  bool ovf_any = false;
+  if (j < *a.n_active) {
+    const long long r0 = a.row_start[j], r1 = a.row_start[j + 1];
+    const int* meta_row = a.carrier;
+    const int* fv_row = a.carrier + a.rows;
+    const int* gap_int = a.carrier + 2 * a.rows;
+    const int* gap_time = a.carrier + 3 * a.rows;
+    const int* tick_int = a.carrier + 4 * a.rows;
+    const long long pix = meta_row[a.order[r0]] & 0xFFFFF;
+    const unsigned pbase = (unsigned)pix << 8;
+    Pixel<D> s;
+    load_state(s, a.in, pix, a.n);
+    for (long long i = r0; i < r1; ++i) {
+      const long long row = a.order[i];
+      const int meta = meta_row[row], fvs = fv_row[row];
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {  // the gap sub-step, then the tick
+        const bool on = (meta >> (27 + h)) & 1;
+        const long long cell = h ? a.cell_tick[row] : a.cell_gap[row];
+        int cnt = 0;
+        if (on) {
+          const float inten =
+              __int_as_float(h ? tick_int[row] : gap_int[row]);
+          // a tick spans one source tick, f32(ref_time)
+          const float tspan = h ? a.P.ref_f : __int_as_float(gap_time[row]);
+          const int fv = (fvs >> (8 * h)) & 0xFF;
+          // (u32(time) // ref_time) % 256 per sub-step (integrate.py:606-609)
+          const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
+          int sd[K];
+          unsigned st[K];
+          bool ovf = false;
+          const unsigned m = run_interval<D, false, COLLAPSE, true, true>(
+              s, inten, fv, tspan, c_inc, a.P, sd, st, ovf);
+          ovf_any = ovf_any || ovf;
+          cnt = __popc(m);
+          if (PASS == PASS_WRITE && cnt) {
+            long long off = a.offsets[cell];
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              if ((m >> k) & 1u) {
+                a.out_pixd[off] = pbase | ((unsigned)sd[k] & 0xFFu);
+                a.out_t[off] = st[k];
+                ++off;
+              }
+            }
+          }
+        }
+        maxcnt = max(maxcnt, cnt);
+        if (PASS != PASS_WRITE) a.cell_counts[cell] = cnt;
+      }
+    }
+    if (PASS != PASS_COUNT) store_state(s, a.out, pix, a.n);
+  }
+  const int wmax = __reduce_max_sync(kFull, maxcnt);
+  const unsigned wovf = __reduce_or_sync(kFull, ovf_any ? 1u : 0u);
+  if (lane == 0) {
+    if (wmax > 0) atomicMax(&a.flags[0], wmax);
+    if (wovf) atomicOr(&a.flags[1], 1);
+  }
+}
+
+template <int D, bool CO, int SRC>
+void launch_rows_pass(const RArgs& r, int pass, cudaStream_t st) {
+  const int grid = (int)((r.rows + kRowsBlock - 1) / kRowsBlock);
+  if (pass == PASS_COUNT) {
+    adder_lane_rows_kernel<D, CO, PASS_COUNT, SRC>
+        <<<grid, kRowsBlock, 0, st>>>(r);
+  } else if (pass == PASS_WRITE) {
+    adder_lane_rows_kernel<D, CO, PASS_WRITE, SRC>
+        <<<grid, kRowsBlock, 0, st>>>(r);
+  } else {
+    adder_lane_rows_kernel<D, CO, PASS_VOID, SRC>
+        <<<grid, kRowsBlock, 0, st>>>(r);
   }
 }
 

@@ -20,11 +20,11 @@
 //     only ever waits on blocks that started before it: no deadlock,
 //     whatever order the hardware schedules blocks in.
 //   - A block scans its threads' kept counts, publishes its aggregate, then
-//     walks back over its predecessors' words until it meets an inclusive
-//     prefix, and publishes its own. A word is value << 2 | status in one
-//     64-bit location, written with atomicExch and read volatile, so a
-//     status is never seen without its value and no fence is needed.
-//     Block 0 starts from offset_in; the last block writes offset_out.
+//     looks back over its predecessors' words, a warp's width at a time,
+//     until it meets an inclusive prefix, and publishes its own
+//     (lookback_exclusive in adder_interval.cuh, shared with the exclusive
+//     scan of fused_resident.cu). Block 0 starts from offset_in; the last
+//     block writes offset_out.
 //   - Events at or past `cap` are dropped; the offset still counts them,
 //     so capacity overflow shows as offset > cap without a host read.
 //   - flags[0] gets the largest per-pixel count of a real pixel
@@ -41,14 +41,6 @@
 #include "adder_interval.cuh"
 
 namespace {
-
-constexpr unsigned long long kAggregate = 1, kInclusive = 2;
-
-__device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned long long status,
-                                        long long value) {
-  atomicExch(word, ((unsigned long long)value << 2) | status);
-}
 
 template <int D, bool FP, bool CO, bool AB, bool RUN>
 __global__ void __launch_bounds__(kBlock)
@@ -93,22 +85,9 @@ __global__ void __launch_bounds__(kBlock)
     const int y = warp_inclusive_scan(v, lane);
     if (lane < kWarps) s_warp_pre[lane] = y - v;
     const long long total = __shfl_sync(kFull, y, kWarps - 1);
+    const long long excl = lookback_exclusive(
+        a.tile, blk, total, blk == 0 ? *a.offset_in : 0, lane);
     if (lane == 0) {
-      long long excl = 0;
-      if (blk == 0) {
-        excl = *a.offset_in;
-      } else {
-        publish(&a.tile[blk], kAggregate, total);
-        for (int j = blk - 1;; --j) {
-          unsigned long long w;
-          do {
-            w = *(volatile unsigned long long*)&a.tile[j];
-          } while ((w & 3ull) == 0);
-          excl += (long long)(w >> 2);
-          if ((w & 3ull) == kInclusive) break;
-        }
-      }
-      publish(&a.tile[blk], kInclusive, excl + total);
       if (blk == a.nblk - 1) *a.offset_out = excl + total;
       s_base = excl;
     }

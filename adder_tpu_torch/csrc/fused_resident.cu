@@ -24,7 +24,10 @@
 //   PASS_COUNT  runs the chunk and writes per-(interval, block) event counts;
 //               no state is written.
 //   adder_exclusive_scan turns those counts, row-major, into int64 offsets
-//               (K*T*N exceeds 2^31 for 1080p colour at T = 64) and the total.
+//               (K*T*N exceeds 2^31 for 1080p colour at T = 64) and the total:
+//               one launch of many blocks joined by a decoupled look-back
+//               (below). The lane kernels (K3 dense and by rows, K4) use it
+//               too, on their own counts.
 //   PASS_WRITE  re-runs the chunk from the same input state; per interval a
 //               block-wide exclusive scan of the threads' counts places each
 //               pixel's events at offset[interval, block] + prefix. It writes
@@ -47,51 +50,91 @@
 
 namespace {
 
-// --- exclusive scan of the (T, nblk) counts: one block walks the array in
-// tiles, carrying the running sum; int64 offsets, total at out[count]. ------
+// --- exclusive scan of i32 counts into i64 offsets, total at out[count]: one
+// launch of many blocks. A block takes a ticket, loads its contiguous tile
+// with 16-byte loads (ITEMS counts per thread), scans it in registers and
+// shared memory, and gets the sum of the tiles before it by the decoupled
+// look-back of adder_interval.cuh; it then writes its offsets with 16-byte
+// stores. What bounds it: latency (one load, two block-wide steps and the
+// look-back's hop through L2), not bytes: 129,600 counts are 1.5 MB. So the
+// tile is small enough to spread a framed chunk's counts over a wave of
+// blocks and the look-back reads 32 predecessors at once. `scratch` is
+// (blocks + 1) zeroed 64-bit words: the look-back words, then the ticket. --
 
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;
-
-__global__ void __launch_bounds__(kScanThreads)
+template <int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS)
     adder_exclusive_scan_kernel(const int* __restrict__ in,
-                                long long* __restrict__ out,
-                                long long count) {
-  __shared__ long long s_tot[32];
-  __shared__ long long s_pre[32];
-  __shared__ long long s_carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_carry = 0;
+                                long long* __restrict__ out, long long count,
+                                int nblk, bool vec,
+                                unsigned long long* scratch) {
+  static_assert(ITEMS % 4 == 0, "whole int4 loads");
+  constexpr int kScanWarps = THREADS / 32;
+  __shared__ int s_blk;
+  __shared__ long long s_tot[kScanWarps];
+  __shared__ long long s_pre[kScanWarps];
+  __shared__ long long s_base;
+  if (threadIdx.x == 0) s_blk = atomicAdd((int*)(scratch + nblk), 1);
   __syncthreads();
-  for (long long base = 0; base < count;
-       base += (long long)kScanThreads * kScanItems) {
-    const long long i0 = base + (long long)threadIdx.x * kScanItems;
-    long long v[kScanItems];
-    long long local = 0;
+  const int blk = s_blk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i0 =
+      ((long long)blk * THREADS + threadIdx.x) * (long long)ITEMS;
+  int v[ITEMS];
 #pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      v[j] = i0 + j < count ? (long long)in[i0 + j] : 0;
-      local += v[j];
-    }
-    const long long x = warp_inclusive_scan(local, lane);
-    if (lane == 31) s_tot[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      const long long w = s_tot[lane];
-      s_pre[lane] = warp_inclusive_scan(w, lane) - w;
-    }
-    __syncthreads();
-    long long run = s_carry + s_pre[warp] + (x - local);
+  for (int q = 0; q < ITEMS; q += 4) {
+    if (vec && i0 + q + 3 < count) {
+      const int4 x = *reinterpret_cast<const int4*>(in + i0 + q);
+      v[q] = x.x;
+      v[q + 1] = x.y;
+      v[q + 2] = x.z;
+      v[q + 3] = x.w;
+    } else {
 #pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      if (i0 + j < count) out[i0 + j] = run;
-      run += v[j];
+      for (int j = q; j < q + 4; ++j) v[j] = i0 + j < count ? in[i0 + j] : 0;
     }
-    __syncthreads();  // every thread has read s_carry
-    if (threadIdx.x == kScanThreads - 1) s_carry = run;
-    __syncthreads();
   }
-  if (threadIdx.x == 0) out[count] = s_carry;
+  long long local = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) local += v[j];
+  const long long x = warp_inclusive_scan(local, lane);
+  if (lane == 31) s_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const long long w = lane < kScanWarps ? s_tot[lane] : 0;
+    const long long y = warp_inclusive_scan(w, lane);
+    if (lane < kScanWarps) s_pre[lane] = y - w;
+    const long long total = __shfl_sync(kFull, y, 31);
+    const long long excl = lookback_exclusive(scratch, blk, total, 0, lane);
+    if (lane == 0) {
+      s_base = excl;
+      if (blk == nblk - 1) out[count] = excl + total;
+    }
+  }
+  __syncthreads();
+  long long run = s_base + s_pre[warp] + (x - local);
+#pragma unroll
+  for (int j = 0; j < ITEMS; j += 2) {
+    const long long r1 = run + v[j];
+    if (i0 + j + 1 < count) {  // out is 16-byte aligned and i0 + j even
+      *reinterpret_cast<longlong2*>(out + i0 + j) = make_longlong2(run, r1);
+    } else if (i0 + j < count) {
+      out[i0 + j] = run;
+    }
+    run = r1 + v[j + 1];
+  }
+}
+
+template <int THREADS, int ITEMS>
+int launch_scan(const void* counts, void* out, long long count, void* scratch,
+                cudaStream_t st) {
+  constexpr long long tile = (long long)THREADS * ITEMS;
+  const long long nblk = count > 0 ? (count + tile - 1) / tile : 1;
+  if (nblk > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const bool vec = ((uintptr_t)counts & 15) == 0;
+  adder_exclusive_scan_kernel<THREADS, ITEMS><<<(int)nblk, THREADS, 0, st>>>(
+      (const int*)counts, (long long*)out, count, (int)nblk, vec,
+      (unsigned long long*)scratch);
+  return (int)cudaGetLastError();
 }
 
 // --- host-side dispatch over the template parameters ------------------------
@@ -146,12 +189,17 @@ int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// A block takes 256 x 8 = 2048 counts (SCAN_TILE in
+// adder_tpu_torch/ops/fused_resident.py, which sizes `scratch` from it):
+// (ceil(count / 2048), at least 1) + 1 zeroed 64-bit words. `out` holds
+// count + 1 i64 and is 16-byte aligned.
 int adder_exclusive_scan(const void* counts, void* out, long long count,
-                         void* stream) {
-  if (count < 0) return (int)cudaErrorInvalidValue;
-  adder_exclusive_scan_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)counts, (long long*)out, count);
-  return (int)cudaGetLastError();
+                         void* scratch, void* stream) {
+  if (count < 0 || ((uintptr_t)out & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_scan<256, 8>(counts, out, count, scratch,
+                             (cudaStream_t)stream);
 }
 
 const char* adder_cuda_error_string(int code) {

@@ -121,16 +121,24 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for entry in ("adder_resident_chunk", "adder_dvs_chunk",
-                          "adder_davis_chunk", "adder_fused_interval",
-                          "adder_interval_slots"):
+                          "adder_dvs_rows", "adder_davis_chunk",
+                          "adder_fused_interval", "adder_interval_slots"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             lib.adder_exclusive_scan.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,
             ]
             lib.adder_exclusive_scan.restype = ctypes.c_int
+            ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+            lib.adder_rows_keys.argtypes = [ptr, i64, ptr, ptr, ptr]
+            lib.adder_rows_rank.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
+                                            ptr, ptr, ptr, ptr, ptr]
+            lib.adder_rows_starts.argtypes = [ptr, ptr, i64, ptr, ptr]
+            for fn in (lib.adder_rows_keys, lib.adder_rows_rank,
+                       lib.adder_rows_starts):
+                fn.restype = ctypes.c_int
             lib.adder_cuda_error_string.argtypes = [ctypes.c_int]
             lib.adder_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -17,13 +17,22 @@ Each entry point has two implementations:
   `dvs_batch.davis_masked_step`), then the per-interval slots compacted
   into the reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk` and
-  `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_chunk` in
-  dvs_resident.cu, `adder_davis_chunk` in davis_resident.cu), reached
-  through the wrappers `fused_chunk_resident`, `group_chunk_resident`,
-  `dvs_chunk_resident` and `davis_chunk_resident`.
+  `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_chunk` and
+  `adder_dvs_rows` in dvs_resident.cu, `adder_davis_chunk` in
+  davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
+  `group_chunk_resident`, `dvs_chunk_resident`, `dvs_rows_resident` and
+  `davis_chunk_resident`.
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
+
+The DVS mode has two routes to the same function. `dvs_chunk_resident`
+takes dense (T, N) planes and walks every pixel through every sub-step: it
+serves the chunks that are dense by nature (the bootstrap, the end-of-stream
+flush, DAVIS's frame and gap chunks). `dvs_rows_resident` takes the (5, E)
+carrier itself, the input of `make_dvs_chunk_resident_packed`, and walks
+each pixel's own rows: it serves the sparse lane groups, builds no plane,
+and updates the state of the pixels that have rows in place.
 
 The events come back already in reference order, so the JAX package's
 capacity and pack reruns and its host assembler have no counterpart here.
@@ -63,7 +72,8 @@ SRC_FRAMED, SRC_DVS, SRC_DAVIS = 0, 1, 2  # AdderChunkArgs.dvs
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"adder_resident_chunk": 0, "adder_exclusive_scan": 0,
-            "adder_dvs_chunk": 0, "adder_davis_chunk": 0}
+            "adder_dvs_chunk": 0, "adder_dvs_rows": 0, "adder_rows_group": 0,
+            "adder_davis_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -239,6 +249,126 @@ def unpack_dvs_carrier(packed: torch.Tensor):
     )
 
 
+# --- DVS lane groups by rows (K3, the sparse route) --------------------------
+
+
+class RowGroups(NamedTuple):
+    """A carrier's rows grouped for the row walk; every array int64 on the
+    carrier's device, made without a host read.
+
+    order      (E,) row indices sorted by (pixel, lane): the rows of one
+               pixel are consecutive and in lane order;
+    row_start  (E + 2,) for the j-th pixel that has rows (raster order,
+               j < n_active) the start of its run in `order`; every later
+               entry up to row_start[E] is E, so run j ends at
+               row_start[j + 1] (the last slot is scratch);
+    n_active   (1,) the number of pixels that have rows;
+    cell_gap, cell_tick  (E,) the rank of each row's gap cell and tick cell
+               among the 2 E cells in (sub-step, raster pixel) order, the
+               order in which the chunk's events leave: the cells of
+               sub-step 2 k are the gap halves of lane k's rows by pixel,
+               those of sub-step 2 k + 1 their tick halves;
+    sub_start  (T + 1,) the first cell of each sub-step, then 2 E."""
+
+    order: torch.Tensor
+    row_start: torch.Tensor
+    n_active: torch.Tensor
+    cell_gap: torch.Tensor
+    cell_tick: torch.Tensor
+    sub_start: torch.Tensor
+
+
+def group_dvs_rows(carrier: torch.Tensor, T: int) -> RowGroups:
+    """Group the rows of a (5, E >= 1) carrier (`pack_dvs_plan`) of T / 2
+    lanes by pixel and rank their cells in output order. Each (lane, pixel)
+    holds at most one row, as the planner guarantees; the rows may come in
+    any order. For a CUDA carrier two `torch.sort`s, the glue kernels of
+    csrc/dvs_resident.cu (`adder_rows_keys`, `adder_rows_rank`,
+    `adder_rows_starts`, counted as LAUNCHES["adder_rows_group"]) and one
+    `exclusive_scan`; for a CPU carrier `group_dvs_rows_plain`."""
+    if not carrier.is_cuda:
+        return group_dvs_rows_plain(carrier, T)
+    meta = carrier[0]
+    E, dev = meta.shape[0], meta.device
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(fn, *args) -> None:
+        err = fn(*args, stream)
+        if err:
+            raise RuntimeError(f"the row grouping's launch failed: "
+                               f"{cuda_build.error_string(err)}")
+        LAUNCHES["adder_rows_group"] += 1
+
+    keys = torch.empty((2, E), dtype=torch.int32, device=dev)
+    launch(lib.adder_rows_keys, meta.data_ptr(), E, keys[0].data_ptr(),
+           keys[1].data_ptr())
+    skey, order = torch.sort(keys[0])
+    lkey, lorder = torch.sort(keys[1])
+    head = torch.empty(E, dtype=torch.int32, device=dev)
+    cells = torch.empty((2, E), dtype=torch.int64, device=dev)
+    sub_start = torch.empty(T + 1, dtype=torch.int64, device=dev)
+    launch(lib.adder_rows_rank, skey.data_ptr(), lkey.data_ptr(),
+           lorder.data_ptr(), E, T, head.data_ptr(), cells[0].data_ptr(),
+           cells[1].data_ptr(), sub_start.data_ptr())
+    pos = exclusive_scan(head)
+    row_start = torch.empty(E + 2, dtype=torch.int64, device=dev)
+    launch(lib.adder_rows_starts, head.data_ptr(), pos.data_ptr(), E,
+           row_start.data_ptr())
+    return RowGroups(order, row_start, pos[E:], cells[0], cells[1], sub_start)
+
+
+def group_dvs_rows_plain(carrier: torch.Tensor, T: int) -> RowGroups:
+    """Plain version of `group_dvs_rows`, with torch ops on the carrier's
+    device (any E); it reads nothing back to the host either."""
+    meta = carrier[0]
+    E = meta.shape[0]
+    dev = meta.device
+    key = meta & 0x7FFFFFF  # lane << 20 | pix
+    lane = (key >> 20).to(torch.int64)
+    ar = torch.arange(E, dtype=torch.int64, device=dev)
+    # the rows of each pixel, in lane order
+    skey, order = torch.sort(((key & 0xFFFFF) << 7) | (key >> 20))
+    spix = skey >> 7
+    head = torch.ones(E, dtype=torch.bool, device=dev)
+    head[1:] = spix[1:] != spix[:-1]
+    pos = torch.cumsum(head, 0) - 1
+    row_start = torch.full((E + 2,), E, dtype=torch.int64, device=dev)
+    # a row that heads no run writes to the discarded last slot
+    row_start.scatter_(0, torch.where(head, pos, E + 1), ar)
+    n_active = pos[-1:] + 1 if E else pos.new_zeros(1)
+    # each row's rank in (lane, pixel) order, and each lane's first rank
+    lkey, lorder = torch.sort(key)
+    rank = torch.empty_like(ar)
+    rank[lorder] = ar
+    lanes = torch.arange(T // 2 + 1, dtype=key.dtype, device=dev) << 20
+    lane_start = torch.searchsorted(lkey, lanes)
+    lane_count = lane_start[1:] - lane_start[:-1]
+    cell_gap = rank + lane_start[lane]
+    cell_tick = cell_gap + lane_count[lane]
+    sub_start = torch.cat([
+        torch.stack([2 * lane_start[:-1], 2 * lane_start[:-1] + lane_count],
+                    dim=1).reshape(-1),
+        2 * lane_start[-1:],
+    ])
+    return RowGroups(order, row_start, n_active, cell_gap, cell_tick,
+                     sub_start)
+
+
+def dvs_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
+                            T: int, p: ops.TranscodeParams,
+                            events: bool = True) -> ChunkResult:
+    """Plain version of the DVS lane group given as its carrier
+    (`make_dvs_chunk_resident_packed`,
+    `adder_tpu/ops/fused_resident.py:1159`): the carrier unpacked,
+    scattered into dense planes and run through `dvs_chunk_resident_plain`.
+    Returns a new state; the input state is left as it was."""
+    n = state.length.shape[0]
+    planes = build_dvs_planes(T, n, *unpack_dvs_carrier(carrier),
+                              ref_time=p.ref_time)
+    return dvs_chunk_resident_plain(state, *planes, p, events)
+
+
 # --- DAVIS lane chunks (K4) -------------------------------------------------
 
 
@@ -352,6 +482,36 @@ def dvs_chunk_resident(state, inten, tspan, fvw, p,
     return _dvs_chunk_cuda(state, inten, tspan, fvw, p, events)
 
 
+def dvs_rows_resident(state, carrier, T: int, p,
+                      events: bool = True) -> ChunkResult:
+    """One DVS lane group of T = 2 x lanes sub-steps given as its (5, E)
+    int32 carrier (`pack_dvs_plan`): the same events in the same order, the
+    same counts and flags as `dvs_chunk_resident` on the planes
+    `build_dvs_planes` makes of that carrier. For a CUDA carrier the
+    grouping glue `group_dvs_rows`, then the K3 row kernel `adder_dvs_rows`,
+    COUNT -> scan -> WRITE when `events`, the VOID pass otherwise; for a CPU
+    carrier `dvs_rows_resident_plain`.
+
+    The state is updated in place, on the card and on the CPU alike: only
+    the pixels that have rows change, so no copy of the other pixels is
+    made, and the result's `state` is the caller's `state`. A caller that
+    still needs the old state clones it first (`clone_state`)."""
+    if not carrier.is_cuda:
+        res = dvs_rows_resident_plain(state, carrier, T, p, events)
+        for f in _KERNEL_FIELDS:
+            getattr(state, f).copy_(getattr(res.state, f))
+        return res._replace(state=state)
+    return _dvs_rows_cuda(state, carrier, T, p, events)
+
+
+def clone_state(state: ops.PixelState) -> ops.PixelState:
+    """A copy of every per-pixel field, for a caller that keeps the old
+    state across a chunk that updates it in place."""
+    return ops.PixelState(*(getattr(state, f).clone()
+                            for f in _KERNEL_FIELDS),
+                          overflow=state.overflow)
+
+
 def davis_chunk_resident(state, first_int, dt_ticks, fval, fvw, p,
                          events: bool = True) -> ChunkResult:
     """One DAVIS lane chunk: the plain version for CPU tensors; for CUDA
@@ -414,8 +574,9 @@ def _check_plane(x: torch.Tensor, dtype, what: str) -> None:
         raise ValueError(f"{n} pixel-channels do not fit the 24-bit pixel field")
 
 
-def _check_state(state: ops.PixelState, like: torch.Tensor, depths) -> None:
-    n = like.shape[1]
+def _check_state(state: ops.PixelState, like: torch.Tensor, depths,
+                 n: Optional[int] = None) -> None:
+    n = like.shape[1] if n is None else n
     depth = state.node_d.shape[0]
     if depth not in depths:
         raise ValueError(f"arena depth {depth}; the kernel is built for "
@@ -546,19 +707,122 @@ def _davis_chunk_cuda(state, first_int, dt_ticks, fval, fvw, p,
                        first_int.device, events)
 
 
+class _RowsArgs(ctypes.Structure):
+    """Mirror of `struct AdderRowsArgs` in csrc/adder_interval.cuh."""
+
+    _fields_ = [
+        ("pass_", ctypes.c_int),
+        ("multi_mode", ctypes.c_int),
+        ("depth", ctypes.c_int),
+        ("src", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("rows", ctypes.c_longlong),
+        ("ref_time", ctypes.c_int),
+        ("delta_t_max", ctypes.c_int),
+        ("c_thresh_max", ctypes.c_int),
+        ("vel_m1", ctypes.c_int),
+        ("state", ctypes.c_void_p * 14),
+        ("carrier", ctypes.c_void_p),
+        ("order", ctypes.c_void_p),
+        ("row_start", ctypes.c_void_p),
+        ("n_active", ctypes.c_void_p),
+        ("cell_gap", ctypes.c_void_p),
+        ("cell_tick", ctypes.c_void_p),
+        ("cell_counts", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("out_pixd", ctypes.c_void_p),
+        ("out_t", ctypes.c_void_p),
+        ("flags", ctypes.c_void_p),
+    ]
+
+
+def _dvs_rows_cuda(state, carrier, T: int, p, events: bool,
+                   groups: Optional[RowGroups] = None) -> ChunkResult:
+    """`dvs_rows_resident` for a CUDA carrier. For the timings: `groups`,
+    the grouping made beforehand."""
+    if (carrier.dtype != torch.int32 or carrier.dim() != 2
+            or carrier.shape[0] != 5 or not carrier.is_contiguous()):
+        raise ValueError(f"carrier must be contiguous (5, E) int32, got "
+                         f"{carrier.dtype} {tuple(carrier.shape)}")
+    if T % 2 or not 2 <= T <= MAX_T:
+        raise ValueError(f"group of {T} sub-steps; the kernel takes an even "
+                         f"2..{MAX_T}")
+    if p.mode != int(Mode.Continuous) or p.time_mode != int(TimeMode.AbsoluteT):
+        raise ValueError("the lane kernels are built for Continuous, AbsoluteT")
+    n, E, dev = state.length.shape[0], carrier.shape[1], carrier.device
+    if n > 1 << 20:
+        raise ValueError(f"{n} pixels: the carrier holds pixels below 2^20")
+    _check_state(state, carrier, (DVS_DEPTH,), n)
+    if E == 0:  # no row, nothing to launch: the state stays as it is
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ev = torch.empty(0, dtype=torch.int32, device=dev) if events else None
+        return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero)
+    g = groups if groups is not None else group_dvs_rows(carrier, T)
+    cell_counts = torch.empty(2 * E, dtype=torch.int32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)  # atomic max / or
+    a = _RowsArgs()
+    a.multi_mode, a.depth, a.src = int(p.multi_mode), DVS_DEPTH, SRC_DVS
+    a.n, a.rows = n, E
+    a.ref_time, a.delta_t_max = p.ref_time, p.delta_t_max
+    a.c_thresh_max = p.c_thresh_max
+    a.vel_m1, _ = ops.c_thresh_scalars(0.0, p)
+    for i, f in enumerate(_KERNEL_FIELDS):
+        a.state[i] = getattr(state, f).data_ptr()
+    a.carrier = carrier.data_ptr()
+    a.order, a.row_start = g.order.data_ptr(), g.row_start.data_ptr()
+    a.n_active = g.n_active.data_ptr()
+    a.cell_gap, a.cell_tick = g.cell_gap.data_ptr(), g.cell_tick.data_ptr()
+    a.cell_counts, a.flags = cell_counts.data_ptr(), flags.data_ptr()
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(pass_: int) -> None:
+        a.pass_ = pass_
+        err = lib.adder_dvs_rows(ctypes.addressof(a), stream)
+        if err:
+            raise RuntimeError(f"adder_dvs_rows launch failed: "
+                               f"{cuda_build.error_string(err)}")
+        LAUNCHES["adder_dvs_rows"] += 1
+
+    pixd = t = None
+    launch(PASS_COUNT if events else PASS_VOID)
+    offsets = exclusive_scan(cell_counts)
+    if events:
+        total = int(offsets[-1])  # host read: sizes the event buffers
+        pixd = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+        t = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+        a.offsets = offsets.data_ptr()
+        a.out_pixd, a.out_t = pixd.data_ptr(), t.data_ptr()
+        launch(PASS_WRITE)
+        pixd, t = pixd[:total], t[:total]
+    # the cells of one sub-step are contiguous: a segment sum of the counts
+    at = offsets[g.sub_start]
+    per_interval = at[1:] - at[:-1]
+    pmax = flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
+    return ChunkResult(state, pixd, t, per_interval, pmax)
+
+
+# Counts per block of `adder_exclusive_scan`, as the kernel is built.
+SCAN_TILE = 2048
+
+
 def exclusive_scan(counts: torch.Tensor) -> torch.Tensor:
     """`adder_exclusive_scan` on a CUDA int32 tensor (plain version on the
-    CPU): exclusive int64 prefix sums of the flattened counts, total last."""
+    CPU): exclusive int64 prefix sums of the flattened counts, total last.
+    One launch of ceil(count / SCAN_TILE) blocks; the look-back words and the
+    block ticket it needs are zeroed here, once per call."""
     if not counts.is_cuda:
         return exclusive_scan_plain(counts)
     if counts.dtype != torch.int32 or not counts.is_contiguous():
         raise ValueError("counts must be contiguous int32")
     lib = cuda_build.load()
-    out = torch.empty(counts.numel() + 1, dtype=torch.int64,
-                      device=counts.device)
+    count, dev = counts.numel(), counts.device
+    out = torch.empty(count + 1, dtype=torch.int64, device=dev)
+    scratch = torch.zeros(max(-(-count // SCAN_TILE), 1) + 1, dtype=torch.int64,
+                          device=dev)
     err = lib.adder_exclusive_scan(
-        counts.data_ptr(), out.data_ptr(), counts.numel(),
-        torch.cuda.current_stream(counts.device).cuda_stream,
+        counts.data_ptr(), out.data_ptr(), count, scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"adder_exclusive_scan launch failed: "

@@ -227,6 +227,30 @@ def dvs_group_planes(plan, lane_lo: int, lane_hi: int, n: int, device,
                                ref_time=ref_time)
 
 
+def _check_plan(seed, W: int, H: int, need: int) -> dvs_batch.DvsCompact:
+    """A seeded stream on fresh chains, planned by the port's planner into
+    at least `need` lanes: three hot pixels and a quarter of the plane in
+    background events."""
+    n = H * W
+    ts, xs, ys, ps = dvs_stream(seed, W, H, 200_000, n_hot=3,
+                                hot_events=need + 8,
+                                background_events=max(n // 4, 64))
+    last_t = np.full(n, 2, np.uint32)
+    last_ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
+    plan = dvs_batch.plan_dvs_compact(ts, xs, ys, ps, W, last_t, last_ln,
+                                      0.02, 20)
+    if plan.n_lanes < need:
+        raise AssertionError(f"stream planned {plan.n_lanes} lanes < {need}")
+    return plan
+
+
+def _const_planes(T: int, n: int, dev):
+    """T sub-steps of one mid-grey tick in every pixel (the bootstrap)."""
+    return tuple(torch.full((T, n), v, dtype=dt, device=dev) for v, dt in
+                 ((128.0, torch.float32), (20.0, torch.float32),
+                  (128 | 1 << 8, torch.int32)))
+
+
 def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
                                    lanes=(1, 19, 64), seed: int = 0) -> float:
     """The K3 kernel (WRITE and VOID) against its plain version on the same
@@ -238,15 +262,7 @@ def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
     dev = torch.device(device)
     n = H * W
     need = 2 * sum(lanes)
-    ts, xs, ys, ps = dvs_stream(seed, W, H, 200_000, n_hot=3,
-                                hot_events=need + 8,
-                                background_events=max(n // 4, 64))
-    last_t = np.full(n, 2, np.uint32)
-    last_ln = np.full(n, np.log1p(128.0 / 255.0), np.float64)
-    plan = dvs_batch.plan_dvs_compact(ts, xs, ys, ps, W, last_t, last_ln,
-                                      0.02, 20)
-    if plan.n_lanes < need:
-        raise AssertionError(f"stream planned {plan.n_lanes} lanes < {need}")
+    plan = _check_plan(seed, W, H, need)
     err = 0.0
 
     def both(st_k, st_p, planes, p, what):
@@ -258,15 +274,10 @@ def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
                                what + " void"))
         return k.state, want, e
 
-    def const_planes(T):
-        return tuple(torch.full((T, n), v, dtype=dt, device=dev) for v, dt in
-                     ((128.0, torch.float32), (20.0, torch.float32),
-                      (128 | 1 << 8, torch.int32)))
-
     for multi in (0, 1):
         p = _dvs_params(multi)
         st_k = st_p = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
-        st_k, want, e = both(st_k, st_p, const_planes(2), p,
+        st_k, want, e = both(st_k, st_p, _const_planes(2, n, dev), p,
                              f"bootstrap multi {multi}")
         st_p, err = want.state, max(err, e)
         lo = 0
@@ -280,11 +291,177 @@ def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
     st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
                                           device=dev), n // 10,
                                depth=FR.DVS_DEPTH)
-    _, want, e = both(st, st, const_planes(2), _dvs_params(1),
+    _, want, e = both(st, st, _const_planes(2, n, dev), _dvs_params(1),
                       "forced depth-16 overflow")
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)
+
+
+# --- DVS lane groups by rows, and the scan ------------------------------------
+
+
+def dvs_group_carrier(plan, lane_lo: int, lane_hi: int, device) -> torch.Tensor:
+    """Lanes [lane_lo, lane_hi) of a plan as the (5, E) carrier on `device`."""
+    return torch.from_numpy(
+        FR.pack_dvs_plan(plan.lane_slice(lane_lo, lane_hi))).to(device)
+
+
+def rows_carrier(pix, lane, gap_on, tick_on, gap_fv, gap_val, gap_n, tick_fv,
+                 tick_int, ref_time: int = 20) -> np.ndarray:
+    """Hand-made rows as the (5, E) carrier, with the planner's field
+    definitions: gap_int = f32(gap_val) * f32(gap_n), gap_time =
+    f32(gap_n * ref_time)."""
+    gap_val = np.asarray(gap_val, np.float32)
+    gap_n = np.asarray(gap_n, np.int64)
+    E = len(gap_n)
+    plan = dvs_batch.DvsCompact(
+        np.asarray(pix, np.int32), np.asarray(lane, np.int32),
+        np.asarray(gap_on, bool), np.asarray(gap_fv, np.int32),
+        gap_val * gap_n.astype(np.float32),
+        (gap_n * ref_time).astype(np.float32), np.asarray(tick_on, bool),
+        np.asarray(tick_fv, np.int32), np.asarray(tick_int, np.float32),
+        np.full(E, ref_time, np.float32), gap_val, gap_n)
+    return FR.pack_dvs_plan(plan)
+
+
+def synthetic_rows(seed, n: int, lanes: int, density: float = 0.3,
+                   flags=((1, 1), (0, 1), (1, 0), (0, 0)),
+                   pixels=None) -> np.ndarray:
+    """A seeded (5, E) carrier of `lanes` lanes: in each lane a random subset
+    of the plane (or of `pixels`) in random order, so the pixels of a lane
+    come unsorted; each row's (gap_on, tick_on) drawn from `flags`, so rows
+    with one half off, or both, occur; random values and spans."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(n) if pixels is None else np.asarray(pixels)
+    pix, lane = [], []
+    for k in range(lanes):
+        m = max(1, int(len(pool) * density))
+        pix.append(rng.permutation(pool)[:m])
+        lane.append(np.full(m, k))
+    pix, lane = np.concatenate(pix), np.concatenate(lane)
+    E = len(pix)
+    on = np.asarray(flags)[rng.integers(0, len(flags), E)]
+    return rows_carrier(
+        pix, lane, on[:, 0] != 0, on[:, 1] != 0, rng.integers(0, 256, E),
+        rng.uniform(0, 255, E), rng.integers(1, 3000, E),
+        rng.integers(0, 256, E), rng.uniform(0, 255, E))
+
+
+def check_rows_group(state: ops.PixelState, carrier: torch.Tensor, T: int,
+                     p: ops.TranscodeParams, what: str):
+    """One lane group through `dvs_rows_resident` (WRITE and VOID) against
+    `dvs_rows_resident_plain` on the same carrier and state, bit for bit,
+    the dense `dvs_chunk_resident` on planes built from that carrier
+    against the same, and the grouping glue `group_dvs_rows` against its
+    plain version. `state` is left as it was. Returns (the largest
+    absolute difference, the plain result)."""
+    n, E = state.length.shape[0], carrier.shape[1]
+    want = FR.dvs_rows_resident_plain(state, carrier, T, p)
+    want_void = want._replace(pixd=None, t=None)
+    if E:  # the grouping glue against its plain version
+        glue = FR.group_dvs_rows(carrier, T)
+        glue_plain = FR.group_dvs_rows_plain(carrier, T)
+        for name, a, b in zip(glue._fields, glue, glue_plain):
+            if name == "row_start":  # the last slot is scratch
+                a, b = a[: E + 1], b[: E + 1]
+            bitwise_max_err(a, b, f"{what} glue {name}")
+    planes = FR.build_dvs_planes(T, n, *FR.unpack_dvs_carrier(carrier),
+                                 ref_time=p.ref_time)
+    err = compare_chunks(FR.dvs_chunk_resident(state, *planes, p), want,
+                         what + " dense")
+    for events, ref in ((True, want), (False, want_void)):
+        st = FR.clone_state(state)
+        got = FR.dvs_rows_resident(st, carrier, T, p, events=events)
+        if any(a is not b for a, b in zip(got.state, st)):
+            raise AssertionError(f"{what}: the rows chunk did not return "
+                                 f"the caller's state")
+        err = max(err, compare_chunks(got, ref,
+                                      f"{what} rows events {events}"))
+    return err, want
+
+
+def check_dvs_rows_against_plain(device, H: int = 150, W: int = 200,
+                                 lanes=(1, 19, 64), seed: int = 0) -> float:
+    """The K3 row kernel against its plain version and against the dense K3
+    kernel, bit for bit (`check_rows_group`): for Normal and Collapse, from
+    the state after the bootstrap chunk, two chained groups of T = 2 L
+    sub-steps for each lane count L, planned by the port's planner from a
+    seeded stream; then a forced depth-16 overflow in a group of one row per
+    pixel, a group with no rows, a group whose rows sit in one pixel, and a
+    hand-made group of unsorted rows with one half or both off. Raises on
+    any difference; returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    need = 2 * sum(lanes)
+    plan = _check_plan(seed, W, H, need)
+    boot = _const_planes(2, n, dev)
+    err = 0.0
+    for multi in (0, 1):
+        p = _dvs_params(multi)
+        st = FR.dvs_chunk_resident_plain(
+            ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH), *boot,
+            p).state
+        lo = 0
+        for L in lanes:
+            for rep in range(2):
+                e, want = check_rows_group(
+                    st, dvs_group_carrier(plan, lo, lo + L, dev), 2 * L, p,
+                    f"multi {multi} T {2 * L} group {rep}")
+                st, err = want.state, max(err, e)
+                lo += L
+        top = max(lanes)
+        hot = int(np.bincount(plan.pix).argmax())
+        cases = (
+            ("no rows", np.zeros((5, 0), np.int32), 2),
+            ("one pixel", synthetic_rows(seed + 1, n, top, flags=((1, 1),),
+                                         pixels=[hot]), 2 * top),
+            ("halves off", synthetic_rows(seed + 2, n, min(top, 6)),
+             2 * min(top, 6)),
+        )
+        for what, rows, T in cases:
+            e, _ = check_rows_group(st, torch.from_numpy(rows).to(dev), T, p,
+                                    f"multi {multi} {what}")
+            err = max(err, e)
+    st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
+                                          device=dev), n // 10,
+                               depth=FR.DVS_DEPTH)
+    ones = np.ones(n, bool)
+    every = rows_carrier(np.arange(n), np.zeros(n), ones, ones,
+                         np.full(n, 128), np.full(n, 128.0), np.ones(n),
+                         np.full(n, 128), np.full(n, 128.0))
+    e, want = check_rows_group(st, torch.from_numpy(every).to(dev), 2,
+                               _dvs_params(1), "forced depth-16 overflow")
+    if not (int(want.pmax) >> 16) & 1:
+        raise AssertionError("the forced overflow did not overflow")
+    return max(err, e)
+
+
+SCAN_SIZES = (0, 1, 37, 4096, 4097, 129_600, 524_288)
+
+
+def check_scan_against_plain(device, sizes=SCAN_SIZES, seed: int = 0) -> float:
+    """`exclusive_scan` against `exclusive_scan_plain` at every size, on
+    counts below 16,384 (the total of the largest size passes 2^31), and at
+    each size once more on a view that starts 4 bytes past a 16-byte
+    boundary. Raises on any difference; returns the
+    largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    err = 0.0
+    for size in sizes:
+        counts = torch.randint(0, 16384, (size + 1,), generator=gen,
+                               dtype=torch.int32)
+        want = FR.exclusive_scan_plain(counts[:size])
+        if size == max(sizes) and size >= 524_288 and int(want[-1]) <= 2 ** 31:
+            raise AssertionError("the largest scan stays below 2^31")
+        on_dev = counts.to(dev)
+        err = max(err, bitwise_max_err(
+            FR.exclusive_scan(on_dev[:size]).cpu(), want, f"scan of {size}"))
+        err = max(err, bitwise_max_err(
+            FR.exclusive_scan(on_dev[1:]).cpu(),
+            FR.exclusive_scan_plain(counts[1:]), f"scan of {size}, unaligned"))
+    return err
 
 
 # --- DAVIS (aedat4 -> EDI -> Davis) inputs and checks --------------------------

@@ -28,10 +28,12 @@ def lane_params(v: Video) -> ops.TranscodeParams:
 
 
 def run_lane_chunk(fn, state, planes, p, void: bool, width: int):
-    """One lane chunk of the wrapper `fn` (`dvs_chunk_resident` or
-    `davis_chunk_resident`) on `state`: (the new state, its events as
-    (x, y, d, t) host arrays, or None when `void`: the VOID pass, no
-    fetch)."""
+    """One lane chunk of the wrapper `fn` (`dvs_chunk_resident`,
+    `dvs_rows_resident` or `davis_chunk_resident`) on `state`, `planes`
+    being its inputs between the state and the parameters: (the new state,
+    its events as (x, y, d, t) host arrays, or None when `void`: the VOID
+    pass, no fetch). `dvs_rows_resident` updates `state` in place and
+    returns it; the others return a new one."""
     res = fn(state, *planes, p, events=not void)
     if void:
         return res.state, None

@@ -10,10 +10,12 @@ and integrates one source tick of the new intensity.
 A window of events (1 / view_fps of the stream) is planned on the host by
 the native planner (`ops/dvs_batch.plan_dvs_compact`) into lanes:
 lane k holds each pixel's k-th event. Lanes run in groups of at most 64 as
-one chunk of T = 2 x lanes sub-steps (`ops/fused_resident.dvs_chunk_resident`:
-the K3 kernel on a CUDA device, its plain version on the CPU). A group's
-rows reach the device as one (5, E) int32 carrier and are scattered there
-into dense (T, N) planes. Windows of more than 1.5 segments
+one chunk of T = 2 x lanes sub-steps. A group's rows reach the device as
+one (5, E) int32 carrier and run from it
+(`ops/fused_resident.dvs_rows_resident`: on a CUDA device the K3 row kernel,
+which walks each pixel's own rows and updates the state in place; on the
+CPU its plain version, which scatters the rows into dense (T, N) planes).
+Windows of more than 1.5 segments
 (ADDER_TPU_DVS_SEG_EVENTS events, default 262,144) are planned segment by
 segment, as the JAX resident engine does.
 
@@ -23,7 +25,8 @@ independent of window, segment and group boundaries; the bytes equal the JAX
 scan engine's wherever no window is segmented.
 
 The bootstrap (two mid-grey ticks for every pixel) is one T = 2 chunk and
-the end-of-stream flush one T = 1 chunk, both through the same kernel.
+the end-of-stream flush one T = 1 chunk, both dense by nature and run from
+planes (`ops/fused_resident.dvs_chunk_resident`, the dense K3 kernel).
 Not ported: the scalar per-event oracle (`batched=False`) and the XLA scan
 engine; on the CPU the plain version takes their place.
 """
@@ -210,20 +213,21 @@ class Prophesee:
         return t[sl], x[sl], y[sl], p[sl]
 
     def _run_chunk(self, inten, tspan, fvw, p):
-        """One K3 chunk on the carried state; its events as (x, y, d, t)
-        host arrays, or None on the void path."""
+        """One dense K3 chunk on the carried state; its events as (x, y, d,
+        t) host arrays, or None on the void path."""
         self.state, events = run_lane_chunk(
             FR.dvs_chunk_resident, self.state, (inten, tspan, fvw), p,
             self.void_events, self.plane.width)
         return events
 
     def _run_group(self, g: dvs_batch.DvsCompact, n_lanes: int, p):
+        """One lane group from its carrier, through the row route; the
+        carried state is updated in place."""
         carrier = torch.from_numpy(FR.pack_dvs_plan(g)).to(self.device)
-        planes = FR.build_dvs_planes(
-            2 * n_lanes, self.plane.volume(), *FR.unpack_dvs_carrier(carrier),
-            ref_time=p.ref_time,
-        )
-        return self._run_chunk(*planes, p)
+        self.state, events = run_lane_chunk(
+            FR.dvs_rows_resident, self.state, (carrier, 2 * n_lanes), p,
+            self.void_events, self.plane.width)
+        return events
 
     def _const_chunk(self, T: int, intensity: float, fv: int, time: float):
         n = self.plane.volume()

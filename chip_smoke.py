@@ -9,29 +9,41 @@ Phases (any failure raises and the script exits non-zero):
      time the build and report ptxas registers and spills;
   2. every kernel against its plain PyTorch version on the card, bit for
      bit: a ragged 200x150 plane, 2 chunks of T = 8, all 8 mode cases,
-     depth 6 and 8, a forced depth-6 overflow; the scan past 2^31;
+     depth 6 and 8, a forced depth-6 overflow; the multi-block scan at 0, 1,
+     37, 4096, 4097, 129,600 and 524,288 counts (a total past 2^31), each
+     also from an input off the 16-byte boundary;
   3. the main path: 1080p mono, the reference's bench config, 64 frames of
      a seeded moving-blob scene, FramedArray(device="cuda") -> Video
      submit/collect -> Raw .adder in a temporary directory. The launch
      counters must rise, the decoded event count must equal the kernel's,
      and the first 8 frames must give the same bytes on the card and on
      the CPU;
-  4. timings: kernel against plain version at 1080p mono, T = 16; the
-     Empty-sink (void) path at 1080p mono and colour;
-  5. the DVS lane kernel (K3) against its plain version, bit for bit: a
-     ragged 200x150 plane, the bootstrap chunk, T = 2, 38 and 128 in two
-     chained groups planned from a seeded stream, Normal and Collapse, WRITE
-     and VOID, a forced depth-16 overflow;
+  4. timings: kernel against plain version at 1080p mono, T = 16; the scan
+     at (16, 8100) counts beside torch.cumsum, and at 524,288, each timed
+     from the host and on the card alone; the Empty-sink (void) path at 1080p mono and colour;
+  5. the DVS lane kernel (K3) against its plain version, bit for bit, by
+     both routes. Dense (adder_dvs_chunk, planes): a ragged 200x150 plane,
+     the bootstrap chunk, T = 2, 38 and 128 in two chained groups planned
+     from a seeded stream, Normal and Collapse, WRITE and VOID, a forced
+     depth-16 overflow. Rows (adder_dvs_rows, the carrier): the same groups,
+     modes and passes, a group with no rows, one whose rows sit in one pixel, rows with one half or
+     both off, the forced overflow; each also equal to the dense kernel on
+     planes built from the same carrier, and the grouping glue's kernels
+     (adder_rows_group) equal to their plain version in torch ops;
   6. the Prophesee path at 640x480 (the DSEC Gen3.1 VGA sensor) with the
      CLI defaults (ref_time 20, crf 3, Collapse, AbsoluteT, Raw sink,
      view_fps 60) on a seeded 1.0 s, 2,000,000-event stream, through
-     Prophesee(20, path, device="cuda"): the launch counters must rise and
-     the decoded event count must equal the kernel's; the first 0.05 s must
+     Prophesee(20, path, device="cuda"): every lane group must go through
+     adder_dvs_rows, the dense kernel may run only the bootstrap and the
+     flush, and the decoded event count must equal the kernels'; the first
+     0.05 s must
      give the same bytes on the card and on the CPU; a bulk run (view_fps 1,
      Empty sink, void) must run segmented windows and T = 128 groups;
-  7. timings: K3 against plain on one 64-lane group at 640x480 (T = 128);
-     end-to-end Mev/s (windowed Raw, bulk void); a stage breakdown of the
-     windowed Raw run;
+  7. timings on one 64-lane group at 640x480 (T = 128): the row route
+     fetched and void, with and without its grouping glue, the glue alone beside its plain version;
+     the dense kernel and its plane scatter beside them; both against
+     plain; end-to-end Mev/s
+     (windowed Raw, bulk void); a stage breakdown of the windowed Raw run;
   8. the DAVIS lane kernel (K4) against its plain version, bit for bit: a
      ragged 61x47 plane, lanes planned from a seeded burst by the port's
      planner, T = 1, 37 and 128 in two chained groups, Normal and Collapse,
@@ -45,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
      decoded event count must equal the kernels'; the first 4 packets must
      give the same bytes on the card and on the CPU; a void run must end in
      the fetched run's state;
-  10. timings: K4 against plain on the largest packet's chunk; end-to-end
+  10. timings: K4 against plain on the largest packet's chunk; the dense
+     K3 kernel at the T = 1 shape of the frame and gap chunks; end-to-end
      Mev/s and APS frames/s; a stage breakdown; the device's busy share;
   11. the fused one-interval kernel (K5) against its plain version, bit for
      bit: a ragged 200x150 plane, 2 chained chunks of T = 8 written from a
@@ -155,6 +168,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_queued(fn, reps: int) -> float:
+    """As `cuda_ms`, for a call that never waits for the card: the card is
+    kept busy while the host enqueues every call, so the events time the
+    launches back to back on the card, without the host's dispatch time
+    between them."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 25 ms of spinning on the card
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rows_ms(fn, state, reps: int, clone) -> float:
+    """`cuda_ms` of fn(state) for a function that updates the state it is
+    given in place: every call gets its own copy of `state`, made before
+    the clock starts."""
+    copies = iter([clone(state) for _ in range(reps + 1)])
+    return cuda_ms(lambda: fn(next(copies)), reps)
+
+
 def state_bytes(state) -> int:
     """Bytes of a PixelState's per-pixel fields (the overflow scalar aside)."""
     return sum(x.numel() * x.element_size() for x in state[:-1])
@@ -196,6 +235,10 @@ def kernel_source(name: str) -> str:
         return "fused interval (K5)"
     if "adder_interval_slots_kernel" in name:
         return "interval slots (K6)"
+    if "adder_lane_rows_kernel" in name:
+        return "DVS rows (K3)"
+    if "adder_exclusive_scan_kernel" in name:
+        return "scan"
     m = re.search(r"ELi(\d)E+v", name)
     return {"0": "framed (K1/K2)", "1": "DVS (K3)", "2": "DAVIS (K4)"}.get(
         m.group(1) if m else "", "other")
@@ -377,6 +420,25 @@ class Stages:
             return r
         return f
 
+    def rows(self, orig):
+        """The row wrapper: the copy before it as h2d, its grouping glue
+        (timed inside it by `timed("group")`) apart from its kernels, its
+        event fetch as fetch."""
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.seconds["h2d"] += t0 - self.packed_at
+            g0 = self.seconds["group"]
+            r = orig(*a, **k)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.seconds["kernels"] += t1 - t0 - (self.seconds["group"] - g0)
+            if r.pixd is not None:
+                r = r._replace(pixd=r.pixd.cpu(), t=r.t.cpu())
+            self.seconds["fetch"] += time.perf_counter() - t1
+            return r
+        return f
+
     def kernels(self, stage):
         """A chunk wrapper timed as `stage`, its event fetch as fetch."""
         def make(orig):
@@ -397,19 +459,21 @@ class Stages:
 def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     """The windowed Raw run with every stage timed on the host clock and a
     synchronise after it: decode, the window search, plan, pack, host ->
-    device carrier copy, unpack + scatter into planes, kernels (COUNT + scan
-    + WRITE, with the host read of the total), event fetch, unpacking the
-    wire pairs to x, y, d, t, encode; "other" is the rest of the wall (the
-    loop, event arrays, the bootstrap and end-of-stream planes)."""
-    S = Stages(("decode", "window", "plan", "pack", "h2d", "scatter",
+    device carrier copy, group (the row route's grouping glue: two sorts and
+    the cell ranks), kernels (COUNT + scan + WRITE, with the host read of
+    the total; the row kernel for the lane groups, the dense one for the
+    bootstrap and the flush), event fetch, unpacking the wire pairs to x,
+    y, d, t, encode; "other" is the rest of the wall (the loop, event
+    arrays, the bootstrap and end-of-stream planes)."""
+    S = Stages(("decode", "window", "plan", "pack", "h2d", "group",
                 "kernels", "fetch", "unpack", "encode"))
     st = S.seconds
     P = Patches()
     P.wrap(TP, "decode_events_np", S.timed("decode"))
     P.wrap(dvs_batch, "plan_dvs_compact", S.timed("plan"))
     P.wrap(FR, "pack_dvs_plan", S.pack)
-    P.wrap(FR, "unpack_dvs_carrier", S.unpack)
-    P.wrap(FR, "build_dvs_planes", S.timed("scatter"))
+    P.wrap(FR, "group_dvs_rows", S.timed("group"))
+    P.wrap(FR, "dvs_rows_resident", S.rows)
     P.wrap(FR, "dvs_chunk_resident", S.kernels("kernels"))
     P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
 
@@ -434,9 +498,10 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
 
 
 def dvs_phases(dev, card):
-    """Phases 5-7 (the Prophesee path). Returns (K3's max abs err against
-    plain, the windowed run's launch counts, K3's timings and bound at
-    T = 128)."""
+    """Phases 5-7 (the Prophesee path). Returns (the dense K3 kernel's and
+    the row route's max abs err against plain, the windowed run's launch
+    counts, the timings and bound at T = 128 of the dense kernel, of the
+    row route and of its grouping glue)."""
     import numpy as np
 
     import adder_tpu_torch as at
@@ -452,6 +517,14 @@ def dvs_phases(dev, card):
     log(f"# phase 5: K3 == plain on 200x150: bootstrap, T = 2/38/128 x 2 "
         f"chained groups, Normal and Collapse, WRITE and VOID, forced "
         f"depth-16 overflow (max abs err {dvs_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows_err = testing.check_dvs_rows_against_plain(dev)
+    torch.cuda.synchronize()
+    log(f"# phase 5: K3 rows == plain == dense K3 on 200x150: T = 2/38/128 x "
+        f"2 chained groups, Normal and Collapse, WRITE and VOID, "
+        f"no rows, one pixel's rows, halves off, forced "
+        f"depth-16 overflow; state in place (max abs err {rows_err}); "
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: the Prophesee path at 640x480 ------------------------------
@@ -484,15 +557,21 @@ def dvs_phases(dev, card):
             return f
 
         P.wrap(FR, "dvs_chunk_resident", count_events)
+        P.wrap(FR, "dvs_rows_resident", count_events)
         FR.reset_launch_counts()
         try:
             first_s, _ = prophesee_run(at, raw_in, dev, out)
         finally:
             P.restore()
         dvs_launches = dict(FR.LAUNCHES)
-        if min(dvs_launches["adder_dvs_chunk"],
+        if min(dvs_launches["adder_dvs_rows"], dvs_launches["adder_dvs_chunk"],
+               dvs_launches["adder_rows_group"],
                dvs_launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"Prophesee path missed a kernel: "
+                                 f"{dvs_launches}")
+        # dense: COUNT + WRITE of the bootstrap and of the flush, no more
+        if dvs_launches["adder_dvs_chunk"] != 4:
+            raise AssertionError(f"a lane group ran the dense kernel: "
                                  f"{dvs_launches}")
         n_kernel = int(sum(int(x) for x in kernel_events))
         n_decoded = len(at.open_file_decoder(out).digest_all())
@@ -533,13 +612,13 @@ def dvs_phases(dev, card):
             return f
 
         def record_t(orig):
-            def f(st, inten, *a, **kw):
-                depths.append(inten.shape[0])
-                return orig(st, inten, *a, **kw)
+            def f(st, carrier, T, *a, **kw):
+                depths.append(T)
+                return orig(st, carrier, T, *a, **kw)
             return f
 
         P.wrap(dvs_batch, "plan_dvs_compact", count_plans)
-        P.wrap(FR, "dvs_chunk_resident", record_t)
+        P.wrap(FR, "dvs_rows_resident", record_t)
         try:
             prophesee_run(at, raw_in, dev, None, view_fps=1)
         finally:
@@ -550,7 +629,7 @@ def dvs_phases(dev, card):
         bulk_s, _ = prophesee_run(at, raw_in, dev, None, view_fps=1)
         bulk_mev = n_in / bulk_s / 1e6
         log(f"# phase 6: bulk void (view_fps 1, Empty sink): {plans[0]} "
-            f"segments, {len(depths)} chunks, T up to {max(depths)}; "
+            f"segments, {len(depths)} row groups, T up to {max(depths)}; "
             f"{bulk_mev} Mev/s ({bulk_s} s, second run) [{card}]")
 
         # -- phase 7: timings ------------------------------------------------
@@ -569,22 +648,24 @@ def dvs_phases(dev, card):
             src.dvs_last_ln_val, src.camera_theta, 20)
         g = plan.lane_slice(0, TP.LANE_GROUP)
         packed = FR.pack_dvs_plan(g)
-        fields = FR.unpack_dvs_carrier(torch.from_numpy(packed).to(dev))
+        carrier = torch.from_numpy(packed).to(dev)
+        fields = FR.unpack_dvs_carrier(carrier)
         planes = FR.build_dvs_planes(FR.MAX_T, n, *fields, ref_time=20)
         active = float(((planes[2] >> 8) & 1).float().mean())
-        want = FR.dvs_chunk_resident_plain(st_dvs, *planes, p_dvs)
-        dvs_err = max(
-            dvs_err,
-            testing.compare_chunks(FR.dvs_chunk_resident(st_dvs, *planes,
-                                                         p_dvs),
-                                   want, "T=128 group"),
-            testing.compare_chunks(
-                FR.dvs_chunk_resident(st_dvs, *planes, p_dvs, events=False),
-                want._replace(pixd=None, t=None), "T=128 void"),
-        )
-        log(f"# phase 7: K3 == plain on the {DVS_W}x{DVS_H} T=128 group "
-            f"({len(g.pix)} planned rows, {active:.4%} of (sub-step, pixel) "
-            f"active, "
+        # rows (WRITE and VOID) and the dense kernel's fetched
+        # chunk against the plain version; then the dense VOID pass
+        e, want = testing.check_rows_group(st_dvs, carrier, FR.MAX_T, p_dvs,
+                                           "T=128 group")
+        rows_err = max(rows_err, e)
+        dvs_err = max(dvs_err, e, testing.compare_chunks(
+            FR.dvs_chunk_resident(st_dvs, *planes, p_dvs, events=False),
+            want._replace(pixd=None, t=None), "T=128 void"))
+        groups = FR.group_dvs_rows(carrier, FR.MAX_T)
+        log(f"# phase 7: K3 == plain and K3 rows == plain == K3 on the "
+            f"{DVS_W}x{DVS_H} T=128 group ({len(g.pix)} planned rows, "
+            f"{int(groups.n_active)} pixels with rows, longest "
+            f"{int((groups.row_start[1:] - groups.row_start[:-1]).max())} "
+            f"rows, {active:.4%} of (sub-step, pixel) active, "
             f"{len(want.pixd)} events)")
         k3_ms = cuda_ms(lambda: FR.dvs_chunk_resident(st_dvs, *planes, p_dvs),
                         10)
@@ -595,17 +676,49 @@ def dvs_phases(dev, card):
         k3_bound = lane_chunk_bound(st_dvs, planes, len(want.pixd))
         k3v_bound = lane_chunk_bound(st_dvs, planes, 0)
         k3_dense = chunk_bound(st_dvs, planes, len(want.pixd))
-        sc_ms = cuda_ms(lambda: FR.build_dvs_planes(FR.MAX_T, n, *fields,
-                                                    ref_time=20), 10)
+        sc_ms = cuda_ms(lambda: FR.build_dvs_planes(
+            FR.MAX_T, n, *FR.unpack_dvs_carrier(carrier), ref_time=20), 10)
         h2d_ms = cuda_ms(lambda: torch.from_numpy(packed).to(dev), 10)
+        # the row route: the whole wrapper (glue + passes), the passes alone
+        # on groups made before the clock starts, the glue alone
+        glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
+        glue_p_ms = cuda_ms(lambda: FR.group_dvs_rows_plain(carrier,
+                                                            FR.MAX_T), 20)
+        glue_q_ms = cuda_ms_queued(
+            lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
+        sort_ms = cuda_ms(lambda: torch.sort(carrier[0]), 20)
+        E = carrier.shape[1]
+        # carrier row 0 read; order, row_start, the two cell arrays written
+        glue_bound = bound(4 * E + 8 * (4 * E + 2) + 8 * (FR.MAX_T + 2))
+        rows_t = {}
+        for events in (True, False):
+            rows_t["fetched" if events else "void"] = (
+                rows_ms(lambda st: FR.dvs_rows_resident(
+                    st, carrier, FR.MAX_T, p_dvs, events=events), st_dvs, 10,
+                    FR.clone_state),
+                rows_ms(lambda st: FR._dvs_rows_cuda(
+                    st, carrier, FR.MAX_T, p_dvs, events, groups), st_dvs, 10,
+                    FR.clone_state))
+        r_ms = rows_t["fetched"][0]  # the wrapper's own time, glue included
+        rp_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
+            st_dvs, carrier, FR.MAX_T, p_dvs), 1)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
-        log(f"#   K3 fetched (COUNT+scan+WRITE) {k3_ms} ms, void {k3v_ms} "
-            f"ms, plain {k3p_ms} ms; bound {k3_bound} ms, void bound "
+        log(f"#   dense K3 fetched (COUNT+scan+WRITE) {k3_ms} ms, void "
+            f"{k3v_ms} ms, plain {k3p_ms} ms; unpack + scatter into 3 x "
+            f"(128, {n}) planes {sc_ms} ms; bound {k3_bound} ms, void bound "
             f"{k3v_bound} ms (active cells and pixels; dense-plane format "
             f"{k3_dense} ms)")
+        for what, (with_glue, alone) in rows_t.items():
+            log(f"#   K3 rows, {what}: {with_glue} ms with glue, {alone} ms "
+                f"the passes alone")
+        log(f"#   row grouping glue: {glue_ms} ms ({glue_q_ms} ms on the "
+            f"card alone), its plain version in torch ops {glue_p_ms} ms, "
+            f"one torch.sort of {E} int32 keys {sort_ms} ms, bound "
+            f"{glue_bound} ms")
+        log(f"#   K3 rows: plain {rp_ms} ms; the wrapper {r_ms} ms fetched "
+            f"(the bound is {k3_bound / r_ms:.2%} of it)")
         log(f"#   carrier h2d {packed.nbytes} bytes in {h2d_ms} ms "
-            f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable); unpack + "
-            f"scatter into 3 x (128, {n}) planes {sc_ms} ms")
+            f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable)")
         wall, stages, nbytes = staged_prophesee_run(
             at, raw_in, dev, out, dvs_batch, FR, TP)
         log(f"# phase 7: windowed Raw stage breakdown, {wall} s wall "
@@ -616,8 +729,10 @@ def dvs_phases(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    return dvs_err, dvs_launches, dict(ms=k3_ms, plain_ms=k3p_ms,
-                                       bound_ms=k3_bound)
+    return (dvs_err, rows_err, dvs_launches,
+            dict(ms=k3_ms, plain_ms=k3p_ms, bound_ms=k3_bound),
+            dict(ms=r_ms, plain_ms=rp_ms, bound_ms=k3_bound),
+            dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound))
 
 
 def davis_run(at, path, device, raw_path=None, before=None):
@@ -755,7 +870,7 @@ def davis_phases(dev, card):
             f"{time.perf_counter() - t0:.1f} s")
 
         out = os.path.join(tmp, "davis.adder")
-        kernel_events, biggest = [], {}
+        kernel_events, biggest, frame_chunk = [], {}, {}
         P = Patches()
 
         def count_events(orig):
@@ -763,6 +878,12 @@ def davis_phases(dev, card):
                 r = orig(*a, **kw)
                 kernel_events.append(r.per_interval.sum())
                 return r
+            return f
+
+        def keep_frame_chunk(orig):
+            def f(state, *planes_p, **kw):
+                frame_chunk.update(state=state, args=planes_p[:3])
+                return orig(state, *planes_p, **kw)
             return f
 
         def keep_biggest(orig):
@@ -774,6 +895,7 @@ def davis_phases(dev, card):
             return f
 
         P.wrap(FR, "dvs_chunk_resident", count_events)
+        P.wrap(FR, "dvs_chunk_resident", keep_frame_chunk)
         P.wrap(FR, "davis_chunk_resident", count_events)
         P.wrap(FR, "davis_chunk_resident", keep_biggest)
         FR.reset_launch_counts()
@@ -843,6 +965,14 @@ def davis_phases(dev, card):
         log(f"#   K4 fetched (COUNT+scan+WRITE) {k4_ms} ms, void {k4v_ms} ms, "
             f"plain {k4p_ms} ms; bound {k4_bound} ms, void bound {k4v_bound} "
             f"ms (active cells and pixels; dense-plane format {k4_dense} ms)")
+
+        st1, planes1 = frame_chunk["state"], frame_chunk["args"]
+        want1 = FR.dvs_chunk_resident(st1, *planes1, p)
+        k3f_ms = cuda_ms(lambda: FR.dvs_chunk_resident(st1, *planes1, p), 20)
+        log(f"#   dense K3 at the frame chunk's shape, T="
+            f"{planes1[0].shape[0]} ({len(want1.pixd)} events): fetched "
+            f"{k3f_ms} ms, bound "
+            f"{lane_chunk_bound(st1, planes1, len(want1.pixd))} ms")
 
         wall, _ = davis_run(at, path, dev, out)
         log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
@@ -1150,8 +1280,8 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "DVS (K3)", "DAVIS (K4)",
-                 "fused interval (K5)", "interval slots (K6)"):
+    for what in ("framed (K1/K2)", "scan", "DVS (K3)", "DVS rows (K3)",
+                 "DAVIS (K4)", "fused interval (K5)", "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
         if ks:
@@ -1162,7 +1292,8 @@ def main() -> int:
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
     for k, v in ptx.items():
-        if kernel_source(k) in ("DVS (K3)", "DAVIS (K4)", "other"):
+        if kernel_source(k) in ("DVS (K3)", "DVS rows (K3)", "DAVIS (K4)",
+                                "scan", "other"):
             log(f"#   {k}: {v}")
 
     # -- phase 2: kernels against plain, bit for bit ----------------------
@@ -1174,10 +1305,13 @@ def main() -> int:
         FR.exclusive_scan(big.to(dev)), FR.exclusive_scan_plain(big).to(dev),
         "exclusive scan",
     )
+    scan_err = max(scan_err, testing.check_scan_against_plain(dev))
     torch.cuda.synchronize()
     log(f"# phase 2: kernels == plain on 8 modes x depth 6/8 x 2 chunks + "
-        f"forced overflow (max abs err {max_err}); scan == plain past 2^31 "
-        f"(max abs err {scan_err}); {time.perf_counter() - t0:.1f} s")
+        f"forced overflow (max abs err {max_err}); scan == plain at "
+        f"{testing.SCAN_SIZES} counts, aligned and unaligned, "
+        f"and at (64, 24300) past 2^31 (max abs err {scan_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path at 1080p mono -----------------------------
     t0 = time.perf_counter()
@@ -1253,18 +1387,45 @@ def main() -> int:
     p_ms = cuda_ms(lambda: FR.fused_chunk_resident_plain(st, f16, 255.0, p), 2)
     v_ms = cuda_ms(lambda: FR.group_chunk_resident(st, f16, 255.0, p), 10)
     vp_ms = cuda_ms(lambda: FR.group_chunk_resident_plain(st, f16, 255.0, p), 2)
-    s_ms = cuda_ms(lambda: FR.exclusive_scan(counts), 50)
-    sp_ms = cuda_ms(lambda: FR.exclusive_scan_plain(counts), 50)
-    # the library yardstick: one torch.cumsum of the same counts (int64)
+    # the scan beside the library yardstick, one torch.cumsum of the same
+    # counts (int64): each the best of two loops, the scan's around cumsum's
     s_lib_ms = cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
+    s_ms = cuda_ms(lambda: FR.exclusive_scan(counts), 50)
+    s_ms = min(s_ms, cuda_ms(lambda: FR.exclusive_scan(counts), 50))
+    sp_ms = cuda_ms(lambda: FR.exclusive_scan_plain(counts), 50)
+    s_lib_ms = min(s_lib_ms,
+                   cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50))
+    zero_ms = cuda_ms(lambda: torch.zeros(65, dtype=torch.int64, device=dev),
+                      50)
+    # the same three with the host's dispatch time taken out
+    q_ms = cuda_ms_queued(lambda: FR.exclusive_scan(counts), 50)
+    q_lib_ms = cuda_ms_queued(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
+    q_zero_ms = cuda_ms_queued(
+        lambda: torch.zeros(65, dtype=torch.int64, device=dev), 50)
+    cells = torch.randint(0, 4, (2 * 262_144,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    big_ms = cuda_ms(lambda: FR.exclusive_scan(cells), 50)
+    big_lib_ms = cuda_ms(lambda: torch.cumsum(cells, 0), 50)
+    q_big_ms = cuda_ms_queued(lambda: FR.exclusive_scan(cells), 50)
+    q_big_lib_ms = cuda_ms_queued(lambda: torch.cumsum(cells, 0), 50)
     k_bound = chunk_bound(st, [f16], len(want.pixd))
     v_bound = chunk_bound(st, [f16], 0)
     s_bound = bound(counts.numel() * 4 + (counts.numel() + 1) * 8)
     log(f"# phase 4: 1080p mono T={T_CHUNK} chunk [{card}]:")
     log(f"#   fetched chunk (COUNT+scan+WRITE) {k_ms} ms, plain {p_ms} ms, "
         f"bound {k_bound} ms; void chunk {v_ms} ms, plain {vp_ms} ms, bound "
-        f"{v_bound} ms; scan {s_ms} ms, plain {sp_ms} ms, torch.cumsum "
-        f"{s_lib_ms} ms, bound {s_bound} ms")
+        f"{v_bound} ms")
+    log(f"#   scan of (16, 8100) counts, {FR.SCAN_TILE} a block: {s_ms} ms "
+        f"(best of two loops of 50; its scratch memset included, alone "
+        f"{zero_ms} ms), plain {sp_ms} ms, torch.cumsum {s_lib_ms} ms, bound "
+        f"{s_bound} ms")
+    log(f"#   the same on the card alone (every call enqueued while the card "
+        f"is kept busy): scan {q_ms} ms, its scratch memset alone "
+        f"{q_zero_ms} ms, torch.cumsum {q_lib_ms} ms")
+    log(f"#   scan of 524,288 counts: {big_ms} ms, torch.cumsum "
+        f"{big_lib_ms} ms; on the card alone {q_big_ms} ms, "
+        f"torch.cumsum {q_big_lib_ms} ms; bound "
+        f"{bound(cells.numel() * 4 + (cells.numel() + 1) * 8)} ms")
     log(f"#   device-only: void {H * W * T_CHUNK / v_ms / 1e3} Mpx/s, "
         f"fetched {H * W * T_CHUNK / k_ms / 1e3} Mpx/s")
     mono = void_mpx(at, frames, T_CHUNK, dev)
@@ -1276,7 +1437,7 @@ def main() -> int:
     log(f"# phase 4: void path (host frames in, Empty sink) 1080p mono "
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
 
-    dvs_err, dvs_launches, k3 = dvs_phases(dev, card)
+    dvs_err, rows_err, dvs_launches, k3, k3r, glue = dvs_phases(dev, card)
     k4, davis_launches = davis_phases(dev, card)
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
 
@@ -1294,7 +1455,8 @@ def main() -> int:
                       + dvs_launches["adder_exclusive_scan"]
                       + davis_launches["adder_exclusive_scan"]),
          "max_abs_err": scan_err, "ms": s_ms, "plain_ms": sp_ms,
-         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib_ms},
+         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib_ms,
+         "queued_ms": q_ms, "queued_library_ms": q_lib_ms},
         {"name": "adder_dvs_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1017",
@@ -1303,6 +1465,20 @@ def main() -> int:
          "max_abs_err": dvs_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "adder_dvs_rows", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/dvs_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:1159",
+         "launches": dvs_launches["adder_dvs_rows"],
+         "max_abs_err": rows_err, "ms": k3r["ms"],
+         "plain_ms": k3r["plain_ms"], "bound_ms": k3r["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "adder_rows_group", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/dvs_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:1115",
+         "launches": dvs_launches["adder_rows_group"],
+         "max_abs_err": rows_err, "ms": glue["ms"],
+         "plain_ms": glue["plain_ms"], "bound_ms": glue["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "adder_davis_chunk", "route": "cuda",
          "source": "adder_tpu_torch/csrc/davis_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1361",

@@ -39,6 +39,15 @@ def test_scan_matches_plain_past_int32(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+def test_scan_matches_plain_every_size(cuda):
+    """The multi-block scan at 0, 1, 37, 4096, 4097, 129,600 and 524,288
+    counts (the last with a total past 2^31), and on inputs that are not
+    16-byte aligned."""
+    FR.reset_launch_counts()
+    assert testing.check_scan_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_exclusive_scan"] == 2 * len(testing.SCAN_SIZES)
+
+
 def _raw_bytes(frames, device):
     src = at.FramedArray(frames, 30.0, chunk_frames=4, device=device)
     src.auto_time_parameters(255, 255 * 24, at.TimeMode.DeltaT)
@@ -87,6 +96,34 @@ def test_dvs_kernel_matches_plain(cuda):
     assert testing.check_dvs_kernel_against_plain(cuda) == 0.0
 
 
+def test_dvs_rows_kernel_matches_plain_and_dense(cuda):
+    """The K3 row kernel against its plain version and the dense K3 kernel:
+    T = 2, 38 and 128 in two chained groups, Normal and Collapse, WRITE and
+    VOID, a group with no rows,
+    one whose rows sit in one pixel, rows with one half or both off, a
+    forced depth-16 overflow; the state updated in place."""
+    FR.reset_launch_counts()
+    assert testing.check_dvs_rows_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_dvs_rows"] > 0
+
+
+def test_dvs_rows_wrapper_rejects_bad_input(cuda):
+    p = testing._dvs_params(1)
+    st = FR.ops.init_state(35, cuda, depth=FR.DVS_DEPTH)
+    carrier = torch.from_numpy(testing.synthetic_rows(6, 35, 2)).to(cuda)
+    with pytest.raises(ValueError):
+        FR.dvs_rows_resident(st, carrier.to(torch.int64), 4, p)
+    with pytest.raises(ValueError):
+        FR.dvs_rows_resident(st, carrier[:4], 4, p)
+    with pytest.raises(ValueError):
+        FR.dvs_rows_resident(st, carrier, 3, p)
+    with pytest.raises(ValueError):
+        FR.dvs_rows_resident(FR.ops.init_state(35, cuda, depth=8), carrier, 4,
+                             p)
+    with pytest.raises(ValueError):
+        FR.dvs_rows_resident(st, carrier, 4, p._replace(mode=0))
+
+
 def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
     t, x, y, p = testing.dvs_stream(2, 64, 48, 40_000, n_hot=4,
                                     hot_events=90, band_events=3000,
@@ -111,7 +148,9 @@ def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
 
     FR.reset_launch_counts()
     on_card = run(cuda)
-    assert FR.LAUNCHES["adder_dvs_chunk"] > 0
+    # every lane group by rows; the bootstrap and the flush dense
+    assert FR.LAUNCHES["adder_dvs_rows"] > 0
+    assert FR.LAUNCHES["adder_dvs_chunk"] == 4  # COUNT + WRITE x 2
     assert on_card == run("cpu")
     assert len(on_card) > 1000
 

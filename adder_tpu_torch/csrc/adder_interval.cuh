@@ -5,8 +5,9 @@
 // (fused_interval.cu: K5; interval_slots.cu: K6).
 //
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
-// (:638-678) and its helpers (:219-613), emit_running=False branch, and the
-// DAVIS step adder_tpu/ops/dvs_batch.py::davis_event_interval (:520-572),
+// (:638-678) and its helpers (:219-613), with the display intensity
+// _running_intensity (:681-707) where a kernel writes it, and the DAVIS
+// step adder_tpu/ops/dvs_batch.py::davis_event_interval (:520-572),
 // composed from the same helpers; the plain PyTorch versions the kernels
 // are held against are adder_tpu_torch/ops/integrate.py and
 // adder_tpu_torch/ops/dvs_batch.py. The design notes, and what each kernel
@@ -121,6 +122,9 @@ struct KArgs {
   unsigned* out_pixd;       // (total,) pix << 8 | d: WRITE
   unsigned* out_t;          // (total,) event t: WRITE
   int* flags;               // [max per-pixel count, depth overflow]
+  const uint8_t* run0;      // framed display: (n,) u8 frame before the chunk
+  uint8_t* runnings;        // framed display: (T, n) u8 frame after each
+                            // interval (WRITE, VOID)
 };
 
 template <int D>
@@ -643,11 +647,18 @@ __device__ __forceinline__ long long lookback_exclusive(
 // three planes, DAVIS sub-steps four; a pixel whose active bit is clear
 // skips the sub-step, which equals the reference's compute-then-restore
 // (every field restored, every slot masked, no overflow count: ovf_mask =
-// active). -------------------------------------------------------------------
+// active). RUN (framed WRITE and VOID only) adds the display output of
+// fused_resident.py's emit_running (:336-357, carried at :890-899): the
+// pixel's display value stays in a register from run0[pix]; after each
+// interval a pixel whose root holds a best event takes its
+// running_intensity, and runnings[t, pix] gets the value. --------------------
 
-template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, int SRC>
+template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, int SRC,
+          bool RUN = false>
 __global__ void __launch_bounds__(kBlock)
     adder_resident_chunk_kernel(const KArgs a) {
+  static_assert(!RUN || (SRC == SRC_FRAMED && PASS != PASS_COUNT),
+                "the display is written by the framed WRITE and VOID passes");
   constexpr int K = D + 3;
   __shared__ int s_counts[kMaxT];   // COUNT / VOID: block's events per interval
   __shared__ int s_warp_tot[kWarps];  // WRITE: per-warp event totals
@@ -663,6 +674,8 @@ __global__ void __launch_bounds__(kBlock)
   }
   Pixel<D> s;
   if (valid) load_state(s, a.in, pix, n);
+  uint8_t run = 0;
+  if (RUN && valid) run = a.run0[pix];
   int maxcnt = 0;
   bool ovf_any = false;
 
@@ -694,6 +707,10 @@ __global__ void __launch_bounds__(kBlock)
         m = run_interval<D, FP, COLLAPSE, ABS>(s, __int2float_rn(fv), fv,
                                                a.P.time, a.P.c_inc, a.P, sd,
                                                st, ovf);
+        if constexpr (RUN) {
+          if (s.bd[0] >= 0) run = running_intensity(s, a.P);
+          a.runnings[idx] = run;
+        }
       }
       ovf_any = ovf_any || ovf;
     }
@@ -776,6 +793,10 @@ struct AdderChunkArgs {
   const void* tspan;
   const void* fvw;
   const void* fval;  // DAVIS only
+  int view_mode;     // framed display: 0 Intensity, 1 D, 2 DeltaT, 3 SAE
+  float pdm;         // framed display, D view: f32(log2(255 * dtm / ref))
+  const void* run0;  // framed display: (n,) u8, or null: no display
+  void* runnings;    // framed display: (T, n) u8, written by WRITE and VOID
 };
 
 }  // extern "C"
@@ -787,7 +808,7 @@ namespace {
 inline bool chunk_args_ok(const AdderChunkArgs* a) {
   return a->pass >= PASS_COUNT && a->pass <= PASS_VOID && a->T >= 1 &&
          a->T <= kMaxT && a->n >= 1 && a->n < (1LL << 24) &&
-         a->ref_time >= 1;
+         a->ref_time >= 1 && (a->run0 == nullptr) == (a->runnings == nullptr);
 }
 
 inline KArgs make_kargs(const AdderChunkArgs* a) {
@@ -840,19 +861,39 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   k.out_pixd = (unsigned*)a->out_pixd;
   k.out_t = (unsigned*)a->out_t;
   k.flags = (int*)a->flags;
+  k.P.view_mode = a->view_mode;
+  k.P.pdm = a->pdm;
+  k.run0 = (const uint8_t*)a->run0;
+  k.runnings = (uint8_t*)a->runnings;
   return k;
 }
 
-// One launch of PASS for one template instantiation.
+// One launch of PASS for one template instantiation; a framed WRITE or VOID
+// pass with k.runnings set writes the display (COUNT never does).
 template <int D, bool FP, bool CO, bool AB, int SRC>
 void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
+  const bool run = SRC == SRC_FRAMED && k.runnings != nullptr;
   if (pass == PASS_COUNT) {
     adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   } else if (pass == PASS_WRITE) {
+    if constexpr (SRC == SRC_FRAMED) {
+      if (run) {
+        adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, SRC, true>
+            <<<k.nblk, kBlock, 0, st>>>(k);
+        return;
+      }
+    }
     adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   } else {
+    if constexpr (SRC == SRC_FRAMED) {
+      if (run) {
+        adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC, true>
+            <<<k.nblk, kBlock, 0, st>>>(k);
+        return;
+      }
+    }
     adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC>
         <<<k.nblk, kBlock, 0, st>>>(k);
   }

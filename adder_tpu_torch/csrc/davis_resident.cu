@@ -50,8 +50,9 @@ extern "C" {
 
 int adder_davis_chunk(const AdderChunkArgs* a, void* stream) {
   if (!chunk_args_ok(a) || a->dvs != SRC_DAVIS || a->depth != kDavisDepth ||
-      a->mode != 1 || a->abs_time != 1 || a->inten == nullptr ||
-      a->tspan == nullptr || a->fvw == nullptr || a->fval == nullptr) {
+      a->runnings != nullptr || a->mode != 1 || a->abs_time != 1 ||
+      a->inten == nullptr || a->tspan == nullptr || a->fvw == nullptr ||
+      a->fval == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);

@@ -174,8 +174,8 @@ extern "C" {
 
 int adder_dvs_chunk(const AdderChunkArgs* a, void* stream) {
   if (!chunk_args_ok(a) || a->dvs != SRC_DVS || a->depth != kDvsDepth ||
-      a->mode != 1 || a->abs_time != 1 || a->inten == nullptr ||
-      a->tspan == nullptr || a->fvw == nullptr) {
+      a->runnings != nullptr || a->mode != 1 || a->abs_time != 1 ||
+      a->inten == nullptr || a->tspan == nullptr || a->fvw == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);

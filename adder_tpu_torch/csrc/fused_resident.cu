@@ -5,10 +5,22 @@
 //   - events fetched: make_fused_chunk_resident (:848)  -> PASS_COUNT, scan, PASS_WRITE
 //   - Empty sink:     make_group_chunk_resident (:915)  -> PASS_VOID
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core (:638-678)
-// and its helpers (:219-613), emit_running=False branch, shared with the DVS
-// kernel in adder_interval.cuh (which also lists the exactness rules); the
-// plain PyTorch version the kernels are held against is
-// adder_tpu_torch/ops/integrate.py.
+// and its helpers (:219-613), shared with the DVS kernel in
+// adder_interval.cuh (which also lists the exactness rules); the plain
+// PyTorch version the kernels are held against is
+// adder_tpu_torch/ops/fused_resident.py::fused_chunk_resident_plain.
+//
+// The display (emit_running=True, fused_resident.py:336-357, :890-899): when
+// the caller passes run0 and runnings, the WRITE and VOID passes also write
+// the (T, n) u8 display frame after each interval, carried forward from
+// run0 in a register (the JAX wrapper's lax.scan over run_val / run_has has
+// no counterpart). It is a template parameter (RUN), not a runtime branch,
+// so the display-off kernels compile to the code they had before; the
+// display adds 32 kernels (8 modes x depth 6/8 x WRITE/VOID). Its bytes are
+// run0 read once and T x n written, beside the frames, the state and the
+// events: about 5% more at 1080p mono, T = 16. Its work is one correctly
+// rounded division per pixel-interval beside the state machine's few
+// hundred dependent operations.
 //
 // Design. One thread per pixel-channel. The pixel's whole arena (nd, ni, ndt,
 // bd, bdt x DEPTH plus nine scalars) is loaded once into registers and stays
@@ -174,7 +186,8 @@ extern "C" {
 
 int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
   if (!chunk_args_ok(a) || a->dvs != SRC_FRAMED ||
-      (a->depth != 6 && a->depth != 8)) {
+      (a->depth != 6 && a->depth != 8) || a->view_mode < 0 ||
+      a->view_mode > 3) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);

@@ -46,7 +46,13 @@ Outputs (`ChunkResult`):
                event time (None on the Empty-sink path);
   per_interval (T,) int64 event counts;
   pmax         0-d int64: bits 0-15 the largest per-(interval, pixel) event
-               count, bit 16 arena-depth overflow (`fused_resident.py:409-413`).
+               count, bit 16 arena-depth overflow (`fused_resident.py:409-413`);
+  runnings     the framed chunks given a display frame `run0` (n,) u8 (the
+               JAX chunk's `emit_running=True`): (T, n) u8, the display frame
+               after each interval, carried forward from `run0` where a pixel
+               shows nothing new (`fused_resident.py:890-899`); else None.
+               The kernels carry it in the thread's register and write it
+               from the WRITE or VOID pass.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ class ChunkResult(NamedTuple):
     t: Optional[torch.Tensor]
     per_interval: torch.Tensor
     pmax: torch.Tensor
+    runnings: Optional[torch.Tensor] = None
 
 
 # --- plain PyTorch versions -------------------------------------------------
@@ -126,25 +133,40 @@ def _chunk_plain(state: ops.PixelState, T: int, step,
     )
 
 
-def _framed_plain(state, frames, time, p, events: bool) -> ChunkResult:
+def _framed_plain(state, frames, time, p, events: bool,
+                  run0=None) -> ChunkResult:
     time = float(np.float32(time))
+    run, runnings = run0, []
 
     def step(s, i):
+        nonlocal run
         fv = frames[i].to(torch.int32)
-        return ops._interval_core(s, fv.to(torch.float32), fv, time, p)
+        slots = ops._interval_core(s, fv.to(torch.float32), fv, time, p)
+        if run0 is not None:
+            val, has = ops._running_intensity(s, p)
+            run = torch.where(has, val, run)
+            runnings.append(run)
+        return slots
 
-    return _chunk_plain(state, frames.shape[0], step, events)
+    res = _chunk_plain(state, frames.shape[0], step, events)
+    if run0 is None:
+        return res
+    return res._replace(runnings=torch.stack(runnings))
 
 
-def fused_chunk_resident_plain(state, frames, time, p) -> ChunkResult:
+def fused_chunk_resident_plain(state, frames, time, p,
+                               run0=None) -> ChunkResult:
     """Plain version of the fetched-events chunk: state after T intervals
-    and the chunk's events in reference order."""
-    return _framed_plain(state, frames, time, p, events=True)
+    and the chunk's events in reference order; with `run0`, the display
+    frames too."""
+    return _framed_plain(state, frames, time, p, True, run0)
 
 
-def group_chunk_resident_plain(state, frames, time, p) -> ChunkResult:
-    """Plain version of the Empty-sink chunk: state, counts and flags only."""
-    return _framed_plain(state, frames, time, p, events=False)
+def group_chunk_resident_plain(state, frames, time, p,
+                               run0=None) -> ChunkResult:
+    """Plain version of the Empty-sink chunk: state, counts and flags only
+    (and, with `run0`, the display frames)."""
+    return _framed_plain(state, frames, time, p, False, run0)
 
 
 def exclusive_scan_plain(counts: torch.Tensor) -> torch.Tensor:
@@ -456,20 +478,24 @@ def build_davis_planes(T: int, n: int, pix, lane, active, first_int,
 # --- wrappers ---------------------------------------------------------------
 
 
-def fused_chunk_resident(state, frames, time, p) -> ChunkResult:
-    """One chunk with its events: the plain version for CPU tensors, the
-    COUNT -> scan -> WRITE kernels for CUDA tensors."""
+def fused_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
+    """One chunk with its events (and, given the display frame `run0`, the
+    display frames after each interval): the plain version for CPU
+    tensors, the COUNT -> scan -> WRITE kernels for CUDA tensors."""
+    _check_run0(run0, frames)
     if not frames.is_cuda:
-        return fused_chunk_resident_plain(state, frames, time, p)
-    return _chunk_cuda(state, frames, time, p, events=True)
+        return fused_chunk_resident_plain(state, frames, time, p, run0)
+    return _chunk_cuda(state, frames, time, p, True, run0)
 
 
-def group_chunk_resident(state, frames, time, p) -> ChunkResult:
-    """One chunk without events (Empty sink): the plain version for CPU
-    tensors, the VOID kernel pass for CUDA tensors."""
+def group_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
+    """One chunk without events (Empty sink), with the display frames when
+    given `run0`: the plain version for CPU tensors, the VOID kernel pass
+    for CUDA tensors."""
+    _check_run0(run0, frames)
     if not frames.is_cuda:
-        return group_chunk_resident_plain(state, frames, time, p)
-    return _chunk_cuda(state, frames, time, p, events=False)
+        return group_chunk_resident_plain(state, frames, time, p, run0)
+    return _chunk_cuda(state, frames, time, p, False, run0)
 
 
 def dvs_chunk_resident(state, inten, tspan, fvw, p,
@@ -553,6 +579,10 @@ class _ChunkArgs(ctypes.Structure):
         ("tspan", ctypes.c_void_p),
         ("fvw", ctypes.c_void_p),
         ("fval", ctypes.c_void_p),
+        ("view_mode", ctypes.c_int),
+        ("pdm", ctypes.c_float),
+        ("run0", ctypes.c_void_p),
+        ("runnings", ctypes.c_void_p),
     ]
 
 
@@ -572,6 +602,19 @@ def _check_plane(x: torch.Tensor, dtype, what: str) -> None:
         raise ValueError(f"chunk of {T} intervals; the kernel takes 1..{MAX_T}")
     if n >= MAX_PIXELS:
         raise ValueError(f"{n} pixel-channels do not fit the 24-bit pixel field")
+
+
+def _check_run0(run0: Optional[torch.Tensor], frames: torch.Tensor) -> None:
+    """A display frame, where one is given, is (N,) u8, contiguous, on the
+    frames' device."""
+    if run0 is None:
+        return
+    n = frames.shape[-1]
+    if run0.dtype != torch.uint8 or tuple(run0.shape) != (n,):
+        raise ValueError(f"run0 must be ({n},) uint8, got {run0.dtype} "
+                         f"{tuple(run0.shape)}")
+    if run0.device != frames.device or not run0.is_contiguous():
+        raise ValueError(f"run0 must be contiguous on {frames.device}")
 
 
 def _check_state(state: ops.PixelState, like: torch.Tensor, depths,
@@ -611,9 +654,10 @@ def _chunk_args(state, p, T: int, n: int):
 
 
 def _run_passes(entry: str, a: _ChunkArgs, out_state, T: int, n: int, dev,
-                events: bool) -> ChunkResult:
+                events: bool, runnings=None) -> ChunkResult:
     """COUNT -> scan -> WRITE (events fetched) or VOID through the C entry
-    point `entry`; each launch adds one to LAUNCHES[entry]."""
+    point `entry`; each launch adds one to LAUNCHES[entry]. `runnings`, the
+    display output `a` points at, is passed through to the result."""
     lib = cuda_build.load()
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -646,10 +690,11 @@ def _run_passes(entry: str, a: _ChunkArgs, out_state, T: int, n: int, dev,
         launch(PASS_VOID)
     per_interval = block_counts.sum(dim=1, dtype=torch.int64)
     pmax = flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
-    return ChunkResult(out_state, pixd, t, per_interval, pmax)
+    return ChunkResult(out_state, pixd, t, per_interval, pmax, runnings)
 
 
-def _chunk_cuda(state, frames, time, p, events: bool) -> ChunkResult:
+def _chunk_cuda(state, frames, time, p, events: bool,
+                run0=None) -> ChunkResult:
     _check_plane(frames, torch.uint8, "frames")
     _check_state(state, frames, (6, 8))
     T, n = frames.shape
@@ -659,8 +704,13 @@ def _chunk_cuda(state, frames, time, p, events: bool) -> ChunkResult:
     a.time = time
     a.vel_m1, a.c_inc = ops.c_thresh_scalars(time, p)
     a.frames = frames.data_ptr()
+    runnings = None
+    if run0 is not None:
+        runnings = torch.empty((T, n), dtype=torch.uint8, device=frames.device)
+        a.view_mode, a.pdm = p.view_mode, ops.display_pdm(p)
+        a.run0, a.runnings = run0.data_ptr(), runnings.data_ptr()
     return _run_passes("adder_resident_chunk", a, out_state, T, n,
-                       frames.device, events)
+                       frames.device, events, runnings)
 
 
 def _lane_chunk_args(state, planes: dict, p):

@@ -644,6 +644,13 @@ def _interval_core(s: _S, intensity, frame_val, time, p: TranscodeParams,
     return [(d0, t0, m0)] + list(pop_slots) + [(d7, t7, m7), (d8, t8, m8)]
 
 
+def display_pdm(p: TranscodeParams) -> float:
+    """The D view's scale, f32(log2(255 * delta_t_max / ref_time))
+    (adder_tpu/ops/integrate.py:692), as the kernels take it."""
+    return float(np.float32(
+        np.log2(255.0 * (p.delta_t_max / max(p.ref_time, 1)))))
+
+
 def _running_intensity(s: _S, p: TranscodeParams):
     """Per-pixel display value from the root's best event (ref:
     video.rs:713-730, scale_intensity.rs:54-109). Returns (run_val (N,) u8,
@@ -656,9 +663,7 @@ def _running_intensity(s: _S, p: TranscodeParams):
     bd, bdt = s.bd[0], s.bdt[0]
     has = bd >= 0
     if p.view_mode == 1:  # D
-        pdm = float(np.float32(
-            np.log2(255.0 * (p.delta_t_max / max(p.ref_time, 1)))))
-        val = bd.to(_f32) / torch.full_like(bdt, pdm) * 255.0
+        val = bd.to(_f32) / torch.full_like(bdt, display_pdm(p)) * 255.0
     elif p.view_mode == 2:  # DeltaT
         val = bdt / torch.full_like(bdt, float(p.delta_t_max)) * 255.0
     elif p.view_mode == 3:  # SAE

@@ -141,8 +141,7 @@ def interval_args(state: ops.PixelState, frame: torch.Tensor, time: float,
         ia.state_in[i] = getattr(state, f).data_ptr()
         ia.state_out[i] = getattr(out_state, f).data_ptr()
     ia.view_mode = p.view_mode
-    ia.pdm = float(np.float32(
-        np.log2(255.0 * (p.delta_t_max / max(p.ref_time, 1)))))
+    ia.pdm = ops.display_pdm(p)
     ia.frame = frame.data_ptr()
     run_val = torch.empty(n, dtype=torch.uint8, device=frame.device)
     run_has = torch.empty(n, dtype=torch.bool, device=frame.device)

@@ -59,6 +59,40 @@ def moving_blobs(H: int, W: int, T: int, seed: int, device) -> torch.Tensor:
     return out
 
 
+def moving_shapes(seed, T: int, H: int, W: int, C: int = 1,
+                  n_shapes: int = 4) -> np.ndarray:
+    """(T, H, W, C) u8 scene with corners for FAST: seeded squares and
+    discs, bright or dark, moving at seeded whole-pixel speeds (wrapping
+    round the plane) over a dim gradient, in channel 0. A channel c > 0
+    holds the first frame, offset by 17 c, still: FAST reads channel 0, and
+    an event of channel 0 is a candidate only where its own pixel's next
+    channel has none (video.rs:900-917)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = 40 + (xx * 50) // max(W - 1, 1) + (yy * 20) // max(H - 1, 1)
+    shapes = [(int(rng.integers(0, W)), int(rng.integers(0, H)),
+               int(rng.integers(4, 12)), int(rng.integers(-3, 4)),
+               int(rng.integers(-2, 3)),
+               int(rng.integers(150, 256) if k % 2 == 0
+                   else rng.integers(0, 10)))
+              for k in range(n_shapes)]
+    frames = np.empty((T, H, W, C), np.uint8)
+    for t in range(T):
+        img = base.copy()
+        for k, (x0, y0, r, vx, vy, val) in enumerate(shapes):
+            cx, cy = (x0 + vx * t) % W, (y0 + vy * t) % H
+            if k % 2:
+                inside = (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+            else:
+                inside = (abs(xx - cx) <= r) & (abs(yy - cy) <= r)
+            img = np.where(inside, val, img)
+        frames[t, ..., 0] = img
+        for c in range(1, C):
+            frames[t, ..., c] = np.clip(
+                frames[0, ..., 0].astype(np.int32) + 17 * c, 0, 255)
+    return frames
+
+
 def forced_overflow_state(frames0: torch.Tensor, n_forced: int,
                           depth: int = 6) -> ops.PixelState:
     """A depth-`depth` state whose first `n_forced` pixels fire at the last
@@ -110,6 +144,11 @@ def compare_chunks(got: FR.ChunkResult, want: FR.ChunkResult,
     if got.pixd is not None:
         errs.append(bitwise_max_err(got.pixd, want.pixd, f"{what} pixd"))
         errs.append(bitwise_max_err(got.t, want.t, f"{what} t"))
+    if (got.runnings is None) != (want.runnings is None):
+        raise AssertionError(f"{what}: one result has a display, one has not")
+    if got.runnings is not None:
+        errs.append(bitwise_max_err(got.runnings, want.runnings,
+                                    f"{what} runnings"))
     return max(errs)
 
 
@@ -161,6 +200,59 @@ def check_kernels_against_plain(device, H: int = 150, W: int = 200,
     err = max(err, compare_chunks(k, want, "forced overflow"),
               compare_chunks(v, want._replace(pixd=None, t=None),
                              "forced overflow void"))
+    return err
+
+
+def check_display_against_plain(device, H: int = 150, W: int = 200,
+                                T: int = 8, chunks: int = 2,
+                                seed: int = 0) -> float:
+    """The resident kernel's display output (K1 with `run0`) against the
+    plain version on the same inputs, bit for bit, on a ragged plane: every
+    mode case at depth 6 and 8, the view mode cycling so that each of the
+    four meets four mode cases at each depth, `chunks` chained chunks from
+    a non-zero seeded display frame, the WRITE pass (events fetched) and the
+    VOID pass; then a forced depth-6 overflow. Raises on any difference;
+    returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    frames = torch.from_numpy(walk_frames(seed, T * chunks, n)).to(dev)
+    rng = np.random.default_rng(seed + 1)
+    run0 = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
+    err = 0.0
+    for i, p in enumerate(MODE_CASES):
+        for depth in (6, 8):
+            p = p._replace(view_mode=(i + depth // 2) % 4)
+            st_k = st_p = ops.set_initial_d(
+                ops.init_state(n, dev, c_thresh=3, depth=depth),
+                frames[0].to(torch.int32),
+            )
+            run_k = run_p = run0
+            for c in range(chunks):
+                f = frames[c * T : (c + 1) * T].contiguous()
+                what = (f"display mode {tuple(p[:3])} view {p.view_mode} "
+                        f"depth {depth} chunk {c}")
+                k = FR.fused_chunk_resident(st_k, f, 255.0, p, run_k)
+                v = FR.group_chunk_resident(st_k, f, 255.0, p, run_k)
+                want = FR.fused_chunk_resident_plain(st_p, f, 255.0, p, run_p)
+                err = max(err, compare_chunks(k, want, what),
+                          compare_chunks(v, want._replace(pixd=None, t=None),
+                                         what + " void"))
+                st_k, st_p = k.state, want.state
+                run_k, run_p = k.runnings[-1], want.runnings[-1]
+    p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
+                            delta_t_max=255 * 24, c_thresh_max=0,
+                            c_increase_velocity=1, view_mode=1)
+    st = forced_overflow_state(frames[0], n // 10)
+    f = frames[:T].contiguous()
+    want = FR.fused_chunk_resident_plain(st, f, 255.0, p, run0)
+    if not (int(want.pmax) >> 16) & 1:
+        raise AssertionError("the forced overflow did not overflow")
+    err = max(err, compare_chunks(FR.fused_chunk_resident(st, f, 255.0, p,
+                                                          run0),
+                                  want, "display forced overflow"),
+              compare_chunks(FR.group_chunk_resident(st, f, 255.0, p, run0),
+                             want._replace(pixd=None, t=None),
+                             "display forced overflow void"))
     return err
 
 

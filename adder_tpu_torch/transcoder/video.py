@@ -2,7 +2,8 @@
 
 Port of `adder_tpu/transcoder/video.py` (ref: adder-codec-rs
 src/transcoder/source/video.rs). The encoder, the codec and the CRF tables
-are the port's copies (adder_tpu_torch/codec).
+are the port's copies (adder_tpu_torch/codec); FAST and the markers are the
+port's `utils/cv.py` and `utils/viz.py`.
 """
 
 from __future__ import annotations
@@ -32,8 +33,11 @@ from ..core.types import (
     TimeMode,
 )
 
+from .. import convert
 from ..ops import fused_kernel, fused_resident
 from ..ops import integrate as ops
+from ..utils import cv
+from ..utils.viz import ShowFeatureMode, draw_feature_coord, draw_rect
 
 SHALLOW_DEPTH = 6  # the reference's SmallVec inline capacity
 
@@ -108,18 +112,28 @@ class Video:
     that outgrows it is rerun at depth 8 from its pre-chunk state, as are
     the chunks submitted after it.
 
-    The display frame: with `_keep_running_frame = True` (a one-interval
-    engine only; the resident kernel's display output is not ported and
-    raises NotImplementedError), `running_intensities` holds the (H, W, C)
-    u8 frame after the last collected chunk, and the next chunk starts from
-    the previous in-flight chunk's last frame on the device.
-    `_last_runnings` is the last collected chunk's (T, N) frames.
+    The display frame: with `_keep_running_frame = True` or feature
+    detection on (the JAX package's `emit_running`), every engine's kernels
+    also write the (T, N) display frames of each chunk (on the resident
+    engine the kernel's RUN variant), `running_intensities` holds the
+    (H, W, C) u8 frame after the last collected chunk, and the next chunk
+    starts from the previous in-flight chunk's last frame on the device.
+    `_last_runnings` is the last collected chunk's (T, N) frames (None on
+    the resident engine with the display off).
+
+    Feature detection (`update_detect_features`): after each collected
+    chunk, FAST (`cv.fast_mask_torch`) runs on the device over the chunk's
+    display frames and only the bits of the candidate coordinates come back;
+    the host replays the feature set in stream order, draws the markers on
+    `display_frame_features`, lowers `c_thresh` around new features (the
+    rate adjustment: a new tensor, never written in place) and clusters
+    them (`cluster`). With features on, events are fetched even for the
+    Empty sink, as in the JAX package.
 
     Two chunks may be in flight: `submit_chunk` launches a chunk on the state
     the previous one left, before that one's events are fetched.
-
-    Not ported (raise NotImplementedError): feature detection,
-    save_checkpoint / load_checkpoint.
+    `save_checkpoint` / `load_checkpoint` write and read the JAX package's
+    file layout.
     """
 
     def __init__(self, plane: PlaneSize, pixel_tree_mode: Mode,
@@ -146,9 +160,16 @@ class Video:
         self.state = ops.init_state(self.n, self.device, depth=depth)
         self._cap_mult = 1  # event capacity = _cap_mult * N * T per chunk
         self._pack = 4  # slot-packing lanes
-        self._keep_running = False
+        self._keep_running_frame = False  # set True to always sync display
         self.running_intensities = np.zeros(plane.shape, dtype=np.uint8)
         self._last_runnings = None
+        self.feature_detection = False
+        self.instantaneous_view_mode = 0  # FramedViewMode.Intensity
+        self.show_features = ShowFeatureMode.Off
+        self.feature_rate_adjustment = False
+        self.feature_cluster = False
+        self.features: set = set()  # persistent feature coords (x, y)
+        self.display_frame_features = np.zeros(plane.shape, dtype=np.uint8)
 
         meta = self._make_meta()
         self.encoder = Encoder.new_empty(meta, EncoderOptions.default(plane))
@@ -159,18 +180,9 @@ class Video:
         self.void_events = False
 
     @property
-    def _keep_running_frame(self) -> bool:
-        return self._keep_running
-
-    @_keep_running_frame.setter
-    def _keep_running_frame(self, on: bool) -> None:
-        if on and self.engine == RESIDENT:
-            raise NotImplementedError(
-                "the display frame runs on the one-interval engines "
-                "(ADDER_TPU_RESIDENT=0 or ADDER_TPU_FUSED=0); the resident "
-                "kernel's display output is not ported yet"
-            )
-        self._keep_running = bool(on)
+    def _emit_running(self) -> bool:
+        """Whether chunks write the display frames (video.py:342-344)."""
+        return bool(self.feature_detection or self._keep_running_frame)
 
     # -- builder methods (ref: video.rs:271-317 VideoBuilder) --
 
@@ -285,22 +297,6 @@ class Video:
         c[torch.from_numpy(mask.reshape(-1)).to(self.device)] = base
         self.state = self.state._replace(c_thresh=c)
 
-    def update_detect_features(self, detect_features: bool, *args, **kwargs):
-        if detect_features:
-            raise NotImplementedError(
-                "feature detection is not ported to adder_tpu_torch yet"
-            )
-
-    def detect_features(self, detect: bool, show_features=None) -> "Video":
-        self.update_detect_features(detect)
-        return self
-
-    def save_checkpoint(self, path) -> None:
-        raise NotImplementedError("checkpoints are not ported to adder_tpu_torch yet")
-
-    def load_checkpoint(self, path) -> None:
-        raise NotImplementedError("checkpoints are not ported to adder_tpu_torch yet")
-
     # -- getters (API parity) --
 
     def get_ref_time(self):
@@ -342,11 +338,11 @@ class Video:
         if self.engine == RESIDENT:
             fn = (fused_resident.group_chunk_resident if pending["group"]
                   else fused_resident.fused_chunk_resident)
-            return fn(state, frames, t, p)
+            return fn(state, frames, t, p, pending["run0"])
         if self.engine == FUSED:
             return fused_kernel.fused_chunk(
                 state, frames, t, pending["run0"], p, pending["cap"],
-                pending["pack"], emit_running=self._keep_running)
+                pending["pack"], emit_running=self._emit_running)
         return ops.transcode_chunk(state, frames, t, pending["run0"], p,
                                    pending["cap"], pending["pack"])
 
@@ -385,12 +381,16 @@ class Video:
         self._apply_roi()
         self.in_interval_count += T
 
+        # the Empty sink on the resident engine runs the VOID pass, unless
+        # features need the events (video.py:472-477)
         pending = {
             "frames": frames_t,
             "t": float(np.float32(time_spanned)),
-            "group": bool(self.void_events) and self.engine == RESIDENT,
+            "group": (bool(self.void_events) and self.engine == RESIDENT
+                      and not self.feature_detection),
             "state_before": self.state,
             "T": T,
+            "run0": self._run0(),
         }
         if self.engine != RESIDENT:
             # capacity in power-of-two multiples of N * T; K_SLOTS * N * T
@@ -398,8 +398,7 @@ class Video:
             mult = min(self._cap_mult, ops.K_SLOTS)
             if self.n * T <= FULL_CAP_VOLUME:
                 mult = ops.K_SLOTS
-            pending.update(mult=mult, cap=mult * self.n * T, pack=self._pack,
-                           run0=self._run0())
+            pending.update(mult=mult, cap=mult * self.n * T, pack=self._pack)
         pending["outs"] = self._run_chunk(self.state, pending)
         self.state = pending["outs"].state
         self._inflight.append(pending)
@@ -417,12 +416,15 @@ class Video:
             raise SourceError("collect_chunk: unknown pending handle")
         return ev
 
-    def _run0(self) -> torch.Tensor:
+    def _run0(self) -> Optional[torch.Tensor]:
         """The display frame a new chunk starts from: the last in-flight
         chunk's last frame, on the device, when the display is kept; else
-        the host frame."""
-        if self._keep_running and self._inflight:
-            return self._inflight[-1]["outs"].runnings[-1]
+        the host frame. None on the resident engine with the display off
+        (its kernel then writes none)."""
+        if self._emit_running and self._inflight:
+            return self._runnings(self._inflight[-1]["outs"])[-1]
+        if self.engine == RESIDENT and not self._emit_running:
+            return None
         return torch.from_numpy(
             self.running_intensities.reshape(-1).copy()).to(self.device)
 
@@ -442,15 +444,13 @@ class Video:
             # depth is the state's).
             st = ops.pad_state_depth(pending["state_before"], ops.DEPTH)
             outs = pending["outs"] = self._run_chunk(st, pending)
-            st = outs.state
-            for p2 in self._inflight:
-                p2["state_before"] = st
-                p2["outs"] = self._run_chunk(st, p2)
-                st = p2["outs"].state
-            self.state = st
-        if pending["group"]:
-            return EventArray.empty()
-        return self._ingest(outs.pixd, outs.t)
+            self.state = self._rerun_inflight(outs)
+        elif not self._inflight:
+            # the newest chunk: its own state, without the rate adjustment
+            # of the chunk collected before it (video.py:648-649)
+            self.state = outs.state
+        return self._finish_chunk(
+            outs, None if pending["group"] else (outs.pixd, outs.t))
 
     def _collect_interval(self, pending: dict) -> EventArray:
         """The rerun contract of the JAX runtime's one-interval engines
@@ -495,24 +495,54 @@ class Video:
                 pending["cap"] = min(mult, ops.K_SLOTS) * self.n * T
             pending["outs"] = self._run_chunk(pending["state_before"], pending)
         if depth_rerun and self._inflight:
-            st, run_prev = outs.state, outs.runnings
-            for p2 in self._inflight:
-                p2["state_before"] = st
-                p2["pack"] = self._pack
-                if self._keep_running:  # the device-chained frame is stale
-                    p2["run0"] = run_prev[-1]
-                p2["outs"] = self._run_chunk(st, p2)
-                st, run_prev = p2["outs"].state, p2["outs"].runnings
-            self.state = st
+            self.state = self._rerun_inflight(outs)
         elif not self._inflight:
             self.state = outs.state
+        return self._finish_chunk(
+            outs, None if self.void_events and not self.feature_detection
+            else (outs.pixd[:total], outs.t[:total]))
+
+    def _rerun_inflight(self, outs):
+        """After a depth rerun: the chunks submitted on top of the rerun one
+        ran on its wrong state, and their device-chained display frame is
+        stale too. Rerun them, in order, from the corrected chain
+        (video.py:631-647); return the newest state."""
+        st, prev = outs.state, outs
+        for p2 in self._inflight:
+            p2["state_before"] = st
+            p2["pack"] = self._pack
+            if self._emit_running:
+                p2["run0"] = self._runnings(prev)[-1]
+            p2["outs"] = self._run_chunk(st, p2)
+            st, prev = p2["outs"].state, p2["outs"]
+        return st
+
+    def _finish_chunk(self, outs, wire) -> EventArray:
+        """The collected chunk's display frame, then its events (`wire`,
+        the device pair, or None when they stay on the device) fed to the
+        encoder, then the features (video.py:656-693)."""
         self._last_runnings = outs.runnings
-        if self._keep_running:
-            self.running_intensities = (
-                outs.runnings[-1].cpu().numpy().reshape(self.plane.shape))
-        if self.void_events:
+        if self._emit_running:
+            self._last_runnings = self._runnings(outs)
+            self.running_intensities = self._last_runnings[-1].cpu().numpy(
+            ).reshape(self.plane.shape)
+        if wire is None:
             return EventArray.empty()
-        return self._ingest(outs.pixd[:total], outs.t[:total])
+        events = self._ingest(*wire)
+        if self.feature_detection:
+            self._handle_features(events, outs.per_interval.cpu().numpy(),
+                                  self._last_runnings)
+        return events
+
+    def _runnings(self, outs) -> torch.Tensor:
+        """A chunk's (T, N) display frames. A resident chunk submitted with
+        the display off wrote none; read after the display was turned on, it
+        counts as the JAX resident chunk's all-zero frames
+        (fused_resident.py:897-899)."""
+        if outs.runnings is not None:
+            return outs.runnings
+        return torch.zeros((outs.per_interval.shape[0], self.n),
+                           dtype=torch.uint8, device=self.device)
 
     def _ingest(self, pixd: torch.Tensor, t: torch.Tensor) -> EventArray:
         """Fetch wire events (`pix << 8 | d`, t as int32 u32 patterns) and
@@ -541,4 +571,220 @@ class Video:
         """Collect any in-flight chunks (their events reach the encoder)."""
         while self._inflight:
             self._collect_oldest()
+
+    # -- feature pipeline (ref: video.rs:883-1227) --
+
+    def update_detect_features(self, detect_features: bool,
+                               show_features=ShowFeatureMode.Off,
+                               feature_rate_adjustment: bool = False,
+                               feature_cluster: bool = False) -> None:
+        self.feature_detection = detect_features
+        self.show_features = show_features
+        self.feature_rate_adjustment = feature_rate_adjustment
+        self.feature_cluster = feature_cluster
+
+    def detect_features(self, detect: bool, show_features=None) -> "Video":
+        self.feature_detection = detect
+        return self
+
+    def _handle_features(self, events: EventArray, per_int: np.ndarray,
+                         runnings: torch.Tensor) -> None:
+        """Per-interval FAST feature maintenance over the event coordinates
+        (ref: video.rs:883-1112; adder_tpu/transcoder/video.py:709-812).
+        Candidate coords are gathered on the host (vector numpy over the
+        chunk's events); the FAST masks are computed on the device over the
+        chunk's display frames and only the candidates' corner bits come
+        back."""
+        H, W = self.plane.height, self.plane.width
+        offsets = np.concatenate([[0], np.cumsum(per_int)])
+        self.display_frame_features = self.running_intensities.copy()
+        # ONE pass over the chunk's events (no per-interval Python loop):
+        # candidate rule - channel 0/None, non-empty d, coord differs from
+        # the circularly-next event's coord WITHIN its interval
+        # (ref: video.rs:900-917). The circular next is arange+1 with each
+        # interval's last event wrapping to that interval's first.
+        n_ev = len(events)
+        xs, ys, cs, ds = events.x, events.y, events.c, events.d
+        nxt = np.arange(1, n_ev + 1, dtype=np.int64)
+        ends = offsets[1:] - 1
+        starts = offsets[:-1]
+        nonempty = ends >= starts
+        nxt[ends[nonempty]] = starts[nonempty]
+        cand = (
+            ((cs == NO_CHANNEL) | (cs == 0))
+            & (ds != 255)
+            & ((xs != xs[nxt]) | (ys != ys[nxt]))
+        )
+        ci = np.flatnonzero(cand)
+
+        new_features: list = []
+        if len(ci):
+            ii = np.repeat(
+                np.arange(len(per_int), dtype=np.int32), per_int
+            )[ci]
+            xx = xs[ci].astype(np.int32)
+            yy = ys[ci].astype(np.int32)
+            is_f = self._feature_mask_lookup(runnings, ii, yy, xx)
+            # Exact replay of the stream-order set updates, vectorized:
+            # membership after the chunk = the key's LAST candidate's mask
+            # bit, and a key was ADDED iff some candidate has f=True while
+            # the previous state was False (previous candidate's bit, or
+            # the pre-chunk set membership for the key's first candidate).
+            key = yy.astype(np.int64) * W + xx
+            sk = np.lexsort((np.arange(len(key)), key))
+            k_s, f_s = key[sk], is_f[sk]
+            first = np.ones(len(k_s), bool)
+            first[1:] = k_s[1:] != k_s[:-1]
+            last = np.empty(len(k_s), bool)
+            last[:-1] = first[1:]
+            last[-1] = True
+            prev = np.empty(len(k_s), bool)
+            prev[1:] = f_s[:-1]
+            uk = k_s[first]
+            ux, uy = (uk % W).astype(int), (uk // W).astype(int)
+            prev[first] = [
+                (int(x), int(y)) in self.features for x, y in zip(ux, uy)
+            ]
+            added = np.logical_and(f_s, ~prev)
+            added_any = np.logical_or.reduceat(added, np.flatnonzero(first))
+            final_f = f_s[last]
+            for x, y, fin, add in zip(ux, uy, final_f, added_any):
+                k = (int(x), int(y))
+                if add:
+                    new_features.append(k)
+                if fin:
+                    self.features.add(k)
+                else:
+                    self.features.discard(k)
+
+        params = self.encoder.options.crf.get_parameters()
+        if self.show_features == ShowFeatureMode.Hold:
+            for (x, y) in self.features:
+                draw_feature_coord(
+                    x, y, self.display_frame_features, self.plane.channels != 1
+                )
+        if self.show_features == ShowFeatureMode.Instant:
+            for (x, y) in set(new_features):
+                draw_feature_coord(
+                    x, y, self.display_frame_features, self.plane.channels != 1
+                )
+        if (
+            self.feature_rate_adjustment
+            and params.feature_c_radius > 0
+            and new_features
+        ):
+            # one state fetch and one new tensor for ALL new features: the
+            # old c_thresh may still be read by a pending rerun, so it is
+            # never written in place
+            r = params.feature_c_radius
+            c = self.state.c_thresh.cpu().numpy().copy()
+            c3 = c.reshape(self.plane.shape[:2] + (-1,))
+            for (x, y) in set(new_features):
+                lo_y, hi_y = max(y - r, 0), min(y + r, H - 1)
+                lo_x, hi_x = max(x - r, 0), min(x + r, W - 1)
+                c3[lo_y : hi_y + 1, lo_x : hi_x + 1, :] = min(
+                    params.c_thresh_baseline, 2
+                )
+            self.state = self.state._replace(
+                c_thresh=torch.from_numpy(c).to(self.device))
+        if self.feature_cluster and new_features:
+            self.cluster(set(new_features))
+
+    def _feature_mask_lookup(self, runnings: torch.Tensor, ii, yy,
+                             xx) -> np.ndarray:
+        """FAST-corner bits for candidate (interval, y, x) coords: the
+        batched `cv.fast_mask_torch` over the chunk's (T, N) display frames
+        (channel 0), gathered on their device (video.py:55-71, :814-831)."""
+        H, W, C = self.plane.height, self.plane.width, self.plane.channels
+        frames = runnings.reshape(runnings.shape[0], H, W, C)[..., 0]
+        masks = cv.fast_mask_torch(frames)
+        idx = torch.from_numpy(np.stack([ii, yy, xx]).astype(np.int64)).to(
+            runnings.device)
+        return masks[idx[0], idx[1], idx[2]].cpu().numpy()
+
+    def cluster(self, points_set: set) -> list:
+        """DBSCAN over feature coordinates; returns bounding boxes
+        (ref: video.rs:1114-1227: eps = min_resolution/3, min_pts = 3)."""
+        points = np.array(sorted(points_set), dtype=np.float32)
+        if len(points) < 3:
+            return []
+        eps2 = (self.plane.min_resolution() / 3.0) ** 2
+        min_pts = 3
+        d2 = ((points[:, None, :] - points[None, :, :]) ** 2).sum(-1)
+        neighbors = [np.flatnonzero(d2[i] <= eps2) for i in range(len(points))]
+        visited = np.zeros(len(points), dtype=bool)
+        clusters = []
+        for i in range(len(points)):
+            if visited[i]:
+                continue
+            visited[i] = True
+            if len(neighbors[i]) < min_pts:
+                continue
+            cluster = {i}
+            frontier = list(neighbors[i])
+            k = 0
+            while k < len(frontier):
+                j = frontier[k]
+                if not visited[j]:
+                    visited[j] = True
+                    if len(neighbors[j]) >= min_pts:
+                        frontier.extend(
+                            n for n in neighbors[j] if n not in cluster
+                        )
+                cluster.add(j)
+                k += 1
+            clusters.append(cluster)
+        bboxes = []
+        for cluster in clusters:
+            pts = points[list(cluster)]
+            min_x, min_y = pts.min(axis=0).astype(int)
+            max_x, max_y = pts.max(axis=0).astype(int)
+            if (max_x - min_x) * (max_y - min_y) < self.plane.area_wh() // 4:
+                bboxes.append((int(min_x), int(min_y), int(max_x), int(max_y)))
+                draw_rect(
+                    int(min_x), int(min_y), int(max_x), int(max_y),
+                    self.display_frame_features, self.plane.channels != 1,
+                )
+        return bboxes
+
+    # -- checkpoint / resume (video.py:894-937; the reference has none) --
+
+    def save_checkpoint(self, path) -> None:
+        """Persist the transcoder state so a long job can resume mid-stream
+        (pair with the encoder's byte position, which the caller owns), in
+        the JAX package's layout: the interval counter, the plane volume
+        (`n_state` is `n`: the port pads no plane), the arena depth, the
+        display frame and each PixelState field as `state_<field>`."""
+        self.flush()
+        state = {f"state_{k}": v
+                 for k, v in convert.state_to_numpy(self.state).items()}
+        np.savez_compressed(
+            path,
+            in_interval_count=np.int64(self.in_interval_count),
+            n=np.int64(self.n),
+            n_state=np.int64(self.n),
+            depth=np.int64(self.state.node_d.shape[0]),
+            running_intensities=self.running_intensities,
+            **state,
+        )
+
+    def load_checkpoint(self, path) -> None:
+        """Restore state saved by either package's save_checkpoint (same
+        plane and configuration). The slot engine runs depth 8, so it pads a
+        depth-6 arena (video.py:931-935)."""
+        z = np.load(path)
+        if int(z["n"]) != self.n:
+            raise SourceError(
+                f"checkpoint plane volume {int(z['n'])} != {self.n}"
+            )
+        if int(z["n_state"]) != self.n:
+            raise SourceError(
+                "checkpoint was taken with a different kernel padding"
+            )
+        self.state = convert.state_from_numpy(
+            {k: z[f"state_{k}"] for k in ops.PixelState._fields}, self.device)
+        if self.engine == SLOTS:
+            self.state = ops.pad_state_depth(self.state, ops.DEPTH)
+        self.in_interval_count = int(z["in_interval_count"])
+        self.running_intensities = z["running_intensities"]
 

@@ -1,0 +1,57 @@
+"""Feature markers and rectangles on a display frame.
+
+Copy of `ShowFeatureMode`, `draw_feature_coord` and `draw_rect` from
+`adder_tpu/utils/viz.py` (ref: adder-codec-rs src/utils/viz.rs), the part
+of that module the feature pipeline of `Video` draws with.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+
+
+class ShowFeatureMode(enum.IntEnum):
+    """ref: viz.rs:76-86"""
+
+    Off = 0
+    Instant = 1
+    Hold = 2
+
+
+def draw_feature_coord(
+    x: int, y: int, img: np.ndarray, color_img: bool, color=None
+) -> None:
+    """Draw a small cross marker at (x, y) (ref: viz.rs:89-126)."""
+    h, w = img.shape[:2]
+    val = color if color is not None else (255, 255, 255)
+    for d in range(-2, 3):
+        for (yy, xx) in ((y + d, x), (y, x + d)):
+            if 0 <= yy < h and 0 <= xx < w:
+                if color_img:
+                    img[yy, xx, :3] = val[:3] if color is not None else 255
+                else:
+                    img[yy, xx, 0] = 255
+
+
+def draw_rect(
+    x0: int, y0: int, x1: int, y1: int, img: np.ndarray, color_img: bool, color=None
+) -> None:
+    """Draw a rectangle outline (ref: viz.rs:129-159)."""
+    h, w = img.shape[:2]
+    val = color if color is not None else (255, 255, 255)
+
+    def put(yy, xx):
+        if 0 <= yy < h and 0 <= xx < w:
+            if color_img:
+                img[yy, xx, :3] = val[:3] if color is not None else 255
+            else:
+                img[yy, xx, 0] = 255
+
+    for xx in range(x0, x1 + 1):
+        put(y0, xx)
+        put(y1, xx)
+    for yy in range(y0, y1 + 1):
+        put(yy, x0)
+        put(yy, x1)

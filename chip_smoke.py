@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
      time the build and report ptxas registers and spills;
   2. every kernel against its plain PyTorch version on the card, bit for
      bit: a ragged 200x150 plane, 2 chunks of T = 8, all 8 mode cases,
-     depth 6 and 8, a forced depth-6 overflow; the multi-block scan at 0, 1,
+     depth 6 and 8, a forced depth-6 overflow; the same with K1's display
+     output (the four view modes, from a seeded display frame, WRITE and
+     VOID); the multi-block scan at 0, 1,
      37, 4096, 4097, 129,600 and 524,288 counts (a total past 2^31), each
      also from an input off the 16-byte boundary;
   3. the main path: 1080p mono, the reference's bench config, 64 frames of
@@ -36,9 +38,9 @@ Phases (any failure raises and the script exits non-zero):
      Prophesee(20, path, device="cuda"): every lane group must go through
      adder_dvs_rows, the dense kernel may run only the bootstrap and the
      flush, and the decoded event count must equal the kernels'; the first
-     0.05 s must
-     give the same bytes on the card and on the CPU; a bulk run (view_fps 1,
-     Empty sink, void) must run segmented windows and T = 128 groups;
+     0.025 s must give the same bytes on the card and on the CPU; a bulk
+     run (view_fps 1, Empty sink, void) must run segmented windows and
+     T = 128 groups;
   7. timings on one 64-lane group at 640x480 (T = 128): the row route
      fetched and void, with and without its grouping glue, the glue alone beside its plain version;
      the dense kernel and its plane scatter beside them; both against
@@ -54,7 +56,7 @@ Phases (any failure raises and the script exits non-zero):
      sink) on a seeded, uncompressed aedat4 stream (1.0 s, 1,000,000 DVS
      events, 40 APS frames of 10 ms), through Davis(EdiReconstructor(path),
      device="cuda"): the K4 and K3 launch counters must rise and the
-     decoded event count must equal the kernels'; the first 4 packets must
+     decoded event count must equal the kernels'; the first 2 packets must
      give the same bytes on the card and on the CPU; a void run must end in
      the fetched run's state;
   10. timings: K4 against plain on the largest packet's chunk; the dense
@@ -80,12 +82,32 @@ Phases (any failure raises and the script exits non-zero):
   14. timings: K5 and K6 against plain at 1080p mono, mid-stream, with
      their bounds; the slot engine's compaction glue per interval; each
      engine's Raw Mpx/s, stage breakdown and device busy share, and the
-     resident engine's stage breakdown beside them.
+     resident engine's stage breakdown beside them;
+  15. feature detection: the main path of phase 3 with
+     update_detect_features(True, Instant, False, False) on each engine
+     (resident: K1 with its display output; fused: K5; slots: K6): the
+     engine's launch counter must rise, the .adder bytes must equal phase
+     3's by sha256, and the feature set and the display frame with its
+     markers must be one across the engines; the first 8 frames (two
+     chunks of 4) must give the same bytes, feature set and display frame
+     on the card and on the CPU, on the bench scene and, with crf 5, the
+     rate adjustment and clustering on, on a 1080p scene of moving shapes
+     (the bench scene's smooth display frame has few corners); a checkpoint
+     taken after chunk 2 and resumed in a fresh Video must continue the
+     uninterrupted run's bytes and end on its display frame;
+  16. timings: K1 with and without the display at 1080p mono, T = 16, with
+     their bounds; fast_mask_torch per chunk; the features-on Raw wall
+     beside the features-off one; a stage breakdown of the features-on run.
+The sha256 of each whole output of a full-size run (the .adder files of
+phases 3, 6 and 9; the feature set and display frame of phase 15) is
+logged and held to a constant (DIGESTS), so that a kernel which reorders
+events past the prefixes the CPU checks cannot pass.
 Every kernel of the record carries its bound: the bytes it must move over
 3.35 TB/s, counted for the lane kernels (K3, K4) from the active cells
 and pixels of the chunk (the dense-plane figure is logged beside it), for
 K5 from the interval's state and its event count, for K6 from its state
-and its dense slot planes.
+and its dense slot planes, for K1's display from K1's bytes and the
+display's (run0 read, T x N written).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit, and the one before that the kernels'
 record. Without CUDA the script exits non-zero and prints no result.
@@ -108,12 +130,24 @@ H, W = 1080, 1920
 T_CHUNK = 16
 N_FRAMES = 64
 DVS_W, DVS_H = 640, 480
-DVS_PREFIX_US = 50_000
+DVS_PREFIX_US = 25_000
 DAVIS_W, DAVIS_H = 346, 260
 DAVIS_FRAMES = 40
-DAVIS_PREFIX_PACKETS = 4
+DAVIS_PREFIX_PACKETS = 2
 # H100 SXM HBM3 peak (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+# sha256 of each whole output of the seeded full-size runs (hold_digest),
+# as the first card run that logged them gave them
+DIGESTS = {
+    "phase 3 framed 1080p mono Raw .adder":
+        "b9052465fb80e8703764f8dd680ecfced79941ef9de24761c968c03910f4932c",
+    "phase 6 Prophesee 640x480 windowed Raw .adder":
+        "5aeed204d6735e75b7097d61c37d17cebbf8eed1f5ea53b3204046a642f50273",
+    "phase 9 DAVIS 346x260 raw-davis Raw .adder":
+        "36451913da1c442a1fc429e5d495bd0e0688483939a64172e4b465518ef83e86",
+    "phase 15 features and display, 1080p bench scene":
+        "58fcb4754be8d3554b5aa2ce72ff3f30c3ea27a8df08dd0c8ad605cbf811def5",
+}
 
 
 def log(msg: str) -> None:
@@ -137,6 +171,21 @@ def sync(device) -> None:
 def file_digest(path) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+def hold_digest(name: str, digest: str) -> None:
+    """Log a whole output's sha256 and hold it to DIGESTS[name]."""
+    log(f"# digest {name}: {digest}")
+    if digest != DIGESTS[name]:
+        raise AssertionError(f"{name}: sha256 {digest}, held {DIGESTS[name]}")
+
+
+def features_digest(video) -> str:
+    """sha256 of a Video's feature set (sorted) and its display frame with
+    the markers."""
+    h = hashlib.sha256(repr(sorted(video.features)).encode())
+    h.update(video.display_frame_features.tobytes())
+    return h.hexdigest()
 
 
 @contextlib.contextmanager
@@ -229,8 +278,8 @@ def lane_chunk_bound(state, planes, n_events: int) -> float:
 
 def kernel_source(name: str) -> str:
     """Which kernel a mangled name instantiates: a one-interval kernel by its
-    name, a chunk kernel by its last template argument, the source
-    (adder_interval.cuh SRC_FRAMED / DVS / DAVIS)."""
+    name, a chunk kernel by its last two template arguments, the source
+    (adder_interval.cuh SRC_FRAMED / DVS / DAVIS) and RUN (the display)."""
     if "adder_fused_interval_kernel" in name:
         return "fused interval (K5)"
     if "adder_interval_slots_kernel" in name:
@@ -239,7 +288,9 @@ def kernel_source(name: str) -> str:
         return "DVS rows (K3)"
     if "adder_exclusive_scan_kernel" in name:
         return "scan"
-    m = re.search(r"ELi(\d)E+v", name)
+    m = re.search(r"ELi(\d)ELb([01])E+v", name)
+    if m and m.groups() == ("0", "1"):
+        return "framed display (K1)"
     return {"0": "framed (K1/K2)", "1": "DVS (K3)", "2": "DAVIS (K4)"}.get(
         m.group(1) if m else "", "other")
 
@@ -581,6 +632,8 @@ def dvs_phases(dev, card):
         log(f"# phase 6: windowed Raw (60 fps): {n_kernel} ADΔER events, "
             f"{os.path.getsize(out)} bytes, {first_s:.3f} s (first run), "
             f"launches {dvs_launches}")
+        hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
+                    file_digest(out))
         win_s, _ = prophesee_run(at, raw_in, dev, out)
         win_mev = n_in / win_s / 1e6
         log(f"# phase 6: windowed Raw path {win_mev} Mev/s ({win_s} s for "
@@ -915,6 +968,8 @@ def davis_phases(dev, card):
         log(f"# phase 9: Raw: {n_kernel} ADΔER events, "
             f"{os.path.getsize(out)} bytes, {first_s:.3f} s (first run), "
             f"launches {launches}")
+        hold_digest("phase 9 DAVIS 346x260 raw-davis Raw .adder",
+                    file_digest(out))
 
         _, void = davis_run(at, path, dev, None)
         for name, a, b in zip(fetched.state._fields, fetched.state,
@@ -1002,18 +1057,26 @@ def davis_phases(dev, card):
                 bound_ms=k4_bound), launches
 
 
-def staged_framed_run(at, frames, dev, path, keep_running=True):
-    """The 1080p Raw run (the display kept if `keep_running`; the resident
-    engine cannot keep it) with each stage timed on the host
-    clock and a synchronise after it: chunks (every chunk call, reruns
-    included: the kernels and, on the slot engine, the compaction), fetch
-    (the events' device -> host copy), unpack (wire pairs to x, y, c, d, t),
-    encode, and submit (submit_chunk less the stages inside it: the frames'
-    host -> device copy, the initial state, and the control reads and
-    display fetch of the chunks it collects); "other" is the rest of the
-    wall (the end of the stream's control reads and display fetches, the
-    loop). Returns (wall seconds, stage -> seconds)."""
-    S = Stages(("submit", "chunks", "fetch", "unpack", "encode"))
+def staged_framed_run(at, frames, dev, path, keep_running=True,
+                      features=False):
+    """The 1080p Raw run (the display kept if `keep_running`; with
+    `features`, feature detection on, Instant markers) with each stage timed
+    on the host clock and a synchronise after it: chunks (every chunk call,
+    reruns included: the kernels and, on the slot engine, the compaction),
+    fetch (the events' device -> host copy), unpack (wire pairs to x, y, c,
+    d, t), encode, with features FAST (fast_mask_torch over the chunk's
+    display frames), gather (the candidates' bits to the host) and replay
+    (the host feature set update and the markers), and submit (submit_chunk
+    less the stages inside it: the frames' host -> device copy, the initial
+    state, and the control reads and display fetch of the chunks it
+    collects); "other" is the rest of the wall (the end of the stream's
+    control reads and display fetches, the loop). Returns (wall seconds,
+    stage -> seconds)."""
+    from adder_tpu_torch.utils import cv as CV
+
+    feature_stages = ("FAST", "gather", "replay") if features else ()
+    S = Stages(("submit", "chunks", "fetch", "unpack", "encode")
+               + feature_stages)
     st = S.seconds
     P = Patches()
 
@@ -1035,7 +1098,15 @@ def staged_framed_run(at, frames, dev, path, keep_running=True):
         P.wrap(video.encoder, "ingest_event_array", S.timed("encode"))
         P.wrap(video, "_ingest", less_inner("fetch", ("unpack", "encode")))
         P.wrap(video, "submit_chunk", less_inner(
-            "submit", ("chunks", "fetch", "unpack", "encode")))
+            "submit", ("chunks", "fetch", "unpack", "encode")
+            + feature_stages))
+        if features:
+            features_on(video)
+            P.wrap(CV, "fast_mask_torch", S.timed("FAST"))
+            P.wrap(video, "_feature_mask_lookup",
+                   less_inner("gather", ("FAST",)))
+            P.wrap(video, "_handle_features",
+                   less_inner("replay", ("FAST", "gather")))
 
     try:
         wall, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
@@ -1044,6 +1115,262 @@ def staged_framed_run(at, frames, dev, path, keep_running=True):
         P.restore()
     st["other"] = wall - sum(st.values())
     return wall, st
+
+
+def features_on(video, rate=False):
+    """Feature detection as phase 15 runs it: Instant markers; with `rate`,
+    crf 5, the rate adjustment and clustering."""
+    from adder_tpu_torch.utils.viz import ShowFeatureMode
+
+    if rate:
+        video.update_crf(5)
+    video.update_detect_features(True, ShowFeatureMode.Instant, rate, rate)
+
+
+class DisplayLaunches:
+    """Counts the launches of adder_resident_chunk that write the display (a
+    WRITE or VOID pass given `runnings`), at the C entry point the chunk
+    wrapper calls; LAUNCHES["adder_resident_chunk"] counts them with the
+    display-off ones. Undone by close()."""
+
+    def __init__(self, lib, FR):
+        self.n = 0
+        self._lib, self._orig = lib, lib.adder_resident_chunk
+
+        def entry(addr, stream):
+            a = FR._ChunkArgs.from_address(addr)
+            if a.runnings and a.pass_ != FR.PASS_COUNT:
+                self.n += 1
+            return self._orig(addr, stream)
+
+        lib.adder_resident_chunk = entry
+
+    def close(self):
+        self._lib.adder_resident_chunk = self._orig
+
+
+def features_phases(dev, card, scene, main_digest, st6, p):
+    """Phases 15-16 (feature detection on each engine, checkpoints, the
+    display kernel's timing). `scene` is phase 3's (T, H, W) u8 scene on the
+    card, `main_digest` the resident engine's .adder digest, `st6` phase
+    4's mid-stream depth-6 state, `p` the bench parameters. Returns the K1
+    display record entry."""
+    import numpy as np
+
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import cuda_build
+    from adder_tpu_torch.ops import fused_kernel as FK
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.ops import pallas_kernel as PK
+    from adder_tpu_torch.utils import cv as CV
+
+    frames = scene.cpu().numpy()[..., None]
+    engines = (("resident", None, FR, "adder_resident_chunk"),
+               ("fused", "ADDER_TPU_RESIDENT", FK, "adder_fused_interval"),
+               ("slots", "ADDER_TPU_FUSED", PK, "adder_interval_slots"))
+    t0 = time.perf_counter()
+    corners = testing.moving_shapes(5, 8, H, W, 1, n_shapes=24)
+    log(f"# phase 15: a 1080p scene of 24 moving shapes, 8 frames, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, videos, walls = {}, {}, {}
+    display = DisplayLaunches(cuda_build.load(), FR)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "features.adder")
+            for engine, env, mod, name in engines:
+                with (engine_env(env) if env else contextlib.nullcontext()):
+                    mod.reset_launch_counts()
+                    display.n = 0
+                    raw_s, n_kernel, video = transcode_raw(
+                        at, frames, dev, path, T_CHUNK, before=features_on)
+                    launches[name] = mod.LAUNCHES[name]
+                    if engine == "resident":
+                        launches["display"] = display.n
+                    if video.engine != engine or launches[name] < 1:
+                        raise AssertionError(
+                            f"{engine} engine: {video.engine}, "
+                            f"{launches[name]} {name} launches")
+                    if engine == "resident" and display.n < 1:
+                        raise AssertionError("the resident engine ran no "
+                                             "display launch")
+                    if file_digest(path) != main_digest:
+                        raise AssertionError(f"{engine}: features on, the "
+                                             f".adder bytes differ from "
+                                             f"phase 3's")
+                    videos[engine] = video
+                    walls[engine] = raw_s
+                    ref = videos["resident"]
+                    if (video.features != ref.features or not np.array_equal(
+                            video.display_frame_features,
+                            ref.display_frame_features)):
+                        raise AssertionError(f"{engine}: feature set or "
+                                             f"display differs from the "
+                                             f"resident engine's")
+                    extra = (f", {launches['display']} of them with the "
+                             f"display" if engine == "resident" else "")
+                    log(f"# phase 15: {engine} engine, features on (Instant)"
+                        f", 1080p mono Raw: {n_kernel} events, phase 3's "
+                        f"bytes exactly (sha256), {len(video.features)} "
+                        f"features, {raw_s:.3f} s (first run), "
+                        f"{launches[name]} {name} launches{extra}")
+
+                    for what, src, rate in (("bench scene", frames, False),
+                                            ("shapes, crf 5, rate + cluster",
+                                             corners, True)):
+                        a = os.path.join(tmp, "cuda8.adder")
+                        b = os.path.join(tmp, "cpu8.adder")
+                        _, _, va = transcode_raw(
+                            at, src[:8], dev, a, 4,
+                            before=lambda v: features_on(v, rate))
+                        t1 = time.perf_counter()
+                        _, _, vb = transcode_raw(
+                            at, src[:8], "cpu", b, 4,
+                            before=lambda v: features_on(v, rate))
+                        cpu_s = time.perf_counter() - t1
+                        if file_digest(a) != file_digest(b):
+                            raise AssertionError(f"{engine}, {what}: first 8 "
+                                                 f"frames, card and CPU .adder"
+                                                 f" differ")
+                        if rate and not (va.features
+                                         and int(va.state.c_thresh.min()) <= 2):
+                            raise AssertionError(f"{engine}, {what}: no "
+                                                 f"feature lowered c_thresh")
+                        if not (va.features == vb.features and np.array_equal(
+                                va.display_frame_features,
+                                vb.display_frame_features) and torch.equal(
+                                va.state.c_thresh.cpu(), vb.state.c_thresh)):
+                            raise AssertionError(f"{engine}, {what}: first 8 "
+                                                 f"frames, card and CPU "
+                                                 f"features differ")
+                        log(f"# phase 15: {engine}, {what}: first 8 frames (2 "
+                            f"chunks of 4) byte-identical on card and CPU, "
+                            f"the same {len(va.features)} features, display "
+                            f"frame and c_thresh (min "
+                            f"{int(va.state.c_thresh.min())}; "
+                            f"{os.path.getsize(a)} bytes; CPU plain run "
+                            f"{cpu_s:.1f} s)")
+            ref = videos["resident"]
+            hold_digest("phase 15 features and display, 1080p bench scene",
+                        features_digest(ref))
+
+            # a checkpoint after chunk 2, resumed in a fresh Video
+            head_p, tail_p = (os.path.join(tmp, f"{x}.adder")
+                              for x in ("head", "tail"))
+            ck = os.path.join(tmp, "ck.npz")
+
+            def start(out):
+                src = bench_source(at, frames, dev, T_CHUNK)
+                src.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                              at.PixelMultiMode.Collapse, None,
+                              at.EncoderType.Raw,
+                              at.EncoderOptions.default(src.video.plane), out)
+                src.video._keep_running_frame = True
+                return src.video
+
+            with open(head_p, "wb") as f:
+                v = start(f)
+                for i in (0, T_CHUNK):
+                    v.submit_chunk(frames[i : i + T_CHUNK])
+                v.save_checkpoint(ck)
+                header = v.encoder.meta.header_size
+            with open(tail_p, "wb") as f:
+                v = start(f)
+                v.load_checkpoint(ck)
+                for i in range(2 * T_CHUNK, N_FRAMES, T_CHUNK):
+                    v.submit_chunk(frames[i : i + T_CHUNK])
+                v.end_write_stream()
+            with open(head_p, "rb") as fh, open(tail_p, "rb") as ft:
+                resumed = fh.read() + ft.read()[header:]
+            if (hashlib.sha256(resumed).hexdigest() != main_digest
+                    or not np.array_equal(v.running_intensities,
+                                          ref.running_intensities)):
+                raise AssertionError("the resumed run differs from the "
+                                     "uninterrupted one")
+            log(f"# phase 15: checkpoint after chunk 2 ({os.path.getsize(ck)}"
+                f" bytes), resumed in a fresh Video: phase 3's bytes and the "
+                f"uninterrupted run's display frame")
+
+            # -- phase 16: timings ------------------------------------------
+            n = H * W
+            f16 = scene[T_CHUNK : 2 * T_CHUNK].reshape(T_CHUNK, -1)
+            f16 = f16.contiguous()
+            run0 = scene[T_CHUNK - 1].reshape(-1).contiguous()
+            want = FR.fused_chunk_resident_plain(st6, f16, 255.0, p, run0)
+            err = max(
+                testing.compare_chunks(FR.fused_chunk_resident(
+                    st6, f16, 255.0, p, run0), want, "1080p display chunk"),
+                testing.compare_chunks(FR.group_chunk_resident(
+                    st6, f16, 255.0, p, run0),
+                    want._replace(pixd=None, t=None),
+                    "1080p display void chunk"))
+            n_ev = len(want.pixd)
+            k_ms = cuda_ms(lambda: FR.fused_chunk_resident(st6, f16, 255.0,
+                                                           p), 10)
+            kd_ms = cuda_ms(lambda: FR.fused_chunk_resident(
+                st6, f16, 255.0, p, run0), 10)
+            k_ms2 = cuda_ms(lambda: FR.fused_chunk_resident(st6, f16, 255.0,
+                                                            p), 10)
+            kd_ms2 = cuda_ms(lambda: FR.fused_chunk_resident(
+                st6, f16, 255.0, p, run0), 10)
+            v_ms = cuda_ms(lambda: FR.group_chunk_resident(st6, f16, 255.0,
+                                                           p), 10)
+            vd_ms = cuda_ms(lambda: FR.group_chunk_resident(
+                st6, f16, 255.0, p, run0), 10)
+            kdp_ms = cuda_ms(lambda: FR.fused_chunk_resident_plain(
+                st6, f16, 255.0, p, run0), 2)
+            k_bound = chunk_bound(st6, [f16], n_ev)
+            kd_bound = k_bound + bound(T_CHUNK * n + n)
+            frames16 = f16.view(T_CHUNK, H, W)
+            fast_ms = cuda_ms(lambda: CV.fast_mask_torch(frames16), 10)
+            # the frames read once (u8), the mask written once (bool)
+            fast_bound = bound(2 * T_CHUNK * n)
+            log(f"# phase 16: K1 display == plain at 1080p mono T={T_CHUNK} "
+                f"mid-stream ({n_ev} events), fetched and void")
+            log(f"# phase 16: 1080p mono T={T_CHUNK} chunk [{card}]:")
+            log(f"#   K1 fetched (COUNT+scan+WRITE): display off {k_ms}, "
+                f"{k_ms2} ms (bound {k_bound} ms); display on {kd_ms}, "
+                f"{kd_ms2} ms (bound {kd_bound} ms); plain with the display "
+                f"{kdp_ms} ms")
+            log(f"#   K2 void: display off {v_ms} ms, on {vd_ms} ms")
+            log(f"#   fast_mask_torch over ({T_CHUNK}, {H}, {W}): {fast_ms} "
+                f"ms (bytes bound {fast_bound} ms)")
+
+            FR.reset_launch_counts()
+            off_s, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
+            on_s, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                       before=features_on)
+            off_s2, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
+            on_s2, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                        before=features_on)
+            log(f"# phase 16: resident engine 1080p mono Raw walls, in turns "
+                f"[{card}]: features off {off_s}, {off_s2} s "
+                f"({H * W * N_FRAMES / off_s / 1e6}, "
+                f"{H * W * N_FRAMES / off_s2 / 1e6} Mpx/s); features on "
+                f"{on_s}, {on_s2} s ({H * W * N_FRAMES / on_s / 1e6}, "
+                f"{H * W * N_FRAMES / on_s2 / 1e6} Mpx/s)")
+            for engine, env, _, _ in engines[1:]:
+                with engine_env(env):
+                    s_on, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                               before=features_on)
+                log(f"# phase 16: {engine} engine, features on: {s_on} s "
+                    f"(second run; first {walls[engine]} s) [{card}]")
+            wall, stages = staged_framed_run(at, frames, dev, path,
+                                             keep_running=False,
+                                             features=True)
+            log(f"# phase 16: resident engine features-on Raw stage "
+                f"breakdown, {wall} s wall ({H * W * N_FRAMES / wall / 1e6} "
+                f"Mpx/s with a synchronise after each stage) [{card}]:")
+            for name, sec in stages.items():
+                log(f"#   {name:7s} {sec:.6f} s  {sec / wall:.1%}")
+    finally:
+        display.close()
+    return {"name": "adder_resident_chunk (display)", "route": "cuda",
+            "source": "adder_tpu_torch/csrc/fused_resident.cu",
+            "replaces": "adder_tpu/ops/fused_resident.py:676",
+            "launches": launches["display"], "max_abs_err": err, "ms": kd_ms,
+            "plain_ms": kdp_ms, "bound_ms": kd_bound, "bound_by": "bytes",
+            "library_ms": None, "display_off_ms": k_ms}
 
 
 def interval_phases(dev, card, scene, main_digest, st6, p):
@@ -1266,6 +1593,7 @@ def main() -> int:
     from adder_tpu_torch.ops import fused_resident as FR
     from adder_tpu_torch.ops import integrate as ops
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"# card: {card}")
@@ -1280,8 +1608,9 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "scan", "DVS (K3)", "DVS rows (K3)",
-                 "DAVIS (K4)", "fused interval (K5)", "interval slots (K6)"):
+    for what in ("framed (K1/K2)", "framed display (K1)", "scan", "DVS (K3)",
+                 "DVS rows (K3)", "DAVIS (K4)", "fused interval (K5)",
+                 "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
         if ks:
@@ -1312,6 +1641,13 @@ def main() -> int:
         f"{testing.SCAN_SIZES} counts, aligned and unaligned, "
         f"and at (64, 24300) past 2^31 (max abs err {scan_err}); "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    display_err = testing.check_display_against_plain(dev)
+    torch.cuda.synchronize()
+    log(f"# phase 2: K1 display == plain on 8 modes x depth 6/8 x 2 chained "
+        f"chunks of T = 8, the 4 view modes, from a seeded display frame, "
+        f"WRITE and VOID, forced depth-6 overflow (max abs err "
+        f"{display_err}); {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path at 1080p mono -----------------------------
     t0 = time.perf_counter()
@@ -1338,6 +1674,7 @@ def main() -> int:
         main_digest = file_digest(path)
         log(f"# phase 3: 1080p mono Raw: {N_FRAMES} frames, {n_kernel} events"
             f", {size} bytes, {raw_s:.3f} s (first run), launches {launches}")
+        hold_digest("phase 3 framed 1080p mono Raw .adder", main_digest)
         raw_s2, _, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
         raw_mpx = H * W * N_FRAMES / raw_s2 / 1e6
         log(f"# phase 3: Raw-sink path {raw_mpx} Mpx/s ({raw_s2} s for "
@@ -1440,6 +1777,8 @@ def main() -> int:
     dvs_err, rows_err, dvs_launches, k3, k3r, glue = dvs_phases(dev, card)
     k4, davis_launches = davis_phases(dev, card)
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
+    k1_display = features_phases(dev, card, scene, main_digest, st, p)
+    k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
 
     record = {"kernels": [
         {"name": "adder_resident_chunk", "route": "cuda",
@@ -1448,6 +1787,7 @@ def main() -> int:
          "launches": launches["adder_resident_chunk"],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k_bound, "bound_by": "bytes", "library_ms": None},
+        k1_display,
         {"name": "adder_exclusive_scan", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",
@@ -1488,6 +1828,8 @@ def main() -> int:
          "library_ms": None},
         *k5_k6,
     ]}
+    log(f"# all phases passed in {time.perf_counter() - t_start:.1f} s, the "
+        f"build included")
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "adder_tpu"))
     if imported:

@@ -14,6 +14,7 @@ import torch
 import adder_tpu_torch as at
 from adder_tpu_torch import testing
 from adder_tpu_torch.ops import fused_resident as FR
+from adder_tpu_torch.utils.viz import ShowFeatureMode
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +89,77 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
     cpu_state = st._replace(length=st.length.cpu())
     with pytest.raises(ValueError):
         FR.group_chunk_resident(cpu_state, frames, 255.0, p)
+
+
+def test_display_matches_plain(cuda):
+    """K1's display output against its plain version: 8 modes x depth 6/8,
+    the four view modes, two chained chunks of T = 8 from a seeded display
+    frame on a ragged 200 x 150 plane, WRITE and VOID, a forced depth-6
+    overflow."""
+    assert testing.check_display_against_plain(cuda) == 0.0
+
+
+def test_display_wrapper_rejects_bad_run0(cuda):
+    st = at.Video(at.PlaneSize(8, 4, 1), at.Mode.FramePerfect,
+                  device=cuda).state
+    frames = torch.zeros((3, 32), dtype=torch.uint8, device=cuda)
+    p = FR.ops.TranscodeParams()
+    for run0 in (torch.zeros(32, dtype=torch.int32, device=cuda),
+                 torch.zeros(31, dtype=torch.uint8, device=cuda),
+                 torch.zeros(32, dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            FR.fused_chunk_resident(st, frames, 255.0, p, run0)
+
+
+def _features_run(frames, device, rate: bool):
+    """A features-on FramedArray run (Instant markers; with `rate`, crf 5,
+    the rate adjustment and clustering): the bytes, the feature set and the
+    display frame with its markers after each chunk."""
+    src = at.FramedArray(frames, 30.0, chunk_frames=4, device=device)
+    src.auto_time_parameters(255, 255 * 30, at.TimeMode.AbsoluteT)
+    if rate:
+        src.crf(5)
+    buf = io.BytesIO()
+    src.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+                  at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                  at.EncoderOptions.default(src.video.plane), buf)
+    src.video.update_detect_features(True, ShowFeatureMode.Instant, rate,
+                                     rate)
+    shown = []
+    while True:
+        try:
+            src.consume_batch()
+        except EOFError:
+            break
+        shown.append((set(src.video.features),
+                      src.video.display_frame_features.copy()))
+    src.video.end_write_stream()
+    return buf.getvalue(), shown, src.video.state.c_thresh.cpu()
+
+
+@pytest.mark.parametrize("rate", [False, True], ids=["plain", "rate"])
+@pytest.mark.parametrize("env", [None, "ADDER_TPU_RESIDENT",
+                                 "ADDER_TPU_FUSED"])
+def test_features_video_cuda_equals_cpu(cuda, env, rate, monkeypatch):
+    """A features-on Video on each engine: the same bytes, feature sets,
+    display frames and c_thresh on the card and on the CPU; on the resident
+    engine through the display kernel."""
+    monkeypatch.delenv("ADDER_TPU_RESIDENT", raising=False)
+    monkeypatch.delenv("ADDER_TPU_FUSED", raising=False)
+    if env:
+        monkeypatch.setenv(env, "0")
+    frames = testing.moving_shapes(3, 12, 48, 64, 1)
+    FR.reset_launch_counts()
+    card = _features_run(frames, cuda, rate)
+    if env is None:
+        assert FR.LAUNCHES["adder_resident_chunk"] == 6  # COUNT + WRITE x 3
+    cpu = _features_run(frames, "cpu", rate)
+    assert card[0] == cpu[0] and len(card[0]) > 1000
+    assert len(card[1]) == len(cpu[1]) == 3
+    for (fa, da), (fb, db) in zip(card[1], cpu[1]):
+        assert fa == fb and (da == db).all()
+    assert card[1][-1][0]  # some features
+    assert torch.equal(card[2], cpu[2])
 
 
 def test_dvs_kernel_matches_plain(cuda):

@@ -198,3 +198,104 @@ def test_kernel_check_harness_runs_on_cpu():
     """chip_smoke.py's kernel-against-plain check, on CPU tensors (where
     both sides are the plain version): the harness itself runs clean."""
     assert testing.check_kernels_against_plain("cpu", H=5, W=7, T=3) == 0.0
+
+
+# --- the display output (emit_running) ---------------------------------------
+
+VIEW_MODES = [0, 1, 2, 3]  # Intensity, D, DeltaT, SAE
+
+
+def _display_params(view_mode):
+    """Continuous / Collapse / AbsoluteT with the view mode under test."""
+    cfg = dict(mode=int(Mode.Continuous),
+               multi_mode=int(PixelMultiMode.Collapse),
+               time_mode=int(TimeMode.AbsoluteT), ref_time=255,
+               delta_t_max=255 * 4, view_mode=view_mode)
+    return K.TranscodeParams(**cfg), P.TranscodeParams(**cfg)
+
+
+def _run0(seed=3):
+    return np.random.default_rng(seed).integers(0, 256, N, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("view_mode", VIEW_MODES)
+def test_plain_runnings_match_xla_chunk(view_mode):
+    """Two chained chunks from a non-zero display frame: the plain
+    version's display frames (fetched and Empty-sink) equal
+    make_transcode_chunk's exactly."""
+    kp, pp = _display_params(view_mode)
+    rng = np.random.default_rng(17)
+    f1, f2 = _frames(rng), _frames(rng)
+    fn = K.make_transcode_chunk(kp, K.K_SLOTS * N * T, K.K_SLOTS)
+    js = _jax_state(f1)
+    ts = convert.state_from_numpy(js, "cpu")
+    run_j = jnp.asarray(_run0())
+    run_t = torch.from_numpy(_run0())
+    for frames in (f1, f2):
+        ref = fn(js, jnp.asarray(frames), jnp.float32(255.0), run_j)
+        got = FR.fused_chunk_resident_plain(ts, torch.from_numpy(frames),
+                                            255.0, pp, run_t)
+        void = FR.group_chunk_resident_plain(ts, torch.from_numpy(frames),
+                                             255.0, pp, run_t)
+        want = np.asarray(ref[8])
+        assert got.runnings.shape == (T, N)
+        np.testing.assert_array_equal(got.runnings.numpy(), want)
+        np.testing.assert_array_equal(void.runnings.numpy(), want)
+        assert (want != np.asarray(run_j)[None]).any()  # the frame moved
+        js, ts = ref[0], got.state
+        run_j, run_t = ref[8][-1], got.runnings[-1]
+
+
+@pytest.mark.parametrize("view_mode", VIEW_MODES)
+def test_plain_runnings_match_resident_kernel(view_mode):
+    """Two chained chunks from a non-zero display frame against the JAX
+    resident kernel with emit_running (Pallas, interpret mode): the display
+    frames equal within the FMA-tie class of the module docstring, the
+    events exactly."""
+    kp, pp = _display_params(view_mode)
+    rng = np.random.default_rng(19)
+    f1, f2 = _frames(rng), _frames(rng)
+    fn = JFR.make_fused_chunk_resident(kp, K.K_SLOTS * N * T * 4, 4,
+                                       pallas_block=BLOCK, interpret=True,
+                                       emit_running=True)
+    js = _jax_state(f1)
+    ts = convert.state_from_numpy(js, "cpu")
+    run_j = jnp.asarray(_run0(5))
+    run_t = torch.from_numpy(_run0(5))
+    for frames in (f1, f2):
+        ref = fn(js, jnp.asarray(frames), jnp.float32(255.0), run_j)
+        got = FR.fused_chunk_resident_plain(ts, torch.from_numpy(frames),
+                                            255.0, pp, run_t)
+        total = int(ref[6])
+        assert int(ref[9]) & 0xFFFF <= 4  # no pixel outgrew the 4 lanes
+        rp, _ = JFR.assemble_resident_events(
+            np.asarray(ref[1][:total]), np.asarray(ref[2][:total]),
+            np.asarray(ref[10]))
+        np.testing.assert_array_equal(_u32(got.pixd), rp)
+        _assert_fma_tie_only(np.asarray(ref[8]), got.runnings.numpy())
+        js, ts = ref[0], got.state
+        run_j, run_t = ref[8][-1], got.runnings[-1]
+
+
+def test_run0_guard_and_no_display_without_it():
+    _, pp = _params(*MODE_CASES[0])
+    frames = torch.from_numpy(_frames(np.random.default_rng(4)))
+    st = P.set_initial_d(P.init_state(N, "cpu", depth=6),
+                         frames[0].to(torch.int32))
+    assert FR.fused_chunk_resident(st, frames, 255.0, pp).runnings is None
+    assert FR.group_chunk_resident(st, frames, 255.0, pp).runnings is None
+    for bad in (torch.zeros(N, dtype=torch.int32),
+                torch.zeros(N - 1, dtype=torch.uint8),
+                torch.zeros((1, N), dtype=torch.uint8)):
+        for fn in (FR.fused_chunk_resident, FR.group_chunk_resident):
+            with pytest.raises(ValueError):
+                fn(st, frames, 255.0, pp, bad)
+    run0 = torch.zeros(N, dtype=torch.uint8)
+    got = FR.fused_chunk_resident(st, frames, 255.0, pp, run0)
+    want = FR.fused_chunk_resident_plain(st, frames, 255.0, pp)
+    assert torch.equal(got.pixd, want.pixd)  # the display changes no event
+
+
+def test_display_check_harness_runs_on_cpu():
+    """chip_smoke.py's display-against-plain check, on CPU tensors."""
+    assert testing.check_display_against_plain("cpu", H=5, W=7, T=3) == 0.0

@@ -21,6 +21,8 @@ from adder_tpu.codec import header as JHDR
 from adder_tpu.core import types as JT
 from adder_tpu.ops import native_dvs_plan as JPLAN
 from adder_tpu.utils import aedat4 as JAEDAT
+from adder_tpu.utils import cv as JCV
+from adder_tpu.utils import viz as JVIZ
 from adder_tpu_torch.codec import decoder as DEC
 from adder_tpu_torch.codec import encoder as ENC
 from adder_tpu_torch.codec import header as HDR
@@ -28,6 +30,8 @@ from adder_tpu_torch.core import types as T
 from adder_tpu_torch.ops import native_build
 from adder_tpu_torch.ops import native_dvs_plan as PLAN
 from adder_tpu_torch.utils import aedat4 as AEDAT
+from adder_tpu_torch.utils import cv as CV
+from adder_tpu_torch.utils import viz as VIZ
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "adder_tpu_torch"
@@ -190,6 +194,52 @@ def test_aedat4_copy_reads_and_writes_like_jax(tmp_path):
     np.testing.assert_array_equal(got[0].events, want[0].events)
     np.testing.assert_array_equal(got[1].image, want[1].image)
     assert got[1].exposure_end_t == want[1].exposure_end_t == 30_000
+
+
+def test_cv_copy_equals_jax():
+    """The FAST constants, the scalar `is_feature` with its `_streak`, and
+    the dense numpy `fast_mask` with its `_streak_mask`, on seeded images
+    with corners and at every pixel (borders and channels included)."""
+    assert CV.CIRCLE3 == JCV.CIRCLE3
+    assert (CV.INTENSITY_THRESHOLD, CV.STREAK_SIZE) == (
+        JCV.INTENSITY_THRESHOLD, JCV.STREAK_SIZE)
+    rng = np.random.default_rng(12)
+    imgs = [rng.integers(0, 256, (14, 17, 2), dtype=np.uint8),
+            np.full((12, 12, 1), 128, dtype=np.uint8)]
+    imgs[1][:6, :6] = 220
+    for img in imgs:
+        H, W, C = img.shape
+        np.testing.assert_array_equal(CV.fast_mask(img), JCV.fast_mask(img))
+        for thr in (10, 60):
+            np.testing.assert_array_equal(CV.fast_mask(img, thr),
+                                          JCV.fast_mask(img, thr))
+        jp, tp = JT.PlaneSize(W, H, C), T.PlaneSize(W, H, C)
+        for y in range(H):
+            for x in range(W):
+                for c in (None, 0, 1):
+                    assert CV.is_feature(T.Coord(x, y, c), tp, img) == (
+                        JCV.is_feature(JT.Coord(x, y, c), jp, img)), (x, y, c)
+    m = rng.random((16, 9, 7)) < 0.6
+    np.testing.assert_array_equal(CV._streak_mask(m), JCV._streak_mask(m))
+    for row in m.reshape(16, -1).T:
+        assert CV._streak(row) == JCV._streak(row)
+
+
+def test_viz_copy_equals_jax():
+    """ShowFeatureMode's values, and the markers and rectangles drawn on
+    mono and colour frames (edges clipped), the default and a given
+    colour."""
+    assert [(m.name, int(m)) for m in VIZ.ShowFeatureMode] == [
+        (m.name, int(m)) for m in JVIZ.ShowFeatureMode]
+    for C in (1, 3):
+        for color in (None, (10, 20, 30)):
+            imgs = [np.zeros((9, 11, C), np.uint8) for _ in range(2)]
+            for mod, img in zip((VIZ, JVIZ), imgs):
+                mod.draw_feature_coord(1, 7, img, C != 1, color)
+                mod.draw_feature_coord(6, 4, img, C != 1, color)
+                mod.draw_rect(2, 1, 12, 6, img, C != 1, color)
+            np.testing.assert_array_equal(imgs[0], imgs[1])
+            assert imgs[0].any()
 
 
 def test_port_modules_import_no_jax_and_no_adder_tpu():

@@ -135,8 +135,8 @@ def test_void_path_and_device_contract():
     assert src.video.state.running_t.device.type == "cpu"
     with pytest.raises(ValueError):
         Video(PlaneSize(4096, 2160, 2), Mode.FramePerfect, device="cpu")
-    with pytest.raises(NotImplementedError):
-        src.detect_features(True)
+    assert src.detect_features(True) is src  # features are ported
+    assert src.video.feature_detection
     if not torch.cuda.is_available():
         # the card is the default device, and nothing falls back to the CPU
         for kw in ({}, {"device": "cuda"}):

@@ -182,18 +182,84 @@ def test_resume_from_jax_depth8_state(engine):
 
 
 def test_resident_engine_refuses_the_display_frame(monkeypatch):
+    """The name is historical: the resident engine now keeps the display
+    frame through its kernel's display output, and its `_last_runnings`
+    and `running_intensities` equal adder_tpu's after every chunk; with
+    the display off it writes none."""
     monkeypatch.delenv("ADDER_TPU_RESIDENT", raising=False)
     monkeypatch.delenv("ADDER_TPU_FUSED", raising=False)
-    v = Video(PlaneSize(4, 3, 1), Mode.FramePerfect, device="cpu")
-    assert v.engine == "resident"
-    v._keep_running_frame = False
-    with pytest.raises(NotImplementedError):
+    frames = synth_frames(12, 9, 11, 1, seed=6)
+    plane = PlaneSize(11, 9, 1)
+    jv = _video(JaxVideo, plane, io.BytesIO(), 4)
+    tv = _video(Video, plane, io.BytesIO(), 4, device="cpu")
+    assert tv.engine == "resident"
+    tv.integrate_matrix_batch(frames[:4])
+    assert tv._last_runnings is None  # the display off: no display output
+    jv.integrate_matrix_batch(frames[:4])
+    for v in (jv, tv):
         v._keep_running_frame = True
-    assert not v._keep_running_frame
+    for i in range(4, 12, 4):
+        want = jv.integrate_matrix_batch(frames[i : i + 4])
+        got = tv.integrate_matrix_batch(frames[i : i + 4])
+        assert len(got) == len(want) > 0
+        np.testing.assert_array_equal(tv._last_runnings.numpy(),
+                                      np.asarray(jv._last_runnings))
+        np.testing.assert_array_equal(tv.running_intensities,
+                                      jv.running_intensities)
+    assert tv.running_intensities.any()
     monkeypatch.setenv("ADDER_TPU_RESIDENT", "0")
     monkeypatch.setenv("ADDER_TPU_FUSED", "0")  # the slot engine wins
     assert Video(PlaneSize(4, 3, 1), Mode.FramePerfect,
                  device="cpu").engine == "slots"
+
+
+@pytest.mark.parametrize("channels", [1, 3], ids=["mono", "color"])
+@pytest.mark.parametrize("cfg", ["bench", "crf3"])
+def test_resident_bytes_and_display_match_jax(channels, cfg, monkeypatch):
+    """The resident engine with the display kept: adder_tpu's bytes and
+    display frame after every chunk."""
+    monkeypatch.delenv("ADDER_TPU_RESIDENT", raising=False)
+    monkeypatch.delenv("ADDER_TPU_FUSED", raising=False)
+    frames = synth_frames(12, 16, 24, channels)
+    want, want_shown = _framed_run(
+        JaxFramedArray(frames, 24.0, chunk_frames=4), cfg)
+    src = FramedArray(frames, 24.0, chunk_frames=4, device="cpu")
+    assert src.video.engine == "resident"
+    got, got_shown = _framed_run(src, cfg)
+    assert len(want) > 1000 and got == want
+    assert len(got_shown) == 3
+    for a, b in zip(got_shown, want_shown):
+        np.testing.assert_array_equal(a, b)
+    assert got_shown[-1].any()
+
+
+def test_resident_depth_rerun_rechains_the_display(monkeypatch):
+    """The resident engine outgrows depth 6 with chunks in flight and the
+    display kept: the rerun chunks start from the rerun chunk's display
+    frame (video.py:636-646); adder_tpu's bytes and display."""
+    monkeypatch.delenv("ADDER_TPU_RESIDENT", raising=False)
+    monkeypatch.delenv("ADDER_TPU_FUSED", raising=False)
+    rng = np.random.default_rng(1)
+    H, W, T = 6, 8, 8
+    frames = rng.integers(1, 4, (48, H, W, 1)).astype(np.uint8)
+    plane = PlaneSize(W, H, 1)
+    outs, reruns = [], []
+    orig = TV.ops.pad_state_depth
+
+    def pad(state, depth):
+        reruns.append(depth)
+        return orig(state, depth)
+
+    monkeypatch.setattr(TV.ops, "pad_state_depth", pad)
+    for cls, kw in ((JaxVideo, {}), (Video, {"device": "cpu"})):
+        buf = io.BytesIO()
+        v = _video(cls, plane, buf, T, **kw)
+        shown = _submit_all(v, frames, T)
+        outs.append((buf.getvalue(), shown))
+    assert v.engine == "resident" and v.state.node_d.shape[0] == 8
+    assert reruns  # the port reran
+    assert outs[0][0] == outs[1][0]
+    np.testing.assert_array_equal(outs[1][1], outs[0][1])
 
 
 def test_void_events_on_one_interval_engines(engine):

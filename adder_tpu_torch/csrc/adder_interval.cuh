@@ -1,8 +1,8 @@
 // The per-pixel ADΔER state machine shared by the Hopper chunk kernels
 // (fused_resident.cu: framed, K1/K2, and the exclusive scan;
-// dvs_resident.cu: DVS lanes, K3, from planes and by rows;
-// davis_resident.cu: DAVIS lanes, K4) and by the one-interval kernels
-// (fused_interval.cu: K5; interval_slots.cu: K6).
+// dvs_resident.cu: DVS lanes, K3, by rows; davis_resident.cu: DAVIS lanes,
+// K4, by rows) and by the one-interval kernels (fused_interval.cu: K5;
+// interval_slots.cu: K6).
 //
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
 // (:638-678) and its helpers (:219-613), with the display intensity
@@ -29,8 +29,8 @@
 //     (:273-277) is unsigned and wraps as u32 does. The adaptive c_thresh
 //     update (:602-613) takes (velocity - 1) % 256 from the host and the
 //     increment (u32(time) // ref_time) % 256 from the host for a framed
-//     chunk (one time for all pixels) or per pixel for a DVS sub-step;
-//     min(..., 255) stays here.
+//     chunk (one time for all pixels) or per carrier row for a DVS or
+//     DAVIS sub-step; min(..., 255) stays here.
 //   - Bitcasts (_d_from_intensity / _dshift_f32, :219-235) are
 //     __float_as_int / __int_as_float.
 //   - The 24-bit pixel field: pix << 8 | d aliases planes of 2^24
@@ -56,8 +56,10 @@ constexpr float F32_EPS = 1.1920929e-07f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 enum { PASS_COUNT = 0, PASS_WRITE = 1, PASS_VOID = 2 };
-// What a sub-step reads: a framed u8 plane, the DVS planes or the DAVIS planes
-enum { SRC_FRAMED = 0, SRC_DVS = 1, SRC_DAVIS = 2 };
+// What a carrier row holds (AdderRowsArgs.src): a DVS lane's gap and tick
+// (pack_dvs_plan) or one DAVIS event (pack_davis_plan)
+enum { SRC_DVS = 1, SRC_DAVIS = 2 };
+constexpr int kLaneDepth = 16;  // the arena depth of the lane kernels
 
 struct Params {
   float time;   // framed: ticks spanned by one interval
@@ -108,11 +110,7 @@ struct StateOut {
 struct KArgs {
   StateIn in;
   StateOut out;
-  const uint8_t* frames;  // framed: (T, n) u8
-  const float* inten;     // DVS: (T, n) f32 intensity; DAVIS: first_int
-  const float* tspan;     // DVS: (T, n) f32 ticks spanned; DAVIS: dt_ticks
-  const int* fvw;         // DVS, DAVIS: (T, n) i32 fv | active << 8
-  const float* fval;      // DAVIS: (T, n) f32 post-ln-step frame value
+  const uint8_t* frames;  // (T, n) u8
   long long n;
   int T;
   int nblk;
@@ -122,9 +120,9 @@ struct KArgs {
   unsigned* out_pixd;       // (total,) pix << 8 | d: WRITE
   unsigned* out_t;          // (total,) event t: WRITE
   int* flags;               // [max per-pixel count, depth overflow]
-  const uint8_t* run0;      // framed display: (n,) u8 frame before the chunk
-  uint8_t* runnings;        // framed display: (T, n) u8 frame after each
-                            // interval (WRITE, VOID)
+  const uint8_t* run0;      // display: (n,) u8 frame before the chunk
+  uint8_t* runnings;        // display: (T, n) u8 frame after each interval
+                            // (WRITE, VOID)
 };
 
 template <int D>
@@ -451,7 +449,7 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
 // reference is bit k of the returned mask: 0 pre-integration pop_top,
 // 1..D pop_best, D+1 set_d filler, D+2 post-integration pop_top. Framed
 // intervals pass intensity = f32(fv) and the chunk's time; DVS sub-steps
-// pass their per-pixel planes. -----------------------------------------------
+// pass their carrier row's values. -------------------------------------------
 
 template <int D, bool FP, bool COLLAPSE, bool ABS, bool SKIP = false>
 __device__ __forceinline__ unsigned run_interval(
@@ -486,7 +484,8 @@ __device__ __forceinline__ unsigned run_interval(
 // post-ln-step frame value (fv8 for the threshold test, fval for pop_best
 // and set_d). Slot k of the pixel's chronological order is bit k of the
 // returned mask: 0 pre-integration pop_top, 1 post-integration pop_top,
-// 2..D+1 pop_best, D+2 set_d filler. --------------------------------------
+// 2..D+1 pop_best, D+2 set_d filler. Its one caller is the row walk, whose
+// threads do not walk in step: integrate skips the nodes past its end. ----
 
 template <int D, bool COLLAPSE, bool ABS>
 __device__ __forceinline__ unsigned run_davis_event(
@@ -498,7 +497,7 @@ __device__ __forceinline__ unsigned run_davis_event(
     pop_top<D, false, ABS>(s, first_int, P, sd[0], st[0]);
     m |= 1u;
   }
-  ovf = integrate<D, false, COLLAPSE>(s, first_int, dt_ticks, c_inc, P);
+  ovf = integrate<D, false, COLLAPSE, true>(s, first_int, dt_ticks, c_inc, P);
   if (s.need_pop) {
     pop_top<D, false, ABS>(s, first_int, P, sd[1], st[1]);
     m |= 2u;
@@ -642,23 +641,18 @@ __device__ __forceinline__ long long lookback_exclusive(
   return excl;
 }
 
-// --- the chunk kernel: one thread per pixel, the arena in registers across
-// the T intervals (framed) or sub-steps (DVS, DAVIS). DVS sub-steps read
-// three planes, DAVIS sub-steps four; a pixel whose active bit is clear
-// skips the sub-step, which equals the reference's compute-then-restore
-// (every field restored, every slot masked, no overflow count: ovf_mask =
-// active). RUN (framed WRITE and VOID only) adds the display output of
-// fused_resident.py's emit_running (:336-357, carried at :890-899): the
-// pixel's display value stays in a register from run0[pix]; after each
-// interval a pixel whose root holds a best event takes its
+// --- the framed chunk kernel (K1/K2): one thread per pixel, the arena in
+// registers across the T intervals. RUN (WRITE and VOID only) adds the
+// display output of fused_resident.py's emit_running (:336-357, carried at
+// :890-899): the pixel's display value stays in a register from run0[pix];
+// after each interval a pixel whose root holds a best event takes its
 // running_intensity, and runnings[t, pix] gets the value. --------------------
 
-template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, int SRC,
-          bool RUN = false>
+template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, bool RUN = false>
 __global__ void __launch_bounds__(kBlock)
     adder_resident_chunk_kernel(const KArgs a) {
-  static_assert(!RUN || (SRC == SRC_FRAMED && PASS != PASS_COUNT),
-                "the display is written by the framed WRITE and VOID passes");
+  static_assert(!RUN || PASS != PASS_COUNT,
+                "the display is written by the WRITE and VOID passes");
   constexpr int K = D + 3;
   __shared__ int s_counts[kMaxT];   // COUNT / VOID: block's events per interval
   __shared__ int s_warp_tot[kWarps];  // WRITE: per-warp event totals
@@ -686,31 +680,13 @@ __global__ void __launch_bounds__(kBlock)
     if (valid) {
       const long long idx = (long long)t * n + pix;
       bool ovf = false;
-      if constexpr (SRC == SRC_DVS || SRC == SRC_DAVIS) {
-        const int w = a.fvw[idx];
-        if ((w >> 8) & 1) {
-          const float tspan = a.tspan[idx];
-          // (u32(time) // ref_time) % 256 per pixel (integrate.py:606-609)
-          const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
-          if constexpr (SRC == SRC_DVS) {
-            m = run_interval<D, FP, COLLAPSE, ABS>(s, a.inten[idx], w & 0xFF,
-                                                   tspan, c_inc, a.P, sd, st,
-                                                   ovf);
-          } else {
-            m = run_davis_event<D, COLLAPSE, ABS>(s, a.inten[idx], tspan,
-                                                  a.fval[idx], w & 0xFF,
-                                                  c_inc, a.P, sd, st, ovf);
-          }
-        }
-      } else {
-        const int fv = a.frames[idx];
-        m = run_interval<D, FP, COLLAPSE, ABS>(s, __int2float_rn(fv), fv,
-                                               a.P.time, a.P.c_inc, a.P, sd,
-                                               st, ovf);
-        if constexpr (RUN) {
-          if (s.bd[0] >= 0) run = running_intensity(s, a.P);
-          a.runnings[idx] = run;
-        }
+      const int fv = a.frames[idx];
+      m = run_interval<D, FP, COLLAPSE, ABS>(s, __int2float_rn(fv), fv,
+                                             a.P.time, a.P.c_inc, a.P, sd, st,
+                                             ovf);
+      if constexpr (RUN) {
+        if (s.bd[0] >= 0) run = running_intensity(s, a.P);
+        a.runnings[idx] = run;
       }
       ovf_any = ovf_any || ovf;
     }
@@ -771,15 +747,15 @@ struct AdderChunkArgs {
   int mode;        // Mode: 0 FramePerfect, 1 Continuous
   int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
   int abs_time;    // TimeMode == AbsoluteT
-  int depth;       // framed: 6 or 8; DVS: 16
+  int depth;       // 6 or 8
   int T;
   long long n;
-  float time;      // framed only
+  float time;      // ticks spanned by one interval
   int ref_time;
   int delta_t_max;
   int c_thresh_max;
   int vel_m1;
-  int c_inc;       // framed only
+  int c_inc;
   const void* frames;
   const void* state_in[14];
   void* state_out[14];
@@ -788,23 +764,19 @@ struct AdderChunkArgs {
   void* out_pixd;
   void* out_t;
   void* flags;
-  int dvs;         // which entry point: SRC_FRAMED, SRC_DVS or SRC_DAVIS
-  const void* inten;
-  const void* tspan;
-  const void* fvw;
-  const void* fval;  // DAVIS only
-  int view_mode;     // framed display: 0 Intensity, 1 D, 2 DeltaT, 3 SAE
-  float pdm;         // framed display, D view: f32(log2(255 * dtm / ref))
-  const void* run0;  // framed display: (n,) u8, or null: no display
-  void* runnings;    // framed display: (T, n) u8, written by WRITE and VOID
+  int view_mode;     // display: 0 Intensity, 1 D, 2 DeltaT, 3 SAE
+  float pdm;         // display, D view: f32(log2(255 * dtm / ref))
+  const void* run0;  // display: (n,) u8, or null: no display
+  void* runnings;    // display: (T, n) u8, written by WRITE and VOID
 };
 
 }  // extern "C"
 
 namespace {
 
-// The checks both entry points share; the caller adds its own on depth,
-// mode and inputs.
+// The checks of adder_resident_chunk that do not depend on the mode; the
+// entry point adds its own on depth and view mode. (make_rargs also maps the
+// row walk's state through make_kargs.)
 inline bool chunk_args_ok(const AdderChunkArgs* a) {
   return a->pass >= PASS_COUNT && a->pass <= PASS_VOID && a->T >= 1 &&
          a->T <= kMaxT && a->n >= 1 && a->n < (1LL << 24) &&
@@ -842,10 +814,6 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   k.out.dtm_reached = (uint8_t*)a->state_out[12];
   k.out.popped_dtm = (uint8_t*)a->state_out[13];
   k.frames = (const uint8_t*)a->frames;
-  k.inten = (const float*)a->inten;
-  k.tspan = (const float*)a->tspan;
-  k.fvw = (const int*)a->fvw;
-  k.fval = (const float*)a->fval;
   k.n = a->n;
   k.T = a->T;
   k.nblk = (int)((a->n + kBlock - 1) / kBlock);
@@ -868,42 +836,39 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   return k;
 }
 
-// One launch of PASS for one template instantiation; a framed WRITE or VOID
-// pass with k.runnings set writes the display (COUNT never does).
-template <int D, bool FP, bool CO, bool AB, int SRC>
+// One launch of PASS for one template instantiation; a WRITE or VOID pass
+// with k.runnings set writes the display (COUNT never does).
+template <int D, bool FP, bool CO, bool AB>
 void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
-  const bool run = SRC == SRC_FRAMED && k.runnings != nullptr;
+  const bool run = k.runnings != nullptr;
   if (pass == PASS_COUNT) {
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT, SRC>
+    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT>
         <<<k.nblk, kBlock, 0, st>>>(k);
   } else if (pass == PASS_WRITE) {
-    if constexpr (SRC == SRC_FRAMED) {
-      if (run) {
-        adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, SRC, true>
-            <<<k.nblk, kBlock, 0, st>>>(k);
-        return;
-      }
+    if (run) {
+      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, true>
+          <<<k.nblk, kBlock, 0, st>>>(k);
+    } else {
+      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE>
+          <<<k.nblk, kBlock, 0, st>>>(k);
     }
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, SRC>
-        <<<k.nblk, kBlock, 0, st>>>(k);
   } else {
-    if constexpr (SRC == SRC_FRAMED) {
-      if (run) {
-        adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC, true>
-            <<<k.nblk, kBlock, 0, st>>>(k);
-        return;
-      }
+    if (run) {
+      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, true>
+          <<<k.nblk, kBlock, 0, st>>>(k);
+    } else {
+      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID>
+          <<<k.nblk, kBlock, 0, st>>>(k);
     }
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, SRC>
-        <<<k.nblk, kBlock, 0, st>>>(k);
   }
 }
 
 }  // namespace
 
-// --- the row-walk lane kernel (dvs_resident.cu: adder_dvs_rows): a lane
-// group given as its carrier rows, not as dense (T, n) planes. One thread
-// per pixel that has rows; it walks that pixel's rows in lane order. ------
+// --- the row-walk lane kernels (dvs_resident.cu: adder_dvs_rows, K3;
+// davis_resident.cu: adder_davis_rows, K4): a lane group given as its
+// carrier rows, not as dense (T, n) planes. One thread per pixel that has
+// rows; it walks that pixel's rows in lane order. --------------------------
 
 extern "C" {
 
@@ -914,7 +879,7 @@ struct AdderRowsArgs {
   int pass;        // PASS_COUNT, PASS_WRITE, PASS_VOID
   int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
   int depth;       // 16
-  int src;         // SRC_DVS
+  int src;         // SRC_DVS (adder_dvs_rows) or SRC_DAVIS (adder_davis_rows)
   long long n;     // pixels of the plane
   long long rows;  // E >= 1 carrier rows
   int ref_time;
@@ -922,15 +887,17 @@ struct AdderRowsArgs {
   int c_thresh_max;
   int vel_m1;
   void* state[14];        // read and, on WRITE and VOID, written in place
-  const void* carrier;    // (5, E) i32, pack_dvs_plan's layout
+  const void* carrier;    // (5, E) i32, pack_dvs_plan's or pack_davis_plan's
   const void* order;      // (E,) rows sorted by (pixel, lane)
   const void* row_start;  // (E + 2,) run starts in `order`, one per
                           // pixel that has rows, then E
   const void* n_active;   // (1,) number of pixels that have rows
-  const void* cell_gap;   // (E,) each row's gap cell in (sub-step, pixel)
-  const void* cell_tick;  //      order, and its tick cell
-  void* cell_counts;      // (2 E,) i32 events per cell: COUNT, VOID
-  const void* offsets;    // (2 E + 1,) i64 exclusive offsets: WRITE
+  const void* cell_gap;   // (E,) each row's (first) cell in (sub-step,
+                          // pixel) order
+  const void* cell_tick;  // (E,) DVS: each row's tick cell; DAVIS: unread
+  void* cell_counts;      // (C,) i32 events per cell: COUNT, VOID; C = 2 E
+                          // for DVS (two sub-steps a row), E for DAVIS
+  const void* offsets;    // (C + 1,) i64 exclusive offsets: WRITE
   void* out_pixd;
   void* out_t;
   void* flags;            // [max per-cell count, depth overflow]
@@ -994,27 +961,34 @@ inline RArgs make_rargs(const AdderRowsArgs* a) {
 }
 
 // One thread per pixel that has rows: gather its state, walk its rows in
-// lane order (per row the gap sub-step, then the tick sub-step; a half that
-// is off counts 0 events), scatter its state back. No loop over T and no
-// barrier: a thread's events of one cell go to that cell's own offset.
-// SRC picks what a row holds; SRC_DVS is the (5, E) carrier of
-// pack_dvs_plan, two sub-steps of run_interval per row.
+// lane order, scatter its state back. No loop over T and no barrier: a
+// thread's events of one cell go to that cell's own offset. SRC picks what
+// a row holds. SRC_DVS, the carrier of pack_dvs_plan: two sub-steps of
+// run_interval (the gap, then the tick; a half that is off counts 0
+// events). SRC_DAVIS, the carrier of pack_davis_plan: one sub-step of
+// run_davis_event (an inactive row counts 0 events and leaves the state
+// alone, as the reference's compute-then-restore does).
 template <int D, bool COLLAPSE, int PASS, int SRC>
 __global__ void __launch_bounds__(kRowsBlock)
     adder_lane_rows_kernel(const RArgs a) {
-  static_assert(SRC == SRC_DVS, "the row walk is built for the DVS carrier");
+  static_assert(SRC == SRC_DVS || SRC == SRC_DAVIS,
+                "the row walk takes a DVS or a DAVIS carrier");
   constexpr int K = D + 3;
+  constexpr int SUBSTEPS = SRC == SRC_DVS ? 2 : 1;  // per row
   const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * kRowsBlock + threadIdx.x;
   int maxcnt = 0;
   bool ovf_any = false;
   if (j < *a.n_active) {
     const long long r0 = a.row_start[j], r1 = a.row_start[j + 1];
+    // row 0: pix | lane << 20 | on bits from bit 27; row 1: the fv bytes;
+    // rows 2-4, as f32 bits: DVS gap_int, gap_time, tick_int; DAVIS
+    // first_int, dt_ticks, fval
     const int* meta_row = a.carrier;
     const int* fv_row = a.carrier + a.rows;
-    const int* gap_int = a.carrier + 2 * a.rows;
-    const int* gap_time = a.carrier + 3 * a.rows;
-    const int* tick_int = a.carrier + 4 * a.rows;
+    const int* r2 = a.carrier + 2 * a.rows;
+    const int* r3 = a.carrier + 3 * a.rows;
+    const int* r4 = a.carrier + 4 * a.rows;
     const long long pix = meta_row[a.order[r0]] & 0xFFFFF;
     const unsigned pbase = (unsigned)pix << 8;
     Pixel<D> s;
@@ -1023,23 +997,32 @@ __global__ void __launch_bounds__(kRowsBlock)
       const long long row = a.order[i];
       const int meta = meta_row[row], fvs = fv_row[row];
 #pragma unroll 1
-      for (int h = 0; h < 2; ++h) {  // the gap sub-step, then the tick
+      for (int h = 0; h < SUBSTEPS; ++h) {  // DVS: the gap, then the tick
         const bool on = (meta >> (27 + h)) & 1;
         const long long cell = h ? a.cell_tick[row] : a.cell_gap[row];
         int cnt = 0;
         if (on) {
-          const float inten =
-              __int_as_float(h ? tick_int[row] : gap_int[row]);
-          // a tick spans one source tick, f32(ref_time)
-          const float tspan = h ? a.P.ref_f : __int_as_float(gap_time[row]);
-          const int fv = (fvs >> (8 * h)) & 0xFF;
-          // (u32(time) // ref_time) % 256 per sub-step (integrate.py:606-609)
-          const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
           int sd[K];
           unsigned st[K];
           bool ovf = false;
-          const unsigned m = run_interval<D, false, COLLAPSE, true, true>(
-              s, inten, fv, tspan, c_inc, a.P, sd, st, ovf);
+          unsigned m;
+          if constexpr (SRC == SRC_DVS) {
+            const float inten = __int_as_float(h ? r4[row] : r2[row]);
+            // a tick spans one source tick, f32(ref_time)
+            const float tspan = h ? a.P.ref_f : __int_as_float(r3[row]);
+            const int fv = (fvs >> (8 * h)) & 0xFF;
+            // (u32(time) // ref_time) % 256 per sub-step
+            // (integrate.py:606-609)
+            const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
+            m = run_interval<D, false, COLLAPSE, true, true>(
+                s, inten, fv, tspan, c_inc, a.P, sd, st, ovf);
+          } else {
+            const float dt_ticks = __int_as_float(r3[row]);
+            const int c_inc = (int)((as_u32(dt_ticks) / a.P.ref_u) % 256u);
+            m = run_davis_event<D, COLLAPSE, true>(
+                s, __int_as_float(r2[row]), dt_ticks, __int_as_float(r4[row]),
+                fvs & 0xFF, c_inc, a.P, sd, st, ovf);
+          }
           ovf_any = ovf_any || ovf;
           cnt = __popc(m);
           if (PASS == PASS_WRITE && cnt) {
@@ -1068,19 +1051,43 @@ __global__ void __launch_bounds__(kRowsBlock)
   }
 }
 
-template <int D, bool CO, int SRC>
+template <bool CO, int SRC>
 void launch_rows_pass(const RArgs& r, int pass, cudaStream_t st) {
   const int grid = (int)((r.rows + kRowsBlock - 1) / kRowsBlock);
   if (pass == PASS_COUNT) {
-    adder_lane_rows_kernel<D, CO, PASS_COUNT, SRC>
+    adder_lane_rows_kernel<kLaneDepth, CO, PASS_COUNT, SRC>
         <<<grid, kRowsBlock, 0, st>>>(r);
   } else if (pass == PASS_WRITE) {
-    adder_lane_rows_kernel<D, CO, PASS_WRITE, SRC>
+    adder_lane_rows_kernel<kLaneDepth, CO, PASS_WRITE, SRC>
         <<<grid, kRowsBlock, 0, st>>>(r);
   } else {
-    adder_lane_rows_kernel<D, CO, PASS_VOID, SRC>
+    adder_lane_rows_kernel<kLaneDepth, CO, PASS_VOID, SRC>
         <<<grid, kRowsBlock, 0, st>>>(r);
   }
+}
+
+// The checks and the launch of the row entry points adder_dvs_rows
+// (SRC_DVS) and adder_davis_rows (SRC_DAVIS): each instantiates the six
+// kernels of its own carrier (Normal and Collapse x COUNT, WRITE, VOID).
+template <int SRC>
+int launch_rows(const AdderRowsArgs* a, void* stream) {
+  if (a->pass < PASS_COUNT || a->pass > PASS_VOID || a->src != SRC ||
+      a->depth != kLaneDepth || a->n < 1 || a->n > (1LL << 20) ||
+      a->rows < 1 || a->rows >= (1LL << 30) || a->ref_time < 1 ||
+      a->carrier == nullptr || a->order == nullptr ||
+      a->row_start == nullptr || a->n_active == nullptr ||
+      a->cell_gap == nullptr ||
+      (SRC == SRC_DVS && a->cell_tick == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RArgs r = make_rargs(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a->multi_mode == 1) {
+    launch_rows_pass<true, SRC>(r, a->pass, st);
+  } else {
+    launch_rows_pass<false, SRC>(r, a->pass, st);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-// Hopper kernel for one chunk of DAVIS lane sub-steps (sm_90a): K4.
+// Hopper kernel for one chunk of DAVIS lane sub-steps (sm_90a): K4, by rows.
 //
 // Replaces the TPU kernel adder_tpu/ops/fused_resident.py::make_resident_call
 // in its DAVIS mode (dvs="davis"; make_davis_chunk_resident_compact :1361,
@@ -7,62 +7,53 @@
 // events of a packet into lanes, lane k holding each pixel's k-th event, and
 // each lane is ONE sub-step: pop_top, integrate the held intensity over the
 // gap, pop_top, then the contrast stage (pop_best, base_val, set_d) against
-// the post-ln-step frame value. A chunk is T <= 128 lanes over the whole
-// plane, in Continuous mode, AbsoluteT, at arena depth 16 (K = 19 event
-// slots per sub-step, in the order d0, d8, pop_best x 16, d7). Per sub-step
-// and pixel the inputs are four (T, n) planes: first_int f32, dt_ticks f32,
-// fval f32 and fv8 | active << 8 i32. The plain PyTorch version it is held
-// against is adder_tpu_torch/ops/fused_resident.py::davis_chunk_resident_plain.
-//
-// Design. K3's (dvs_resident.cu), with the DAVIS step of adder_interval.cuh
-// (run_davis_event) in place of run_interval: one thread per pixel, the
-// depth-16 arena in registers across all T sub-steps, COUNT ->
-// adder_exclusive_scan -> WRITE writing events in (sub-step, raster pixel,
-// slot) order, VOID for the Empty sink. An inactive pixel skips the sub-step
-// (the TPU kernel computes it and restores every field; the on-card check
-// holds the skip against the plain version's literal restore). The c_thresh
-// increment (u32(dt_ticks) // ref_time) % 256 is per pixel. Only what the
-// path runs is instantiated: depth 16 x Continuous x AbsoluteT x {Normal,
-// Collapse} x {COUNT, WRITE, VOID} = 6 kernels.
+// the post-ln-step frame value. A chunk is T <= 128 lanes, in Continuous
+// mode, AbsoluteT, at arena depth 16 (K = 19 event slots per sub-step, in
+// the order d0, d8, pop_best x 16, d7). The input of adder_davis_rows is the
+// (5, E) i32 carrier itself, the input of make_davis_chunk_resident_packed
+// (pack_davis_plan: pix | lane << 20 | active << 27, fv8, the bits of
+// first_int, dt_ticks and fval): one row per (lane, pixel) that has an
+// event, and no plane is made. The plain PyTorch version it is held against
+// is adder_tpu_torch/ops/fused_resident.py::davis_rows_resident_plain (the
+// carrier scattered into dense (T, N) planes and run through
+// davis_chunk_resident_plain).
 //
 // What bounds it. A DAVIS346 sub-step has a few hundred active pixels of
-// 89,960, so most threads read one word of fvw and move on, and a warp runs
-// the full state machine whenever one of its 32 pixels is active. What the
-// data needs is small: 20 bytes per active cell (the carrier row) plus the
-// state of the active pixels (347 bytes each at depth 16), read once and
-// written once. The kernel moves far more: the fvw word of every cell (46 MB
-// for T = 128) and the state of all 89,960 pixels, once per pass, and it
-// diverges; it is not bound by arithmetic. The depth-16 arena and the 19
-// slot pairs of the WRITE pass press on the register limit of
-// __launch_bounds__(256); ptxas -v reports any spill. Walking each pixel's
-// own rows instead of dense planes would remove the plane scatter and most
-// of the reads.
+// 89,960. What the data needs is small: 20 bytes per carrier row, the state
+// of the pixels that have rows (347 bytes each at depth 16) read once and
+// written once, 8 bytes per event: a few microseconds. The work is the
+// state machine: a few hundred dependent scalar operations per sub-step, run
+// serially along each pixel's rows, so the pixel with the most events in
+// the chunk sets the floor, twice on the fetched path.
+//
+// Design. The DVS row walk of dvs_resident.cu (adder_lane_rows_kernel in
+// adder_interval.cuh, SRC_DAVIS), with the DAVIS step run_davis_event in
+// place of run_interval, one sub-step per row:
+//   - the grouping glue is the DVS one with one sub-step per lane
+//     (fused_resident.group_dvs_rows(..., per_lane=1)): the rows of each
+//     pixel in lane order, and for each row its cell, its rank among the
+//     rows in (lane, raster pixel) order; so the events leave in
+//     (sub-step, raster pixel, slot) order through COUNT ->
+//     adder_exclusive_scan -> WRITE, VOID for the Empty sink, as before;
+//   - one thread per pixel that has rows walks that pixel's rows only; an
+//     inactive row counts 0 events and leaves the state alone (the
+//     reference computes it and restores every field; the plain version's
+//     literal restore holds the skip to that);
+//   - the c_thresh increment (u32(dt_ticks) // ref_time) % 256 is per row;
+//     every f32 operation is an _rn intrinsic (--fmad=false as well);
+//   - integrate's node walk branches past the arena's end (SKIP), as in K3;
+//   - the state is updated in place, for the pixels that have rows only.
+// Only what the path runs is instantiated: depth 16 x Continuous x AbsoluteT
+// x {Normal, Collapse} x {COUNT, WRITE, VOID} = 6 kernels. The depth-16
+// arena and the 19 slot pairs of the WRITE pass press on the 255-register
+// limit; ptxas -v reports any spill.
 
 #include "adder_interval.cuh"
 
-namespace {
-
-constexpr int kDavisDepth = 16;
-
-}  // namespace
-
 extern "C" {
 
-int adder_davis_chunk(const AdderChunkArgs* a, void* stream) {
-  if (!chunk_args_ok(a) || a->dvs != SRC_DAVIS || a->depth != kDavisDepth ||
-      a->runnings != nullptr || a->mode != 1 || a->abs_time != 1 ||
-      a->inten == nullptr || a->tspan == nullptr || a->fvw == nullptr ||
-      a->fval == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const KArgs k = make_kargs(a);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (a->multi_mode == 1) {
-    launch_pass<kDavisDepth, false, true, true, SRC_DAVIS>(k, a->pass, st);
-  } else {
-    launch_pass<kDavisDepth, false, false, true, SRC_DAVIS>(k, a->pass, st);
-  }
-  return (int)cudaGetLastError();
+int adder_davis_rows(const AdderRowsArgs* a, void* stream) {
+  return launch_rows<SRC_DAVIS>(a, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Hopper kernels for one chunk of DVS lane sub-steps (sm_90a): K3, by two
-// routes.
+// Hopper kernel for one chunk of DVS lane sub-steps (sm_90a): K3, by rows,
+// and the grouping glue the row kernels of K3 and K4 share.
 //
 // Replaces the TPU kernel adder_tpu/ops/fused_resident.py::make_resident_call
 // in its DVS mode (dvs=True; make_dvs_chunk_resident :1017, reached through
@@ -8,22 +8,25 @@
 // each window of events into lanes, lane k holding each pixel's k-th event;
 // a lane runs as two sub-steps (the held intensity over the gap, then one
 // source tick of the new intensity). A chunk is T = 2 x lanes <= 128
-// sub-steps over the whole plane, in Continuous mode, AbsoluteT, at arena
-// depth 16 (K = 19 event slots per sub-step). Both routes write the events
-// in (sub-step, raster pixel, slot) order through COUNT -> scan -> WRITE
-// (see fused_resident.cu), VOID for the Empty sink, and fold the largest
-// per-cell event count and the depth flag into `flags`. Only what the path
-// runs is instantiated: depth 16 x Continuous x AbsoluteT x {Normal,
-// Collapse} x {COUNT, WRITE, VOID}, 6 kernels a route.
+// sub-steps, in Continuous mode, AbsoluteT, at arena depth 16 (K = 19 event
+// slots per sub-step). Events leave in (sub-step, raster pixel, slot) order
+// through COUNT -> scan -> WRITE (see fused_resident.cu), VOID for the Empty
+// sink, and every pass folds the largest per-cell event count and the depth
+// flag into `flags`. Only what the path runs is instantiated: depth 16 x
+// Continuous x AbsoluteT x {Normal, Collapse} x {COUNT, WRITE, VOID}, 6
+// kernels.
 //
-// adder_dvs_rows: the lane groups, which are sparse (about 1% of the
-// (sub-step, pixel) cells of a T = 128 group are active). Its input is the
-// (5, E) i32 carrier itself, the input of make_dvs_chunk_resident_packed
+// adder_dvs_rows is the one route of every DVS chunk: the lane groups, which
+// are sparse (about 1% of the (sub-step, pixel) cells of a T = 128 group are
+// active), and the chunks of one row per pixel in raster order (the
+// Prophesee bootstrap and end-of-stream flush, DAVIS's frame and the gap to
+// it, T = 2 with the tick half off where there is no tick). Its input is
+// the (5, E) i32 carrier itself, the input of make_dvs_chunk_resident_packed
 // (pack_dvs_plan: pix | lane << 20 | gap_on << 27 | tick_on << 28, the two
 // fv bytes, the bits of gap_int, gap_time and tick_int), and it makes no
 // plane. The plain PyTorch version it is held against is
 // adder_tpu_torch/ops/fused_resident.py::dvs_rows_resident_plain.
-//   What bounds it: not bytes (16 B per active cell, the state of the pixels
+//   What bounds it: not bytes (20 B per carrier row, the state of the pixels
 //   that have rows, 8 B per event: a few tens of microseconds) but the state
 //   machine: a few hundred dependent scalar operations per sub-step, run
 //   serially along each pixel's rows, so the longest pixel (up to 128
@@ -31,9 +34,11 @@
 //   What the design does about it (adder_lane_rows_kernel in
 //   adder_interval.cuh):
 //   - glue on the card, without a host read (fused_resident.group_dvs_rows:
-//     two sorts and the ranks of the cells): the rows of each pixel in lane
-//     order, and for each row the rank of its gap cell and of its tick cell
-//     among the 2 E cells in (sub-step, pixel) order;
+//     two sorts and the ranks of the cells, below): the rows of each pixel in
+//     lane order, and for each row the rank of its gap cell and of its tick
+//     cell among the 2 E cells in (sub-step, pixel) order. A chunk of one row
+//     per pixel in raster order needs none: its grouping is known
+//     (fused_resident.raster_row_groups);
 //   - one thread per pixel that has rows: it gathers that pixel's state,
 //     walks its rows only (no loop over T, no barrier, no word read for an
 //     inactive cell) and writes each cell's event count at the cell's rank;
@@ -49,48 +54,23 @@
 //   - blocks of 64 threads, so a block that holds a long pixel keeps few
 //     others waiting; threads take the pixels in raster order, so gathers
 //     of neighbours coalesce (longest pixel first was measured and lost);
-//   - kept from the dense kernel: run_interval and every _rn intrinsic, the
-//     per-sub-step c_thresh increment, the flags; the SRC template parameter
-//     stays, so the DAVIS step can take the same walk.
-//
-// adder_dvs_chunk: the chunks that are dense by nature (the bootstrap, the
-// end-of-stream flush, DAVIS's frame and gap chunks, T = 1 or 2, where most
-// pixels are active). Per sub-step and pixel the inputs are three (T, n)
-// planes: intensity f32, ticks spanned f32 and fv | active << 8 i32. The
-// plain PyTorch version it is held against is
-// adder_tpu_torch/ops/fused_resident.py::dvs_chunk_resident_plain. It is
-// the framed kernel fed from the planes: one thread per pixel of the plane,
-// the depth-16 arena in registers across all T sub-steps. What differs from
-// the framed kernel:
-//   - intensity, ticks spanned and fv are per pixel and per sub-step, so the
-//     c_thresh increment (u32(time) // ref_time) % 256 is computed in the
-//     kernel (integrate.py:606-609); gap spans reach gap_n x ref_time;
-//   - an inactive pixel skips the sub-step. The TPU kernel computes every
-//     pixel and then restores the inactive ones (every state field, every
-//     slot masked, no overflow count: ovf_mask = active); skipping is the
-//     same function, and the on-card check holds it against the plain
-//     version's literal restore.
-//   What bounds it: on a dense chunk the state of every pixel, read and
-//   written once, and the planes. On a sparse lane group it reads the fvw
-//   word of every cell and the state of every pixel and runs the state
-//   machine for a whole warp whenever one of its 32 pixels is active, which
-//   is why the lane groups no longer come here.
+//   - run_interval and every _rn intrinsic, the per-sub-step c_thresh
+//     increment, the flags are those of the framed kernel.
 // The depth-16 arena (80 values) and the 19 slot pairs of the WRITE pass
-// press on the 255-register limit in both routes; ptxas -v reports any
-// spill.
+// press on the 255-register limit; ptxas -v reports any spill.
 
 #include "adder_interval.cuh"
 
 namespace {
 
-constexpr int kDvsDepth = 16;
-
 // --- the grouping glue of the row route (fused_resident.group_dvs_rows; its
-// plain version is group_dvs_rows_plain): three small kernels around two
-// sorts and one exclusive scan, so a group costs a dozen launches and no
-// host read. Keys: pix << 7 | lane sorts the rows by pixel, then lane;
-// lane << 20 | pix (the carrier's own low 27 bits) ranks them in output
-// order. ---------------------------------------------------------------------
+// plain version is group_dvs_rows_plain), for the DVS and the DAVIS carrier
+// alike: the low 27 bits of row 0 are lane << 20 | pix in both. Three small
+// kernels around two sorts and one exclusive scan, so a group costs a dozen
+// launches and no host read. Keys: pix << 7 | lane sorts the rows by pixel,
+// then lane; lane << 20 | pix ranks them in output order. The planners give
+// each (lane, pixel) at most one row, so the keys are unique and the sorts
+// need not be stable. -----------------------------------------------------
 
 constexpr int kGlueBlock = 256;
 
@@ -121,34 +101,43 @@ __device__ __forceinline__ long long lower_bound(const int* a, long long n,
 }
 
 // skey: the sorted pix << 7 | lane keys; lkey, lorder: the sorted
-// lane << 20 | pix keys and the rows they came from. Writes the run heads of
-// skey (a pixel's first row) for the scan, each row's gap and tick cell, and
-// the first cell of each of the T sub-steps, then 2 E. Lane k's rows are
-// ranks [ls, le) of lkey: its gap cells are 2 ls + (rank - ls), its tick
-// cells follow them.
+// lane << 20 | pix keys and the rows they came from; per_lane: the sub-steps
+// of a lane, 2 for DVS (gap, tick), 1 for DAVIS. Writes the run heads of
+// skey (a pixel's first row) for the scan, each row's cells, and the first
+// cell of each of the T sub-steps, then per_lane x E. Lane k's rows are
+// ranks [ls, le) of lkey. DVS: its gap cells are 2 ls + (rank - ls), its
+// tick cells follow them. DAVIS: a row's one cell is its rank.
 __global__ void __launch_bounds__(kGlueBlock)
     rows_rank_kernel(const int* __restrict__ skey,
                      const int* __restrict__ lkey,
                      const long long* __restrict__ lorder, long long rows,
-                     int T, int* __restrict__ head,
+                     int T, int per_lane, int* __restrict__ head,
                      long long* __restrict__ cell_gap,
                      long long* __restrict__ cell_tick,
                      long long* __restrict__ sub_start) {
   const long long i = (long long)blockIdx.x * kGlueBlock + threadIdx.x;
   if (i < rows) {
     head[i] = i == 0 || (skey[i] >> 7) != (skey[i - 1] >> 7);
-    const int lane = lkey[i] >> 20;
     const long long row = lorder[i];
-    cell_gap[row] = i + lower_bound(lkey, rows, lane << 20);
-    cell_tick[row] = i + lower_bound(lkey, rows, (lane + 1) << 20);
+    if (per_lane == 1) {
+      cell_gap[row] = i;
+    } else {
+      const int lane = lkey[i] >> 20;
+      cell_gap[row] = i + lower_bound(lkey, rows, lane << 20);
+      cell_tick[row] = i + lower_bound(lkey, rows, (lane + 1) << 20);
+    }
   }
   if (i < T) {
-    const int lane = (int)(i >> 1);
+    const int lane = (int)(i / per_lane);
     const long long ls = lower_bound(lkey, rows, lane << 20);
-    const long long le = lower_bound(lkey, rows, (lane + 1) << 20);
-    sub_start[i] = (i & 1) ? ls + le : 2 * ls;
+    if (per_lane == 1) {
+      sub_start[i] = ls;
+    } else {
+      const long long le = lower_bound(lkey, rows, (lane + 1) << 20);
+      sub_start[i] = (i & 1) ? ls + le : 2 * ls;
+    }
   } else if (i == T) {
-    sub_start[i] = 2 * rows;
+    sub_start[i] = per_lane * rows;
   }
 }
 
@@ -172,22 +161,6 @@ inline int glue_grid(long long threads) {
 
 extern "C" {
 
-int adder_dvs_chunk(const AdderChunkArgs* a, void* stream) {
-  if (!chunk_args_ok(a) || a->dvs != SRC_DVS || a->depth != kDvsDepth ||
-      a->runnings != nullptr || a->mode != 1 || a->abs_time != 1 ||
-      a->inten == nullptr || a->tspan == nullptr || a->fvw == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const KArgs k = make_kargs(a);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (a->multi_mode == 1) {
-    launch_pass<kDvsDepth, false, true, true, SRC_DVS>(k, a->pass, st);
-  } else {
-    launch_pass<kDvsDepth, false, false, true, SRC_DVS>(k, a->pass, st);
-  }
-  return (int)cudaGetLastError();
-}
-
 int adder_rows_keys(const void* meta, long long rows, void* key_pl,
                     void* key_lp, void* stream) {
   if (rows < 1 || rows >= (1LL << 30)) return (int)cudaErrorInvalidValue;
@@ -196,17 +169,21 @@ int adder_rows_keys(const void* meta, long long rows, void* key_pl,
   return (int)cudaGetLastError();
 }
 
+// cell_tick is written only for per_lane == 2 (the DVS carrier).
 int adder_rows_rank(const void* skey, const void* lkey, const void* lorder,
-                    long long rows, int T, void* head, void* cell_gap,
-                    void* cell_tick, void* sub_start, void* stream) {
-  if (rows < 1 || rows >= (1LL << 30) || T < 1 || T > 256) {
+                    long long rows, int T, int per_lane, void* head,
+                    void* cell_gap, void* cell_tick, void* sub_start,
+                    void* stream) {
+  if (rows < 1 || rows >= (1LL << 30) || T < 1 || T > 256 ||
+      (per_lane != 1 && per_lane != 2) ||
+      (per_lane == 2 && cell_tick == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long threads = rows > T + 1 ? rows : T + 1;
   rows_rank_kernel<<<glue_grid(threads), kGlueBlock, 0,
                      (cudaStream_t)stream>>>(
       (const int*)skey, (const int*)lkey, (const long long*)lorder, rows, T,
-      (int*)head, (long long*)cell_gap, (long long*)cell_tick,
+      per_lane, (int*)head, (long long*)cell_gap, (long long*)cell_tick,
       (long long*)sub_start);
   return (int)cudaGetLastError();
 }
@@ -221,22 +198,7 @@ int adder_rows_starts(const void* head, const void* pos, long long rows,
 }
 
 int adder_dvs_rows(const AdderRowsArgs* a, void* stream) {
-  if (a->pass < PASS_COUNT || a->pass > PASS_VOID || a->src != SRC_DVS ||
-      a->depth != kDvsDepth || a->n < 1 || a->n > (1LL << 20) ||
-      a->rows < 1 || a->rows >= (1LL << 30) || a->ref_time < 1 ||
-      a->carrier == nullptr || a->order == nullptr ||
-      a->row_start == nullptr || a->n_active == nullptr ||
-      a->cell_gap == nullptr || a->cell_tick == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const RArgs r = make_rargs(a);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (a->multi_mode == 1) {
-    launch_rows_pass<kDvsDepth, true, SRC_DVS>(r, a->pass, st);
-  } else {
-    launch_rows_pass<kDvsDepth, false, SRC_DVS>(r, a->pass, st);
-  }
-  return (int)cudaGetLastError();
+  return launch_rows<SRC_DVS>(a, stream);
 }
 
 }  // extern "C"

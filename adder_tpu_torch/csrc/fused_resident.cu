@@ -5,7 +5,7 @@
 //   - events fetched: make_fused_chunk_resident (:848)  -> PASS_COUNT, scan, PASS_WRITE
 //   - Empty sink:     make_group_chunk_resident (:915)  -> PASS_VOID
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core (:638-678)
-// and its helpers (:219-613), shared with the DVS kernel in
+// and its helpers (:219-613), shared with the lane kernels in
 // adder_interval.cuh (which also lists the exactness rules); the plain
 // PyTorch version the kernels are held against is
 // adder_tpu_torch/ops/fused_resident.py::fused_chunk_resident_plain.
@@ -38,7 +38,7 @@
 //   adder_exclusive_scan turns those counts, row-major, into int64 offsets
 //               (K*T*N exceeds 2^31 for 1080p colour at T = 64) and the total:
 //               one launch of many blocks joined by a decoupled look-back
-//               (below). The lane kernels (K3 dense and by rows, K4) use it
+//               (below). The lane kernels (K3 and K4, by rows) use it
 //               too, on their own counts.
 //   PASS_WRITE  re-runs the chunk from the same input state; per interval a
 //               block-wide exclusive scan of the threads' counts places each
@@ -154,9 +154,9 @@ int launch_scan(const void* counts, void* out, long long count, void* scratch,
 template <int D, bool FP, bool CO>
 void launch_time(const KArgs& k, int pass, bool abs_time, cudaStream_t st) {
   if (abs_time) {
-    launch_pass<D, FP, CO, true, SRC_FRAMED>(k, pass, st);
+    launch_pass<D, FP, CO, true>(k, pass, st);
   } else {
-    launch_pass<D, FP, CO, false, SRC_FRAMED>(k, pass, st);
+    launch_pass<D, FP, CO, false>(k, pass, st);
   }
 }
 
@@ -185,9 +185,8 @@ void launch_mode(const KArgs& k, int pass, bool fp, bool collapse,
 extern "C" {
 
 int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
-  if (!chunk_args_ok(a) || a->dvs != SRC_FRAMED ||
-      (a->depth != 6 && a->depth != 8) || a->view_mode < 0 ||
-      a->view_mode > 3) {
+  if (!chunk_args_ok(a) || (a->depth != 6 && a->depth != 8) ||
+      a->view_mode < 0 || a->view_mode > 3) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);

@@ -120,9 +120,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for entry in ("adder_resident_chunk", "adder_dvs_chunk",
-                          "adder_dvs_rows", "adder_davis_chunk",
-                          "adder_fused_interval", "adder_interval_slots"):
+            for entry in ("adder_resident_chunk", "adder_dvs_rows",
+                          "adder_davis_rows", "adder_fused_interval",
+                          "adder_interval_slots"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
@@ -134,7 +134,8 @@ def load() -> ctypes.CDLL:
             ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
             lib.adder_rows_keys.argtypes = [ptr, i64, ptr, ptr, ptr]
             lib.adder_rows_rank.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
-                                            ptr, ptr, ptr, ptr, ptr]
+                                            ctypes.c_int, ptr, ptr, ptr, ptr,
+                                            ptr]
             lib.adder_rows_starts.argtypes = [ptr, ptr, i64, ptr, ptr]
             for fn in (lib.adder_rows_keys, lib.adder_rows_rank,
                        lib.adder_rows_starts):

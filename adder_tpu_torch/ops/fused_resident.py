@@ -3,36 +3,33 @@
 Counterpart of `adder_tpu/ops/fused_resident.py` in its two framed modes,
 `make_fused_chunk_resident` (events fetched) and `make_group_chunk_resident`
 (the Empty sink, where only counts and the depth flag are read), in its
-DVS mode, `make_dvs_chunk_resident` (lane sub-steps with per-pixel
-intensity, ticks spanned and an active flag, at depth 16), and in its DAVIS
-mode, `make_davis_chunk_resident_compact` (one DAVIS event per pixel and
-sub-step, from four planes, at depth 16).
+DVS mode, `make_dvs_chunk_resident_packed` (lane sub-steps from the (5, E)
+carrier of `pack_dvs_plan`, at depth 16), and in its DAVIS mode,
+`make_davis_chunk_resident_packed` (one DAVIS event per pixel and sub-step,
+from the carrier of `pack_davis_plan`, at depth 16).
 
 Each entry point has two implementations:
 
 - the plain PyTorch version (`fused_chunk_resident_plain`,
-  `group_chunk_resident_plain`, `dvs_chunk_resident_plain`,
-  `davis_chunk_resident_plain`): a Python loop over the T intervals of
+  `group_chunk_resident_plain`, `dvs_rows_resident_plain`,
+  `davis_rows_resident_plain`): a Python loop over the T intervals of
   `integrate._interval_core` (for DVS, `dvs_batch.masked_step`; for DAVIS,
-  `dvs_batch.davis_masked_step`), then the per-interval slots compacted
-  into the reference's single-thread order (interval, raster pixel, slot);
+  `dvs_batch.davis_masked_step`, each over the carrier scattered into dense
+  (T, N) planes), then the per-interval slots compacted into the
+  reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk` and
-  `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_chunk` and
-  `adder_dvs_rows` in dvs_resident.cu, `adder_davis_chunk` in
+  `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_rows` and the
+  grouping glue in dvs_resident.cu, `adder_davis_rows` in
   davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
-  `group_chunk_resident`, `dvs_chunk_resident`, `dvs_rows_resident` and
-  `davis_chunk_resident`.
+  `group_chunk_resident`, `dvs_rows_resident` and `davis_rows_resident`.
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
 
-The DVS mode has two routes to the same function. `dvs_chunk_resident`
-takes dense (T, N) planes and walks every pixel through every sub-step: it
-serves the chunks that are dense by nature (the bootstrap, the end-of-stream
-flush, DAVIS's frame and gap chunks). `dvs_rows_resident` takes the (5, E)
-carrier itself, the input of `make_dvs_chunk_resident_packed`, and walks
-each pixel's own rows: it serves the sparse lane groups, builds no plane,
-and updates the state of the pixels that have rows in place.
+Every DVS and DAVIS chunk takes one route: its carrier, the grouping of
+its rows (on the card: `group_dvs_rows`; for a chunk of one row per pixel
+in raster order, `raster_row_groups`), and the row walk, which builds no
+plane and updates the state of the pixels that have rows in place.
 
 The events come back already in reference order, so the JAX package's
 capacity and pack reruns and its host assembler have no counterpart here.
@@ -74,12 +71,12 @@ MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
 
 PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2
 DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
-SRC_FRAMED, SRC_DVS, SRC_DAVIS = 0, 1, 2  # AdderChunkArgs.dvs
+SRC_DVS, SRC_DAVIS = 1, 2  # AdderRowsArgs.src: what a carrier row holds
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"adder_resident_chunk": 0, "adder_exclusive_scan": 0,
-            "adder_dvs_chunk": 0, "adder_dvs_rows": 0, "adder_rows_group": 0,
-            "adder_davis_chunk": 0}
+            "adder_dvs_rows": 0, "adder_rows_group": 0,
+            "adder_davis_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -271,12 +268,13 @@ def unpack_dvs_carrier(packed: torch.Tensor):
     )
 
 
-# --- DVS lane groups by rows (K3, the sparse route) --------------------------
+# --- lane chunks by rows: the grouping (K3 and K4) ---------------------------
 
 
 class RowGroups(NamedTuple):
     """A carrier's rows grouped for the row walk; every array int64 on the
-    carrier's device, made without a host read.
+    carrier's device, made without a host read. A lane is `per_lane`
+    sub-steps: 2 for DVS (the gap, then the tick), 1 for DAVIS.
 
     order      (E,) row indices sorted by (pixel, lane): the rows of one
                pixel are consecutive and in lane order;
@@ -289,8 +287,10 @@ class RowGroups(NamedTuple):
                among the 2 E cells in (sub-step, raster pixel) order, the
                order in which the chunk's events leave: the cells of
                sub-step 2 k are the gap halves of lane k's rows by pixel,
-               those of sub-step 2 k + 1 their tick halves;
-    sub_start  (T + 1,) the first cell of each sub-step, then 2 E."""
+               those of sub-step 2 k + 1 their tick halves. DAVIS: cell_gap
+               is each row's one cell, its rank among the E rows in (lane,
+               raster pixel) order, and cell_tick is empty;
+    sub_start  (T + 1,) the first cell of each sub-step, then per_lane x E."""
 
     order: torch.Tensor
     row_start: torch.Tensor
@@ -300,16 +300,21 @@ class RowGroups(NamedTuple):
     sub_start: torch.Tensor
 
 
-def group_dvs_rows(carrier: torch.Tensor, T: int) -> RowGroups:
-    """Group the rows of a (5, E >= 1) carrier (`pack_dvs_plan`) of T / 2
-    lanes by pixel and rank their cells in output order. Each (lane, pixel)
-    holds at most one row, as the planner guarantees; the rows may come in
-    any order. For a CUDA carrier two `torch.sort`s, the glue kernels of
-    csrc/dvs_resident.cu (`adder_rows_keys`, `adder_rows_rank`,
+def group_dvs_rows(carrier: torch.Tensor, T: int,
+                   per_lane: int = 2) -> RowGroups:
+    """Group the rows of a (5, E >= 1) carrier of T / per_lane lanes by
+    pixel and rank their cells in output order: `pack_dvs_plan`'s with
+    per_lane 2, `pack_davis_plan`'s with per_lane 1 (the low 27 bits of row
+    0 are lane << 20 | pix in both). Each (lane, pixel) holds at most one
+    row, as the planners guarantee (the sorts are not stable); the rows may
+    come in any order. For a CUDA carrier two `torch.sort`s, the glue
+    kernels of csrc/dvs_resident.cu (`adder_rows_keys`, `adder_rows_rank`,
     `adder_rows_starts`, counted as LAUNCHES["adder_rows_group"]) and one
     `exclusive_scan`; for a CPU carrier `group_dvs_rows_plain`."""
+    if per_lane not in (1, 2):
+        raise ValueError(f"{per_lane} sub-steps a lane; the glue takes 1 or 2")
     if not carrier.is_cuda:
-        return group_dvs_rows_plain(carrier, T)
+        return group_dvs_rows_plain(carrier, T, per_lane)
     meta = carrier[0]
     E, dev = meta.shape[0], meta.device
     lib = cuda_build.load()
@@ -328,19 +333,22 @@ def group_dvs_rows(carrier: torch.Tensor, T: int) -> RowGroups:
     skey, order = torch.sort(keys[0])
     lkey, lorder = torch.sort(keys[1])
     head = torch.empty(E, dtype=torch.int32, device=dev)
-    cells = torch.empty((2, E), dtype=torch.int64, device=dev)
+    cells = torch.empty((per_lane, E), dtype=torch.int64, device=dev)
     sub_start = torch.empty(T + 1, dtype=torch.int64, device=dev)
     launch(lib.adder_rows_rank, skey.data_ptr(), lkey.data_ptr(),
-           lorder.data_ptr(), E, T, head.data_ptr(), cells[0].data_ptr(),
-           cells[1].data_ptr(), sub_start.data_ptr())
+           lorder.data_ptr(), E, T, per_lane, head.data_ptr(),
+           cells[0].data_ptr(), cells[1].data_ptr() if per_lane == 2 else None,
+           sub_start.data_ptr())
     pos = exclusive_scan(head)
     row_start = torch.empty(E + 2, dtype=torch.int64, device=dev)
     launch(lib.adder_rows_starts, head.data_ptr(), pos.data_ptr(), E,
            row_start.data_ptr())
-    return RowGroups(order, row_start, pos[E:], cells[0], cells[1], sub_start)
+    return RowGroups(order, row_start, pos[E:], cells[0],
+                     cells[1] if per_lane == 2 else cells[0, :0], sub_start)
 
 
-def group_dvs_rows_plain(carrier: torch.Tensor, T: int) -> RowGroups:
+def group_dvs_rows_plain(carrier: torch.Tensor, T: int,
+                         per_lane: int = 2) -> RowGroups:
     """Plain version of `group_dvs_rows`, with torch ops on the carrier's
     device (any E); it reads nothing back to the host either."""
     meta = carrier[0]
@@ -363,8 +371,11 @@ def group_dvs_rows_plain(carrier: torch.Tensor, T: int) -> RowGroups:
     lkey, lorder = torch.sort(key)
     rank = torch.empty_like(ar)
     rank[lorder] = ar
-    lanes = torch.arange(T // 2 + 1, dtype=key.dtype, device=dev) << 20
+    lanes = torch.arange(T // per_lane + 1, dtype=key.dtype, device=dev) << 20
     lane_start = torch.searchsorted(lkey, lanes)
+    if per_lane == 1:  # a row's one cell is its rank
+        return RowGroups(order, row_start, n_active, rank, rank[:0],
+                         lane_start)
     lane_count = lane_start[1:] - lane_start[:-1]
     cell_gap = rank + lane_start[lane]
     cell_tick = cell_gap + lane_count[lane]
@@ -377,11 +388,23 @@ def group_dvs_rows_plain(carrier: torch.Tensor, T: int) -> RowGroups:
                      sub_start)
 
 
+def raster_row_groups(E: int, device) -> RowGroups:
+    """The grouping of a T = 2 DVS carrier of one row per pixel, in raster
+    order, all in lane 0 (the Prophesee bootstrap and end-of-stream flush,
+    DAVIS's frame and the gap to it), known without a sort: what
+    `group_dvs_rows` makes of such a carrier, from four small torch ops and
+    no glue kernel."""
+    ar = torch.arange(E, dtype=torch.int64, device=device)
+    return RowGroups(ar, torch.cat([ar, ar.new_full((2,), E)]),
+                     ar.new_full((1,), E), ar, ar + E,
+                     ar.new_tensor([0, E, 2 * E]))
+
+
 def dvs_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
                             T: int, p: ops.TranscodeParams,
                             events: bool = True) -> ChunkResult:
-    """Plain version of the DVS lane group given as its carrier
-    (`make_dvs_chunk_resident_packed`,
+    """Plain version of `dvs_rows_resident`, the DVS lane group given as its
+    carrier (`make_dvs_chunk_resident_packed`,
     `adder_tpu/ops/fused_resident.py:1159`): the carrier unpacked,
     scattered into dense planes and run through `dvs_chunk_resident_plain`.
     Returns a new state; the input state is left as it was."""
@@ -475,6 +498,19 @@ def build_davis_planes(T: int, n: int, pix, lane, active, first_int,
     )
 
 
+def davis_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
+                              T: int, p: ops.TranscodeParams,
+                              events: bool = True) -> ChunkResult:
+    """Plain version of `davis_rows_resident`, the DAVIS lane group of T
+    lanes given as its carrier (`make_davis_chunk_resident_packed`,
+    `adder_tpu/ops/fused_resident.py:1411`): the carrier unpacked,
+    scattered into dense planes and run through `davis_chunk_resident_plain`.
+    Returns a new state; the input state is left as it was."""
+    n = state.length.shape[0]
+    planes = build_davis_planes(T, n, *unpack_davis_carrier(carrier))
+    return davis_chunk_resident_plain(state, *planes, p, events)
+
+
 # --- wrappers ---------------------------------------------------------------
 
 
@@ -498,36 +534,52 @@ def group_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
     return _chunk_cuda(state, frames, time, p, False, run0)
 
 
-def dvs_chunk_resident(state, inten, tspan, fvw, p,
-                       events: bool = True) -> ChunkResult:
-    """One DVS lane chunk: the plain version for CPU tensors; for CUDA
-    tensors the K3 kernel `adder_dvs_chunk`, COUNT -> scan -> WRITE when
-    `events`, the VOID pass (state, counts and flags only) otherwise."""
-    if not inten.is_cuda:
-        return dvs_chunk_resident_plain(state, inten, tspan, fvw, p, events)
-    return _dvs_chunk_cuda(state, inten, tspan, fvw, p, events)
-
-
-def dvs_rows_resident(state, carrier, T: int, p,
-                      events: bool = True) -> ChunkResult:
+def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
+                      groups: Optional[RowGroups] = None) -> ChunkResult:
     """One DVS lane group of T = 2 x lanes sub-steps given as its (5, E)
-    int32 carrier (`pack_dvs_plan`): the same events in the same order, the
-    same counts and flags as `dvs_chunk_resident` on the planes
-    `build_dvs_planes` makes of that carrier. For a CUDA carrier the
-    grouping glue `group_dvs_rows`, then the K3 row kernel `adder_dvs_rows`,
-    COUNT -> scan -> WRITE when `events`, the VOID pass otherwise; for a CPU
-    carrier `dvs_rows_resident_plain`.
+    int32 carrier (`pack_dvs_plan`): the events in (sub-step, raster pixel,
+    slot) order, the per-sub-step counts and the flags of
+    `dvs_chunk_resident_plain` on the planes `build_dvs_planes` makes of
+    that carrier. For a CUDA carrier the grouping (`groups` where the
+    caller knows it, as `raster_row_groups` for one row per pixel in raster
+    order; else the glue `group_dvs_rows`), then the K3 row kernel
+    `adder_dvs_rows`, COUNT -> scan -> WRITE when `events`, the VOID pass
+    otherwise; for a CPU carrier `dvs_rows_resident_plain`, which needs no
+    grouping.
 
     The state is updated in place, on the card and on the CPU alike: only
     the pixels that have rows change, so no copy of the other pixels is
     made, and the result's `state` is the caller's `state`. A caller that
     still needs the old state clones it first (`clone_state`)."""
     if not carrier.is_cuda:
-        res = dvs_rows_resident_plain(state, carrier, T, p, events)
-        for f in _KERNEL_FIELDS:
-            getattr(state, f).copy_(getattr(res.state, f))
-        return res._replace(state=state)
-    return _dvs_rows_cuda(state, carrier, T, p, events)
+        return _in_place(state, dvs_rows_resident_plain(state, carrier, T, p,
+                                                        events))
+    return _rows_cuda(SRC_DVS, state, carrier, T, p, events, groups)
+
+
+def davis_rows_resident(state, carrier, T: int, p,
+                        events: bool = True) -> ChunkResult:
+    """One DAVIS lane group of T lanes (one sub-step each) given as its
+    (5, E) int32 carrier (`pack_davis_plan`): the events in (sub-step,
+    raster pixel, slot) order, the per-sub-step counts and the flags of
+    `davis_chunk_resident_plain` on the planes `build_davis_planes` makes of
+    that carrier. For a CUDA carrier the glue `group_dvs_rows` with one
+    sub-step per lane, then the K4 row kernel `adder_davis_rows`, COUNT ->
+    scan -> WRITE when `events`, the VOID pass otherwise; for a CPU carrier
+    `davis_rows_resident_plain`. The state is updated in place, as
+    `dvs_rows_resident` does: only the pixels that have active rows change,
+    and the result's `state` is the caller's `state`."""
+    if not carrier.is_cuda:
+        return _in_place(state, davis_rows_resident_plain(state, carrier, T,
+                                                          p, events))
+    return _rows_cuda(SRC_DAVIS, state, carrier, T, p, events)
+
+
+def _in_place(state: ops.PixelState, res: ChunkResult) -> ChunkResult:
+    """`res` with the caller's `state`, its fields overwritten by res's."""
+    for f in _KERNEL_FIELDS:
+        getattr(state, f).copy_(getattr(res.state, f))
+    return res._replace(state=state)
 
 
 def clone_state(state: ops.PixelState) -> ops.PixelState:
@@ -536,17 +588,6 @@ def clone_state(state: ops.PixelState) -> ops.PixelState:
     return ops.PixelState(*(getattr(state, f).clone()
                             for f in _KERNEL_FIELDS),
                           overflow=state.overflow)
-
-
-def davis_chunk_resident(state, first_int, dt_ticks, fval, fvw, p,
-                         events: bool = True) -> ChunkResult:
-    """One DAVIS lane chunk: the plain version for CPU tensors; for CUDA
-    tensors the K4 kernel `adder_davis_chunk`, COUNT -> scan -> WRITE when
-    `events`, the VOID pass (state, counts and flags only) otherwise."""
-    if not first_int.is_cuda:
-        return davis_chunk_resident_plain(state, first_int, dt_ticks, fval,
-                                          fvw, p, events)
-    return _davis_chunk_cuda(state, first_int, dt_ticks, fval, fvw, p, events)
 
 
 class _ChunkArgs(ctypes.Structure):
@@ -574,11 +615,6 @@ class _ChunkArgs(ctypes.Structure):
         ("out_pixd", ctypes.c_void_p),
         ("out_t", ctypes.c_void_p),
         ("flags", ctypes.c_void_p),
-        ("dvs", ctypes.c_int),
-        ("inten", ctypes.c_void_p),
-        ("tspan", ctypes.c_void_p),
-        ("fvw", ctypes.c_void_p),
-        ("fval", ctypes.c_void_p),
         ("view_mode", ctypes.c_int),
         ("pdm", ctypes.c_float),
         ("run0", ctypes.c_void_p),
@@ -635,7 +671,7 @@ def _check_state(state: ops.PixelState, like: torch.Tensor, depths,
 
 
 def _chunk_args(state, p, T: int, n: int):
-    """The argument block shared by both entry points, and the new state's
+    """The argument block of `adder_resident_chunk`, and the new state's
     tensors it points at."""
     out_state = ops.PixelState(
         *(torch.empty_like(getattr(state, f)) for f in _KERNEL_FIELDS),
@@ -653,11 +689,13 @@ def _chunk_args(state, p, T: int, n: int):
     return a, out_state
 
 
-def _run_passes(entry: str, a: _ChunkArgs, out_state, T: int, n: int, dev,
-                events: bool, runnings=None) -> ChunkResult:
-    """COUNT -> scan -> WRITE (events fetched) or VOID through the C entry
-    point `entry`; each launch adds one to LAUNCHES[entry]. `runnings`, the
-    display output `a` points at, is passed through to the result."""
+def _run_passes(a: _ChunkArgs, out_state, T: int, n: int, dev, events: bool,
+                runnings=None) -> ChunkResult:
+    """COUNT -> scan -> WRITE (events fetched) or VOID through
+    `adder_resident_chunk`; each launch adds one to its LAUNCHES entry.
+    `runnings`, the display output `a` points at, is passed through to the
+    result."""
+    entry = "adder_resident_chunk"
     lib = cuda_build.load()
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -700,7 +738,6 @@ def _chunk_cuda(state, frames, time, p, events: bool,
     T, n = frames.shape
     time = float(np.float32(time))
     a, out_state = _chunk_args(state, p, T, n)
-    a.dvs = SRC_FRAMED
     a.time = time
     a.vel_m1, a.c_inc = ops.c_thresh_scalars(time, p)
     a.frames = frames.data_ptr()
@@ -709,52 +746,7 @@ def _chunk_cuda(state, frames, time, p, events: bool,
         runnings = torch.empty((T, n), dtype=torch.uint8, device=frames.device)
         a.view_mode, a.pdm = p.view_mode, ops.display_pdm(p)
         a.run0, a.runnings = run0.data_ptr(), runnings.data_ptr()
-    return _run_passes("adder_resident_chunk", a, out_state, T, n,
-                       frames.device, events, runnings)
-
-
-def _lane_chunk_args(state, planes: dict, p):
-    """Checks and the argument block shared by the DVS and DAVIS chunks:
-    `planes` maps each plane's name to (tensor, dtype)."""
-    for name, (x, dtype) in planes.items():
-        _check_plane(x, dtype, name)
-    first = next(iter(planes.values()))[0]
-    if any(x.shape != first.shape for x, _ in planes.values()):
-        raise ValueError(f"{', '.join(planes)} must have one shape")
-    if any(x.device != first.device for x, _ in planes.values()):
-        raise ValueError(f"{', '.join(planes)} must be on one device")
-    if p.mode != int(Mode.Continuous) or p.time_mode != int(TimeMode.AbsoluteT):
-        raise ValueError("the lane kernels are built for Continuous, AbsoluteT")
-    _check_state(state, first, (DVS_DEPTH,))
-    T, n = first.shape
-    a, out_state = _chunk_args(state, p, T, n)
-    a.vel_m1, _ = ops.c_thresh_scalars(0.0, p)
-    return a, out_state, T, n
-
-
-def _dvs_chunk_cuda(state, inten, tspan, fvw, p, events: bool) -> ChunkResult:
-    a, out_state, T, n = _lane_chunk_args(
-        state, {"inten": (inten, torch.float32),
-                "tspan": (tspan, torch.float32),
-                "fvw": (fvw, torch.int32)}, p)
-    a.dvs = SRC_DVS
-    a.inten, a.tspan, a.fvw = inten.data_ptr(), tspan.data_ptr(), fvw.data_ptr()
-    return _run_passes("adder_dvs_chunk", a, out_state, T, n, inten.device,
-                       events)
-
-
-def _davis_chunk_cuda(state, first_int, dt_ticks, fval, fvw, p,
-                      events: bool) -> ChunkResult:
-    a, out_state, T, n = _lane_chunk_args(
-        state, {"first_int": (first_int, torch.float32),
-                "dt_ticks": (dt_ticks, torch.float32),
-                "fval": (fval, torch.float32),
-                "fvw": (fvw, torch.int32)}, p)
-    a.dvs = SRC_DAVIS
-    a.inten, a.tspan = first_int.data_ptr(), dt_ticks.data_ptr()
-    a.fval, a.fvw = fval.data_ptr(), fvw.data_ptr()
-    return _run_passes("adder_davis_chunk", a, out_state, T, n,
-                       first_int.device, events)
+    return _run_passes(a, out_state, T, n, frames.device, events, runnings)
 
 
 class _RowsArgs(ctypes.Structure):
@@ -786,17 +778,23 @@ class _RowsArgs(ctypes.Structure):
     ]
 
 
-def _dvs_rows_cuda(state, carrier, T: int, p, events: bool,
-                   groups: Optional[RowGroups] = None) -> ChunkResult:
-    """`dvs_rows_resident` for a CUDA carrier. For the timings: `groups`,
-    the grouping made beforehand."""
+# each row source: its C entry point and its sub-steps per lane
+_ROW_ENTRIES = {SRC_DVS: ("adder_dvs_rows", 2), SRC_DAVIS: ("adder_davis_rows", 1)}
+
+
+def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
+               groups: Optional[RowGroups] = None) -> ChunkResult:
+    """`dvs_rows_resident` (src SRC_DVS) or `davis_rows_resident`
+    (SRC_DAVIS) for a CUDA carrier. `groups`: the grouping made beforehand
+    (for the raster chunks and the timings)."""
+    entry, per_lane = _ROW_ENTRIES[src]
     if (carrier.dtype != torch.int32 or carrier.dim() != 2
             or carrier.shape[0] != 5 or not carrier.is_contiguous()):
         raise ValueError(f"carrier must be contiguous (5, E) int32, got "
                          f"{carrier.dtype} {tuple(carrier.shape)}")
-    if T % 2 or not 2 <= T <= MAX_T:
-        raise ValueError(f"group of {T} sub-steps; the kernel takes an even "
-                         f"2..{MAX_T}")
+    if T % per_lane or not per_lane <= T <= MAX_T:
+        raise ValueError(f"group of {T} sub-steps; {entry} takes "
+                         f"{per_lane} x lanes in {per_lane}..{MAX_T}")
     if p.mode != int(Mode.Continuous) or p.time_mode != int(TimeMode.AbsoluteT):
         raise ValueError("the lane kernels are built for Continuous, AbsoluteT")
     n, E, dev = state.length.shape[0], carrier.shape[1], carrier.device
@@ -807,11 +805,21 @@ def _dvs_rows_cuda(state, carrier, T: int, p, events: bool,
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         ev = torch.empty(0, dtype=torch.int32, device=dev) if events else None
         return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero)
-    g = groups if groups is not None else group_dvs_rows(carrier, T)
-    cell_counts = torch.empty(2 * E, dtype=torch.int32, device=dev)
+    if groups is None:
+        g = group_dvs_rows(carrier, T, per_lane)
+    else:
+        g = groups
+        shapes = ((E,), (E + 2,), (1,), (E,), (E if per_lane == 2 else 0,),
+                  (T + 1,))
+        for f, x, shape in zip(RowGroups._fields, g, shapes):
+            if (x.dtype != torch.int64 or tuple(x.shape) != shape
+                    or x.device != dev or not x.is_contiguous()):
+                raise ValueError(f"groups.{f}: want contiguous int64 {shape} "
+                                 f"on {dev}, got {x.dtype} {tuple(x.shape)}")
+    cell_counts = torch.empty(per_lane * E, dtype=torch.int32, device=dev)
     flags = torch.zeros(2, dtype=torch.int32, device=dev)  # atomic max / or
     a = _RowsArgs()
-    a.multi_mode, a.depth, a.src = int(p.multi_mode), DVS_DEPTH, SRC_DVS
+    a.multi_mode, a.depth, a.src = int(p.multi_mode), DVS_DEPTH, src
     a.n, a.rows = n, E
     a.ref_time, a.delta_t_max = p.ref_time, p.delta_t_max
     a.c_thresh_max = p.c_thresh_max
@@ -821,18 +829,19 @@ def _dvs_rows_cuda(state, carrier, T: int, p, events: bool,
     a.carrier = carrier.data_ptr()
     a.order, a.row_start = g.order.data_ptr(), g.row_start.data_ptr()
     a.n_active = g.n_active.data_ptr()
-    a.cell_gap, a.cell_tick = g.cell_gap.data_ptr(), g.cell_tick.data_ptr()
+    a.cell_gap = g.cell_gap.data_ptr()
+    a.cell_tick = g.cell_tick.data_ptr() if per_lane == 2 else None
     a.cell_counts, a.flags = cell_counts.data_ptr(), flags.data_ptr()
-    lib = cuda_build.load()
+    fn = getattr(cuda_build.load(), entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(pass_: int) -> None:
         a.pass_ = pass_
-        err = lib.adder_dvs_rows(ctypes.addressof(a), stream)
+        err = fn(ctypes.addressof(a), stream)
         if err:
-            raise RuntimeError(f"adder_dvs_rows launch failed: "
+            raise RuntimeError(f"{entry} launch failed: "
                                f"{cuda_build.error_string(err)}")
-        LAUNCHES["adder_dvs_rows"] += 1
+        LAUNCHES[entry] += 1
 
     pixd = t = None
     launch(PASS_COUNT if events else PASS_VOID)

@@ -336,55 +336,73 @@ def _check_plan(seed, W: int, H: int, need: int) -> dvs_batch.DvsCompact:
     return plan
 
 
-def _const_planes(T: int, n: int, dev):
-    """T sub-steps of one mid-grey tick in every pixel (the bootstrap)."""
-    return tuple(torch.full((T, n), v, dtype=dt, device=dev) for v, dt in
-                 ((128.0, torch.float32), (20.0, torch.float32),
-                  (128 | 1 << 8, torch.int32)))
+def check_raster_chunks_against_plain(device, H: int = 260, W: int = 346,
+                                      seed: int = 0) -> float:
+    """The chunks of one row per pixel in raster order, as the sources build
+    them and run them (`lanes.run_raster_chunk`: T = 2, the grouping
+    `FR.raster_row_groups`, the K3 row kernel), against the plain version,
+    bit for bit (`check_rows_group`: WRITE and VOID, each grouping equal to
+    the glue's), for Normal and Collapse and chained: the Prophesee
+    bootstrap from a fresh state; a flush of a seeded partial mask
+    (`lanes.gap_rows`); a DAVIS APS frame's carrier, built on `device` by
+    `davis.frame_carrier` from a seeded u8 frame and held to the numpy f64
+    build of the same rows; the gap to a frame of a seeded partial mask;
+    then the bootstrap on a forced depth-16 overflow. Raises on any
+    difference; returns the largest absolute difference (0.0)."""
+    from .transcoder.davis import frame_carrier
+    from .transcoder.lanes import gap_rows
+    from .transcoder.prophesee import bootstrap_carrier
 
-
-def check_dvs_kernel_against_plain(device, H: int = 150, W: int = 200,
-                                   lanes=(1, 19, 64), seed: int = 0) -> float:
-    """The K3 kernel (WRITE and VOID) against its plain version on the same
-    inputs, bit for bit: for Normal and Collapse, the bootstrap chunk (T = 2
-    of constant planes), then for each lane count L two chained groups of
-    T = 2 L sub-steps planned by the port's planner from a seeded stream;
-    then a forced depth-16 overflow. Raises on any difference; returns the
-    largest absolute difference (0.0)."""
     dev = torch.device(device)
     n = H * W
-    need = 2 * sum(lanes)
-    plan = _check_plan(seed, W, H, need)
-    err = 0.0
+    rng = np.random.default_rng(seed)
 
-    def both(st_k, st_p, planes, p, what):
-        k = FR.dvs_chunk_resident(st_k, *planes, p)
-        v = FR.dvs_chunk_resident(st_k, *planes, p, events=False)
-        want = FR.dvs_chunk_resident_plain(st_p, *planes, p)
-        e = max(compare_chunks(k, want, what),
-                compare_chunks(v, want._replace(pixd=None, t=None),
-                               what + " void"))
-        return k.state, want, e
+    def on_dev(rows):
+        return torch.from_numpy(rows).to(dev)
 
+    def gap_chunk(ref: int, frame_gap: bool):
+        """Gap rows of a partial mask with the sources' own arithmetic: the
+        flush's (Prophesee) or the gap to a frame's (DAVIS)."""
+        pix = np.flatnonzero(rng.random(n) < 0.6)
+        last_val = rng.uniform(0.0, 300.0, len(pix))
+        if frame_gap:
+            dt = rng.integers(1, 40_000, len(pix)).astype(np.float64) * 255.0
+            inten = np.maximum(last_val / ref * dt, 0.0)
+        else:
+            dt = (rng.integers(1, 5_000, len(pix)) * ref).astype(np.float64)
+            inten = last_val * dt
+        fv = np.clip(last_val, 0.0, 255.0).astype(np.int64)
+        return on_dev(gap_rows(pix, fv, inten, dt))
+
+    frame = rng.integers(0, 256, n, dtype=np.uint8)
+    dt_frame = 10_000 * 255.0  # a 10 ms exposure at 255 ticks per us
+    frame_rows = frame_carrier(on_dev(frame), 255, dt_frame)
+    err = bitwise_max_err(frame_rows, on_dev(gap_rows(
+        np.arange(n), frame, frame.astype(np.float64) / 255 * dt_frame,
+        np.full(n, dt_frame))), "frame carrier on the device")
+    groups = FR.raster_row_groups
+    n_events = 0
     for multi in (0, 1):
-        p = _dvs_params(multi)
-        st_k = st_p = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
-        st_k, want, e = both(st_k, st_p, _const_planes(2, n, dev), p,
-                             f"bootstrap multi {multi}")
-        st_p, err = want.state, max(err, e)
-        lo = 0
-        for L in lanes:
-            for rep in range(2):
-                planes = dvs_group_planes(plan, lo, lo + L, n, dev)
-                st_k, want, e = both(st_k, st_p, planes, p,
-                                     f"multi {multi} T {2 * L} group {rep}")
-                st_p, err = want.state, max(err, e)
-                lo += L
+        st = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
+        p_dvs, p_davis = _dvs_params(multi), _davis_params(multi)
+        for what, carrier, p in (
+                ("bootstrap", bootstrap_carrier(n, 20, dev), p_dvs),
+                ("flush", gap_chunk(20, False), p_dvs),
+                ("frame", frame_rows, p_davis),
+                ("gap to a frame", gap_chunk(255, True), p_davis)):
+            e, want = check_rows_group(
+                st, carrier, 2, p, f"multi {multi} {what}",
+                groups=groups(carrier.shape[1], dev))
+            st, err = want.state, max(err, e)
+            n_events += int(want.per_interval.sum())
+    if not n_events:
+        raise AssertionError("the raster chunks emitted no event")
     st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
                                           device=dev), n // 10,
                                depth=FR.DVS_DEPTH)
-    _, want, e = both(st, st, _const_planes(2, n, dev), _dvs_params(1),
-                      "forced depth-16 overflow")
+    e, want = check_rows_group(st, bootstrap_carrier(n, 20, dev), 2,
+                               _dvs_params(1), "forced depth-16 overflow",
+                               groups=groups(n, dev))
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)
@@ -441,30 +459,40 @@ def synthetic_rows(seed, n: int, lanes: int, density: float = 0.3,
 
 
 def check_rows_group(state: ops.PixelState, carrier: torch.Tensor, T: int,
-                     p: ops.TranscodeParams, what: str):
-    """One lane group through `dvs_rows_resident` (WRITE and VOID) against
-    `dvs_rows_resident_plain` on the same carrier and state, bit for bit,
-    the dense `dvs_chunk_resident` on planes built from that carrier
-    against the same, and the grouping glue `group_dvs_rows` against its
-    plain version. `state` is left as it was. Returns (the largest
-    absolute difference, the plain result)."""
-    n, E = state.length.shape[0], carrier.shape[1]
-    want = FR.dvs_rows_resident_plain(state, carrier, T, p)
+                     p: ops.TranscodeParams, what: str, src: int = FR.SRC_DVS,
+                     groups=None):
+    """One lane group through its row wrapper (`dvs_rows_resident` for src
+    FR.SRC_DVS, `davis_rows_resident` for FR.SRC_DAVIS; WRITE and VOID)
+    against its plain version on the same carrier and state, bit for bit,
+    each returning the caller's state updated in place, and the grouping
+    (the glue `group_dvs_rows`, or `groups` where given) against the glue's
+    plain version. `state` is left as it was. Returns (the largest absolute
+    difference, the plain result)."""
+    E = carrier.shape[1]
+    if src == FR.SRC_DVS:
+        wrapper, plain, per_lane = (FR.dvs_rows_resident,
+                                    FR.dvs_rows_resident_plain, 2)
+    else:
+        wrapper, plain, per_lane = (FR.davis_rows_resident,
+                                    FR.davis_rows_resident_plain, 1)
+    want = plain(state, carrier, T, p)
     want_void = want._replace(pixd=None, t=None)
-    if E:  # the grouping glue against its plain version
-        glue = FR.group_dvs_rows(carrier, T)
-        glue_plain = FR.group_dvs_rows_plain(carrier, T)
-        for name, a, b in zip(glue._fields, glue, glue_plain):
-            if name == "row_start":  # the last slot is scratch
-                a, b = a[: E + 1], b[: E + 1]
-            bitwise_max_err(a, b, f"{what} glue {name}")
-    planes = FR.build_dvs_planes(T, n, *FR.unpack_dvs_carrier(carrier),
-                                 ref_time=p.ref_time)
-    err = compare_chunks(FR.dvs_chunk_resident(state, *planes, p), want,
-                         what + " dense")
+    kw = {} if groups is None else {"groups": groups}
+    err = 0.0
+    if E:  # the grouping against the glue's plain version
+        glue_plain = FR.group_dvs_rows_plain(carrier, T, per_lane)
+        made = [("glue", FR.group_dvs_rows(carrier, T, per_lane))]
+        if groups is not None:
+            made.append(("given grouping", groups))
+        for name, g in made:
+            for field, a, b in zip(g._fields, g, glue_plain):
+                if field == "row_start":  # the last slot is scratch
+                    a, b = a[: E + 1], b[: E + 1]
+                err = max(err, bitwise_max_err(a, b,
+                                               f"{what} {name} {field}"))
     for events, ref in ((True, want), (False, want_void)):
         st = FR.clone_state(state)
-        got = FR.dvs_rows_resident(st, carrier, T, p, events=events)
+        got = wrapper(st, carrier, T, p, events=events, **kw)
         if any(a is not b for a, b in zip(got.state, st)):
             raise AssertionError(f"{what}: the rows chunk did not return "
                                  f"the caller's state")
@@ -475,24 +503,26 @@ def check_rows_group(state: ops.PixelState, carrier: torch.Tensor, T: int,
 
 def check_dvs_rows_against_plain(device, H: int = 150, W: int = 200,
                                  lanes=(1, 19, 64), seed: int = 0) -> float:
-    """The K3 row kernel against its plain version and against the dense K3
-    kernel, bit for bit (`check_rows_group`): for Normal and Collapse, from
+    """The K3 row kernel against its plain version, bit for bit
+    (`check_rows_group`): for Normal and Collapse, from
     the state after the bootstrap chunk, two chained groups of T = 2 L
     sub-steps for each lane count L, planned by the port's planner from a
     seeded stream; then a forced depth-16 overflow in a group of one row per
     pixel, a group with no rows, a group whose rows sit in one pixel, and a
     hand-made group of unsorted rows with one half or both off. Raises on
     any difference; returns the largest absolute difference (0.0)."""
+    from .transcoder.prophesee import bootstrap_carrier
+
     dev = torch.device(device)
     n = H * W
     need = 2 * sum(lanes)
     plan = _check_plan(seed, W, H, need)
-    boot = _const_planes(2, n, dev)
+    boot = bootstrap_carrier(n, 20, dev)
     err = 0.0
     for multi in (0, 1):
         p = _dvs_params(multi)
-        st = FR.dvs_chunk_resident_plain(
-            ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH), *boot,
+        st = FR.dvs_rows_resident_plain(
+            ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH), boot, 2,
             p).state
         lo = 0
         for L in lanes:
@@ -668,53 +698,92 @@ def davis_plan(seed, W: int, H: int, lanes: int) -> dvs_batch.DavisCompact:
 def davis_group_planes(plan, lane_lo: int, lane_hi: int, n: int, device):
     """Lanes [lane_lo, lane_hi) of a DAVIS plan as (T, n) planes on
     `device`, through the carrier the Davis path ships."""
-    g = plan.lane_slice(lane_lo, lane_hi)
-    carrier = torch.from_numpy(FR.pack_davis_plan(g)).to(device)
+    carrier = davis_group_carrier(plan, lane_lo, lane_hi, device)
     return FR.build_davis_planes(lane_hi - lane_lo, n,
                                  *FR.unpack_davis_carrier(carrier))
 
 
-def check_davis_kernel_against_plain(device, H: int = 47, W: int = 61,
-                                     lanes=(1, 37, 128),
-                                     seed: int = 0) -> float:
-    """The K4 kernel (WRITE and VOID) against its plain version on the same
-    inputs, bit for bit: for Normal and Collapse and each lane count T, two
-    chained groups of T sub-steps planned by the port's DAVIS planner from a
-    seeded burst on a ragged plane; then a forced depth-16 overflow. Raises
-    on any difference; returns the largest absolute difference (0.0)."""
+def davis_group_carrier(plan, lane_lo: int, lane_hi: int,
+                        device) -> torch.Tensor:
+    """Lanes [lane_lo, lane_hi) of a DAVIS plan as the (5, E) carrier on
+    `device`."""
+    return torch.from_numpy(
+        FR.pack_davis_plan(plan.lane_slice(lane_lo, lane_hi))).to(device)
+
+
+def davis_rows(seed, pix, lane, active=None) -> np.ndarray:
+    """Hand-made DAVIS rows at (pix, lane) as the (5, E) carrier, with
+    seeded values in the planner's ranges: first_int over a gap of 1 to
+    40,000 us at 255 ticks per us, fval in [0, 255] and fv8 its
+    truncation; every row active unless `active` says otherwise."""
+    rng = np.random.default_rng(seed)
+    E = len(pix)
+    dt = rng.integers(1, 40_000, E).astype(np.float64) * 255.0
+    fval = rng.uniform(0.0, 255.0, E)
+    plan = dvs_batch.DavisCompact(
+        np.asarray(pix, np.int32), np.asarray(lane, np.int32),
+        np.ones(E, bool) if active is None else np.asarray(active, bool),
+        (rng.uniform(0.0, 255.0, E) / 255 * dt).astype(np.float32),
+        dt.astype(np.float32), fval.astype(np.float32),
+        fval.astype(np.int64).astype(np.int32))
+    return FR.pack_davis_plan(plan)
+
+
+def check_davis_rows_against_plain(device, H: int = 47, W: int = 61,
+                                   lanes=(1, 37, 128),
+                                   seed: int = 0) -> float:
+    """The K4 row kernel (`davis_rows_resident`, WRITE and VOID) against its
+    plain version on the same carrier and state, bit for bit, and the
+    grouping glue with one sub-step per lane against its plain version
+    (`check_rows_group`): for Normal and Collapse and each lane count T, two
+    chained groups of T lanes planned by the port's DAVIS planner from a
+    seeded burst on a ragged plane; a group with no rows, a planned group
+    with a seeded half of its rows inactive, and a group of 64 lanes whose
+    rows sit in one pixel; then a forced depth-16 overflow in a group of one
+    row per pixel. Raises on any difference; returns the largest absolute
+    difference (0.0)."""
     dev = torch.device(device)
     n = H * W
     plan = davis_plan(seed, W, H, 2 * sum(lanes))
+    rng = np.random.default_rng(seed + 1)
     err = 0.0
 
-    def both(st_k, st_p, planes, p, what):
-        k = FR.davis_chunk_resident(st_k, *planes, p)
-        v = FR.davis_chunk_resident(st_k, *planes, p, events=False)
-        want = FR.davis_chunk_resident_plain(st_p, *planes, p)
-        e = max(compare_chunks(k, want, what),
-                compare_chunks(v, want._replace(pixd=None, t=None),
-                               what + " void"))
-        return k.state, want, e
+    def check(st, carrier, T, p, what):
+        e, want = check_rows_group(st, carrier, T, p, what, FR.SRC_DAVIS)
+        return want.state, e
 
     for multi in (0, 1):
         p = _davis_params(multi)
-        st_k = st_p = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
+        st = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
         lo = 0
         for L in lanes:
             for rep in range(2):
-                planes = davis_group_planes(plan, lo, lo + L, n, dev)
-                st_k, want, e = both(st_k, st_p, planes, p,
-                                     f"multi {multi} T {L} group {rep}")
-                st_p, err = want.state, max(err, e)
-                lo += L
+                st, e = check(st, davis_group_carrier(plan, lo, lo + L, dev),
+                              L, p, f"multi {multi} T {L} group {rep}")
+                err, lo = max(err, e), lo + L
+        g = plan.lane_slice(0, 8)
+        half = g._replace(active=rng.random(len(g.pix)) < 0.5)
+        hot = int(np.bincount(plan.pix).argmax())
+        cases = (
+            ("no rows", np.zeros((5, 0), np.int32), 2),
+            ("inactive rows", FR.pack_davis_plan(half), 8),
+            ("one pixel", davis_rows(seed + 2, np.full(64, hot),
+                                     rng.permutation(64)), 64),
+        )
+        for what, rows, T in cases:
+            st, e = check(st, torch.from_numpy(rows).to(dev), T, p,
+                          f"multi {multi} {what}")
+            err = max(err, e)
     st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
                                           device=dev), n // 10,
                                depth=FR.DVS_DEPTH)
-    planes = tuple(torch.full((1, n), v, dtype=dt, device=dev) for v, dt in
-                   ((1000.0, torch.float32), (255.0, torch.float32),
-                    (128.0, torch.float32), (128 | 1 << 8, torch.int32)))
-    _, want, e = both(st, st, planes, _davis_params(1),
-                      "forced depth-16 overflow")
+    every = FR.pack_davis_plan(dvs_batch.DavisCompact(
+        np.arange(n, dtype=np.int32), np.zeros(n, np.int32), np.ones(n, bool),
+        np.full(n, 1000.0, np.float32), np.full(n, 255.0, np.float32),
+        np.full(n, 128.0, np.float32), np.full(n, 128, np.int32)))
+    e, want = check_rows_group(st, torch.from_numpy(every).to(dev), 1,
+                               _davis_params(1), "forced depth-16 overflow",
+                               FR.SRC_DAVIS)
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)

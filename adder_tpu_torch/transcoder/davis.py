@@ -15,13 +15,16 @@ Per pixel the source keeps the last DVS timestamp (microseconds) and the
 last log intensity. DVS events are planned on the host by the native
 planner (`ops/dvs_batch.plan_davis_events_compact`) into lanes, lane k
 holding each pixel's k-th event, and run in groups of at most 128 lanes as
-one chunk of T = lanes sub-steps (`ops/fused_resident.davis_chunk_resident`:
-the K4 kernel on a CUDA device, its plain version on the CPU). A group's
-rows reach the device as one (5, E) int32 carrier and are scattered there
-into dense (T, N) planes. The gap to an APS frame's start and the frame
-itself are one T = 1 chunk each through the DVS lane kernel (K3,
-`dvs_chunk_resident`), with per-pixel planes, as the JAX package runs them
-through its masked interval.
+one chunk of T = lanes sub-steps. A group's rows reach the device as one
+(5, E) int32 carrier and run from it (`ops/fused_resident.davis_rows_resident`:
+on a CUDA device the grouping glue and the K4 row kernel, which walks each
+pixel's own rows; on the CPU its plain version, which scatters the rows into
+dense (T, N) planes). The gap to an APS frame's start and the frame itself
+are DVS carriers of one gap-only row per pixel in raster order (the gap's
+pixels built on the host, the frame's on the device from its u8 values),
+run at T = 2 through the K3 row kernel (`lanes.run_raster_chunk`; the tick
+sub-step is empty): the JAX package's masked interval. Every chunk updates
+the carried state in place.
 
 Events reach the encoder in the order of the JAX package's scan engine (the
 one it runs on the CPU): lane by lane, and within a lane by raster pixel,
@@ -42,10 +45,31 @@ from ..core.types import EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
-from .lanes import ingest_parts, lane_params, run_lane_chunk
+from .lanes import (gap_rows, ingest_parts, lane_params, run_lane_chunk,
+                    run_raster_chunk)
 from .video import SourceError, Video, resolve_device
 
 LANE_GROUP = 128  # lanes per K4 chunk: one sub-step per lane, T <= FR.MAX_T
+
+
+def frame_carrier(fv: torch.Tensor, ref_time: int,
+                  dt_ticks: float) -> torch.Tensor:
+    """The (5, N) int32 DVS carrier of an APS frame's integration, built on
+    the device of `fv`, the (N,) u8 frame: one gap-only row per pixel in
+    raster order, lane 0, with gap_int = f32(f64(fv) / ref_time * dt_ticks),
+    gap_time = f32(dt_ticks) and gap_fv = fv (`lanes.gap_rows`'s layout),
+    the bits the host computes in numpy f64. The division is by a tensor on
+    the device: CUDA divides by a host scalar as a product with its
+    reciprocal, which can differ in the last bit."""
+    dev, n = fv.device, fv.shape[0]
+    ref = torch.full((), float(ref_time), dtype=torch.float64, device=dev)
+    gap_int = (fv.to(torch.float64) / ref * dt_ticks).to(torch.float32)
+    carrier = torch.zeros((5, n), dtype=torch.int32, device=dev)
+    carrier[0] = torch.arange(n, dtype=torch.int32, device=dev) | 1 << 27
+    carrier[1] = fv
+    carrier[2] = gap_int.view(torch.int32)
+    carrier[3] = int(np.float32(dt_ticks).view(np.int32))
+    return carrier
 
 
 class TranscoderMode(enum.IntEnum):
@@ -186,19 +210,15 @@ class Davis:
     def _params(self) -> ops.TranscodeParams:
         return lane_params(self.video)
 
-    def _run_chunk(self, fn, planes, p):
-        """One chunk of `fn` (a lane-chunk wrapper) on the carried state;
-        its events as (x, y, d, t) host arrays, or None on the void path."""
-        self.state, events = run_lane_chunk(fn, self.state, planes, p,
-                                            self.void_events,
-                                            self.plane.width)
-        return events
-
     def _run_group(self, g: dvs_batch.DavisCompact, n_lanes: int, p):
+        """One lane group from its carrier, through the K4 row route; the
+        carried state is updated in place. Its events as (x, y, d, t) host
+        arrays, or None on the void path."""
         carrier = torch.from_numpy(FR.pack_davis_plan(g)).to(self.device)
-        planes = FR.build_davis_planes(n_lanes, self.plane.volume(),
-                                       *FR.unpack_davis_carrier(carrier))
-        return self._run_chunk(FR.davis_chunk_resident, planes, p)
+        self.state, events = run_lane_chunk(
+            FR.davis_rows_resident, self.state, (carrier, n_lanes), p,
+            self.void_events, self.plane.width)
+        return events
 
     def _integrate_dvs_events(self, events, parts: list) -> None:
         """Log-space DVS integration (ref: davis.rs:235-465) of one packet's
@@ -218,17 +238,16 @@ class Davis:
                  if n_lanes > LANE_GROUP else plan)
             parts.append(self._run_group(g, min(n_lanes - g0, LANE_GROUP), p))
 
-    def _masked_chunk(self, intensity, fv, time, mask, parts: list) -> None:
-        """One dense interval where only `mask` pixels integrate, with
-        per-pixel intensity, frame value and ticks spanned: a T = 1 chunk
-        of the DVS lane kernel."""
-        fvw = (fv.astype(np.int32) | (mask.astype(np.int32) << 8))
-        planes = tuple(torch.from_numpy(np.ascontiguousarray(a)[None])
-                       .to(self.device)
-                       for a in (intensity.astype(np.float32),
-                                 time.astype(np.float32), fvw))
-        parts.append(self._run_chunk(FR.dvs_chunk_resident, planes,
-                                     self._params()))
+    def _raster_chunk(self, carrier: torch.Tensor, parts: list) -> None:
+        """One interval of the pixels of a gap-only raster carrier (one row
+        per pixel, raster order) with per-pixel intensity, frame value and
+        ticks spanned: a T = 2 chunk of the K3 row kernel whose tick
+        sub-step is empty."""
+        self.state, events = run_raster_chunk(self.state, carrier,
+                                              self._params(),
+                                              self.void_events,
+                                              self.plane.width)
+        parts.append(events)
 
     def _integrate_frame_gaps(self, start_of_frame_us: int,
                               parts: list) -> None:
@@ -237,18 +256,16 @@ class Davis:
         tpm = self.video.tps / 1e6
         ref = self.video.ref_time
         gap_us = start_of_frame_us - self.dvs_last_timestamps
-        mask = gap_us > 0
-        last_val = (np.exp(self.dvs_last_ln_val) - 1.0) * 255.0
-        dt_ticks = gap_us.astype(np.float64) * tpm
+        pix = np.flatnonzero(gap_us > 0)
+        if not len(pix):  # no pixel has a gap: no chunk
+            return
+        last_val = ((np.exp(self.dvs_last_ln_val) - 1.0) * 255.0)[pix]
+        dt_ticks = gap_us[pix].astype(np.float64) * tpm
         intensity = np.maximum(last_val / ref * dt_ticks, 0.0)
         fv = np.clip(last_val, 0.0, 255.0).astype(np.int64)
-        self._masked_chunk(
-            np.where(mask, intensity, 0.0).astype(np.float32),
-            np.where(mask, fv, 0).astype(np.int32),
-            np.where(mask, dt_ticks, 0.0).astype(np.float32),
-            mask, parts,
-        )
-        self.dvs_last_timestamps[mask] = start_of_frame_us
+        carrier = gap_rows(pix, fv, intensity, dt_ticks)
+        self._raster_chunk(torch.from_numpy(carrier).to(self.device), parts)
+        self.dvs_last_timestamps[pix] = start_of_frame_us
 
     def _integrate_frame(self, frame: np.ndarray, exposure_us: int,
                          parts: list) -> None:
@@ -256,17 +273,20 @@ class Davis:
         exposure (ref: davis.rs consume, :601-900); the log intensity of
         every pixel is reset to the frame's."""
         n = self.plane.volume()
-        fv = np.asarray(frame).reshape(-1).astype(np.int64)
+        fv = np.asarray(frame).reshape(-1)
         if len(fv) != n:
             raise SourceError(f"APS frame of {len(fv)} pixels on a plane of "
                               f"{n}")
-        tpm = self.video.tps / 1e6
-        ref = self.video.ref_time
-        dt_ticks = max(exposure_us, 1) * tpm
-        intensity = (fv.astype(np.float64) / ref * dt_ticks).astype(np.float32)
-        self._masked_chunk(intensity, fv.astype(np.int32),
-                           np.full(n, dt_ticks, np.float32),
-                           np.ones(n, bool), parts)
+        if fv.dtype != np.uint8:
+            if fv.size and (fv.min() < 0 or fv.max() > 255):
+                raise SourceError("APS frame values must lie in 0..255")
+            fv = fv.astype(np.uint8)
+        dt_ticks = max(exposure_us, 1) * (self.video.tps / 1e6)
+        # one host -> device copy of N bytes; the carrier is built there
+        self._raster_chunk(
+            frame_carrier(torch.from_numpy(np.ascontiguousarray(fv))
+                          .to(self.device), self.video.ref_time, dt_ticks),
+            parts)
         self.dvs_last_ln_val[:] = np.log1p(fv / 255.0)
         self._val_cache[:] = np.nan  # the ln state moved outside the planner
 

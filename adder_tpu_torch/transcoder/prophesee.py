@@ -12,10 +12,10 @@ the native planner (`ops/dvs_batch.plan_dvs_compact`) into lanes:
 lane k holds each pixel's k-th event. Lanes run in groups of at most 64 as
 one chunk of T = 2 x lanes sub-steps. A group's rows reach the device as
 one (5, E) int32 carrier and run from it
-(`ops/fused_resident.dvs_rows_resident`: on a CUDA device the K3 row kernel,
-which walks each pixel's own rows and updates the state in place; on the
-CPU its plain version, which scatters the rows into dense (T, N) planes).
-Windows of more than 1.5 segments
+(`ops/fused_resident.dvs_rows_resident`: on a CUDA device the grouping glue
+and the K3 row kernel, which walks each pixel's own rows and updates the
+state in place; on the CPU its plain version, which scatters the rows into
+dense (T, N) planes). Windows of more than 1.5 segments
 (ADDER_TPU_DVS_SEG_EVENTS events, default 262,144) are planned segment by
 segment, as the JAX resident engine does.
 
@@ -24,10 +24,12 @@ Events reach the encoder in the JAX resident engine's order: by group, then
 independent of window, segment and group boundaries; the bytes equal the JAX
 scan engine's wherever no window is segmented.
 
-The bootstrap (two mid-grey ticks for every pixel) is one T = 2 chunk and
-the end-of-stream flush one T = 1 chunk, both dense by nature and run from
-planes (`ops/fused_resident.dvs_chunk_resident`, the dense K3 kernel).
-Not ported: the scalar per-event oracle (`batched=False`) and the XLA scan
+The bootstrap (two mid-grey ticks for every pixel) and the end-of-stream
+flush (the held intensity of every pixel with a gap) are carriers too: one
+row per pixel in raster order, built on the device for the bootstrap and on
+the host for the flush's pixels, run at T = 2 through the same row kernel
+with the grouping such a carrier has (`lanes.run_raster_chunk`; the flush's
+tick sub-step is empty). Not ported: the scalar per-event oracle (`batched=False`) and the XLA scan
 engine; on the CPU the plain version takes their place.
 """
 
@@ -43,7 +45,8 @@ from ..core.types import EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
-from .lanes import ingest_parts, lane_params, run_lane_chunk
+from .lanes import (gap_rows, ingest_parts, lane_params, run_lane_chunk,
+                    run_raster_chunk)
 from .video import SourceError, Video, resolve_device
 
 PROPHESEE_SOURCE_TPS = 1_000_000
@@ -84,6 +87,22 @@ def parse_header(f) -> tuple:
             raise SourceError("Invalid Prophesee event size")
     bod = f.tell()
     return bod, ev_type, ev_size, (height or 70, width or 100)
+
+
+def bootstrap_carrier(n: int, ref_time: int, device) -> torch.Tensor:
+    """The (5, n) int32 carrier of the bootstrap (ref: prophesee.rs:117-133),
+    built on `device`: one row per pixel in raster order, lane 0, whose gap
+    is 128.0 over ref_time ticks and whose tick is 128.0 over one source
+    tick (the row kernel's f32(ref_time)), both at fv 128."""
+    bits = np.array([128.0, ref_time], np.float32).view(np.int32)
+    carrier = torch.empty((5, n), dtype=torch.int32, device=device)
+    carrier[0] = (torch.arange(n, dtype=torch.int32, device=device)
+                  | 3 << 27)  # lane 0, gap and tick on
+    carrier[1] = 128 | 128 << 8  # gap_fv, tick_fv
+    carrier[2] = int(bits[0])  # gap_int
+    carrier[3] = int(bits[1])  # gap_time
+    carrier[4] = int(bits[0])  # tick_int
+    return carrier
 
 
 def decode_events_np(buf: bytes) -> tuple:
@@ -212,12 +231,13 @@ class Prophesee:
             self.running_t = max(self.running_t, int(t[sl].max()))
         return t[sl], x[sl], y[sl], p[sl]
 
-    def _run_chunk(self, inten, tspan, fvw, p):
-        """One dense K3 chunk on the carried state; its events as (x, y, d,
-        t) host arrays, or None on the void path."""
-        self.state, events = run_lane_chunk(
-            FR.dvs_chunk_resident, self.state, (inten, tspan, fvw), p,
-            self.void_events, self.plane.width)
+    def _run_raster(self, carrier: torch.Tensor, p):
+        """One raster chunk (the bootstrap, the flush) on the carried state,
+        updated in place; its events as (x, y, d, t) host arrays, or None on
+        the void path."""
+        self.state, events = run_raster_chunk(self.state, carrier, p,
+                                              self.void_events,
+                                              self.plane.width)
         return events
 
     def _run_group(self, g: dvs_batch.DvsCompact, n_lanes: int, p):
@@ -229,25 +249,15 @@ class Prophesee:
             self.void_events, self.plane.width)
         return events
 
-    def _const_chunk(self, T: int, intensity: float, fv: int, time: float):
-        n = self.plane.volume()
-
-        def full(v, dt):
-            return torch.full((T, n), v, dtype=dt, device=self.device)
-
-        return self._run_chunk(
-            full(intensity, torch.float32), full(time, torch.float32),
-            full(fv | 1 << 8, torch.int32), self._params(),
-        )
-
     def _ingest(self, parts: list) -> EventArray:
         return ingest_parts(self.video.encoder, parts)
 
     def _bootstrap(self) -> EventArray:
         """Integrate two mid-grey (128) ticks in every pixel at t = 0
-        (ref: prophesee.rs:117-133)."""
-        ref = float(self.video.ref_time)
-        part = self._const_chunk(2, 128.0, 128, ref)
+        (ref: prophesee.rs:117-133), from `bootstrap_carrier`."""
+        carrier = bootstrap_carrier(self.plane.volume(), self.video.ref_time,
+                                    self.device)
+        part = self._run_raster(carrier, self._params())
         self.running_t = 2
         return self._ingest([part])
 
@@ -259,21 +269,15 @@ class Prophesee:
         self._end_flushed = True
         ref = self.video.ref_time
         gap = self.running_t - self.dvs_last_timestamps.astype(np.int64)
-        mask = gap > 0
-        last_val = (np.exp(self.dvs_last_ln_val) - 1.0) * 255.0
-        time_spanned = (gap * ref).astype(np.float64)
-        intensity = (last_val * time_spanned).astype(np.float32)
-        fv = np.clip(last_val, 0.0, 255.0).astype(np.int64).astype(np.int32)
-        planes = (
-            np.where(mask, intensity, 0.0).astype(np.float32),
-            np.where(mask, time_spanned, 0.0).astype(np.float32),
-            (np.where(mask, fv, 0) | (mask.astype(np.int32) << 8)).astype(
-                np.int32),
-        )
-        part = self._run_chunk(
-            *(torch.from_numpy(a[None]).to(self.device) for a in planes),
-            self._params(),
-        )
+        pix = np.flatnonzero(gap > 0)
+        part = None
+        if len(pix):  # gap-only rows of the pixels with a gap
+            last_val = ((np.exp(self.dvs_last_ln_val) - 1.0) * 255.0)[pix]
+            time_spanned = (gap[pix] * ref).astype(np.float64)
+            fv = np.clip(last_val, 0.0, 255.0).astype(np.int64)
+            carrier = gap_rows(pix, fv, last_val * time_spanned, time_spanned)
+            part = self._run_raster(torch.from_numpy(carrier).to(self.device),
+                                    self._params())
         self._ingest([part])
 
     def consume(self) -> EventArray:

@@ -23,45 +23,51 @@ Phases (any failure raises and the script exits non-zero):
   4. timings: kernel against plain version at 1080p mono, T = 16; the scan
      at (16, 8100) counts beside torch.cumsum, and at 524,288, each timed
      from the host and on the card alone; the Empty-sink (void) path at 1080p mono and colour;
-  5. the DVS lane kernel (K3) against its plain version, bit for bit, by
-     both routes. Dense (adder_dvs_chunk, planes): a ragged 200x150 plane,
-     the bootstrap chunk, T = 2, 38 and 128 in two chained groups planned
-     from a seeded stream, Normal and Collapse, WRITE and VOID, a forced
-     depth-16 overflow. Rows (adder_dvs_rows, the carrier): the same groups,
-     modes and passes, a group with no rows, one whose rows sit in one pixel, rows with one half or
-     both off, the forced overflow; each also equal to the dense kernel on
-     planes built from the same carrier, and the grouping glue's kernels
+  5. the DVS lane kernel by rows (K3, adder_dvs_rows, on the carrier)
+     against its plain version, bit for bit, each chunk WRITE and VOID with
+     the caller's state updated in place: the raster chunks at 346x260
+     (T = 2, one row per pixel, with the grouping raster_row_groups, held
+     equal to the glue's): the bootstrap, a flush of a partial mask, a
+     DAVIS frame (its carrier built on the card and held to the host's f64
+     build) and a gap, Normal and Collapse, a forced depth-16 overflow; the
+     lane groups on a ragged 200x150 plane: T = 2, 38 and 128 in two
+     chained groups planned from a seeded stream, Normal and Collapse, a
+     group with no rows, one whose rows sit in one pixel, rows with one
+     half or both off, the forced overflow; the grouping glue's kernels
      (adder_rows_group) equal to their plain version in torch ops;
   6. the Prophesee path at 640x480 (the DSEC Gen3.1 VGA sensor) with the
      CLI defaults (ref_time 20, crf 3, Collapse, AbsoluteT, Raw sink,
      view_fps 60) on a seeded 1.0 s, 2,000,000-event stream, through
-     Prophesee(20, path, device="cuda"): every lane group must go through
-     adder_dvs_rows, the dense kernel may run only the bootstrap and the
-     flush, and the decoded event count must equal the kernels'; the first
-     0.025 s must give the same bytes on the card and on the CPU; a bulk
-     run (view_fps 1, Empty sink, void) must run segmented windows and
-     T = 128 groups;
+     Prophesee(20, path, device="cuda"): every chunk must go through
+     adder_dvs_rows (the lane groups through the glue, the bootstrap and the
+     flush as raster chunks), no dense entry point may remain, and the
+     decoded event count must equal the kernels'; the first 0.025 s must
+     give the same bytes on the card and on the CPU; a bulk run (view_fps
+     1, Empty sink, void) must run segmented windows and T = 128 groups;
   7. timings on one 64-lane group at 640x480 (T = 128): the row route
-     fetched and void, with and without its grouping glue, the glue alone beside its plain version;
-     the dense kernel and its plane scatter beside them; both against
-     plain; end-to-end Mev/s
-     (windowed Raw, bulk void); a stage breakdown of the windowed Raw run;
-  8. the DAVIS lane kernel (K4) against its plain version, bit for bit: a
-     ragged 61x47 plane, lanes planned from a seeded burst by the port's
-     planner, T = 1, 37 and 128 in two chained groups, Normal and Collapse,
-     WRITE and VOID, a forced depth-16 overflow;
+     fetched and void, with and without its grouping glue, the glue alone
+     beside its plain version, against plain; end-to-end Mev/s (windowed
+     Raw, bulk void); a stage breakdown of the windowed Raw run;
+  8. the DAVIS lane kernel by rows (K4, adder_davis_rows, on the carrier)
+     against its plain version, bit for bit, WRITE and VOID, the state
+     updated in place: a ragged 61x47 plane, lanes planned from a seeded
+     burst by the port's planner, T = 1, 37 and 128 in two chained groups,
+     Normal and Collapse, a group with no rows, one with inactive rows, one
+     whose rows sit in one pixel, a forced depth-16 overflow; the glue with
+     one sub-step per lane equal to its plain version;
   9. the DAVIS path at 346x260 (the DAVIS346 of MVSEC) with the CLI
      settings of tools/davis_to_adder.py -t raw-davis (ref_time 255, tps
      255e6, delta_t_max 255e6, the manual quality 5, 5, 3921, 1, 2.0, Raw
      sink) on a seeded, uncompressed aedat4 stream (1.0 s, 1,000,000 DVS
      events, 40 APS frames of 10 ms), through Davis(EdiReconstructor(path),
-     device="cuda"): the K4 and K3 launch counters must rise and the
-     decoded event count must equal the kernels'; the first 2 packets must
-     give the same bytes on the card and on the CPU; a void run must end in
-     the fetched run's state;
-  10. timings: K4 against plain on the largest packet's chunk; the dense
-     K3 kernel at the T = 1 shape of the frame and gap chunks; end-to-end
-     Mev/s and APS frames/s; a stage breakdown; the device's busy share;
+     device="cuda"): the K4 and K3 row counters must rise, no dense entry
+     point may remain, and the decoded event count must equal the kernels';
+     the first 2 packets must give the same bytes on the card and on the
+     CPU; a void run must end in the fetched run's state;
+  10. timings: K4 by rows on the largest packet's chunk, fetched and void,
+     with and without its glue, against plain; the raster T = 2 K3 chunk at
+     the frame chunk's shape; end-to-end Mev/s and APS frames/s; a stage
+     breakdown; the device's busy share;
   11. the fused one-interval kernel (K5) against its plain version, bit for
      bit: a ragged 200x150 plane, 2 chained chunks of T = 8 written from a
      non-zero offset, all 8 mode cases, depth 6 and 8, pack 4 and 16, plane
@@ -103,11 +109,12 @@ phases 3, 6 and 9; the feature set and display frame of phase 15) is
 logged and held to a constant (DIGESTS), so that a kernel which reorders
 events past the prefixes the CPU checks cannot pass.
 Every kernel of the record carries its bound: the bytes it must move over
-3.35 TB/s, counted for the lane kernels (K3, K4) from the active cells
-and pixels of the chunk (the dense-plane figure is logged beside it), for
-K5 from the interval's state and its event count, for K6 from its state
-and its dense slot planes, for K1's display from K1's bytes and the
-display's (run0 read, T x N written).
+3.35 TB/s, counted for the lane kernels (K3, K4) from the chunk's carrier
+(20 bytes per row with an active sub-step, the state of the pixels with
+active rows read and written once, 8 bytes per event), for K5 from the
+interval's state and its event count, for K6 from its state and its
+dense slot planes, for K1's display from K1's bytes and the display's
+(run0 read, T x N written).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit, and the one before that the kernels'
 record. Without CUDA the script exits non-zero and prints no result.
@@ -262,37 +269,58 @@ def chunk_bound(state, planes, n_events: int) -> float:
                  + 2 * state_bytes(state) + 8 * n_events)
 
 
-def lane_chunk_bound(state, planes, n_events: int) -> float:
-    """The bound of one lane chunk (K3, K4; the last plane is fv | active <<
-    8) from what this chunk's data needs. An inactive (sub-step, pixel) cell
-    carries nothing the function reads, so the inputs are each active cell's
-    pixel index and plane values (4 B each: 16 B for K3, the 20-byte carrier
-    row for K4); the state of each pixel active in the chunk is read once
-    and written once; each event's (pix << 8 | d, t) pair is written once."""
-    active = ((planes[-1] >> 8) & 1).bool()
-    n_pix = active.shape[1]
-    cells, pixels = int(active.sum()), int(active.any(0).sum())
-    return bound(cells * 4 * (1 + len(planes))
-                 + 2 * pixels * state_bytes(state) // n_pix + 8 * n_events)
+def rows_bound(state, carrier, n_events: int) -> float:
+    """The bound of one lane chunk by rows (K3, K4) from what its carrier
+    needs: each row with an active sub-step read once (its 20 carrier
+    bytes; bits 27 and 28 of row 0 are a DVS row's gap and tick, bit 27 a
+    DAVIS row's active bit), the state of each pixel that has an active
+    row read once and written once, each event's (pix << 8 | d, t) pair
+    written once. Rows and sub-steps that are off carry nothing the
+    function needs."""
+    meta = carrier[0]
+    on = ((meta >> 27) & 3) != 0
+    pixels = int(torch.unique(meta[on] & 0xFFFFF).numel())
+    return bound(20 * int(on.sum()) + 2 * pixels * state_bytes(state)
+                 // state.length.shape[0] + 8 * n_events)
 
 
 def kernel_source(name: str) -> str:
-    """Which kernel a mangled name instantiates: a one-interval kernel by its
-    name, a chunk kernel by its last two template arguments, the source
-    (adder_interval.cuh SRC_FRAMED / DVS / DAVIS) and RUN (the display)."""
+    """Which kernel a mangled name instantiates: a one-interval kernel or
+    the scan by its name, a row kernel by its last template argument (the
+    carrier, adder_interval.cuh SRC_DVS / SRC_DAVIS), a framed chunk kernel
+    by its last (RUN, the display)."""
     if "adder_fused_interval_kernel" in name:
         return "fused interval (K5)"
     if "adder_interval_slots_kernel" in name:
         return "interval slots (K6)"
-    if "adder_lane_rows_kernel" in name:
-        return "DVS rows (K3)"
     if "adder_exclusive_scan_kernel" in name:
         return "scan"
-    m = re.search(r"ELi(\d)ELb([01])E+v", name)
-    if m and m.groups() == ("0", "1"):
-        return "framed display (K1)"
-    return {"0": "framed (K1/K2)", "1": "DVS (K3)", "2": "DAVIS (K4)"}.get(
-        m.group(1) if m else "", "other")
+    if "adder_lane_rows_kernel" in name:
+        m = re.search(r"ELi(\d)E+v", name)
+        return {"1": "DVS rows (K3)", "2": "DAVIS rows (K4)"}.get(
+            m.group(1) if m else "", "other")
+    if "adder_resident_chunk_kernel" in name:
+        return ("framed display (K1)" if re.search(r"ELb1E+v", name)
+                else "framed (K1/K2)")
+    return "other"
+
+
+# Every kernel entry the port counts (fused_resident.LAUNCHES), and every
+# chunk wrapper it has: the lane chunks go by rows only.
+CHUNK_KERNELS = {"adder_resident_chunk", "adder_exclusive_scan",
+                 "adder_dvs_rows", "adder_rows_group", "adder_davis_rows"}
+CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows_resident",
+                  "fused_chunk_resident", "group_chunk_resident"]
+
+
+def hold_one_route(FR) -> None:
+    """Raise unless the port's chunk kernels and wrappers are the row route's
+    and the framed ones, and nothing else."""
+    wrappers = sorted(k for k in dir(FR)
+                      if k.endswith("_resident") and not k.startswith("_"))
+    if set(FR.LAUNCHES) != CHUNK_KERNELS or wrappers != CHUNK_WRAPPERS:
+        raise AssertionError(f"chunk kernels {sorted(FR.LAUNCHES)}, "
+                             f"wrappers {wrappers}")
 
 
 def ptxas_report(text: str) -> dict:
@@ -434,7 +462,7 @@ class Stages:
 
     def __init__(self, names):
         self.seconds = {k: 0.0 for k in names}
-        self.packed_at = 0.0
+        self.packed_at = None  # the end of the last pack not yet copied
         self.carrier_bytes = 0
 
     def timed(self, stage):
@@ -449,7 +477,8 @@ class Stages:
         return make
 
     def pack(self, orig):
-        """The carrier pack; the h2d copy runs from its end to unpack."""
+        """The carrier pack; the h2d copy runs from its end to the row
+        wrapper."""
         def f(g):
             t0 = time.perf_counter()
             r = orig(g)
@@ -459,36 +488,30 @@ class Stages:
             return r
         return f
 
-    def unpack(self, orig):
-        """The carrier unpack, timed as scatter; the copy before it as h2d."""
-        def f(carrier):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.seconds["h2d"] += t0 - self.packed_at
-            r = orig(carrier)
-            torch.cuda.synchronize()
-            self.seconds["scatter"] += time.perf_counter() - t0
-            return r
-        return f
-
-    def rows(self, orig):
-        """The row wrapper: the copy before it as h2d, its grouping glue
-        (timed inside it by `timed("group")`) apart from its kernels, its
-        event fetch as fetch."""
-        def f(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.seconds["h2d"] += t0 - self.packed_at
-            g0 = self.seconds["group"]
-            r = orig(*a, **k)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            self.seconds["kernels"] += t1 - t0 - (self.seconds["group"] - g0)
-            if r.pixd is not None:
-                r = r._replace(pixd=r.pixd.cpu(), t=r.t.cpu())
-            self.seconds["fetch"] += time.perf_counter() - t1
-            return r
-        return f
+    def rows(self, stage):
+        """A row wrapper timed as `stage`: the copy of a packed carrier
+        before it as h2d (a carrier built elsewhere, as the raster chunks',
+        counts no copy here), its grouping glue (timed inside it by
+        `timed("group")`) apart from its kernels, its event fetch as
+        fetch."""
+        def make(orig):
+            def f(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if self.packed_at is not None:
+                    self.seconds["h2d"] += t0 - self.packed_at
+                    self.packed_at = None
+                g0 = self.seconds["group"]
+                r = orig(*a, **k)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                self.seconds[stage] += t1 - t0 - (self.seconds["group"] - g0)
+                if r.pixd is not None:
+                    r = r._replace(pixd=r.pixd.cpu(), t=r.t.cpu())
+                self.seconds["fetch"] += time.perf_counter() - t1
+                return r
+            return f
+        return make
 
     def kernels(self, stage):
         """A chunk wrapper timed as `stage`, its event fetch as fetch."""
@@ -512,10 +535,10 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     synchronise after it: decode, the window search, plan, pack, host ->
     device carrier copy, group (the row route's grouping glue: two sorts and
     the cell ranks), kernels (COUNT + scan + WRITE, with the host read of
-    the total; the row kernel for the lane groups, the dense one for the
-    bootstrap and the flush), event fetch, unpacking the wire pairs to x,
-    y, d, t, encode; "other" is the rest of the wall (the loop, event
-    arrays, the bootstrap and end-of-stream planes)."""
+    the total; the row kernel for the lane groups, the bootstrap and the
+    flush), event fetch, unpacking the wire pairs to x, y, d, t, encode;
+    "other" is the rest of the wall (the loop, event arrays, the bootstrap
+    and end-of-stream carriers and their raster groupings)."""
     S = Stages(("decode", "window", "plan", "pack", "h2d", "group",
                 "kernels", "fetch", "unpack", "encode"))
     st = S.seconds
@@ -524,8 +547,7 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
     P.wrap(dvs_batch, "plan_dvs_compact", S.timed("plan"))
     P.wrap(FR, "pack_dvs_plan", S.pack)
     P.wrap(FR, "group_dvs_rows", S.timed("group"))
-    P.wrap(FR, "dvs_rows_resident", S.rows)
-    P.wrap(FR, "dvs_chunk_resident", S.kernels("kernels"))
+    P.wrap(FR, "dvs_rows_resident", S.rows("kernels"))
     P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
 
     def window(orig):
@@ -549,10 +571,9 @@ def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
 
 
 def dvs_phases(dev, card):
-    """Phases 5-7 (the Prophesee path). Returns (the dense K3 kernel's and
-    the row route's max abs err against plain, the windowed run's launch
-    counts, the timings and bound at T = 128 of the dense kernel, of the
-    row route and of its grouping glue)."""
+    """Phases 5-7 (the Prophesee path). Returns (the row route's max abs err
+    against plain, the windowed run's launch counts, the timings and bound
+    at T = 128 of the row route and of its grouping glue)."""
     import numpy as np
 
     import adder_tpu_torch as at
@@ -561,22 +582,29 @@ def dvs_phases(dev, card):
     from adder_tpu_torch.ops import fused_resident as FR
     from adder_tpu_torch.transcoder import prophesee as TP
 
-    # -- phase 5: the DVS lane kernel (K3) against plain, bit for bit ------
+    # -- phase 5: the DVS lane kernel by rows (K3) against plain -----------
     t0 = time.perf_counter()
-    dvs_err = testing.check_dvs_kernel_against_plain(dev)
+    FR.reset_launch_counts()
+    raster_err = testing.check_raster_chunks_against_plain(
+        dev, H=DAVIS_H, W=DAVIS_W)
     torch.cuda.synchronize()
-    log(f"# phase 5: K3 == plain on 200x150: bootstrap, T = 2/38/128 x 2 "
-        f"chained groups, Normal and Collapse, WRITE and VOID, forced "
-        f"depth-16 overflow (max abs err {dvs_err}); "
+    if FR.LAUNCHES["adder_dvs_rows"] < 1:
+        raise AssertionError(f"the raster check ran no row kernel: "
+                             f"{FR.LAUNCHES}")
+    log(f"# phase 5: K3 rows == plain on the raster chunks at {DAVIS_W}x"
+        f"{DAVIS_H} (T = 2, raster grouping == glue): bootstrap, flush of a "
+        f"partial mask, DAVIS frame (carrier built on the card == host f64) "
+        f"and gap, Normal and Collapse, WRITE and VOID, forced depth-16 "
+        f"overflow; state in place (max abs err {raster_err}); "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows_err = testing.check_dvs_rows_against_plain(dev)
+    rows_err = max(raster_err, testing.check_dvs_rows_against_plain(dev))
     torch.cuda.synchronize()
-    log(f"# phase 5: K3 rows == plain == dense K3 on 200x150: T = 2/38/128 x "
+    log(f"# phase 5: K3 rows == plain on 200x150: T = 2/38/128 x "
         f"2 chained groups, Normal and Collapse, WRITE and VOID, "
         f"no rows, one pixel's rows, halves off, forced "
-        f"depth-16 overflow; state in place (max abs err {rows_err}); "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"depth-16 overflow; glue == plain; state in place (max abs err "
+        f"{rows_err}); {time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: the Prophesee path at 640x480 ------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dvs_")
@@ -597,17 +625,18 @@ def dvs_phases(dev, card):
             f"{time.perf_counter() - t0:.1f} s")
 
         out = os.path.join(tmp, "dvs.adder")
-        kernel_events = []
+        kernel_events, raster_calls = [], []
         P = Patches()
 
         def count_events(orig):
             def f(*a, **kw):
                 r = orig(*a, **kw)
                 kernel_events.append(r.per_interval.sum())
+                if kw.get("groups") is not None:
+                    raster_calls.append(a[1].shape[1])
                 return r
             return f
 
-        P.wrap(FR, "dvs_chunk_resident", count_events)
         P.wrap(FR, "dvs_rows_resident", count_events)
         FR.reset_launch_counts()
         try:
@@ -615,15 +644,15 @@ def dvs_phases(dev, card):
         finally:
             P.restore()
         dvs_launches = dict(FR.LAUNCHES)
-        if min(dvs_launches["adder_dvs_rows"], dvs_launches["adder_dvs_chunk"],
+        hold_one_route(FR)
+        if min(dvs_launches["adder_dvs_rows"],
                dvs_launches["adder_rows_group"],
                dvs_launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"Prophesee path missed a kernel: "
                                  f"{dvs_launches}")
-        # dense: COUNT + WRITE of the bootstrap and of the flush, no more
-        if dvs_launches["adder_dvs_chunk"] != 4:
-            raise AssertionError(f"a lane group ran the dense kernel: "
-                                 f"{dvs_launches}")
+        # the bootstrap (every pixel) and the flush went as raster chunks
+        if len(raster_calls) != 2 or raster_calls[0] != DVS_W * DVS_H:
+            raise AssertionError(f"raster chunks of {raster_calls} rows")
         n_kernel = int(sum(int(x) for x in kernel_events))
         n_decoded = len(at.open_file_decoder(out).digest_all())
         if n_decoded != n_kernel or n_kernel == 0:
@@ -631,7 +660,8 @@ def dvs_phases(dev, card):
                                  f"kernel counted {n_kernel}")
         log(f"# phase 6: windowed Raw (60 fps): {n_kernel} ADΔER events, "
             f"{os.path.getsize(out)} bytes, {first_s:.3f} s (first run), "
-            f"launches {dvs_launches}")
+            f"launches {dvs_launches}; raster chunks (bootstrap, flush) of "
+            f"{raster_calls} rows")
         hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
                     file_digest(out))
         win_s, _ = prophesee_run(at, raw_in, dev, out)
@@ -702,35 +732,22 @@ def dvs_phases(dev, card):
         g = plan.lane_slice(0, TP.LANE_GROUP)
         packed = FR.pack_dvs_plan(g)
         carrier = torch.from_numpy(packed).to(dev)
-        fields = FR.unpack_dvs_carrier(carrier)
-        planes = FR.build_dvs_planes(FR.MAX_T, n, *fields, ref_time=20)
-        active = float(((planes[2] >> 8) & 1).float().mean())
-        # rows (WRITE and VOID) and the dense kernel's fetched
-        # chunk against the plain version; then the dense VOID pass
+        meta = carrier[0]
+        active = float((((meta >> 27) & 1).sum() + ((meta >> 28) & 1).sum())
+                       / (FR.MAX_T * n))
+        # rows (WRITE and VOID) against the plain version, the glue too
         e, want = testing.check_rows_group(st_dvs, carrier, FR.MAX_T, p_dvs,
                                            "T=128 group")
         rows_err = max(rows_err, e)
-        dvs_err = max(dvs_err, e, testing.compare_chunks(
-            FR.dvs_chunk_resident(st_dvs, *planes, p_dvs, events=False),
-            want._replace(pixd=None, t=None), "T=128 void"))
         groups = FR.group_dvs_rows(carrier, FR.MAX_T)
-        log(f"# phase 7: K3 == plain and K3 rows == plain == K3 on the "
+        log(f"# phase 7: K3 rows == plain on the "
             f"{DVS_W}x{DVS_H} T=128 group ({len(g.pix)} planned rows, "
             f"{int(groups.n_active)} pixels with rows, longest "
             f"{int((groups.row_start[1:] - groups.row_start[:-1]).max())} "
             f"rows, {active:.4%} of (sub-step, pixel) active, "
             f"{len(want.pixd)} events)")
-        k3_ms = cuda_ms(lambda: FR.dvs_chunk_resident(st_dvs, *planes, p_dvs),
-                        10)
-        k3v_ms = cuda_ms(lambda: FR.dvs_chunk_resident(
-            st_dvs, *planes, p_dvs, events=False), 10)
-        k3p_ms = cuda_ms(lambda: FR.dvs_chunk_resident_plain(
-            st_dvs, *planes, p_dvs), 1)
-        k3_bound = lane_chunk_bound(st_dvs, planes, len(want.pixd))
-        k3v_bound = lane_chunk_bound(st_dvs, planes, 0)
-        k3_dense = chunk_bound(st_dvs, planes, len(want.pixd))
-        sc_ms = cuda_ms(lambda: FR.build_dvs_planes(
-            FR.MAX_T, n, *FR.unpack_dvs_carrier(carrier), ref_time=20), 10)
+        k3_bound = rows_bound(st_dvs, carrier, len(want.pixd))
+        k3v_bound = rows_bound(st_dvs, carrier, 0)
         h2d_ms = cuda_ms(lambda: torch.from_numpy(packed).to(dev), 10)
         # the row route: the whole wrapper (glue + passes), the passes alone
         # on groups made before the clock starts, the glue alone
@@ -749,18 +766,13 @@ def dvs_phases(dev, card):
                 rows_ms(lambda st: FR.dvs_rows_resident(
                     st, carrier, FR.MAX_T, p_dvs, events=events), st_dvs, 10,
                     FR.clone_state),
-                rows_ms(lambda st: FR._dvs_rows_cuda(
-                    st, carrier, FR.MAX_T, p_dvs, events, groups), st_dvs, 10,
-                    FR.clone_state))
+                rows_ms(lambda st: FR._rows_cuda(
+                    FR.SRC_DVS, st, carrier, FR.MAX_T, p_dvs, events, groups),
+                    st_dvs, 10, FR.clone_state))
         r_ms = rows_t["fetched"][0]  # the wrapper's own time, glue included
         rp_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
             st_dvs, carrier, FR.MAX_T, p_dvs), 1)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
-        log(f"#   dense K3 fetched (COUNT+scan+WRITE) {k3_ms} ms, void "
-            f"{k3v_ms} ms, plain {k3p_ms} ms; unpack + scatter into 3 x "
-            f"(128, {n}) planes {sc_ms} ms; bound {k3_bound} ms, void bound "
-            f"{k3v_bound} ms (active cells and pixels; dense-plane format "
-            f"{k3_dense} ms)")
         for what, (with_glue, alone) in rows_t.items():
             log(f"#   K3 rows, {what}: {with_glue} ms with glue, {alone} ms "
                 f"the passes alone")
@@ -768,8 +780,10 @@ def dvs_phases(dev, card):
             f"card alone), its plain version in torch ops {glue_p_ms} ms, "
             f"one torch.sort of {E} int32 keys {sort_ms} ms, bound "
             f"{glue_bound} ms")
-        log(f"#   K3 rows: plain {rp_ms} ms; the wrapper {r_ms} ms fetched "
-            f"(the bound is {k3_bound / r_ms:.2%} of it)")
+        log(f"#   K3 rows: plain {rp_ms} ms; bound {k3_bound} ms, void bound "
+            f"{k3v_bound} ms (the carrier's active rows, the state of their "
+            f"pixels, the events); the wrapper {r_ms} ms fetched (the bound "
+            f"is {k3_bound / r_ms:.2%} of it)")
         log(f"#   carrier h2d {packed.nbytes} bytes in {h2d_ms} ms "
             f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable)")
         wall, stages, nbytes = staged_prophesee_run(
@@ -782,8 +796,7 @@ def dvs_phases(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    return (dvs_err, rows_err, dvs_launches,
-            dict(ms=k3_ms, plain_ms=k3p_ms, bound_ms=k3_bound),
+    return (rows_err, dvs_launches,
             dict(ms=r_ms, plain_ms=rp_ms, bound_ms=k3_bound),
             dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound))
 
@@ -826,23 +839,25 @@ def staged_davis_run(at, path, dev, raw_path, dvs_batch, FR):
     """The Raw run with every stage timed on the host clock and a
     synchronise after it: set-up (the source's construction, write_out and
     the quality call, up to the first consume), the wait on the aedat4 +
-    EDI worker thread, plan, pack, host -> device carrier copy, unpack +
-    scatter into planes, K4 chunks (COUNT + scan + WRITE, with the host
-    read of the total), the K3 frame and gap chunks, event fetch, the frame
-    and gap planes on the host and their copy to the card ("frame host":
-    the gap and frame steps less their chunks and fetches), unpacking the
-    wire pairs, encode; "other" is the rest of the wall (the consume loop,
-    event arrays, the end of the stream)."""
-    S = Stages(("set-up", "provider", "plan", "pack", "h2d", "scatter",
-                "K4", "K3 frames", "fetch", "frame host", "unpack", "encode"))
+    EDI worker thread, plan, pack, host -> device carrier copy, group (the
+    K4 route's grouping glue), K4 rows (COUNT + scan + WRITE, with the host
+    read of the total), the K3 raster chunks of the frames and the gaps to
+    them, event fetch, the frame and gap carriers ("frame host": the gap
+    rows on the host and the frame's u8 values to the card, the frame
+    carrier built there, the raster groupings; the gap and frame steps less
+    their chunks and fetches), unpacking the wire pairs, encode; "other" is
+    the rest of the wall (the consume loop, event arrays, the end of the
+    stream)."""
+    S = Stages(("set-up", "provider", "plan", "pack", "h2d", "group",
+                "K4 rows", "K3 frames", "fetch", "frame host", "unpack",
+                "encode"))
     st = S.seconds
     P = Patches()
     P.wrap(dvs_batch, "plan_davis_events_compact", S.timed("plan"))
     P.wrap(FR, "pack_davis_plan", S.pack)
-    P.wrap(FR, "unpack_davis_carrier", S.unpack)
-    P.wrap(FR, "build_davis_planes", S.timed("scatter"))
-    P.wrap(FR, "davis_chunk_resident", S.kernels("K4"))
-    P.wrap(FR, "dvs_chunk_resident", S.kernels("K3 frames"))
+    P.wrap(FR, "group_dvs_rows", S.timed("group"))
+    P.wrap(FR, "davis_rows_resident", S.rows("K4 rows"))
+    P.wrap(FR, "dvs_rows_resident", S.kernels("K3 frames"))
     P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
 
     def provider(orig_iter):
@@ -883,22 +898,30 @@ def staged_davis_run(at, path, dev, raw_path, dvs_batch, FR):
 
 
 def davis_phases(dev, card):
-    """Phases 8-10 (the DAVIS path). Returns the K4 record entry's numbers
-    and the DAVIS run's launch counts."""
+    """Phases 8-10 (the DAVIS path). Returns the K4 record entry's numbers,
+    the raster K3 chunk's at the frame chunk's shape, and the DAVIS run's
+    launch counts."""
     import numpy as np
 
     import adder_tpu_torch as at
     from adder_tpu_torch import testing
     from adder_tpu_torch.ops import dvs_batch
     from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.transcoder.davis import frame_carrier
 
-    # -- phase 8: the DAVIS lane kernel (K4) against plain, bit for bit ----
+    # -- phase 8: the DAVIS lane kernel by rows (K4) against plain ---------
     t0 = time.perf_counter()
-    k4_err = testing.check_davis_kernel_against_plain(dev)
+    FR.reset_launch_counts()
+    k4_err = testing.check_davis_rows_against_plain(dev)
     torch.cuda.synchronize()
-    log(f"# phase 8: K4 == plain on 61x47: T = 1/37/128 x 2 chained groups, "
-        f"Normal and Collapse, WRITE and VOID, forced depth-16 overflow "
-        f"(max abs err {k4_err}); {time.perf_counter() - t0:.1f} s")
+    if FR.LAUNCHES["adder_davis_rows"] < 1:
+        raise AssertionError(f"the K4 check ran no row kernel: "
+                             f"{FR.LAUNCHES}")
+    log(f"# phase 8: K4 rows == plain on 61x47: T = 1/37/128 x 2 chained "
+        f"groups, Normal and Collapse, WRITE and VOID, no rows, inactive "
+        f"rows, one pixel's rows, forced depth-16 overflow; glue (one "
+        f"sub-step a lane) == plain; state in place (max abs err {k4_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 9: the DAVIS path at 346x260 ----------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_davis_")
@@ -933,31 +956,37 @@ def davis_phases(dev, card):
                 return r
             return f
 
+        # the chunks update the state in place: keep a clone of the state
+        # before the chunk, with the chunk's inputs
         def keep_frame_chunk(orig):
-            def f(state, *planes_p, **kw):
-                frame_chunk.update(state=state, args=planes_p[:3])
-                return orig(state, *planes_p, **kw)
+            def f(state, carrier, T, p, **kw):
+                if not frame_chunk and carrier.shape[1] == DAVIS_W * DAVIS_H:
+                    frame_chunk.update(state=FR.clone_state(state),
+                                       carrier=carrier, groups=kw["groups"])
+                return orig(state, carrier, T, p, **kw)
             return f
 
         def keep_biggest(orig):
-            def f(state, *planes_p, **kw):
-                T = planes_p[0].shape[0]
+            def f(state, carrier, T, p, **kw):
                 if T > biggest.get("T", 0):
-                    biggest.update(T=T, state=state, args=planes_p[:4])
-                return orig(state, *planes_p, **kw)
+                    biggest.update(T=T, state=FR.clone_state(state),
+                                   carrier=carrier)
+                return orig(state, carrier, T, p, **kw)
             return f
 
-        P.wrap(FR, "dvs_chunk_resident", count_events)
-        P.wrap(FR, "dvs_chunk_resident", keep_frame_chunk)
-        P.wrap(FR, "davis_chunk_resident", count_events)
-        P.wrap(FR, "davis_chunk_resident", keep_biggest)
+        P.wrap(FR, "dvs_rows_resident", count_events)
+        P.wrap(FR, "dvs_rows_resident", keep_frame_chunk)
+        P.wrap(FR, "davis_rows_resident", count_events)
+        P.wrap(FR, "davis_rows_resident", keep_biggest)
         FR.reset_launch_counts()
         try:
             first_s, fetched = davis_run(at, path, dev, out)
         finally:
             P.restore()
         launches = dict(FR.LAUNCHES)
-        if min(launches["adder_davis_chunk"], launches["adder_dvs_chunk"],
+        hold_one_route(FR)
+        if min(launches["adder_davis_rows"], launches["adder_dvs_rows"],
+               launches["adder_rows_group"],
                launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"DAVIS path missed a kernel: {launches}")
         n_kernel = int(sum(int(x) for x in kernel_events))
@@ -993,42 +1022,57 @@ def davis_phases(dev, card):
 
         # -- phase 10: timings -------------------------------------------------
         p = fetched._params()
-        st, planes = biggest["state"], biggest["args"]
-        want = FR.davis_chunk_resident_plain(st, *planes, p)
-        k4_err = max(
-            k4_err,
-            testing.compare_chunks(FR.davis_chunk_resident(st, *planes, p),
-                                   want, "largest DAVIS chunk"),
-            testing.compare_chunks(
-                FR.davis_chunk_resident(st, *planes, p, events=False),
-                want._replace(pixd=None, t=None), "largest DAVIS void chunk"),
-        )
-        active = int(((planes[3] >> 8) & 1).sum())
-        k4_ms = cuda_ms(lambda: FR.davis_chunk_resident(st, *planes, p), 10)
-        k4v_ms = cuda_ms(lambda: FR.davis_chunk_resident(
-            st, *planes, p, events=False), 10)
-        k4p_ms = cuda_ms(lambda: FR.davis_chunk_resident_plain(
-            st, *planes, p), 1)
-        k4_bound = lane_chunk_bound(st, planes, len(want.pixd))
-        k4v_bound = lane_chunk_bound(st, planes, 0)
-        k4_dense = chunk_bound(st, planes, len(want.pixd))
-        pixels = int(((planes[3] >> 8) & 1).any(0).sum())
-        log(f"# phase 10: largest DAVIS chunk T={biggest['T']} at "
-            f"{DAVIS_W}x{DAVIS_H} ({active} active (sub-step, pixel) of "
-            f"{planes[0].numel()}, {pixels} active pixels, "
-            f"{len(want.pixd)} events) [{card}]:")
-        log(f"#   K4 fetched (COUNT+scan+WRITE) {k4_ms} ms, void {k4v_ms} ms, "
-            f"plain {k4p_ms} ms; bound {k4_bound} ms, void bound {k4v_bound} "
-            f"ms (active cells and pixels; dense-plane format {k4_dense} ms)")
+        st, carrier, T = biggest["state"], biggest["carrier"], biggest["T"]
+        e, want = testing.check_rows_group(st, carrier, T, p,
+                                           "largest DAVIS chunk", FR.SRC_DAVIS)
+        k4_err = max(k4_err, e)
+        groups = FR.group_dvs_rows(carrier, T, 1)
+        k4_t = {}
+        for events in (True, False):
+            k4_t["fetched" if events else "void"] = (
+                rows_ms(lambda s: FR.davis_rows_resident(
+                    s, carrier, T, p, events=events), st, 10, FR.clone_state),
+                rows_ms(lambda s: FR._rows_cuda(
+                    FR.SRC_DAVIS, s, carrier, T, p, events, groups), st, 10,
+                    FR.clone_state))
+        k4_ms = k4_t["fetched"][0]  # the wrapper's own time, glue included
+        k4p_ms = cuda_ms(lambda: FR.davis_rows_resident_plain(
+            st, carrier, T, p), 1)
+        k4_glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, T, 1), 20)
+        k4_bound = rows_bound(st, carrier, len(want.pixd))
+        k4v_bound = rows_bound(st, carrier, 0)
+        run = groups.row_start[1:] - groups.row_start[:-1]
+        log(f"# phase 10: largest DAVIS chunk T={T} at {DAVIS_W}x{DAVIS_H} "
+            f"({carrier.shape[1]} rows, {int(groups.n_active)} pixels with "
+            f"rows, longest {int(run.max())} rows, {len(want.pixd)} events; "
+            f"K4 rows == plain) [{card}]:")
+        for what, (with_glue, alone) in k4_t.items():
+            log(f"#   K4 rows, {what}: {with_glue} ms with glue, {alone} ms "
+                f"the passes alone")
+        log(f"#   K4 rows: glue alone {k4_glue_ms} ms; plain {k4p_ms} ms; "
+            f"bound {k4_bound} ms, void bound {k4v_bound} ms (the carrier's "
+            f"active rows, the state of their pixels, the events)")
 
-        st1, planes1 = frame_chunk["state"], frame_chunk["args"]
-        want1 = FR.dvs_chunk_resident(st1, *planes1, p)
-        k3f_ms = cuda_ms(lambda: FR.dvs_chunk_resident(st1, *planes1, p), 20)
-        log(f"#   dense K3 at the frame chunk's shape, T="
-            f"{planes1[0].shape[0]} ({len(want1.pixd)} events): fetched "
-            f"{k3f_ms} ms, bound "
-            f"{lane_chunk_bound(st1, planes1, len(want1.pixd))} ms")
-
+        st1, c1, g1 = (frame_chunk[k] for k in ("state", "carrier", "groups"))
+        e, want1 = testing.check_rows_group(st1, c1, 2, p, "frame chunk",
+                                            groups=g1)
+        k4_err = max(k4_err, e)
+        raster_ms = rows_ms(lambda s: FR.dvs_rows_resident(
+            s, c1, 2, p, groups=g1), st1, 20, FR.clone_state)
+        raster_v_ms = rows_ms(lambda s: FR.dvs_rows_resident(
+            s, c1, 2, p, events=False, groups=g1), st1, 20, FR.clone_state)
+        raster_p_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
+            st1, c1, 2, p), 2)
+        n1 = c1.shape[1]
+        groups_ms = cuda_ms(lambda: FR.raster_row_groups(n1, dev), 20)
+        fv1 = c1[1].to(torch.uint8)
+        carrier_ms = cuda_ms(lambda: frame_carrier(fv1, 255, 2_550_000.0), 20)
+        raster_bound = rows_bound(st1, c1, len(want1.pixd))
+        log(f"#   K3 rows at the frame chunk's shape (T = 2 raster, {n1} "
+            f"rows, {len(want1.pixd)} events; == plain): fetched "
+            f"{raster_ms} ms, void {raster_v_ms} ms, plain {raster_p_ms} ms, "
+            f"bound {raster_bound} ms; its raster grouping {groups_ms} ms, "
+            f"the frame carrier built on the card {carrier_ms} ms")
         wall, _ = davis_run(at, path, dev, out)
         log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
             f"Mev/s, {len(frames) / wall} APS frames/s ({wall} s for {n_in} "
@@ -1053,8 +1097,12 @@ def davis_phases(dev, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    return dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms,
-                bound_ms=k4_bound), launches
+    return (dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
+                 void_ms=k4_t["void"][0], passes_ms=k4_t["fetched"][1],
+                 void_passes_ms=k4_t["void"][1], glue_ms=k4_glue_ms),
+            dict(ms=raster_ms, void_ms=raster_v_ms, plain_ms=raster_p_ms,
+                 bound_ms=raster_bound),
+            launches)
 
 
 def staged_framed_run(at, frames, dev, path, keep_running=True,
@@ -1608,8 +1656,8 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "framed display (K1)", "scan", "DVS (K3)",
-                 "DVS rows (K3)", "DAVIS (K4)", "fused interval (K5)",
+    for what in ("framed (K1/K2)", "framed display (K1)", "scan",
+                 "DVS rows (K3)", "DAVIS rows (K4)", "fused interval (K5)",
                  "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
@@ -1621,8 +1669,8 @@ def main() -> int:
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
     for k, v in ptx.items():
-        if kernel_source(k) in ("DVS (K3)", "DVS rows (K3)", "DAVIS (K4)",
-                                "scan", "other"):
+        if kernel_source(k) in ("DVS rows (K3)", "DAVIS rows (K4)", "scan",
+                                "other"):
             log(f"#   {k}: {v}")
 
     # -- phase 2: kernels against plain, bit for bit ----------------------
@@ -1774,8 +1822,8 @@ def main() -> int:
     log(f"# phase 4: void path (host frames in, Empty sink) 1080p mono "
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
 
-    dvs_err, rows_err, dvs_launches, k3, k3r, glue = dvs_phases(dev, card)
-    k4, davis_launches = davis_phases(dev, card)
+    rows_err, dvs_launches, k3r, glue = dvs_phases(dev, card)
+    k4, raster, davis_launches = davis_phases(dev, card)
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
     k1_display = features_phases(dev, card, scene, main_digest, st, p)
     k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
@@ -1797,35 +1845,32 @@ def main() -> int:
          "max_abs_err": scan_err, "ms": s_ms, "plain_ms": sp_ms,
          "bound_ms": s_bound, "bound_by": "bytes", "library_ms": s_lib_ms,
          "queued_ms": q_ms, "queued_library_ms": q_lib_ms},
-        {"name": "adder_dvs_chunk", "route": "cuda",
-         "source": "adder_tpu_torch/csrc/dvs_resident.cu",
-         "replaces": "adder_tpu/ops/fused_resident.py:1017",
-         "launches": (dvs_launches["adder_dvs_chunk"]
-                      + davis_launches["adder_dvs_chunk"]),
-         "max_abs_err": dvs_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
         {"name": "adder_dvs_rows", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1159",
-         "launches": dvs_launches["adder_dvs_rows"],
+         "launches": (dvs_launches["adder_dvs_rows"]
+                      + davis_launches["adder_dvs_rows"]),
          "max_abs_err": rows_err, "ms": k3r["ms"],
          "plain_ms": k3r["plain_ms"], "bound_ms": k3r["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "raster_ms": raster["ms"], "raster_plain_ms": raster["plain_ms"],
+         "raster_bound_ms": raster["bound_ms"]},
         {"name": "adder_rows_group", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1115",
-         "launches": dvs_launches["adder_rows_group"],
-         "max_abs_err": rows_err, "ms": glue["ms"],
+         "launches": (dvs_launches["adder_rows_group"]
+                      + davis_launches["adder_rows_group"]),
+         "max_abs_err": max(rows_err, k4["err"]), "ms": glue["ms"],
          "plain_ms": glue["plain_ms"], "bound_ms": glue["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
-        {"name": "adder_davis_chunk", "route": "cuda",
+        {"name": "adder_davis_rows", "route": "cuda",
          "source": "adder_tpu_torch/csrc/davis_resident.cu",
-         "replaces": "adder_tpu/ops/fused_resident.py:1361",
-         "launches": davis_launches["adder_davis_chunk"],
+         "replaces": "adder_tpu/ops/fused_resident.py:1411",
+         "launches": davis_launches["adder_davis_rows"],
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "void_ms": k4["void_ms"],
+         "passes_ms": k4["passes_ms"]},
         *k5_k6,
     ]}
     log(f"# all phases passed in {time.perf_counter() - t_start:.1f} s, the "

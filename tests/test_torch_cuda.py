@@ -163,17 +163,20 @@ def test_features_video_cuda_equals_cpu(cuda, env, rate, monkeypatch):
 
 
 def test_dvs_kernel_matches_plain(cuda):
-    """K3 against its plain version: bootstrap, T = 2, 38 and 128 in two
-    chained groups, Normal and Collapse, WRITE and VOID, forced overflow."""
-    assert testing.check_dvs_kernel_against_plain(cuda) == 0.0
+    """K3 on the raster chunks against its plain version at 346 x 260: the
+    bootstrap, a flush of a partial mask, a DAVIS frame (its carrier built
+    on the card) and gap, Normal and Collapse, WRITE and VOID, forced
+    overflow; the raster grouping equal to the glue's, and no glue run."""
+    FR.reset_launch_counts()
+    assert testing.check_raster_chunks_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_dvs_rows"] > 0
 
 
 def test_dvs_rows_kernel_matches_plain_and_dense(cuda):
-    """The K3 row kernel against its plain version and the dense K3 kernel:
-    T = 2, 38 and 128 in two chained groups, Normal and Collapse, WRITE and
-    VOID, a group with no rows,
-    one whose rows sit in one pixel, rows with one half or both off, a
-    forced depth-16 overflow; the state updated in place."""
+    """The K3 row kernel against its plain version: T = 2, 38 and 128 in
+    two chained groups, Normal and Collapse, WRITE and VOID, a group with no
+    rows, one whose rows sit in one pixel, rows with one half or both off,
+    a forced depth-16 overflow; the state updated in place."""
     FR.reset_launch_counts()
     assert testing.check_dvs_rows_against_plain(cuda) == 0.0
     assert FR.LAUNCHES["adder_dvs_rows"] > 0
@@ -220,18 +223,42 @@ def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
 
     FR.reset_launch_counts()
     on_card = run(cuda)
-    # every lane group by rows; the bootstrap and the flush dense
-    assert FR.LAUNCHES["adder_dvs_rows"] > 0
-    assert FR.LAUNCHES["adder_dvs_chunk"] == 4  # COUNT + WRITE x 2
+    # every chunk by rows: the lane groups through the glue, the bootstrap
+    # and the flush as raster chunks (COUNT + WRITE each)
+    assert FR.LAUNCHES["adder_dvs_rows"] >= 6
+    assert FR.LAUNCHES["adder_rows_group"] > 0
+    assert "adder_dvs_chunk" not in FR.LAUNCHES
     assert on_card == run("cpu")
     assert len(on_card) > 1000
 
 
 def test_davis_kernel_matches_plain(cuda):
-    """K4 against its plain version: T = 1, 37 and 128 in two chained
-    groups on a ragged 61 x 47 plane, Normal and Collapse, WRITE and VOID,
-    forced depth-16 overflow."""
-    assert testing.check_davis_kernel_against_plain(cuda) == 0.0
+    """K4 by rows against its plain version: T = 1, 37 and 128 in two
+    chained groups on a ragged 61 x 47 plane, Normal and Collapse, WRITE and
+    VOID, a group with no rows, one with inactive rows, one whose rows sit
+    in one pixel, forced depth-16 overflow; the glue with one sub-step per
+    lane against its plain version; the state updated in place."""
+    FR.reset_launch_counts()
+    assert testing.check_davis_rows_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_davis_rows"] > 0
+
+
+def test_davis_rows_wrapper_rejects_bad_input(cuda):
+    p = testing._davis_params(1)
+    st = FR.ops.init_state(35, cuda, depth=FR.DVS_DEPTH)
+    carrier = testing.davis_group_carrier(testing.davis_plan(6, 7, 5, 4), 0,
+                                          4, cuda)
+    with pytest.raises(ValueError):
+        FR.davis_rows_resident(st, carrier.to(torch.int64), 4, p)
+    with pytest.raises(ValueError):
+        FR.davis_rows_resident(st, carrier[:4], 4, p)
+    with pytest.raises(ValueError):
+        FR.davis_rows_resident(st, carrier, FR.MAX_T + 1, p)
+    with pytest.raises(ValueError):
+        FR.davis_rows_resident(FR.ops.init_state(35, cuda, depth=8), carrier,
+                               4, p)
+    with pytest.raises(ValueError):
+        FR.davis_rows_resident(st, carrier, 4, p._replace(mode=0))
 
 
 def test_davis_cuda_bytes_equal_cpu(cuda, tmp_path):
@@ -262,8 +289,10 @@ def test_davis_cuda_bytes_equal_cpu(cuda, tmp_path):
 
     FR.reset_launch_counts()
     on_card = run(cuda)
-    assert FR.LAUNCHES["adder_davis_chunk"] > 0
-    assert FR.LAUNCHES["adder_dvs_chunk"] > 0
+    # the lane groups through K4 by rows, the frames and gaps through K3
+    assert FR.LAUNCHES["adder_davis_rows"] > 0
+    assert FR.LAUNCHES["adder_dvs_rows"] > 0
+    assert not {"adder_dvs_chunk", "adder_davis_chunk"} & set(FR.LAUNCHES)
     assert on_card == run("cpu")
     assert len(on_card) > 1000
 

@@ -467,14 +467,20 @@ def test_aedat4_edi_davis_end_to_end(tmp_path, compression):
 
 
 def test_davis_wrappers_run_plain_on_cpu_tensors():
+    """The DAVIS row wrapper on CPU tensors runs its plain version (no
+    launch); the dense entry point is gone."""
     _, pp = _params(PixelMultiMode.Collapse)
-    planes, _ = _two_groups(7, 5, 2, seed=6)
+    carrier = testing.davis_group_carrier(testing.davis_plan(6, 7, 5, 4), 0,
+                                          2, "cpu")
     st = P.init_state(35, "cpu", depth=16)
     FR.reset_launch_counts()
-    got = FR.davis_chunk_resident(st, *planes, pp)
-    void = FR.davis_chunk_resident(st, *planes, pp, events=False)
-    want = FR.davis_chunk_resident_plain(st, *planes, pp)
+    got = FR.davis_rows_resident(FR.clone_state(st), carrier, 2, pp)
+    void = FR.davis_rows_resident(FR.clone_state(st), carrier, 2, pp,
+                                  events=False)
+    want = FR.davis_rows_resident_plain(st, carrier, 2, pp)
     assert set(FR.LAUNCHES.values()) == {0}
+    assert not hasattr(FR, "davis_chunk_resident")
+    assert "adder_davis_chunk" not in FR.LAUNCHES
     assert len(want.pixd) > 0
     assert testing.compare_chunks(got, want, "cpu") == 0.0
     assert testing.compare_chunks(void, want._replace(pixd=None, t=None),
@@ -482,8 +488,8 @@ def test_davis_wrappers_run_plain_on_cpu_tensors():
 
 
 def test_davis_kernel_check_harness_runs_on_cpu():
-    """chip_smoke.py's K4-against-plain check, on CPU tensors."""
-    assert testing.check_davis_kernel_against_plain(
+    """chip_smoke.py's K4-by-rows-against-plain check, on CPU tensors."""
+    assert testing.check_davis_rows_against_plain(
         "cpu", H=5, W=7, lanes=(1, 3)) == 0.0
 
 

@@ -185,15 +185,19 @@ def test_build_dvs_planes_through_carrier_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
 
-def _two_groups(seed, w, h, lanes):
+def _plan(seed, w, h, lanes):
     n = w * h
     ts, xs, ys, ps = testing.dvs_stream(seed, w, h, 50_000, n_hot=2,
                                         hot_events=2 * lanes + 4,
                                         background_events=3 * n)
     lt = np.full(n, 2, np.uint32)
     ln = np.full(n, MIDGREY_LN)
-    plan = B.plan_dvs_compact(ts, xs, ys, ps, w, lt, ln, 0.02, 20)
-    return [testing.dvs_group_planes(plan, g * lanes, (g + 1) * lanes, n,
+    return B.plan_dvs_compact(ts, xs, ys, ps, w, lt, ln, 0.02, 20)
+
+
+def _two_groups(seed, w, h, lanes):
+    plan = _plan(seed, w, h, lanes)
+    return [testing.dvs_group_planes(plan, g * lanes, (g + 1) * lanes, w * h,
                                      "cpu") for g in range(2)]
 
 
@@ -429,23 +433,29 @@ def test_window_of_one_to_one_and_a_half_segments_keeps_every_event(
 
 
 def test_dvs_wrappers_run_plain_on_cpu_tensors():
+    """The DVS row wrapper on CPU tensors runs its plain version (no launch),
+    also with a grouping given; the dense entry point is gone."""
     _, pp = _params(PixelMultiMode.Collapse)
-    (inten, tspan, fvw), _ = _two_groups(6, 7, 5, 2)
+    carrier = testing.dvs_group_carrier(_plan(6, 7, 5, 2), 0, 2, "cpu")
     st = P.init_state(35, "cpu", depth=16)
     FR.reset_launch_counts()
-    got = FR.dvs_chunk_resident(st, inten, tspan, fvw, pp)
-    void = FR.dvs_chunk_resident(st, inten, tspan, fvw, pp, events=False)
-    want = FR.dvs_chunk_resident_plain(st, inten, tspan, fvw, pp)
+    got = FR.dvs_rows_resident(FR.clone_state(st), carrier, 4, pp)
+    void = FR.dvs_rows_resident(FR.clone_state(st), carrier, 4, pp,
+                                events=False,
+                                groups=FR.group_dvs_rows(carrier, 4))
+    want = FR.dvs_rows_resident_plain(st, carrier, 4, pp)
     assert set(FR.LAUNCHES.values()) == {0}
+    assert not hasattr(FR, "dvs_chunk_resident")
+    assert "adder_dvs_chunk" not in FR.LAUNCHES
     assert testing.compare_chunks(got, want, "cpu") == 0.0
     assert testing.compare_chunks(void, want._replace(pixd=None, t=None),
                                   "cpu void") == 0.0
 
 
 def test_dvs_kernel_check_harness_runs_on_cpu():
-    """chip_smoke.py's K3-against-plain check, on CPU tensors."""
-    assert testing.check_dvs_kernel_against_plain(
-        "cpu", H=5, W=7, lanes=(1, 3)) == 0.0
+    """chip_smoke.py's check of the raster chunks (the bootstrap, a flush,
+    a DAVIS frame and gap) against plain, on CPU tensors."""
+    assert testing.check_raster_chunks_against_plain("cpu", H=5, W=7) == 0.0
 
 
 def test_prophesee_module_imports_no_jax():

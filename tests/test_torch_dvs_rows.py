@@ -273,12 +273,13 @@ def test_row_walk_over_the_groups_equals_the_plain_chunk(case):
 
 
 def _spy_rows(monkeypatch):
+    """Record (T, E, whether a grouping was given) of each call."""
     calls = []
     orig = FR.dvs_rows_resident
 
-    def spy(state, carrier, T, p, events=True):
-        calls.append((T, carrier.shape[1]))
-        return orig(state, carrier, T, p, events=events)
+    def spy(state, carrier, T, p, events=True, groups=None):
+        calls.append((T, carrier.shape[1], groups is not None))
+        return orig(state, carrier, T, p, events=events, groups=groups)
 
     monkeypatch.setattr(FR, "dvs_rows_resident", spy)
     return calls
@@ -286,28 +287,27 @@ def _spy_rows(monkeypatch):
 
 def test_windowed_prophesee_through_rows_matches_jax_scan(tmp_path,
                                                           monkeypatch):
-    """A windowed transcode (60 windows a second): every lane group goes
-    through `dvs_rows_resident`, only the bootstrap and the flush through
-    the dense chunk, and the Raw bytes, chain state and depth-16 state
-    equal the JAX scan engine's."""
+    """A windowed transcode (60 windows a second): every lane group, the
+    bootstrap and the flush go through `dvs_rows_resident` (the bootstrap
+    and the flush as T = 2 raster chunks with their grouping given, the
+    groups through the glue), and the Raw bytes, chain state and depth-16
+    state equal the JAX scan engine's."""
     w, h = 14, 10
     t, x, y, p = testing.dvs_stream(12, w, h, 50_000, n_hot=2,
                                     hot_events=30, background_events=200)
     path = str(tmp_path / "win.raw")
     testing.write_prophesee_raw(path, w, h, t, x, y, p)
     rows_calls = _spy_rows(monkeypatch)
-    dense_calls = []
-    orig = FR.dvs_chunk_resident
-    monkeypatch.setattr(
-        FR, "dvs_chunk_resident",
-        lambda st, inten, *a, **k: dense_calls.append(inten.shape[0])
-        or orig(st, inten, *a, **k))
     port = TP.Prophesee(20, path, device="cpu")
     got = _transcode(port)
     jax_src = JP.Prophesee(20, path, batched=True, engine="scan")
     want = _transcode(jax_src)
     assert got == want and len(got) > 1000
-    assert len(rows_calls) >= 3 and dense_calls == [2, 1]
+    raster = [c for c in rows_calls if c[2]]
+    assert rows_calls[0] == (2, w * h, True)  # the bootstrap: every pixel
+    assert rows_calls[-1][0] == 2 and rows_calls[-1][2]  # the flush
+    assert len(raster) == 2 and 0 < rows_calls[-1][1] <= w * h
+    assert len(rows_calls) >= 5
     np.testing.assert_array_equal(port.dvs_last_timestamps,
                                   jax_src.dvs_last_timestamps)
     np.testing.assert_array_equal(port.dvs_last_ln_val,
@@ -332,8 +332,11 @@ def test_segmented_prophesee_through_rows_matches_jax_scan(tmp_path,
     got = open_file_decoder_bytes(_transcode(port))
     jax_src = JP.Prophesee(20, path, batched=True, view_fps=1, engine="scan")
     want = open_file_decoder_bytes(_transcode(jax_src))
-    assert max(T for T, _ in rows_calls) == 128 and len(rows_calls) > 3
-    assert all(E > 0 for _, E in rows_calls)
+    groups = [(T, E) for T, E, raster in rows_calls if not raster]
+    assert max(T for T, _ in groups) == 128 and len(groups) > 3
+    assert all(E > 0 for _, E in groups)
+    assert [(T, raster) for T, _, raster in rows_calls if raster] == [
+        (2, True), (2, True)]  # the bootstrap and the flush
 
     def streams(events):
         out = {}

@@ -1,7 +1,7 @@
 // The per-pixel ADΔER state machine shared by the Hopper chunk kernels
-// (fused_resident.cu: framed, K1/K2, and the exclusive scan;
-// dvs_resident.cu: DVS lanes, K3, by rows; davis_resident.cu: DAVIS lanes,
-// K4, by rows) and by the one-interval kernels (fused_interval.cu: K5;
+// (fused_resident.cu: framed, K1/K2, the exclusive scan and the segment
+// copy; dvs_resident.cu: DVS lanes, K3, by rows; davis_resident.cu: DAVIS
+// lanes, K4, by rows) and by the one-interval kernels (fused_interval.cu: K5;
 // interval_slots.cu: K6).
 //
 // The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
@@ -46,15 +46,20 @@
 
 namespace {
 
-constexpr int kBlock = 256;  // pixels per block; BLOCK in fused_resident.py
+constexpr int kBlock = 256;  // pixels per block (K5, K6); BLOCK in fused_resident.py
 constexpr int kWarps = kBlock / 32;
 constexpr int kMaxT = 128;  // intervals per chunk; MAX_T in fused_resident.py
+// The framed chunk kernel's block: small, so that the registers, not the
+// block, set the warps per SM
+constexpr int kChunkBlock = 128;
+static_assert(kChunkBlock % 32 == 0, "whole warps");
 constexpr int D_MAX = 127;
 constexpr int D_ZERO = 128;  // D_ZERO_INTEGRATION
 constexpr int D_EMPTY = 255;
 constexpr float F32_EPS = 1.1920929e-07f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// The row walk's passes (K3, K4); the framed chunk kernel runs one pass
 enum { PASS_COUNT = 0, PASS_WRITE = 1, PASS_VOID = 2 };
 // What a carrier row holds (AdderRowsArgs.src): a DVS lane's gap and tick
 // (pack_dvs_plan) or one DAVIS event (pack_davis_plan)
@@ -112,17 +117,20 @@ struct KArgs {
   StateOut out;
   const uint8_t* frames;  // (T, n) u8
   long long n;
+  long long n_warps;  // ceil(n / 32): the segments of one interval
   int T;
-  int nblk;
   Params P;
-  int* block_counts;        // (T, nblk) i32: COUNT, VOID
-  const long long* offsets; // (T, nblk) i64 exclusive offsets: WRITE
-  unsigned* out_pixd;       // (total,) pix << 8 | d: WRITE
-  unsigned* out_t;          // (total,) event t: WRITE
-  int* flags;               // [max per-pixel count, depth overflow]
-  const uint8_t* run0;      // display: (n,) u8 frame before the chunk
-  uint8_t* runnings;        // display: (T, n) u8 frame after each interval
-                            // (WRITE, VOID)
+  int* seg_counts;      // (T, n_warps) i32 events per (interval, warp)
+  long long* seg_start; // (T, n_warps) i64 staging index of each non-empty
+                        // segment's first event (events fetched)
+  int* link;            // (pool / slab) i32: the slab a warp took after
+                        // this one, where a segment runs over (events)
+  unsigned long long* stage;  // (pool,) pix << 8 | d, t << 32 (events)
+  long long pool;       // entries of stage, a multiple of the slab
+  unsigned long long* cursor;  // zeroed: stage entries handed out
+  int* flags;  // [max per-pixel count, depth overflow, staging overflow]
+  const uint8_t* run0;  // display: (n,) u8 frame before the chunk
+  uint8_t* runnings;    // display: (T, n) u8 frame after each interval
 };
 
 template <int D>
@@ -642,93 +650,128 @@ __device__ __forceinline__ long long lookback_exclusive(
 }
 
 // --- the framed chunk kernel (K1/K2): one thread per pixel, the arena in
-// registers across the T intervals. RUN (WRITE and VOID only) adds the
-// display output of fused_resident.py's emit_running (:336-357, carried at
-// :890-899): the pixel's display value stays in a register from run0[pix];
-// after each interval a pixel whose root holds a best event takes its
-// running_intensity, and runnings[t, pix] gets the value. --------------------
+// registers across the T intervals, one pass over the state machine. Per
+// interval each warp counts its lanes' events; the count of (interval t,
+// warp w) goes to seg_counts[t, w]. With EVENTS (the events fetched) the
+// warp also writes them, in lane order and each lane's in slot order, to
+// the staging pool: into the slab of SLAB = 32 x (D + 3) entries it holds
+// (the most one warp can emit in one interval), taking the next slab with
+// one atomicAdd on the pool cursor when the interval's events do not fit.
+// A segment that does not fit runs from the end of the old slab into the
+// start of the new one; link[old slab] names the new one, so every slab is
+// filled but a warp's last. seg_start[t, w] is the segment's first entry.
+// The pool holds the caller's capacity plus one slab per warp, so it runs
+// dry only when the chunk has more events than the capacity; then the warp
+// stops staging, keeps counting and sets flags[2]. No barrier: warps of a
+// block never wait for each other. RUN adds the display output of
+// fused_resident.py's emit_running (:336-357, carried at :890-899): the
+// pixel's display value stays in a register from run0[pix]; after each
+// interval a pixel whose root holds a best event takes its
+// running_intensity, and runnings[t, pix] gets the value. ------------------
 
-template <int D, bool FP, bool COLLAPSE, bool ABS, int PASS, bool RUN = false>
-__global__ void __launch_bounds__(kBlock)
+template <int D>
+__host__ __device__ constexpr int chunk_slab() {
+  return 32 * (D + 3);
+}
+
+template <int D, bool FP, bool COLLAPSE, bool ABS, bool EVENTS, bool RUN>
+__global__ void __launch_bounds__(kChunkBlock)
     adder_resident_chunk_kernel(const KArgs a) {
-  static_assert(!RUN || PASS != PASS_COUNT,
-                "the display is written by the WRITE and VOID passes");
   constexpr int K = D + 3;
-  __shared__ int s_counts[kMaxT];   // COUNT / VOID: block's events per interval
-  __shared__ int s_warp_tot[kWarps];  // WRITE: per-warp event totals
-  __shared__ int s_warp_pre[kWarps];  // WRITE: their exclusive prefix
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int SLAB = chunk_slab<D>();
+  const int lane = threadIdx.x & 31;
   const long long n = a.n;
-  const long long pix = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = pix < n;  // the ragged last block
+  const long long pix = (long long)blockIdx.x * kChunkBlock + threadIdx.x;
+  const long long warp = pix >> 5;
+  if (warp >= a.n_warps) return;  // a whole warp past the plane
+  const bool valid = pix < n;     // the ragged last warp
 
-  if (PASS != PASS_WRITE) {
-    for (int i = threadIdx.x; i < a.T; i += kBlock) s_counts[i] = 0;
-    __syncthreads();
-  }
   Pixel<D> s;
   if (valid) load_state(s, a.in, pix, n);
   uint8_t run = 0;
   if (RUN && valid) run = a.run0[pix];
   int maxcnt = 0;
   bool ovf_any = false;
+  // the warp's place in its slab (the same in every lane)
+  long long cur = 0;
+  int room = 0;
+  bool staging = true;
+  const unsigned pbase = (unsigned)pix << 8;
+  // each interval's frame byte is loaded one interval ahead
+  int fv_next = valid ? a.frames[pix] : 0;
 
   for (int t = 0; t < a.T; ++t) {
+    const int fv = fv_next;
+    if (valid && t + 1 < a.T) fv_next = a.frames[(long long)(t + 1) * n + pix];
     int sd[K];
     unsigned st[K];
     unsigned m = 0;
     if (valid) {
-      const long long idx = (long long)t * n + pix;
       bool ovf = false;
-      const int fv = a.frames[idx];
-      m = run_interval<D, FP, COLLAPSE, ABS>(s, __int2float_rn(fv), fv,
+      m = run_interval<D, FP, COLLAPSE, ABS, true>(
+          s, __int2float_rn(fv), fv,
                                              a.P.time, a.P.c_inc, a.P, sd, st,
                                              ovf);
       if constexpr (RUN) {
         if (s.bd[0] >= 0) run = running_intensity(s, a.P);
-        a.runnings[idx] = run;
+        a.runnings[(long long)t * n + pix] = run;
       }
       ovf_any = ovf_any || ovf;
     }
     const int cnt = __popc(m);
     maxcnt = max(maxcnt, cnt);
-    if (PASS == PASS_WRITE) {
-      // block-wide exclusive scan of the per-pixel counts: raster order
+    const long long seg = (long long)t * a.n_warps + warp;
+    if constexpr (!EVENTS) {
+      const int total = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) a.seg_counts[seg] = total;
+    } else {
       const int x = warp_inclusive_scan(cnt, lane);
-      if (lane == 31) s_warp_tot[warp] = x;
-      __syncthreads();
-      if (warp == 0) {
-        const int v = lane < kWarps ? s_warp_tot[lane] : 0;
-        const int y = warp_inclusive_scan(v, lane);
-        if (lane < kWarps) s_warp_pre[lane] = y - v;
-      }
-      __syncthreads();
-      if (cnt) {
-        long long off = a.offsets[(long long)t * a.nblk + blockIdx.x] +
-                        s_warp_pre[warp] + (x - cnt);
-        const unsigned pbase = (unsigned)pix << 8;
+      const int total = __shfl_sync(kFull, x, 31);
+      if (lane == 0) a.seg_counts[seg] = total;
+      if (total && staging) {
+        long long start = cur, next = 0;
+        int first = total;  // the segment's entries in the current slab
+        if (room >= total) {
+          cur += total;
+          room -= total;
+        } else {
+          unsigned long long base = 0;
+          if (lane == 0) base = atomicAdd(a.cursor, (unsigned long long)SLAB);
+          base = __shfl_sync(kFull, base, 0);
+          if (base + SLAB > (unsigned long long)a.pool) {
+            staging = false;
+            if (lane == 0) atomicOr(&a.flags[2], 1);
+          } else if (room == 0) {
+            start = (long long)base;
+            cur = start + total;
+            room = SLAB - total;
+          } else {
+            first = room;
+            next = (long long)base;
+            if (lane == 0) a.link[cur / SLAB] = (int)(base / SLAB);
+            cur = next + (total - room);
+            room = SLAB - (total - room);
+          }
+        }
+        if (staging) {
+          if (lane == 0) a.seg_start[seg] = start;
+          int i = x - cnt;  // this lane's first event in the segment
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if ((m >> k) & 1u) {
-            a.out_pixd[off] = pbase | ((unsigned)sd[k] & 0xFFu);
-            a.out_t[off] = st[k];
-            ++off;
+          for (int k = 0; k < K; ++k) {
+            if ((m >> k) & 1u) {
+              const long long at = i < first ? start + i : next + (i - first);
+              a.stage[at] =
+                  (unsigned long long)(pbase | ((unsigned)sd[k] & 0xFFu)) |
+                  ((unsigned long long)st[k] << 32);
+              ++i;
+            }
           }
         }
       }
-    } else {
-      const int wsum = __reduce_add_sync(kFull, cnt);
-      if (lane == 0 && wsum) atomicAdd(&s_counts[t], wsum);
     }
   }
 
-  if (PASS != PASS_COUNT && valid) store_state(s, a.out, pix, n);
-  if (PASS != PASS_WRITE) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < a.T; i += kBlock) {
-      a.block_counts[(long long)i * a.nblk + blockIdx.x] = s_counts[i];
-    }
-  }
+  if (valid) store_state(s, a.out, pix, n);
   const int wmax = __reduce_max_sync(kFull, maxcnt);
   const unsigned wovf = __reduce_or_sync(kFull, ovf_any ? 1u : 0u);
   if (lane == 0) {
@@ -743,7 +786,7 @@ extern "C" {
 
 // Mirrored by adder_tpu_torch/ops/fused_resident.py::_ChunkArgs.
 struct AdderChunkArgs {
-  int pass;        // PASS_COUNT, PASS_WRITE, PASS_VOID
+  int events;      // 1: stage the events (fetched); 0: counts only (Empty sink)
   int mode;        // Mode: 0 FramePerfect, 1 Continuous
   int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
   int abs_time;    // TimeMode == AbsoluteT
@@ -759,15 +802,17 @@ struct AdderChunkArgs {
   const void* frames;
   const void* state_in[14];
   void* state_out[14];
-  void* block_counts;
-  const void* offsets;
-  void* out_pixd;
-  void* out_t;
-  void* flags;
+  void* seg_counts;  // (T, ceil(n / 32)) i32
+  void* seg_start;   // events: (T, ceil(n / 32)) i64
+  void* link;        // events: (pool / slab) i32
+  void* stage;       // events: (pool,) u64
+  long long pool;    // events: a multiple of the slab, 32 x (depth + 3)
+  void* cursor;      // events: one zeroed u64
+  void* flags;       // (3,) zeroed i32
   int view_mode;     // display: 0 Intensity, 1 D, 2 DeltaT, 3 SAE
   float pdm;         // display, D view: f32(log2(255 * dtm / ref))
   const void* run0;  // display: (n,) u8, or null: no display
-  void* runnings;    // display: (T, n) u8, written by WRITE and VOID
+  void* runnings;    // display: (T, n) u8
 };
 
 }  // extern "C"
@@ -778,8 +823,7 @@ namespace {
 // entry point adds its own on depth and view mode. (make_rargs also maps the
 // row walk's state through make_kargs.)
 inline bool chunk_args_ok(const AdderChunkArgs* a) {
-  return a->pass >= PASS_COUNT && a->pass <= PASS_VOID && a->T >= 1 &&
-         a->T <= kMaxT && a->n >= 1 && a->n < (1LL << 24) &&
+  return a->T >= 1 && a->T <= kMaxT && a->n >= 1 && a->n < (1LL << 24) &&
          a->ref_time >= 1 && (a->run0 == nullptr) == (a->runnings == nullptr);
 }
 
@@ -815,8 +859,8 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   k.out.popped_dtm = (uint8_t*)a->state_out[13];
   k.frames = (const uint8_t*)a->frames;
   k.n = a->n;
+  k.n_warps = (a->n + 31) / 32;
   k.T = a->T;
-  k.nblk = (int)((a->n + kBlock - 1) / kBlock);
   k.P.time = a->time;
   k.P.ref_f = (float)a->ref_time;
   k.P.dtm_f = (float)a->delta_t_max;
@@ -824,10 +868,12 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   k.P.c_thresh_max = a->c_thresh_max;
   k.P.vel_m1 = a->vel_m1;
   k.P.c_inc = a->c_inc;
-  k.block_counts = (int*)a->block_counts;
-  k.offsets = (const long long*)a->offsets;
-  k.out_pixd = (unsigned*)a->out_pixd;
-  k.out_t = (unsigned*)a->out_t;
+  k.seg_counts = (int*)a->seg_counts;
+  k.seg_start = (long long*)a->seg_start;
+  k.link = (int*)a->link;
+  k.stage = (unsigned long long*)a->stage;
+  k.pool = a->pool;
+  k.cursor = (unsigned long long*)a->cursor;
   k.flags = (int*)a->flags;
   k.P.view_mode = a->view_mode;
   k.P.pdm = a->pdm;
@@ -836,29 +882,27 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
   return k;
 }
 
-// One launch of PASS for one template instantiation; a WRITE or VOID pass
-// with k.runnings set writes the display (COUNT never does).
+// One launch of the chunk kernel for one mode case: the events staged or
+// not, the display written or not.
 template <int D, bool FP, bool CO, bool AB>
-void launch_pass(const KArgs& k, int pass, cudaStream_t st) {
+void launch_chunk(const KArgs& k, bool events, cudaStream_t st) {
   const bool run = k.runnings != nullptr;
-  if (pass == PASS_COUNT) {
-    adder_resident_chunk_kernel<D, FP, CO, AB, PASS_COUNT>
-        <<<k.nblk, kBlock, 0, st>>>(k);
-  } else if (pass == PASS_WRITE) {
+  const long long grid = (k.n + kChunkBlock - 1) / kChunkBlock;
+  if (events) {
     if (run) {
-      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE, true>
-          <<<k.nblk, kBlock, 0, st>>>(k);
+      adder_resident_chunk_kernel<D, FP, CO, AB, true, true>
+          <<<(int)grid, kChunkBlock, 0, st>>>(k);
     } else {
-      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_WRITE>
-          <<<k.nblk, kBlock, 0, st>>>(k);
+      adder_resident_chunk_kernel<D, FP, CO, AB, true, false>
+          <<<(int)grid, kChunkBlock, 0, st>>>(k);
     }
   } else {
     if (run) {
-      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID, true>
-          <<<k.nblk, kBlock, 0, st>>>(k);
+      adder_resident_chunk_kernel<D, FP, CO, AB, false, true>
+          <<<(int)grid, kChunkBlock, 0, st>>>(k);
     } else {
-      adder_resident_chunk_kernel<D, FP, CO, AB, PASS_VOID>
-          <<<k.nblk, kBlock, 0, st>>>(k);
+      adder_resident_chunk_kernel<D, FP, CO, AB, false, false>
+          <<<(int)grid, kChunkBlock, 0, st>>>(k);
     }
   }
 }

@@ -2,25 +2,23 @@
 //
 // Replaces the TPU kernel adder_tpu/ops/fused_resident.py::make_resident_call
 // (body _kernel_body, :113-672) in its two framed modes:
-//   - events fetched: make_fused_chunk_resident (:848)  -> PASS_COUNT, scan, PASS_WRITE
-//   - Empty sink:     make_group_chunk_resident (:915)  -> PASS_VOID
-// The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core (:638-678)
-// and its helpers (:219-613), shared with the lane kernels in
+//   - events fetched: make_fused_chunk_resident (:848) -> the chunk kernel
+//     with its staging, adder_exclusive_scan, adder_segment_copy
+//   - Empty sink:     make_group_chunk_resident (:915) -> the chunk kernel
+//     without its staging
+// The per-pixel logic is adder_tpu/ops/integrate.py::_interval_core
+// (:638-678) and its helpers (:219-613), shared with the lane kernels in
 // adder_interval.cuh (which also lists the exactness rules); the plain
-// PyTorch version the kernels are held against is
-// adder_tpu_torch/ops/fused_resident.py::fused_chunk_resident_plain.
+// PyTorch versions the kernels are held against are
+// adder_tpu_torch/ops/fused_resident.py::fused_chunk_resident_plain,
+// group_chunk_resident_plain and segment_copy_plain.
 //
 // The display (emit_running=True, fused_resident.py:336-357, :890-899): when
-// the caller passes run0 and runnings, the WRITE and VOID passes also write
-// the (T, n) u8 display frame after each interval, carried forward from
-// run0 in a register (the JAX wrapper's lax.scan over run_val / run_has has
-// no counterpart). It is a template parameter (RUN), not a runtime branch,
-// so the display-off kernels compile to the code they had before; the
-// display adds 32 kernels (8 modes x depth 6/8 x WRITE/VOID). Its bytes are
-// run0 read once and T x n written, beside the frames, the state and the
-// events: about 5% more at 1080p mono, T = 16. Its work is one correctly
-// rounded division per pixel-interval beside the state machine's few
-// hundred dependent operations.
+// the caller passes run0 and runnings, the chunk kernel also writes the
+// (T, n) u8 display frame after each interval, carried forward from run0 in
+// a register (the JAX wrapper's lax.scan over run_val / run_has has no
+// counterpart). It is a template parameter (RUN), not a runtime branch, so
+// the display-off kernels compile to the code they would have without it.
 //
 // Design. One thread per pixel-channel. The pixel's whole arena (nd, ni, ndt,
 // bd, bdt x DEPTH plus nine scalars) is loaded once into registers and stays
@@ -29,34 +27,45 @@
 // a template parameter (6 or 8) and every arena loop is fully unrolled with
 // compile-time indices, so the arrays never leave registers (-Xptxas -v
 // reports spills). Mode, PixelMultiMode and TimeMode are template parameters
-// too, so each of the 8 mode cases compiles to straight-line code.
+// too, so each of the 8 mode cases compiles to straight-line code; EVENTS
+// and RUN make 4 kernels of each (64 in all).
 //
 // Event order is the reference's single-thread order (interval, raster
-// pixel, slot), written directly, with no host reordering:
-//   PASS_COUNT  runs the chunk and writes per-(interval, block) event counts;
-//               no state is written.
-//   adder_exclusive_scan turns those counts, row-major, into int64 offsets
-//               (K*T*N exceeds 2^31 for 1080p colour at T = 64) and the total:
-//               one launch of many blocks joined by a decoupled look-back
-//               (below). The lane kernels (K3 and K4, by rows) use it
-//               too, on their own counts.
-//   PASS_WRITE  re-runs the chunk from the same input state; per interval a
-//               block-wide exclusive scan of the threads' counts places each
-//               pixel's events at offset[interval, block] + prefix. It writes
-//               the final state.
-//   PASS_VOID   (the Empty sink) writes state and counts, no events.
-// Every pass folds the largest per-(interval, pixel) event count and the
-// arena-depth flag into flags[0] (atomicMax) and flags[1] (atomicOr).
+// pixel, slot), written with no host reordering and no host read, in one
+// pass over the state machine:
+//   the chunk kernel  runs every pixel through its T intervals once and
+//               writes, per (interval, warp), the warp's event count; with
+//               EVENTS the warp's events of the interval go to a staging
+//               pool in slabs it takes with one atomic each (adder_interval
+//               .cuh describes the slabs), and the segment's start.
+//   adder_exclusive_scan turns the (T, n / 32) counts, row-major, into int64
+//               offsets (K*T*N exceeds 2^31 for 1080p colour at T = 64) and
+//               the total: one launch of many blocks joined by a decoupled
+//               look-back (below). The lane kernels (K3 and K4, by rows)
+//               use it too, on their own counts.
+//   adder_segment_copy moves each segment from the pool to its offset,
+//               coalesced; it writes nothing at or past the caller's
+//               capacity, and nothing at all after a staging overflow.
+// The caller sizes the pool and the output from its capacity (the JAX
+// resident chunk's event_cap): the total is exact whatever the capacity, so
+// the caller sees an overflow without a host read inside the chunk, and
+// reruns. The kernel folds the largest per-(interval, pixel) event count and
+// the arena-depth flag into flags[0] (atomicMax) and flags[1] (atomicOr).
 // None of the TPU machinery is carried over: no (8, LN) reshapes, no
 // log-shift or band compactors, no head/carry replay, no DMA semaphores, no
 // bit-31 validity marker.
 //
-// What bounds it. Per interval a pixel reads one byte of frame and does a few
-// hundred scalar ops; the state is read and written once per chunk, not per
-// interval. So the kernel is bound by instruction issue and divergence of the
-// per-pixel state machine, not by device memory. The fetched path pays two
-// passes over the state machine (COUNT and WRITE) to write events in order
-// without a host-side assembler.
+// What bounds it. Per interval a pixel reads one byte of frame (loaded one
+// interval ahead) and does a few hundred scalar operations; the state is
+// read and written once per chunk, not per interval. So the kernel is bound
+// by the instruction issue and the latency of the per-pixel state machine,
+// not by device memory. What the design does about it: the arena walk
+// branches past the arena's end (integrate's SKIP), so a warp whose pixels
+// hold short arenas skips the nodes none of them has; there is no block
+// barrier, so a warp never waits for another; the block is small
+// (kChunkBlock, 128 threads) so that the registers, not the block, set the
+// warps per SM. The staging adds 8 bytes per event written and read
+// once more, and the scan and the copy are short launches beside it.
 
 #include "adder_interval.cuh"
 
@@ -149,34 +158,116 @@ int launch_scan(const void* counts, void* out, long long count, void* scratch,
   return (int)cudaGetLastError();
 }
 
+// --- the segment copy: each segment of the staging pool to its offset in
+// the output, which the exclusive scan of seg_counts gives in reference
+// order (interval, raster pixel, slot). One warp takes 32 consecutive
+// segments, each lane reading one segment's count, offset and start; the
+// warp then copies its non-empty segments one after another, lane i taking
+// entries i, i + 32, ..., so loads and stores are coalesced. Entries at or
+// past `cap` are not written; after a staging overflow (flags[2]) nothing
+// is, since the chunk's events outgrew the capacity and the caller reruns
+// it. ----------------------------------------------------------------------
+
+constexpr int kCopyBlock = 256;
+
+struct CopyArgs {
+  const int* counts;            // (segments,) i32
+  const long long* offsets;     // (segments + 1,) i64 exclusive
+  const long long* seg_start;   // (segments,) i64
+  const int* link;              // (pool / slab,) i32
+  const unsigned long long* stage;
+  const int* flags;
+  unsigned* out_pixd;           // (cap,)
+  unsigned* out_t;              // (cap,)
+  long long segments, cap;
+  int slab;
+};
+
+__global__ void __launch_bounds__(kCopyBlock)
+    adder_segment_copy_kernel(const CopyArgs a) {
+  if (a.flags[2]) return;
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      (long long)blockIdx.x * kCopyBlock + threadIdx.x;  // this lane's segment
+  int c = 0;
+  long long off = 0, start = 0;
+  if (j < a.segments) {
+    c = a.counts[j];
+    if (c) {
+      off = a.offsets[j];
+      start = a.seg_start[j];
+    }
+  }
+  unsigned todo = __ballot_sync(kFull, c > 0);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int cs = __shfl_sync(kFull, c, src);
+    const long long os = __shfl_sync(kFull, off, src);
+    const long long ss = __shfl_sync(kFull, start, src);
+    const int first = min(cs, a.slab - (int)(ss % a.slab));
+    const long long next =
+        cs > first ? (long long)a.link[ss / a.slab] * a.slab : 0;
+    for (int i = lane; i < cs && os + i < a.cap; i += 32) {
+      const unsigned long long e =
+          a.stage[i < first ? ss + i : next + (i - first)];
+      a.out_pixd[os + i] = (unsigned)e;
+      a.out_t[os + i] = (unsigned)(e >> 32);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Mirrored by adder_tpu_torch/ops/fused_resident.py::_CopyArgs.
+struct AdderCopyArgs {
+  long long segments;
+  long long cap;
+  int slab;
+  const void* counts;
+  const void* offsets;
+  const void* seg_start;
+  const void* link;
+  const void* stage;
+  const void* flags;
+  void* out_pixd;
+  void* out_t;
+};
+
+}  // extern "C"
+
+namespace {
+
 // --- host-side dispatch over the template parameters ------------------------
 
 template <int D, bool FP, bool CO>
-void launch_time(const KArgs& k, int pass, bool abs_time, cudaStream_t st) {
+void launch_time(const KArgs& k, bool events, bool abs_time, cudaStream_t st) {
   if (abs_time) {
-    launch_pass<D, FP, CO, true>(k, pass, st);
+    launch_chunk<D, FP, CO, true>(k, events, st);
   } else {
-    launch_pass<D, FP, CO, false>(k, pass, st);
+    launch_chunk<D, FP, CO, false>(k, events, st);
   }
 }
 
 template <int D, bool FP>
-void launch_multi(const KArgs& k, int pass, bool collapse, bool abs_time,
+void launch_multi(const KArgs& k, bool events, bool collapse, bool abs_time,
                   cudaStream_t st) {
   if (collapse) {
-    launch_time<D, FP, true>(k, pass, abs_time, st);
+    launch_time<D, FP, true>(k, events, abs_time, st);
   } else {
-    launch_time<D, FP, false>(k, pass, abs_time, st);
+    launch_time<D, FP, false>(k, events, abs_time, st);
   }
 }
 
 template <int D>
-void launch_mode(const KArgs& k, int pass, bool fp, bool collapse,
+void launch_mode(const KArgs& k, bool events, bool fp, bool collapse,
                  bool abs_time, cudaStream_t st) {
   if (fp) {
-    launch_multi<D, true>(k, pass, collapse, abs_time, st);
+    launch_multi<D, true>(k, events, collapse, abs_time, st);
   } else {
-    launch_multi<D, false>(k, pass, collapse, abs_time, st);
+    launch_multi<D, false>(k, events, collapse, abs_time, st);
   }
 }
 
@@ -185,8 +276,13 @@ void launch_mode(const KArgs& k, int pass, bool fp, bool collapse,
 extern "C" {
 
 int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
+  const bool events = a->events != 0;
   if (!chunk_args_ok(a) || (a->depth != 6 && a->depth != 8) ||
-      a->view_mode < 0 || a->view_mode > 3) {
+      a->view_mode < 0 || a->view_mode > 3 || a->seg_counts == nullptr ||
+      a->flags == nullptr ||
+      (events && (a->seg_start == nullptr || a->link == nullptr ||
+                  a->stage == nullptr || a->cursor == nullptr ||
+                  a->pool < 1 || a->pool % (32 * (a->depth + 3)) != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const KArgs k = make_kargs(a);
@@ -194,10 +290,36 @@ int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
   const bool fp = a->mode == 0, collapse = a->multi_mode == 1;
   const bool abs_time = a->abs_time != 0;
   if (a->depth == 6) {
-    launch_mode<6>(k, a->pass, fp, collapse, abs_time, st);
+    launch_mode<6>(k, events, fp, collapse, abs_time, st);
   } else {
-    launch_mode<8>(k, a->pass, fp, collapse, abs_time, st);
+    launch_mode<8>(k, events, fp, collapse, abs_time, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// The staged events of a chunk to their offsets: (segments + 1) offsets
+// from adder_exclusive_scan over the chunk's seg_counts, `slab` the chunk
+// kernel's (32 x (depth + 3)), `cap` the length of out_pixd and out_t.
+int adder_segment_copy(const AdderCopyArgs* a, void* stream) {
+  if (a->segments < 1 || a->cap < 0 || a->slab < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CopyArgs c;
+  c.counts = (const int*)a->counts;
+  c.offsets = (const long long*)a->offsets;
+  c.seg_start = (const long long*)a->seg_start;
+  c.link = (const int*)a->link;
+  c.stage = (const unsigned long long*)a->stage;
+  c.flags = (const int*)a->flags;
+  c.out_pixd = (unsigned*)a->out_pixd;
+  c.out_t = (unsigned*)a->out_t;
+  c.segments = a->segments;
+  c.cap = a->cap;
+  c.slab = a->slab;
+  const long long grid = (a->segments + kCopyBlock - 1) / kCopyBlock;
+  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  adder_segment_copy_kernel<<<(int)grid, kCopyBlock, 0,
+                              (cudaStream_t)stream>>>(c);
   return (int)cudaGetLastError();
 }
 

@@ -120,9 +120,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for entry in ("adder_resident_chunk", "adder_dvs_rows",
-                          "adder_davis_rows", "adder_fused_interval",
-                          "adder_interval_slots"):
+            for entry in ("adder_resident_chunk", "adder_segment_copy",
+                          "adder_dvs_rows", "adder_davis_rows",
+                          "adder_fused_interval", "adder_interval_slots"):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int

@@ -104,15 +104,26 @@ def fused_interval_plain(state: ops.PixelState, frame: torch.Tensor,
 def fused_interval(state: ops.PixelState, frame: torch.Tensor, time: float,
                    offset: torch.Tensor, bufs, p: ops.TranscodeParams,
                    pack: int = 4, emit_running: bool = True, n_real: int = 0,
-                   flags: torch.Tensor = None) -> FusedStep:
+                   flags: torch.Tensor = None,
+                   scratch: torch.Tensor = None) -> FusedStep:
     """One fused interval: the plain version for CPU tensors, the
     `adder_fused_interval` kernel for CUDA tensors (same outputs; `bufs`
-    written in place, `flags` updated in place on the card)."""
+    written in place, `flags` updated in place on the card). `scratch`, on
+    the card: the kernel's look-back words and block ticket, (nblk + 1,)
+    int64 zeroed (`new_scratch`), used by one launch; made here if None."""
     if not frame.is_cuda:
         return fused_interval_plain(state, frame, time, offset, bufs, p, pack,
                                     emit_running, n_real, flags)
     return _fused_interval_cuda(state, frame, time, offset, bufs, p, pack,
-                                emit_running, n_real, flags)
+                                emit_running, n_real, flags, scratch)
+
+
+def new_scratch(n: int, device, launches: int = 1) -> torch.Tensor:
+    """(launches, nblk + 1) zeroed int64: one row of look-back words and a
+    block ticket for each of `launches` K5 launches over n pixels, zeroed
+    by one memset."""
+    return torch.zeros((launches, -(-n // FR.BLOCK) + 1), dtype=torch.int64,
+                       device=device)
 
 
 def fused_chunk(state: ops.PixelState, frames: torch.Tensor, time: float,
@@ -133,10 +144,12 @@ def fused_chunk(state: ops.PixelState, frames: torch.Tensor, time: float,
             torch.zeros(event_cap, dtype=torch.int32, device=dev))
     offsets = [torch.zeros((), dtype=torch.int64, device=dev)]
     flags = new_flags(dev)
+    scratch = new_scratch(n, dev, T) if frames.is_cuda else None
     run, runnings = run0, []
     for i in range(T):
         r = fused_interval(state, frames[i], time, offsets[-1], bufs, p, pack,
-                           emit_running, n_real, flags)
+                           emit_running, n_real, flags,
+                           None if scratch is None else scratch[i])
         state, flags = r.state, r.flags
         offsets.append(r.offset)
         run = torch.where(r.run_has, r.run_val, run)
@@ -149,7 +162,7 @@ def fused_chunk(state: ops.PixelState, frames: torch.Tensor, time: float,
 
 
 def _fused_interval_cuda(state, frame, time, offset, bufs, p, pack,
-                         emit_running, n_real, flags):
+                         emit_running, n_real, flags, scratch=None):
     if not 1 <= pack <= 16:
         raise ValueError(f"pack {pack}: the kernel takes 1..16 lanes")
     buf_pixd, buf_t = bufs
@@ -172,9 +185,13 @@ def _fused_interval_cuda(state, frame, time, offset, bufs, p, pack,
         flags = new_flags(dev)
     elif flags.dtype != torch.int32 or flags.numel() != 2:
         raise ValueError("flags must be (2,) int32")
-    # the look-back's tile words and the block ticket, zeroed per launch
-    scratch = torch.zeros(-(-n // FR.BLOCK) + 1, dtype=torch.int64,
-                          device=dev)
+    if scratch is None:
+        scratch = new_scratch(n, dev)[0]
+    elif (scratch.dtype != torch.int64 or scratch.device != dev
+          or not scratch.is_contiguous()
+          or scratch.shape != (-(-n // FR.BLOCK) + 1,)):
+        raise ValueError(f"scratch must be a contiguous zeroed "
+                         f"({-(-n // FR.BLOCK) + 1},) int64 on {dev}")
     new_offset = torch.empty((), dtype=torch.int64, device=dev)
     ia.n_real = n_real or n
     ia.emit_running, ia.pack, ia.cap = int(emit_running), pack, buf_pixd.numel()

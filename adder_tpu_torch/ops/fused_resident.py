@@ -17,11 +17,13 @@ Each entry point has two implementations:
   `dvs_batch.davis_masked_step`, each over the carrier scattered into dense
   (T, N) planes), then the per-interval slots compacted into the
   reference's single-thread order (interval, raster pixel, slot);
-- the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk` and
-  `adder_exclusive_scan` in fused_resident.cu, `adder_dvs_rows` and the
-  grouping glue in dvs_resident.cu, `adder_davis_rows` in
-  davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
-  `group_chunk_resident`, `dvs_rows_resident` and `davis_rows_resident`.
+- the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk`,
+  `adder_segment_copy` and `adder_exclusive_scan` in fused_resident.cu,
+  `adder_dvs_rows` and the grouping glue in dvs_resident.cu,
+  `adder_davis_rows` in davis_resident.cu), reached through the wrappers
+  `fused_chunk_resident`, `group_chunk_resident`, `dvs_rows_resident` and
+  `davis_rows_resident` (and `segment_copy`, whose plain version is
+  `segment_copy_plain`).
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
@@ -32,15 +34,21 @@ in raster order, `raster_row_groups`), and the row walk, which builds no
 plane and updates the state of the pixels that have rows in place.
 
 The events come back already in reference order, so the JAX package's
-capacity and pack reruns and its host assembler have no counterpart here.
-The fetched path costs one host read per chunk: the scan's total, between
-the COUNT and WRITE passes, sizes the event buffers.
+pack reruns and its host assembler have no counterpart here. A framed
+chunk with its events runs the state machine once: the kernel stages each
+warp's events of each interval in slabs of a pool, the scan of the
+per-(interval, warp) counts gives each segment its offset, and the segment
+copy moves them there. The buffers are sized by the caller's capacity, as
+the JAX resident chunk's `event_cap`, and nothing is read back to the host
+inside the chunk: `total` says on the device whether the events fit. The
+lane chunks size their buffers from one host read of the scan's total.
 
 Outputs (`ChunkResult`):
   state        the PixelState after the chunk (`overflow` passed through
                unchanged, as the resident kernel does);
-  pixd, t      (E,) int32 holding u32 bit patterns: `pix << 8 | d` and the
-               event time (None on the Empty-sink path);
+  pixd, t      int32 holding u32 bit patterns: `pix << 8 | d` and the
+               event time (None on the Empty-sink path); a framed chunk on
+               the card gives its (event_cap,) buffers, the events first;
   per_interval (T,) int64 event counts;
   pmax         0-d int64: bits 0-15 the largest per-(interval, pixel) event
                count, bit 16 arena-depth overflow (`fused_resident.py:409-413`);
@@ -48,8 +56,8 @@ Outputs (`ChunkResult`):
                JAX chunk's `emit_running=True`): (T, n) u8, the display frame
                after each interval, carried forward from `run0` where a pixel
                shows nothing new (`fused_resident.py:890-899`); else None.
-               The kernels carry it in the thread's register and write it
-               from the WRITE or VOID pass.
+               The kernel carries it in the thread's register;
+  total        0-d int64, the chunk's events (None for the lane chunks).
 """
 
 from __future__ import annotations
@@ -65,18 +73,18 @@ from ..core.types import Mode, TimeMode
 from . import cuda_build, dvs_batch
 from . import integrate as ops
 
-BLOCK = 256  # threads (pixels) per CUDA block; must match kBlock in the .cu
-MAX_T = 128  # intervals per chunk (the kernel's shared count array)
+BLOCK = 256  # pixels per block of K5 and K6; kBlock in adder_interval.cuh
+MAX_T = 128  # intervals per chunk; kMaxT in adder_interval.cuh
 MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
 
-PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2
+PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2  # the row walk's passes
 DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
 SRC_DVS, SRC_DAVIS = 1, 2  # AdderRowsArgs.src: what a carrier row holds
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"adder_resident_chunk": 0, "adder_exclusive_scan": 0,
-            "adder_dvs_rows": 0, "adder_rows_group": 0,
-            "adder_davis_rows": 0}
+LAUNCHES = {"adder_resident_chunk": 0, "adder_segment_copy": 0,
+            "adder_exclusive_scan": 0, "adder_dvs_rows": 0,
+            "adder_rows_group": 0, "adder_davis_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,6 +99,7 @@ class ChunkResult(NamedTuple):
     per_interval: torch.Tensor
     pmax: torch.Tensor
     runnings: Optional[torch.Tensor] = None
+    total: Optional[torch.Tensor] = None
 
 
 # --- plain PyTorch versions -------------------------------------------------
@@ -122,11 +131,13 @@ def _chunk_plain(state: ops.PixelState, T: int, step,
     new_state = s.restack()._replace(overflow=state.overflow)
     pmax = max_cnt | ((s.overflow > 0).to(torch.int64) << 16)
     per_interval = torch.stack(counts).to(torch.int64)
+    total = per_interval.sum()
     if not events:
-        return ChunkResult(new_state, None, None, per_interval, pmax)
+        return ChunkResult(new_state, None, None, per_interval, pmax,
+                           total=total)
     return ChunkResult(
         new_state, torch.cat(pixd_parts), torch.cat(t_parts), per_interval,
-        pmax,
+        pmax, total=total,
     )
 
 
@@ -514,20 +525,30 @@ def davis_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
 # --- wrappers ---------------------------------------------------------------
 
 
-def fused_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
+def fused_chunk_resident(state, frames, time, p, run0=None, *,
+                         event_cap: int) -> ChunkResult:
     """One chunk with its events (and, given the display frame `run0`, the
     display frames after each interval): the plain version for CPU
-    tensors, the COUNT -> scan -> WRITE kernels for CUDA tensors."""
+    tensors; for CUDA tensors the one-pass chunk kernel, the scan of its
+    segment counts and the segment copy, with no host read.
+
+    `event_cap` sizes the event buffers on the card (the JAX resident
+    engine's `event_cap`): 16 bytes an entry, 8 of staging and 8 of output,
+    plus a slab of staging per warp. The result's `total` (0-d int64, on the device) counts the chunk's events
+    exactly, whatever the capacity; the first `total` entries of `pixd` and
+    `t` are the events when `total <= event_cap`. Past the capacity the
+    buffers are incomplete and the caller reruns the chunk with more. The
+    plain version's buffers hold exactly the chunk's events."""
     _check_run0(run0, frames)
     if not frames.is_cuda:
         return fused_chunk_resident_plain(state, frames, time, p, run0)
-    return _chunk_cuda(state, frames, time, p, True, run0)
+    return _chunk_cuda(state, frames, time, p, True, run0, event_cap)
 
 
 def group_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
     """One chunk without events (Empty sink), with the display frames when
-    given `run0`: the plain version for CPU tensors, the VOID kernel pass
-    for CUDA tensors."""
+    given `run0`: the plain version for CPU tensors, the chunk kernel
+    without its staging for CUDA tensors."""
     _check_run0(run0, frames)
     if not frames.is_cuda:
         return group_chunk_resident_plain(state, frames, time, p, run0)
@@ -594,7 +615,7 @@ class _ChunkArgs(ctypes.Structure):
     """Mirror of `struct AdderChunkArgs` in csrc/adder_interval.cuh."""
 
     _fields_ = [
-        ("pass_", ctypes.c_int),
+        ("events", ctypes.c_int),
         ("mode", ctypes.c_int),
         ("multi_mode", ctypes.c_int),
         ("abs_time", ctypes.c_int),
@@ -610,15 +631,35 @@ class _ChunkArgs(ctypes.Structure):
         ("frames", ctypes.c_void_p),
         ("state_in", ctypes.c_void_p * 14),
         ("state_out", ctypes.c_void_p * 14),
-        ("block_counts", ctypes.c_void_p),
-        ("offsets", ctypes.c_void_p),
-        ("out_pixd", ctypes.c_void_p),
-        ("out_t", ctypes.c_void_p),
+        ("seg_counts", ctypes.c_void_p),
+        ("seg_start", ctypes.c_void_p),
+        ("link", ctypes.c_void_p),
+        ("stage", ctypes.c_void_p),
+        ("pool", ctypes.c_longlong),
+        ("cursor", ctypes.c_void_p),
         ("flags", ctypes.c_void_p),
         ("view_mode", ctypes.c_int),
         ("pdm", ctypes.c_float),
         ("run0", ctypes.c_void_p),
         ("runnings", ctypes.c_void_p),
+    ]
+
+
+class _CopyArgs(ctypes.Structure):
+    """Mirror of `struct AdderCopyArgs` in csrc/fused_resident.cu."""
+
+    _fields_ = [
+        ("segments", ctypes.c_longlong),
+        ("cap", ctypes.c_longlong),
+        ("slab", ctypes.c_int),
+        ("counts", ctypes.c_void_p),
+        ("offsets", ctypes.c_void_p),
+        ("seg_start", ctypes.c_void_p),
+        ("link", ctypes.c_void_p),
+        ("stage", ctypes.c_void_p),
+        ("flags", ctypes.c_void_p),
+        ("out_pixd", ctypes.c_void_p),
+        ("out_t", ctypes.c_void_p),
     ]
 
 
@@ -670,83 +711,157 @@ def _check_state(state: ops.PixelState, like: torch.Tensor, depths,
             raise ValueError(f"state.{name} must be contiguous on {like.device}")
 
 
-def _chunk_args(state, p, T: int, n: int):
-    """The argument block of `adder_resident_chunk`, and the new state's
-    tensors it points at."""
+def slab_entries(depth: int) -> int:
+    """The chunk kernel's staging slab: the most events one warp emits in
+    one interval, 32 lanes x (depth + 3) slots (`chunk_slab` in
+    csrc/adder_interval.cuh)."""
+    return 32 * (depth + 3)
+
+
+def _launch(entry: str, args: ctypes.Structure, dev) -> None:
+    """One launch of a C entry point taking an argument block; adds one to
+    its LAUNCHES entry."""
+    fn = getattr(cuda_build.load(), entry)
+    err = fn(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{cuda_build.error_string(err)}")
+    LAUNCHES[entry] += 1
+
+
+def _chunk_cuda(state, frames, time, p, events: bool, run0=None,
+                event_cap: int = 0) -> ChunkResult:
+    """`adder_resident_chunk` once: the state machine over the chunk, the
+    per-(interval, warp) counts and, with `events`, the staged events; then
+    for the events the scan of the counts and `adder_segment_copy`."""
+    _check_plane(frames, torch.uint8, "frames")
+    _check_state(state, frames, (6, 8))
+    T, n = frames.shape
+    dev = frames.device
+    depth = state.node_d.shape[0]
+    if event_cap < 0:
+        raise ValueError(f"event_cap {event_cap} is negative")
+    time = float(np.float32(time))
     out_state = ops.PixelState(
         *(torch.empty_like(getattr(state, f)) for f in _KERNEL_FIELDS),
         overflow=state.overflow,
     )
     a = _ChunkArgs()
+    a.events = int(events)
     a.mode, a.multi_mode = int(p.mode), int(p.multi_mode)
     a.abs_time = int(p.time_mode == int(TimeMode.AbsoluteT))
-    a.depth, a.T, a.n = state.node_d.shape[0], T, n
+    a.depth, a.T, a.n = depth, T, n
     a.ref_time, a.delta_t_max = p.ref_time, p.delta_t_max
     a.c_thresh_max = p.c_thresh_max
     for i, f in enumerate(_KERNEL_FIELDS):
         a.state_in[i] = getattr(state, f).data_ptr()
         a.state_out[i] = getattr(out_state, f).data_ptr()
-    return a, out_state
-
-
-def _run_passes(a: _ChunkArgs, out_state, T: int, n: int, dev, events: bool,
-                runnings=None) -> ChunkResult:
-    """COUNT -> scan -> WRITE (events fetched) or VOID through
-    `adder_resident_chunk`; each launch adds one to its LAUNCHES entry.
-    `runnings`, the display output `a` points at, is passed through to the
-    result."""
-    entry = "adder_resident_chunk"
-    lib = cuda_build.load()
-    fn = getattr(lib, entry)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    nblk = -(-n // BLOCK)
-    block_counts = torch.empty((T, nblk), dtype=torch.int32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)  # atomic max / or
-    a.block_counts = block_counts.data_ptr()
-    a.flags = flags.data_ptr()
-
-    def launch(pass_: int) -> None:
-        a.pass_ = pass_
-        err = fn(ctypes.addressof(a), stream)
-        if err:
-            raise RuntimeError(f"{entry} launch failed: "
-                               f"{cuda_build.error_string(err)}")
-        LAUNCHES[entry] += 1
-
-    pixd = t = None
-    if events:
-        launch(PASS_COUNT)
-        offsets = exclusive_scan(block_counts)
-        total = int(offsets[-1])  # host read: sizes the event buffers
-        pixd = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-        t = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-        a.offsets = offsets.data_ptr()
-        a.out_pixd, a.out_t = pixd.data_ptr(), t.data_ptr()
-        launch(PASS_WRITE)
-        pixd, t = pixd[:total], t[:total]
-    else:
-        launch(PASS_VOID)
-    per_interval = block_counts.sum(dim=1, dtype=torch.int64)
-    pmax = flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
-    return ChunkResult(out_state, pixd, t, per_interval, pmax, runnings)
-
-
-def _chunk_cuda(state, frames, time, p, events: bool,
-                run0=None) -> ChunkResult:
-    _check_plane(frames, torch.uint8, "frames")
-    _check_state(state, frames, (6, 8))
-    T, n = frames.shape
-    time = float(np.float32(time))
-    a, out_state = _chunk_args(state, p, T, n)
     a.time = time
     a.vel_m1, a.c_inc = ops.c_thresh_scalars(time, p)
     a.frames = frames.data_ptr()
     runnings = None
     if run0 is not None:
-        runnings = torch.empty((T, n), dtype=torch.uint8, device=frames.device)
+        runnings = torch.empty((T, n), dtype=torch.uint8, device=dev)
         a.view_mode, a.pdm = p.view_mode, ops.display_pdm(p)
         a.run0, a.runnings = run0.data_ptr(), runnings.data_ptr()
-    return _run_passes(a, out_state, T, n, frames.device, events, runnings)
+    n_warps = -(-n // 32)
+    seg_counts = torch.empty((T, n_warps), dtype=torch.int32, device=dev)
+    # [0]: flags (max count, depth overflow, staging overflow) as i32;
+    # [2]: the staging cursor
+    ctl = torch.zeros(3, dtype=torch.int64, device=dev)
+    flags = ctl[:2].view(torch.int32)
+    a.seg_counts, a.flags = seg_counts.data_ptr(), flags.data_ptr()
+    if not events:
+        _launch("adder_resident_chunk", a, dev)
+        per_interval = seg_counts.sum(dim=1, dtype=torch.int64)
+        return ChunkResult(out_state, None, None, per_interval, _pmax(flags),
+                           runnings, per_interval.sum())
+    slab = slab_entries(depth)
+    pool = (-(-event_cap // slab) + n_warps) * slab
+    seg_start = torch.empty((T, n_warps), dtype=torch.int64, device=dev)
+    link = torch.empty(pool // slab, dtype=torch.int32, device=dev)
+    stage = torch.empty(pool, dtype=torch.int64, device=dev)
+    a.seg_start, a.link = seg_start.data_ptr(), link.data_ptr()
+    a.stage, a.pool, a.cursor = stage.data_ptr(), pool, ctl[2:].data_ptr()
+    _launch("adder_resident_chunk", a, dev)
+    offsets = exclusive_scan(seg_counts)
+    pixd, t = segment_copy(stage, seg_start, seg_counts, offsets, link, slab,
+                           event_cap, flags)
+    per_interval = offsets[::n_warps].diff()
+    return ChunkResult(out_state, pixd, t, per_interval, _pmax(flags),
+                       runnings, offsets[-1])
+
+
+def _pmax(flags: torch.Tensor) -> torch.Tensor:
+    return flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
+
+
+def segment_copy(stage, seg_start, counts, offsets, link, slab: int,
+                 cap: int, flags):
+    """The staged events of a chunk to their offsets, in reference order:
+    (cap,) int32 `pixd` and `t` whose first min(total, cap) entries are the
+    events (nothing is written after a staging overflow, flags[2]). The
+    plain version for CPU tensors, `adder_segment_copy` for CUDA tensors.
+
+    stage      (pool,) int64: pix << 8 | d in the low 32 bits, t above;
+    seg_start  (T, W) int64: the entry of each non-empty segment's first
+               event; a segment that outgrows its slab goes on at the start
+               of slab link[seg_start // slab];
+    counts     (T, W) int32 events per (interval, warp) segment;
+    offsets    (T W + 1,) int64 their exclusive scan, the total last."""
+    if not stage.is_cuda:
+        return segment_copy_plain(stage, seg_start, counts, offsets, link,
+                                  slab, cap, flags)
+    dev = stage.device
+    segments = counts.numel()
+    for name, x, dtype, numel in (
+            ("stage", stage, torch.int64, stage.numel()),
+            ("seg_start", seg_start, torch.int64, segments),
+            ("counts", counts, torch.int32, segments),
+            ("offsets", offsets, torch.int64, segments + 1),
+            ("link", link, torch.int32, stage.numel() // max(slab, 1)),
+            ("flags", flags, torch.int32, 3)):
+        if (x.dtype != dtype or x.numel() < numel or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} of "
+                             f"{numel} entries on {dev}")
+    if slab < 1 or stage.numel() % slab or cap < 0 or segments < 1:
+        raise ValueError(f"slab {slab}, pool {stage.numel()}, capacity {cap}"
+                         f", {segments} segments")
+    pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    c = _CopyArgs()
+    c.segments, c.cap, c.slab = counts.numel(), cap, slab
+    c.counts, c.offsets = counts.data_ptr(), offsets.data_ptr()
+    c.seg_start, c.link = seg_start.data_ptr(), link.data_ptr()
+    c.stage, c.flags = stage.data_ptr(), flags.data_ptr()
+    c.out_pixd, c.out_t = pixd.data_ptr(), t.data_ptr()
+    _launch("adder_segment_copy", c, dev)
+    return pixd[:cap], t[:cap]
+
+
+def segment_copy_plain(stage, seg_start, counts, offsets, link, slab: int,
+                       cap: int, flags):
+    """Plain version of `segment_copy`, with torch ops on the inputs'
+    device: each output entry finds its segment by a search of the offsets
+    and reads its staging entry."""
+    dev = stage.device
+    pixd = torch.zeros(cap, dtype=torch.int32, device=dev)
+    t = torch.zeros(cap, dtype=torch.int32, device=dev)
+    n = min(int(offsets[-1]), cap)
+    if n == 0 or int(flags[2]):
+        return pixd, t
+    o = torch.arange(n, dtype=torch.int64, device=dev)
+    seg = torch.searchsorted(offsets, o, right=True) - 1
+    i = o - offsets[seg]
+    start = seg_start.reshape(-1)[seg]
+    c = counts.reshape(-1)[seg].to(torch.int64)
+    first = torch.minimum(c, slab - start % slab)
+    nxt = link[start // slab].to(torch.int64)
+    at = torch.where(i < first, start + i, nxt * slab + (i - first))
+    words = stage[at].view(torch.int32).view(-1, 2)
+    pixd[:n], t[:n] = words[:, 0], words[:, 1]
+    return pixd, t
 
 
 class _RowsArgs(ctypes.Structure):
@@ -832,16 +947,10 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
     a.cell_gap = g.cell_gap.data_ptr()
     a.cell_tick = g.cell_tick.data_ptr() if per_lane == 2 else None
     a.cell_counts, a.flags = cell_counts.data_ptr(), flags.data_ptr()
-    fn = getattr(cuda_build.load(), entry)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(pass_: int) -> None:
         a.pass_ = pass_
-        err = fn(ctypes.addressof(a), stream)
-        if err:
-            raise RuntimeError(f"{entry} launch failed: "
-                               f"{cuda_build.error_string(err)}")
-        LAUNCHES[entry] += 1
+        _launch(entry, a, dev)
 
     pixd = t = None
     launch(PASS_COUNT if events else PASS_VOID)

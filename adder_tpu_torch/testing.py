@@ -131,19 +131,28 @@ def bitwise_max_err(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
 def compare_chunks(got: FR.ChunkResult, want: FR.ChunkResult,
                    what: str) -> float:
     """Bit-for-bit comparison of two chunk results (events, counts, flags,
-    every state field); returns the largest absolute difference."""
+    every state field, the total where both give one); the events are
+    compared up to the total, since a framed chunk on the card gives its
+    capacity-sized buffers. Returns the largest absolute difference."""
     errs = [
         bitwise_max_err(got.per_interval, want.per_interval, f"{what} counts"),
         bitwise_max_err(got.pmax, want.pmax, f"{what} pmax"),
     ]
+    if got.total is not None and want.total is not None:
+        errs.append(bitwise_max_err(got.total, want.total, f"{what} total"))
     for f in ops.PixelState._fields:
         errs.append(bitwise_max_err(getattr(got.state, f),
                                     getattr(want.state, f), f"{what} {f}"))
     if (got.pixd is None) != (want.pixd is None):
         raise AssertionError(f"{what}: one result has events, one has not")
     if got.pixd is not None:
-        errs.append(bitwise_max_err(got.pixd, want.pixd, f"{what} pixd"))
-        errs.append(bitwise_max_err(got.t, want.t, f"{what} t"))
+        n = int(want.per_interval.sum())
+        for f in ("pixd", "t"):
+            a, b = getattr(got, f), getattr(want, f)
+            if a.numel() < n or b.numel() < n:
+                raise AssertionError(f"{what} {f}: {a.numel()} and "
+                                     f"{b.numel()} entries for {n} events")
+            errs.append(bitwise_max_err(a[:n], b[:n], f"{what} {f}"))
     if (got.runnings is None) != (want.runnings is None):
         raise AssertionError(f"{what}: one result has a display, one has not")
     if got.runnings is not None:
@@ -160,97 +169,276 @@ MODE_CASES = [
 ]
 
 
+# the (H, W, T) chunks the kernel checks add to their main plane: one
+# interval, and the longest chunk the kernel takes, on a second ragged plane
+EXTRA_CHUNKS = ((150, 200, 1), (47, 61, 1), (47, 61, 128))
+
+
+def firing_frames(T: int, n: int) -> np.ndarray:
+    """(T, n) u8 frames that swing between 0 and 255 every interval, so that
+    every pixel crosses its contrast threshold in every interval."""
+    frames = np.zeros((T, n), dtype=np.uint8)
+    frames[1::2] = 255
+    return frames
+
+
+def _chained_chunks(dev, p, depth: int, frames: torch.Tensor, T: int,
+                    run0, what: str) -> float:
+    """The chunks of `frames` (T intervals each) chained from a fresh state
+    (and, given `run0`, a display frame): the kernels' fetched and
+    Empty-sink chunks against the plain version. Returns the largest
+    absolute difference."""
+    err = 0.0
+    st_k = st_p = ops.set_initial_d(
+        ops.init_state(frames.shape[1], dev, c_thresh=3, depth=depth),
+        frames[0].to(torch.int32),
+    )
+    run_k = run_p = run0
+    for c in range(frames.shape[0] // T):
+        f = frames[c * T : (c + 1) * T].contiguous()
+        w = f"{what} chunk {c}"
+        want = FR.fused_chunk_resident_plain(st_p, f, 255.0, p, run_p)
+        k = FR.fused_chunk_resident(st_k, f, 255.0, p, run_k,
+                                    event_cap=int(want.total))
+        v = FR.group_chunk_resident(st_k, f, 255.0, p, run_k)
+        err = max(err, compare_chunks(k, want, w),
+                  compare_chunks(v, want._replace(pixd=None, t=None),
+                                 w + " void"))
+        st_k, st_p = k.state, want.state
+        if run0 is not None:
+            run_k, run_p = k.runnings[-1], want.runnings[-1]
+    return err
+
+
+def _chunk_cases(H: int, W: int, T: int, chunks: int, extra):
+    """(n, T, chunks) of the main plane, then of each extra chunk."""
+    return [(H * W, T, chunks)] + [(h * w, t, 1) for h, w, t in extra]
+
+
 def check_kernels_against_plain(device, H: int = 150, W: int = 200,
                                 T: int = 8, chunks: int = 2,
-                                seed: int = 0) -> float:
-    """Every mode case at depth 6 and 8, plus a forced depth-6 overflow:
-    the CUDA kernels (fetched and Empty-sink paths, chained over `chunks`
-    chunks) against the plain version on the same inputs. Raises on any
-    difference; returns the largest absolute difference (0.0)."""
+                                seed: int = 0,
+                                extra=EXTRA_CHUNKS) -> float:
+    """Every mode case at depth 6 and 8: the CUDA kernels (the fetched
+    chunk: the one-pass kernel, the scan and the segment copy; the
+    Empty-sink chunk), chained over `chunks` chunks of T on the H x W plane
+    and for each (h, w, t) of `extra`, against the plain version on the
+    same inputs; then a forced depth-6 overflow and a forced capacity
+    overflow (`check_capacity_overflow`). Raises on any difference;
+    returns the largest absolute difference (0.0)."""
     dev = torch.device(device)
-    n = H * W
-    frames = torch.from_numpy(walk_frames(seed, T * chunks, n)).to(dev)
     err = 0.0
-    for p in MODE_CASES:
-        for depth in (6, 8):
-            st_k = st_p = ops.set_initial_d(
-                ops.init_state(n, dev, c_thresh=3, depth=depth),
-                frames[0].to(torch.int32),
-            )
-            for c in range(chunks):
-                f = frames[c * T : (c + 1) * T].contiguous()
-                what = f"mode {tuple(p[:3])} depth {depth} chunk {c}"
-                k = FR.fused_chunk_resident(st_k, f, 255.0, p)
-                v = FR.group_chunk_resident(st_k, f, 255.0, p)
-                want = FR.fused_chunk_resident_plain(st_p, f, 255.0, p)
-                err = max(err, compare_chunks(k, want, what),
-                          compare_chunks(v, want._replace(pixd=None, t=None),
-                                         what + " void"))
-                st_k, st_p = k.state, want.state
+    for i, (n, t, c) in enumerate(_chunk_cases(H, W, T, chunks, extra)):
+        frames = torch.from_numpy(walk_frames(seed + i, t * c, n)).to(dev)
+        for p in MODE_CASES:
+            for depth in (6, 8):
+                err = max(err, _chained_chunks(
+                    dev, p, depth, frames, t, None,
+                    f"{n} pixels T {t} mode {tuple(p[:3])} depth {depth}"))
+    n = H * W
+    frames = torch.from_numpy(walk_frames(seed, T, n)).to(dev)
     p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
                             delta_t_max=255 * 24, c_thresh_max=0,
                             c_increase_velocity=1)
     st = forced_overflow_state(frames[0], n // 10)
-    f = frames[:T].contiguous()
-    k = FR.fused_chunk_resident(st, f, 255.0, p)
-    v = FR.group_chunk_resident(st, f, 255.0, p)
-    want = FR.fused_chunk_resident_plain(st, f, 255.0, p)
+    want = FR.fused_chunk_resident_plain(st, frames, 255.0, p)
+    k = FR.fused_chunk_resident(st, frames, 255.0, p,
+                                event_cap=int(want.total))
+    v = FR.group_chunk_resident(st, frames, 255.0, p)
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     err = max(err, compare_chunks(k, want, "forced overflow"),
               compare_chunks(v, want._replace(pixd=None, t=None),
                              "forced overflow void"))
+    return max(err, check_capacity_overflow(dev, H, W))
+
+
+def check_capacity_overflow(device, H: int = 150, W: int = 200,
+                            T: int = 32) -> float:
+    """A chunk whose every pixel fires in every interval, given a quarter of
+    its events as capacity, then none: `total` still counts every event
+    (the plain version's), so the caller sees the overflow; the rerun at
+    capacity `total` equals the plain version. At capacity 0 the staging
+    pool (one slab per warp) runs dry too. Raises on any difference;
+    returns the largest absolute difference (0.0)."""
+    dev = torch.device(device)
+    n = H * W
+    frames = torch.from_numpy(firing_frames(T, n)).to(dev)
+    p = ops.TranscodeParams(mode=1, multi_mode=0, time_mode=1, ref_time=255,
+                            delta_t_max=255, c_thresh_max=0,
+                            c_increase_velocity=1)
+    st = ops.set_initial_d(ops.init_state(n, dev, c_thresh=0, depth=6),
+                           frames[0].to(torch.int32))
+    want = FR.fused_chunk_resident_plain(st, frames, 255.0, p)
+    total = int(want.total)
+    if total <= n * (6 + 3):
+        raise AssertionError(f"{total} events do not outgrow the staging "
+                             f"slack of {n * (6 + 3)}")
+    err = 0.0
+    for cap in (total // 4, 0):
+        k = FR.fused_chunk_resident(st, frames, 255.0, p, event_cap=cap)
+        err = max(err, bitwise_max_err(k.total, want.total,
+                                       f"capacity {cap} total"))
+        if int(k.total) <= cap:
+            raise AssertionError(f"capacity {cap}: no overflow seen")
+    rerun = FR.fused_chunk_resident(st, frames, 255.0, p, event_cap=total)
+    return max(err, compare_chunks(rerun, want, "capacity rerun"))
+
+
+def segment_counts(res: FR.ChunkResult, n: int) -> np.ndarray:
+    """(T, ceil(n / 32)) int64: a plain chunk's events per (interval,
+    warp), the chunk kernel's segments."""
+    T = res.per_interval.numel()
+    pix = res.pixd.numpy().view(np.uint32) >> 8
+    interval = np.repeat(np.arange(T), res.per_interval.numpy())
+    counts = np.zeros((T, -(-n // 32)), dtype=np.int64)
+    np.add.at(counts, (interval, pix.astype(np.int64) // 32), 1)
+    return counts
+
+
+def stage_segments(res: FR.ChunkResult, n: int, slab: int, seed: int = 0):
+    """A plain chunk's events staged as the chunk kernel stages them, the
+    warps taking their slabs in a seeded random order: each warp's
+    intervals in order, the warps interleaved at random. Returns (stage,
+    seg_start, counts, link) as CPU tensors for `segment_copy` (the pool
+    holds the events plus one slab per warp)."""
+    rng = np.random.default_rng(seed)
+    counts = segment_counts(res, n)
+    T, W = counts.shape
+    pixd = res.pixd.numpy().view(np.uint32).astype(np.uint64)
+    tt = res.t.numpy().view(np.uint32).astype(np.uint64)
+    words = (pixd | (tt << np.uint64(32))).view(np.int64)
+    if counts.max(initial=0) > slab:
+        raise ValueError(f"a segment of {counts.max()} events; slab {slab}")
+    first = (np.cumsum(counts.reshape(-1)) - counts.reshape(-1)).reshape(T, W)
+    pool = (-(-len(words) // slab) + W) * slab
+    stage = np.full(pool, -1, dtype=np.int64)
+    seg_start = np.zeros((T, W), dtype=np.int64)
+    link = np.full(pool // slab, -1, dtype=np.int32)
+    cur = np.zeros(W, dtype=np.int64)
+    room = np.zeros(W, dtype=np.int64)
+    nxt_t = np.zeros(W, dtype=np.int64)
+    cursor = 0
+    for w in rng.permutation(np.repeat(np.arange(W), T)):
+        t = nxt_t[w]
+        nxt_t[w] += 1
+        c = counts[t, w]
+        if c == 0:
+            continue
+        if room[w] >= c:
+            start = cur[w]
+            at = start + np.arange(c)
+            cur[w] += c
+            room[w] -= c
+        else:
+            base, cursor = cursor, cursor + slab
+            if room[w] == 0:
+                start = base
+                at = base + np.arange(c)
+                cur[w], room[w] = base + c, slab - c
+            else:
+                start, k = cur[w], room[w]
+                at = np.concatenate([start + np.arange(k),
+                                     base + np.arange(c - k)])
+                link[start // slab] = base // slab
+                cur[w], room[w] = base + c - k, slab - (c - k)
+        seg_start[t, w] = start
+        stage[at] = words[first[t, w] + np.arange(c)]
+    return (torch.from_numpy(stage), torch.from_numpy(seg_start),
+            torch.from_numpy(counts.astype(np.int32)), torch.from_numpy(link))
+
+
+def segment_copy_cases(seed: int = 0):
+    """(name, plain chunk, n) for the segment copy checks: a ragged 47 x 61
+    plane (its last warp holds 19 pixels) of seeded walks, T = 8; the same
+    plane with no event; every pixel firing in every interval."""
+    n = 47 * 61
+    p = MODE_CASES[5]
+    walk = torch.from_numpy(walk_frames(seed, 8, n))
+    fire = torch.from_numpy(firing_frames(8, n))
+    still = torch.full((2, n), 77, dtype=torch.uint8)
+    cases = []
+    for name, frames in (("walk", walk), ("no events", still),
+                         ("every pixel fires", fire)):
+        st = ops.set_initial_d(ops.init_state(n, "cpu", c_thresh=0, depth=6),
+                               frames[0].to(torch.int32))
+        cases.append((name, FR.fused_chunk_resident_plain(st, frames, 255.0,
+                                                          p), n))
+    return cases
+
+
+def check_segment_copy_against_plain(device, seed: int = 0) -> float:
+    """`segment_copy` on `device` against `segment_copy_plain` and against
+    the plain chunk's events, bit for bit, for each of
+    `segment_copy_cases`: staging from `stage_segments` with slabs as small
+    as the largest segment (so that many segments run over into a second
+    slab) and with the kernel's slab, at the full capacity and at half the
+    events. Raises on any difference; returns the largest absolute
+    difference (0.0)."""
+    dev = torch.device(device)
+    err = 0.0
+    for name, res, n in segment_copy_cases(seed):
+        total = int(res.total)
+        biggest = int(segment_counts(res, n).max(initial=0))
+        for slab in sorted({max(biggest, 1), FR.slab_entries(6)}):
+            stage, seg_start, counts, link = stage_segments(res, n, slab,
+                                                            seed)
+            offsets = FR.exclusive_scan_plain(counts)
+            flags = torch.zeros(3, dtype=torch.int32)
+            for cap in (total, total // 2):
+                what = f"segment copy, {name}, slab {slab}, capacity {cap}"
+                want = FR.segment_copy_plain(stage, seg_start, counts,
+                                             offsets, link, slab, cap, flags)
+                got = FR.segment_copy(
+                    stage.to(dev), seg_start.to(dev), counts.to(dev),
+                    offsets.to(dev), link.to(dev), slab, cap, flags.to(dev))
+                for g, w_, ref in zip(got, want, (res.pixd, res.t)):
+                    err = max(err, bitwise_max_err(g.cpu(), w_, what),
+                              bitwise_max_err(w_, ref[:cap], what + " order"))
     return err
 
 
 def check_display_against_plain(device, H: int = 150, W: int = 200,
                                 T: int = 8, chunks: int = 2,
-                                seed: int = 0) -> float:
+                                seed: int = 0,
+                                extra=EXTRA_CHUNKS) -> float:
     """The resident kernel's display output (K1 with `run0`) against the
-    plain version on the same inputs, bit for bit, on a ragged plane: every
+    plain version on the same inputs, bit for bit, on ragged planes: every
     mode case at depth 6 and 8, the view mode cycling so that each of the
-    four meets four mode cases at each depth, `chunks` chained chunks from
-    a non-zero seeded display frame, the WRITE pass (events fetched) and the
-    VOID pass; then a forced depth-6 overflow. Raises on any difference;
-    returns the largest absolute difference (0.0)."""
+    four meets four mode cases at each depth, `chunks` chained chunks of T
+    on the H x W plane and one of each (h, w, t) of `extra`, from a
+    non-zero seeded display frame, the events fetched and the Empty sink;
+    then a forced depth-6 overflow. Raises on any difference; returns the
+    largest absolute difference (0.0)."""
     dev = torch.device(device)
-    n = H * W
-    frames = torch.from_numpy(walk_frames(seed, T * chunks, n)).to(dev)
     rng = np.random.default_rng(seed + 1)
-    run0 = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
     err = 0.0
-    for i, p in enumerate(MODE_CASES):
-        for depth in (6, 8):
-            p = p._replace(view_mode=(i + depth // 2) % 4)
-            st_k = st_p = ops.set_initial_d(
-                ops.init_state(n, dev, c_thresh=3, depth=depth),
-                frames[0].to(torch.int32),
-            )
-            run_k = run_p = run0
-            for c in range(chunks):
-                f = frames[c * T : (c + 1) * T].contiguous()
-                what = (f"display mode {tuple(p[:3])} view {p.view_mode} "
-                        f"depth {depth} chunk {c}")
-                k = FR.fused_chunk_resident(st_k, f, 255.0, p, run_k)
-                v = FR.group_chunk_resident(st_k, f, 255.0, p, run_k)
-                want = FR.fused_chunk_resident_plain(st_p, f, 255.0, p, run_p)
-                err = max(err, compare_chunks(k, want, what),
-                          compare_chunks(v, want._replace(pixd=None, t=None),
-                                         what + " void"))
-                st_k, st_p = k.state, want.state
-                run_k, run_p = k.runnings[-1], want.runnings[-1]
+    for j, (n, t, c) in enumerate(_chunk_cases(H, W, T, chunks, extra)):
+        frames = torch.from_numpy(walk_frames(seed + j, t * c, n)).to(dev)
+        run0 = torch.from_numpy(rng.integers(0, 256, n,
+                                             dtype=np.uint8)).to(dev)
+        for i, p in enumerate(MODE_CASES):
+            for depth in (6, 8):
+                p = p._replace(view_mode=(i + depth // 2) % 4)
+                err = max(err, _chained_chunks(
+                    dev, p, depth, frames, t, run0,
+                    f"display {n} pixels T {t} mode {tuple(p[:3])} view "
+                    f"{p.view_mode} depth {depth}"))
+    n = H * W
+    frames = torch.from_numpy(walk_frames(seed, T, n)).to(dev)
+    run0 = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
     p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
                             delta_t_max=255 * 24, c_thresh_max=0,
                             c_increase_velocity=1, view_mode=1)
     st = forced_overflow_state(frames[0], n // 10)
-    f = frames[:T].contiguous()
-    want = FR.fused_chunk_resident_plain(st, f, 255.0, p, run0)
+    want = FR.fused_chunk_resident_plain(st, frames, 255.0, p, run0)
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
-    err = max(err, compare_chunks(FR.fused_chunk_resident(st, f, 255.0, p,
-                                                          run0),
-                                  want, "display forced overflow"),
-              compare_chunks(FR.group_chunk_resident(st, f, 255.0, p, run0),
+    got = FR.fused_chunk_resident(st, frames, 255.0, p, run0,
+                                  event_cap=int(want.total))
+    err = max(err, compare_chunks(got, want, "display forced overflow"),
+              compare_chunks(FR.group_chunk_resident(st, frames, 255.0, p,
+                                                     run0),
                              want._replace(pixd=None, t=None),
                              "display forced overflow void"))
     return err

@@ -95,19 +95,22 @@ class Video:
     PyTorch versions on the CPU; all three write the same events.
     - resident (default): `fused_resident.fused_chunk_resident` (or
       `group_chunk_resident` when `void_events` is set: the Empty sink,
-      where events are never fetched). Events come back in the reference's
-      order and sized to the chunk, so there is no capacity or pack rerun;
-      the chunk call waits once for the device (the event total sizes the
-      buffers).
+      where events are never fetched). One kernel pass over the chunk,
+      events in the reference's order, no host read inside the chunk.
     - fused (`ADDER_TPU_RESIDENT=0`): `fused_kernel.fused_chunk`, one K5
       launch per frame, events at a running offset kept on the device.
     - slots (`ADDER_TPU_FUSED=0`): `integrate.transcode_chunk`, one K6
       launch per frame and the slot compaction in torch; depth 8 from the
       start.
-    The one-interval engines write into buffers of `_cap_mult` x N x T
-    events and keep the JAX runtime's rerun contract (`_collect_interval`):
-    capacity doubling, the per-interval `take` limit (slots), pack overflow
-    (4 lanes, then 16 on fused, K_SLOTS on slots) and capacity decay.
+    Every engine writes its events into buffers of `_cap_mult` x N x T
+    events (the full K_SLOTS x N x T at once where N x T <=
+    FULL_CAP_VOLUME) and keeps the JAX runtime's rerun contract
+    (`_collect_interval`): one host read of the control scalars when the
+    chunk is collected, capacity doubling from the pre-chunk state on
+    total > capacity, and capacity decay once a burst has passed; on the
+    one-interval engines also the per-interval `take` limit (slots) and
+    pack overflow (4 lanes, then 16 on fused, K_SLOTS on slots). The
+    resident kernel writes every slot, so it has no pack.
     The arena starts at depth 6 on the resident and fused engines; a chunk
     that outgrows it is rerun at depth 8 from its pre-chunk state, as are
     the chunks submitted after it.
@@ -333,12 +336,15 @@ class Video:
 
     def _run_chunk(self, state, pending: dict):
         """One chunk from `state` on the Video's engine, at the pending
-        chunk's capacity and pack (the one-interval engines)."""
+        chunk's capacity (and, on the one-interval engines, its pack)."""
         p, frames, t = self._params(), pending["frames"], pending["t"]
         if self.engine == RESIDENT:
-            fn = (fused_resident.group_chunk_resident if pending["group"]
-                  else fused_resident.fused_chunk_resident)
-            return fn(state, frames, t, p, pending["run0"])
+            if pending["group"]:
+                return fused_resident.group_chunk_resident(
+                    state, frames, t, p, pending["run0"])
+            return fused_resident.fused_chunk_resident(
+                state, frames, t, p, pending["run0"],
+                event_cap=pending["cap"])
         if self.engine == FUSED:
             return fused_kernel.fused_chunk(
                 state, frames, t, pending["run0"], p, pending["cap"],
@@ -392,7 +398,7 @@ class Video:
             "T": T,
             "run0": self._run0(),
         }
-        if self.engine != RESIDENT:
+        if not pending["group"]:
             # capacity in power-of-two multiples of N * T; K_SLOTS * N * T
             # bounds every chunk, so small planes get it at once
             mult = min(self._cap_mult, ops.K_SLOTS)
@@ -430,11 +436,13 @@ class Video:
 
     def _collect_oldest(self) -> EventArray:
         pending = self._inflight.pop(0)
-        if self.engine == RESIDENT:
-            return self._collect_resident(pending)
+        if pending["group"]:
+            return self._collect_group(pending)
         return self._collect_interval(pending)
 
-    def _collect_resident(self, pending: dict) -> EventArray:
+    def _collect_group(self, pending: dict) -> EventArray:
+        """A resident Empty-sink chunk: one host read, the depth flag
+        (video.py:533-559)."""
         outs = pending["outs"]
         shallow = pending["state_before"].node_d.shape[0] < ops.DEPTH
         if (int(outs.pmax) >> 16) & 1 and shallow:
@@ -449,16 +457,16 @@ class Video:
             # the newest chunk: its own state, without the rate adjustment
             # of the chunk collected before it (video.py:648-649)
             self.state = outs.state
-        return self._finish_chunk(
-            outs, None if pending["group"] else (outs.pixd, outs.t))
+        return self._finish_chunk(outs, None)
 
     def _collect_interval(self, pending: dict) -> EventArray:
-        """The rerun contract of the JAX runtime's one-interval engines
-        (adder_tpu/transcoder/video.py:561-660): one host read of the
-        control scalars per pass; reruns go from the untouched pre-chunk
-        state."""
+        """The rerun contract of the JAX runtime (adder_tpu/transcoder/
+        video.py:561-660), on every engine's chunk with events: one host
+        read of the control scalars per pass; reruns go from the untouched
+        pre-chunk state. The resident chunk takes the fused engine's rules
+        (any interval may fill the buffer; the depth flag), without pack."""
         T, mult = pending["T"], pending["mult"]
-        fused = self.engine == FUSED
+        fused = self.engine in (FUSED, RESIDENT)
         depth_rerun = False
         while True:
             outs = pending["outs"]
@@ -473,7 +481,8 @@ class Video:
                 overflowed = total > cap or per_max > min(
                     take, ops.K_SLOTS * self.n)
             depth_overflow = fused and bool(pmax >> 16)
-            pack_overflow = pack < ops.K_SLOTS and (pmax & 0xFFFF) > pack
+            pack_overflow = (self.engine != RESIDENT and pack < ops.K_SLOTS
+                             and (pmax & 0xFFFF) > pack)
             if not overflowed and not pack_overflow:
                 # decay the capacity once a burst has passed
                 if per_max * 8 < take and self._cap_mult > 1:

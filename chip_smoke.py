@@ -6,23 +6,35 @@ Usage, from the repository root:  python3 chip_smoke.py
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
      adder_tpu_torch/csrc (one nvcc per source, in parallel, at first use),
-     time the build and report ptxas registers and spills;
+     time the build and report ptxas registers and spills of every
+     instantiation, and the SASS of K1's interval loop (cuobjdump);
   2. every kernel against its plain PyTorch version on the card, bit for
-     bit: a ragged 200x150 plane, 2 chunks of T = 8, all 8 mode cases,
-     depth 6 and 8, a forced depth-6 overflow; the same with K1's display
-     output (the four view modes, from a seeded display frame, WRITE and
-     VOID); the multi-block scan at 0, 1,
+     bit: K1 (the one-pass chunk kernel, the scan of its segment counts,
+     the segment copy) and K2 on a ragged 200x150 plane, 2 chunks of T = 8,
+     all 8 mode cases, depth 6 and 8, and single chunks of T = 1 at 200x150
+     and of T = 1 and 128 at 61x47; a forced depth-6 overflow; a forced
+     capacity overflow (the total stays exact at a quarter of the events
+     and at none, the staging pool dry, and the rerun equals plain); the
+     same with K1's display output (the four view modes, from a seeded
+     display frame, fetched and void); the segment copy on staging in
+     shuffled slab order (a ragged plane, no events, every pixel firing);
+     the multi-block scan at 0, 1,
      37, 4096, 4097, 129,600 and 524,288 counts (a total past 2^31), each
      also from an input off the 16-byte boundary;
   3. the main path: 1080p mono, the reference's bench config, 64 frames of
      a seeded moving-blob scene, FramedArray(device="cuda") -> Video
      submit/collect -> Raw .adder in a temporary directory. The launch
-     counters must rise, the decoded event count must equal the kernel's,
-     and the first 8 frames must give the same bytes on the card and on
-     the CPU;
-  4. timings: kernel against plain version at 1080p mono, T = 16; the scan
-     at (16, 8100) counts beside torch.cumsum, and at 524,288, each timed
-     from the host and on the card alone; the Empty-sink (void) path at 1080p mono and colour;
+     counters must rise (the one-pass kernel and the copy once per chunk),
+     no chunk call may wait for the card, the decoded event count must
+     equal the kernel's, and the first 8 frames must give the same bytes on
+     the card and on the CPU;
+  4. timings: K1 fetched and K2 against plain at 1080p mono, T = 16, from
+     the host and on the card alone, the kernels of a fetched chunk under
+     torch.profiler, the byte bound and an issue-rate estimate; the
+     segment copy alone; the scan at (16, 64800) counts (one per interval
+     and warp) beside torch.cumsum, and at 524,288, each timed from the
+     host and on the card alone; the Empty-sink (void) path at 1080p mono
+     and colour;
   5. the DVS lane kernel by rows (K3, adder_dvs_rows, on the carrier)
      against its plain version, bit for bit, each chunk WRITE and VOID with
      the caller's state updated in place: the raster chunks at 346x260
@@ -85,7 +97,8 @@ Phases (any failure raises and the script exits non-zero):
      resident engine's from phase 3, and the first 8 frames (two chunks of
      4, the display frame chained on the card) must give the same bytes and
      display frames on the card and on the CPU;
-  14. timings: K5 and K6 against plain at 1080p mono, mid-stream, with
+  14. timings: K5 (from the host, on the card alone and under
+     torch.profiler) and K6 against plain at 1080p mono, mid-stream, with
      their bounds; the slot engine's compaction glue per interval; each
      engine's Raw Mpx/s, stage breakdown and device busy share, and the
      resident engine's stage breakdown beside them;
@@ -101,8 +114,8 @@ Phases (any failure raises and the script exits non-zero):
      (the bench scene's smooth display frame has few corners); a checkpoint
      taken after chunk 2 and resumed in a fresh Video must continue the
      uninterrupted run's bytes and end on its display frame;
-  16. timings: K1 with and without the display at 1080p mono, T = 16, with
-     their bounds; fast_mask_torch per chunk; the features-on Raw wall
+  16. timings: K1 and K2 with and without the display at 1080p mono, T =
+     16, in turns, from the host and on the card alone, with their bounds; fast_mask_torch per chunk; the features-on Raw wall
      beside the features-off one; a stage breakdown of the features-on run.
 The sha256 of each whole output of a full-size run (the .adder files of
 phases 3, 6 and 9; the feature set and display frame of phase 15) is
@@ -302,13 +315,16 @@ def kernel_source(name: str) -> str:
     if "adder_resident_chunk_kernel" in name:
         return ("framed display (K1)" if re.search(r"ELb1E+v", name)
                 else "framed (K1/K2)")
+    if "adder_segment_copy_kernel" in name:
+        return "segment copy"
     return "other"
 
 
 # Every kernel entry the port counts (fused_resident.LAUNCHES), and every
 # chunk wrapper it has: the lane chunks go by rows only.
-CHUNK_KERNELS = {"adder_resident_chunk", "adder_exclusive_scan",
-                 "adder_dvs_rows", "adder_rows_group", "adder_davis_rows"}
+CHUNK_KERNELS = {"adder_resident_chunk", "adder_segment_copy",
+                 "adder_exclusive_scan", "adder_dvs_rows", "adder_rows_group",
+                 "adder_davis_rows"}
 CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows_resident",
                   "fused_chunk_resident", "group_chunk_resident"]
 
@@ -338,6 +354,134 @@ def ptxas_report(text: str) -> dict:
         elif cur and "Used" in line and "registers" in line:
             out[cur]["regs"] = int(line.split("Used")[1].split("registers")[0])
     return out
+
+
+def sass_lines(so_path, kernel: str) -> list:
+    """(address, predicated, opcode, branch target or None) of each SASS
+    instruction of one kernel of the library, from cuobjdump -sass."""
+    cuobjdump = os.path.join(os.path.dirname(shutil.which("nvcc") or
+                                             "/usr/local/cuda/bin/nvcc"),
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", "-fun", kernel, str(so_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    labels, out, pending = {}, [], []
+    for line in text.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                     r"(.*)", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        target = None
+        if m.group(3).split(".")[0] in ("BRA", "BRX", "JMP"):
+            t = re.search(r"\(\s*(\.L_x_\d+)\s*\)|(0x[0-9a-f]+)",
+                          m.group(4))
+            if t:
+                target = t.group(1) or int(t.group(2), 16)
+        out.append((addr, bool(m.group(2)), m.group(3), target))
+    return [(a, pr, op, labels.get(t, t) if isinstance(t, str) else t)
+            for a, pr, op, t in out]
+
+
+def loop_issue_estimate(so_path, kernel: str) -> dict:
+    """SASS instructions per iteration of a kernel's outermost loop (the
+    widest backward branch): `body`, every instruction between its head and
+    its back edge (all paths); `path`, the fewest instructions from the
+    head to the back edge that take no conditional forward branch spanning
+    more than half of the body (so the path runs the body's main work, such
+    as a pixel's interval, and skips only what a quiet interval skips)."""
+    ins = sass_lines(so_path, kernel)
+    back = [(a, t) for a, _, op, t in ins
+            if op.startswith("BRA") and isinstance(t, int) and t <= a]
+    if not back:
+        return {"body": 0, "path": 0}
+    end, head = max(back, key=lambda x: x[0] - x[1])
+    body = [x for x in ins if head <= x[0] <= end]
+    index = {a: i for i, (a, _, _, _) in enumerate(body)}
+    span = len(body)
+    inf = float("inf")
+    dist = [inf] * span
+    dist[0] = 1
+    for i, (a, pred, op, t) in enumerate(body):
+        if dist[i] == inf or i == span - 1:
+            continue
+        base = op.split(".")[0]
+        jumps = base in ("BRA", "BRX", "JMP") and isinstance(t, int)
+        # BRA.DIV jumps only where the warp has diverged
+        always = jumps and not pred and op != "BRA.DIV"
+        if (jumps and t > a and t in index
+                and (always or index[t] - i <= span // 2)):
+            j = index[t]
+            dist[j] = min(dist[j], dist[i] + 1)
+        if (base == "EXIT" and not pred) or always:
+            continue
+        dist[i + 1] = min(dist[i + 1], dist[i] + 1)
+    return {"body": span, "path": dist[-1] if dist[-1] < inf else 0}
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def issue_bound_ms(instructions: int, lane_steps: int) -> float:
+    """An estimate, not a bound the hardware guarantees: `instructions`
+    per lane step (one pixel-interval) issued at one warp instruction per
+    clock by each of the 132 SMs' 4 schedulers, 32 lanes each."""
+    return instructions * lane_steps / (132 * 4 * 32 * sm_clock_hz()) * 1e3
+
+
+def kernel_device_ms(fn, reps: int, names) -> dict:
+    """Device milliseconds per call of each kernel whose name contains one
+    of `names`, under torch.profiler over `reps` calls of fn (empty when
+    the profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for name in names:
+            if name in e.key and us:
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def k1_timings(FR, st, frames, p, run0=None, reps: int = 10, *,
+               event_cap: int) -> dict:
+    """K1 with its events fetched (the chunk: the one pass, the scan and the
+    segment copy, at capacity `event_cap`) and K2 (the Empty sink), each
+    from the host (`cuda_ms`) and on the card alone (`cuda_ms_queued`)."""
+
+    def fetched():
+        return FR.fused_chunk_resident(st, frames, 255.0, p, run0,
+                                       event_cap=event_cap)
+
+    def void():
+        return FR.group_chunk_resident(st, frames, 255.0, p, run0)
+
+    return {"fetched": cuda_ms(fetched, reps),
+            "fetched_queued": cuda_ms_queued(fetched, reps),
+            "void": cuda_ms(void, reps),
+            "void_queued": cuda_ms_queued(void, reps)}
 
 
 def bench_source(at, frames, device, chunk):
@@ -372,6 +516,41 @@ def transcode_raw(at, frames, device, path, chunk, keep_running=False,
         dt = time.perf_counter() - t0
     n_kernel = sum(int(p["outs"].per_interval.sum()) for p in pendings)
     return dt, n_kernel, video
+
+
+def no_sync_in_chunks(video) -> None:
+    """Make every chunk call of `video` raise on an operation that waits
+    for the card (torch.cuda.set_sync_debug_mode "error"): the chunk
+    launches its kernels and reads nothing back."""
+    run = video._run_chunk
+
+    def chunk(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    video._run_chunk = chunk
+
+
+def copy_inputs(FR, st, frames, p, cap: int):
+    """The arguments of `segment_copy` for one chunk: what the chunk kernel
+    staged, its counts and their scan (one launch each, as the wrapper
+    makes them)."""
+    staged = {}
+    orig = FR.segment_copy
+
+    def keep(*a):
+        staged["args"] = a
+        return orig(*a)
+
+    FR.segment_copy = keep
+    try:
+        FR.fused_chunk_resident(st, frames, 255.0, p, event_cap=cap)
+    finally:
+        FR.segment_copy = orig
+    return staged["args"]
 
 
 def void_mpx(at, frames, chunk, device) -> float:
@@ -1176,18 +1355,17 @@ def features_on(video, rate=False):
 
 
 class DisplayLaunches:
-    """Counts the launches of adder_resident_chunk that write the display (a
-    WRITE or VOID pass given `runnings`), at the C entry point the chunk
-    wrapper calls; LAUNCHES["adder_resident_chunk"] counts them with the
-    display-off ones. Undone by close()."""
+    """Counts the launches of adder_resident_chunk that write the display
+    (given `runnings`), at the C entry point the chunk wrapper calls;
+    LAUNCHES["adder_resident_chunk"] counts them with the display-off ones.
+    Undone by close()."""
 
     def __init__(self, lib, FR):
         self.n = 0
         self._lib, self._orig = lib, lib.adder_resident_chunk
 
         def entry(addr, stream):
-            a = FR._ChunkArgs.from_address(addr)
-            if a.runnings and a.pass_ != FR.PASS_COUNT:
+            if FR._ChunkArgs.from_address(addr).runnings:
                 self.n += 1
             return self._orig(addr, stream)
 
@@ -1345,26 +1523,21 @@ def features_phases(dev, card, scene, main_digest, st6, p):
             f16 = f16.contiguous()
             run0 = scene[T_CHUNK - 1].reshape(-1).contiguous()
             want = FR.fused_chunk_resident_plain(st6, f16, 255.0, p, run0)
+            cap = n * T_CHUNK
             err = max(
                 testing.compare_chunks(FR.fused_chunk_resident(
-                    st6, f16, 255.0, p, run0), want, "1080p display chunk"),
+                    st6, f16, 255.0, p, run0, event_cap=cap), want,
+                    "1080p display chunk"),
                 testing.compare_chunks(FR.group_chunk_resident(
                     st6, f16, 255.0, p, run0),
                     want._replace(pixd=None, t=None),
                     "1080p display void chunk"))
-            n_ev = len(want.pixd)
-            k_ms = cuda_ms(lambda: FR.fused_chunk_resident(st6, f16, 255.0,
-                                                           p), 10)
-            kd_ms = cuda_ms(lambda: FR.fused_chunk_resident(
-                st6, f16, 255.0, p, run0), 10)
-            k_ms2 = cuda_ms(lambda: FR.fused_chunk_resident(st6, f16, 255.0,
-                                                            p), 10)
-            kd_ms2 = cuda_ms(lambda: FR.fused_chunk_resident(
-                st6, f16, 255.0, p, run0), 10)
-            v_ms = cuda_ms(lambda: FR.group_chunk_resident(st6, f16, 255.0,
-                                                           p), 10)
-            vd_ms = cuda_ms(lambda: FR.group_chunk_resident(
-                st6, f16, 255.0, p, run0), 10)
+            n_ev = int(want.total)
+            # in turns: display off, on, off, on
+            off = k1_timings(FR, st6, f16, p, event_cap=cap)
+            on = k1_timings(FR, st6, f16, p, run0, event_cap=cap)
+            off2 = k1_timings(FR, st6, f16, p, event_cap=cap)
+            on2 = k1_timings(FR, st6, f16, p, run0, event_cap=cap)
             kdp_ms = cuda_ms(lambda: FR.fused_chunk_resident_plain(
                 st6, f16, 255.0, p, run0), 2)
             k_bound = chunk_bound(st6, [f16], n_ev)
@@ -1375,12 +1548,18 @@ def features_phases(dev, card, scene, main_digest, st6, p):
             fast_bound = bound(2 * T_CHUNK * n)
             log(f"# phase 16: K1 display == plain at 1080p mono T={T_CHUNK} "
                 f"mid-stream ({n_ev} events), fetched and void")
-            log(f"# phase 16: 1080p mono T={T_CHUNK} chunk [{card}]:")
-            log(f"#   K1 fetched (COUNT+scan+WRITE): display off {k_ms}, "
-                f"{k_ms2} ms (bound {k_bound} ms); display on {kd_ms}, "
-                f"{kd_ms2} ms (bound {kd_bound} ms); plain with the display "
-                f"{kdp_ms} ms")
-            log(f"#   K2 void: display off {v_ms} ms, on {vd_ms} ms")
+            log(f"# phase 16: 1080p mono T={T_CHUNK} chunk, in turns (display"
+                f" off, on, off, on) [{card}]:")
+            for what, key in (("K1 fetched (one pass + scan + copy)",
+                               "fetched"), ("K2 void", "void")):
+                log(f"#   {what}: from the host, display off "
+                    f"{off[key]}, {off2[key]} ms, on {on[key]}, {on2[key]} "
+                    f"ms; on the card alone, off {off[key + '_queued']}, "
+                    f"{off2[key + '_queued']} ms, on {on[key + '_queued']}, "
+                    f"{on2[key + '_queued']} ms")
+            log(f"#   bounds: fetched {k_bound} ms, with the display "
+                f"{kd_bound} ms; plain with the display {kdp_ms} ms")
+            kd_ms, k_ms = on["fetched"], off["fetched"]
             log(f"#   fast_mask_torch over ({T_CHUNK}, {H}, {W}): {fast_ms} "
                 f"ms (bytes bound {fast_bound} ms)")
 
@@ -1418,7 +1597,9 @@ def features_phases(dev, card, scene, main_digest, st6, p):
             "replaces": "adder_tpu/ops/fused_resident.py:676",
             "launches": launches["display"], "max_abs_err": err, "ms": kd_ms,
             "plain_ms": kdp_ms, "bound_ms": kd_bound, "bound_by": "bytes",
-            "library_ms": None, "display_off_ms": k_ms}
+            "library_ms": None, "display_off_ms": k_ms,
+            "queued_ms": on["fetched_queued"], "void_ms": on["void"],
+            "void_queued_ms": on["void_queued"]}
 
 
 def interval_phases(dev, card, scene, main_digest, st6, p):
@@ -1550,9 +1731,13 @@ def interval_phases(dev, card, scene, main_digest, st6, p):
     st8 = ops.pad_state_depth(st6, ops.DEPTH)
     cap = ops.K_SLOTS * n
 
-    def k5(fn, bufs, emit=True):
-        return fn(st6, frame, 255.0, torch.tensor(7, device=dev), bufs, p, 4,
-                  emit)
+    offset7 = torch.tensor(7, device=dev)  # made once, outside every clock
+
+    def k5(fn, bufs, emit=True, scratch=None):
+        if scratch is None:
+            return fn(st6, frame, 255.0, offset7, bufs, p, 4, emit)
+        return fn(st6, frame, 255.0, offset7, bufs, p, 4, emit,
+                  scratch=scratch)
 
     def new_bufs():
         return (torch.full((cap,), -1, dtype=torch.int32, device=dev),
@@ -1568,7 +1753,16 @@ def interval_phases(dev, card, scene, main_digest, st6, p):
                  testing.bitwise_max_err(got_b[0], want_b[0], "1080p K5 pixd"),
                  testing.bitwise_max_err(got_b[1], want_b[1], "1080p K5 t"))
     n_ev5 = int(want.offset) - 7
+    # from the host (each call zeroes its own look-back scratch), on the
+    # card alone with a scratch row zeroed beforehand for each call, and the
+    # kernel's own device time under torch.profiler
     k5_ms = cuda_ms(lambda: k5(FK.fused_interval, got_b), 20)
+    rows = iter(FK.new_scratch(n, dev, 21))
+    k5_q_ms = cuda_ms_queued(
+        lambda: k5(FK.fused_interval, got_b, scratch=next(rows)), 20)
+    k5_dev_ms = kernel_device_ms(lambda: k5(FK.fused_interval, got_b), 20,
+                                 ("adder_fused_interval_kernel",)).get(
+                                     "adder_fused_interval_kernel")
     k5p_ms = cuda_ms(lambda: k5(FK.fused_interval_plain, want_b), 2)
     # frame read; state read and written; run_val, run_has written; events
     k5_bound = bound(n + 2 * state_bytes(st6) + 2 * n + 8 * n_ev5)
@@ -1606,8 +1800,12 @@ def interval_phases(dev, card, scene, main_digest, st6, p):
     log(f"# phase 14: K5 == plain, K6 == plain at 1080p mono mid-stream "
         f"({n_ev5} and {n_ev6} events in the interval)")
     log(f"# phase 14: 1080p mono, one interval [{card}]:")
-    log(f"#   K5 (depth 6, pack 4, display) {k5_ms} ms, plain {k5p_ms} ms, "
-        f"bound {k5_bound} ms")
+    k5_alone = k5_dev_ms or k5_q_ms
+    log(f"#   K5 (depth 6, pack 4, display): from the host {k5_ms} ms, on "
+        f"the card alone {k5_q_ms} ms, the kernel under torch.profiler "
+        f"{k5_dev_ms} ms; plain {k5p_ms} ms, bound {k5_bound} ms: "
+        f"{k5_bound / k5_alone:.1%} of it on the card alone, "
+        f"{'over' if k5_alone > 2 * k5_bound else 'at most'} twice the bound")
     log(f"#   K6 (depth 8) {k6_ms} ms, plain {k6p_ms} ms, bound {k6_bound} ms")
     log(f"#   slot glue (pack 4, compact, merge; take {take}) {glue_ms} ms")
     log(f"# phase 14: 1080p mono T={T_CHUNK} chunk, device-only [{card}]: "
@@ -1620,7 +1818,8 @@ def interval_phases(dev, card, scene, main_digest, st6, p):
          "replaces": "adder_tpu/ops/fused_kernel.py:526",
          "launches": launches["adder_fused_interval"], "max_abs_err": k5_err,
          "ms": k5_ms, "plain_ms": k5p_ms, "bound_ms": k5_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None, "queued_ms": k5_q_ms,
+         "kernel_ms": k5_dev_ms},
         {"name": "adder_interval_slots", "route": "cuda",
          "source": "adder_tpu_torch/csrc/interval_slots.cu",
          "replaces": "adder_tpu/ops/pallas_kernel.py:114",
@@ -1656,9 +1855,9 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "framed display (K1)", "scan",
-                 "DVS rows (K3)", "DAVIS rows (K4)", "fused interval (K5)",
-                 "interval slots (K6)"):
+    for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
+                 "scan", "DVS rows (K3)", "DAVIS rows (K4)",
+                 "fused interval (K5)", "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
         if ks:
@@ -1669,9 +1868,23 @@ def main() -> int:
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
     for k, v in ptx.items():
-        if kernel_source(k) in ("DVS rows (K3)", "DAVIS rows (K4)", "scan",
-                                "other"):
+        if kernel_source(k) in ("framed (K1/K2)", "framed display (K1)",
+                                "segment copy", "DVS rows (K3)",
+                                "DAVIS rows (K4)", "scan", "other"):
             log(f"#   {k}: {v}")
+    # the bench mode's chunk kernel (depth 6, FramePerfect, Collapse,
+    # DeltaT, display off), events staged and not: its SASS per interval
+    k1_sass = {}
+    for k in ptx:
+        m = re.search(r"adder_resident_chunk_kernelILi6ELb1ELb1ELb0ELb([01])"
+                      r"ELb0E", k)
+        if m:
+            k1_sass["fetched" if m.group(1) == "1" else "void"] = \
+                loop_issue_estimate(cuda_build.library_path(), k)
+    log(f"# phase 1: K1 SASS per pixel-interval (cuobjdump -sass; the "
+        f"interval loop's body, all paths, and the fewest instructions "
+        f"through it that run the interval): {k1_sass}; SM clock "
+        f"{sm_clock_hz() / 1e6:.0f} MHz")
 
     # -- phase 2: kernels against plain, bit for bit ----------------------
     t0 = time.perf_counter()
@@ -1683,19 +1896,27 @@ def main() -> int:
         "exclusive scan",
     )
     scan_err = max(scan_err, testing.check_scan_against_plain(dev))
+    copy_err = testing.check_segment_copy_against_plain(dev)
     torch.cuda.synchronize()
-    log(f"# phase 2: kernels == plain on 8 modes x depth 6/8 x 2 chunks + "
-        f"forced overflow (max abs err {max_err}); scan == plain at "
-        f"{testing.SCAN_SIZES} counts, aligned and unaligned, "
-        f"and at (64, 24300) past 2^31 (max abs err {scan_err}); "
+    log(f"# phase 2: K1 (one pass, scan, segment copy) and K2 == plain on 8 "
+        f"modes x depth 6/8: 2 chained chunks of T = 8 at 200x150, and "
+        f"(H, W, T) {testing.EXTRA_CHUNKS}; forced depth-6 overflow; forced "
+        f"capacity overflow (total exact at a quarter of the events and at "
+        f"0, the staging pool dry; the rerun == plain) (max abs err "
+        f"{max_err}); scan == plain at {testing.SCAN_SIZES} counts, aligned "
+        f"and unaligned, and at (64, 24300) past 2^31 (max abs err "
+        f"{scan_err}); segment copy == plain on staging in shuffled slab "
+        f"order (61x47 ragged, no events, every pixel firing; small and "
+        f"kernel slabs; full and half capacity) (max abs err {copy_err}); "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     display_err = testing.check_display_against_plain(dev)
     torch.cuda.synchronize()
     log(f"# phase 2: K1 display == plain on 8 modes x depth 6/8 x 2 chained "
-        f"chunks of T = 8, the 4 view modes, from a seeded display frame, "
-        f"WRITE and VOID, forced depth-6 overflow (max abs err "
-        f"{display_err}); {time.perf_counter() - t0:.1f} s")
+        f"chunks of T = 8 and the extra chunks, the 4 view modes, from a "
+        f"seeded display frame, events fetched and not, forced depth-6 "
+        f"overflow (max abs err {display_err}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path at 1080p mono -----------------------------
     t0 = time.perf_counter()
@@ -1706,11 +1927,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "main.adder")
         FR.reset_launch_counts()
-        raw_s, n_kernel, _ = transcode_raw(at, frames, dev, path, T_CHUNK)
+        raw_s, n_kernel, _ = transcode_raw(at, frames, dev, path, T_CHUNK,
+                                           before=no_sync_in_chunks)
         launches = dict(FR.LAUNCHES)
         if min(launches["adder_resident_chunk"],
+               launches["adder_segment_copy"],
                launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"main path missed a kernel: {launches}")
+        # one pass over the state machine per chunk (no COUNT and WRITE
+        # passes: the argument block has no pass to choose) and one copy
+        if (launches["adder_resident_chunk"] != N_FRAMES // T_CHUNK
+                or launches["adder_segment_copy"] != N_FRAMES // T_CHUNK
+                or "pass_" in dict(FR._ChunkArgs._fields_)):
+            raise AssertionError(f"not one pass and one copy per chunk: "
+                                 f"{launches}")
         dec = at.open_file_decoder(path)
         events = dec.digest_all()
         n_decoded = len(events)
@@ -1744,20 +1974,25 @@ def main() -> int:
     p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
                             delta_t_max=255 * 24, c_thresh_max=0,
                             c_increase_velocity=1)
+    n = H * W
     f16 = scene[:T_CHUNK].reshape(T_CHUNK, -1).contiguous()
     st = ops.set_initial_d(
-        ops.init_state(H * W, dev, c_thresh=0, depth=6), f16[0].to(torch.int32)
+        ops.init_state(n, dev, c_thresh=0, depth=6), f16[0].to(torch.int32)
     )
     st = FR.group_chunk_resident(st, f16, 255.0, p).state  # mid-stream
     f16 = scene[T_CHUNK : 2 * T_CHUNK].reshape(T_CHUNK, -1).contiguous()
-    counts = torch.randint(0, 12, (T_CHUNK, -(-H * W // FR.BLOCK)),
+    # the scan's input on the main path: one count per (interval, warp)
+    counts = torch.randint(0, 12, (T_CHUNK, -(-n // 32)),
                            generator=gen, dtype=torch.int32).to(dev)
+    # the capacity Video gives a 1080p chunk: N x T events
+    cap = n * T_CHUNK
     # the kernels against plain once more, at the main path's shapes
     want = FR.fused_chunk_resident_plain(st, f16, 255.0, p)
+    got = FR.fused_chunk_resident(st, f16, 255.0, p, event_cap=cap)
+    n_ev = int(want.total)
     max_err = max(
         max_err,
-        testing.compare_chunks(FR.fused_chunk_resident(st, f16, 255.0, p),
-                               want, "1080p chunk"),
+        testing.compare_chunks(got, want, "1080p chunk"),
         testing.compare_chunks(FR.group_chunk_resident(st, f16, 255.0, p),
                                want._replace(pixd=None, t=None),
                                "1080p void chunk"),
@@ -1767,11 +2002,28 @@ def main() -> int:
         "1080p scan",
     ))
     log(f"# phase 4: kernels == plain at 1080p mono T={T_CHUNK} "
-        f"({len(want.pixd)} events)")
-    k_ms = cuda_ms(lambda: FR.fused_chunk_resident(st, f16, 255.0, p), 10)
+        f"({n_ev} events, capacity {cap})")
+    k1 = k1_timings(FR, st, f16, p, event_cap=cap)
+    k1_2 = k1_timings(FR, st, f16, p, event_cap=cap)
     p_ms = cuda_ms(lambda: FR.fused_chunk_resident_plain(st, f16, 255.0, p), 2)
-    v_ms = cuda_ms(lambda: FR.group_chunk_resident(st, f16, 255.0, p), 10)
     vp_ms = cuda_ms(lambda: FR.group_chunk_resident_plain(st, f16, 255.0, p), 2)
+    # each kernel of the fetched chunk on the card (torch.profiler)
+    parts = kernel_device_ms(
+        lambda: FR.fused_chunk_resident(st, f16, 255.0, p, event_cap=cap), 10,
+        ("adder_resident_chunk_kernel", "adder_exclusive_scan_kernel",
+         "adder_segment_copy_kernel"))
+    # the segment copy alone, on the staging of the chunk above
+    seg = copy_inputs(FR, st, f16, p, cap)
+    copy_err = max(copy_err, *(testing.bitwise_max_err(
+        g[:n_ev], w_[:n_ev], f"1080p segment copy {f}") for g, w_, f in zip(
+            FR.segment_copy(*seg), FR.segment_copy_plain(*seg), ("pixd", "t"))))
+    c_ms = cuda_ms(lambda: FR.segment_copy(*seg), 20)
+    c_q_ms = cuda_ms_queued(lambda: FR.segment_copy(*seg), 20)
+    cp_ms = cuda_ms(lambda: FR.segment_copy_plain(*seg), 2)
+    nonempty = int((seg[2] > 0).sum())
+    # counts and offsets read, the starts of non-empty segments read, each
+    # event's 8 staged bytes read and its 8 output bytes written
+    c_bound = bound(seg[2].numel() * 12 + nonempty * 8 + 16 * n_ev)
     # the scan beside the library yardstick, one torch.cumsum of the same
     # counts (int64): each the best of two loops, the scan's around cumsum's
     s_lib_ms = cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
@@ -1793,14 +2045,27 @@ def main() -> int:
     big_lib_ms = cuda_ms(lambda: torch.cumsum(cells, 0), 50)
     q_big_ms = cuda_ms_queued(lambda: FR.exclusive_scan(cells), 50)
     q_big_lib_ms = cuda_ms_queued(lambda: torch.cumsum(cells, 0), 50)
-    k_bound = chunk_bound(st, [f16], len(want.pixd))
+    k_bound = chunk_bound(st, [f16], n_ev)
     v_bound = chunk_bound(st, [f16], 0)
+    k_issue = {k: issue_bound_ms(v["path"], n * T_CHUNK)
+               for k, v in k1_sass.items()}
     s_bound = bound(counts.numel() * 4 + (counts.numel() + 1) * 8)
     log(f"# phase 4: 1080p mono T={T_CHUNK} chunk [{card}]:")
-    log(f"#   fetched chunk (COUNT+scan+WRITE) {k_ms} ms, plain {p_ms} ms, "
-        f"bound {k_bound} ms; void chunk {v_ms} ms, plain {vp_ms} ms, bound "
-        f"{v_bound} ms")
-    log(f"#   scan of (16, 8100) counts, {FR.SCAN_TILE} a block: {s_ms} ms "
+    log(f"#   K1 fetched chunk (one pass + scan + segment copy): from the "
+        f"host {k1['fetched']}, {k1_2['fetched']} ms; on the card alone "
+        f"{k1['fetched_queued']}, {k1_2['fetched_queued']} ms; plain {p_ms} "
+        f"ms; bytes bound {k_bound} ms; issue estimate "
+        f"{k_issue.get('fetched')} ms ({k1_sass.get('fetched')} SASS)")
+    log(f"#   its kernels on the card (torch.profiler, per chunk): {parts}")
+    log(f"#   K2 void chunk: from the host {k1['void']}, {k1_2['void']} ms; "
+        f"on the card alone {k1['void_queued']}, {k1_2['void_queued']} ms; "
+        f"plain {vp_ms} ms; bytes bound {v_bound} ms; issue estimate "
+        f"{k_issue.get('void')} ms ({k1_sass.get('void')} SASS)")
+    log(f"#   segment copy ({seg[2].numel()} segments, {nonempty} non-empty, "
+        f"{n_ev} events): {c_ms} ms from the host, {c_q_ms} ms on the card "
+        f"alone, plain {cp_ms} ms, bound {c_bound} ms")
+    log(f"#   scan of {tuple(counts.shape)} counts, {FR.SCAN_TILE} a block: "
+        f"{s_ms} ms "
         f"(best of two loops of 50; its scratch memset included, alone "
         f"{zero_ms} ms), plain {sp_ms} ms, torch.cumsum {s_lib_ms} ms, bound "
         f"{s_bound} ms")
@@ -1811,8 +2076,8 @@ def main() -> int:
         f"{big_lib_ms} ms; on the card alone {q_big_ms} ms, "
         f"torch.cumsum {q_big_lib_ms} ms; bound "
         f"{bound(cells.numel() * 4 + (cells.numel() + 1) * 8)} ms")
-    log(f"#   device-only: void {H * W * T_CHUNK / v_ms / 1e3} Mpx/s, "
-        f"fetched {H * W * T_CHUNK / k_ms / 1e3} Mpx/s")
+    log(f"#   device-only: void {n * T_CHUNK / k1['void_queued'] / 1e3} "
+        f"Mpx/s, fetched {n * T_CHUNK / k1['fetched_queued'] / 1e3} Mpx/s")
     mono = void_mpx(at, frames, T_CHUNK, dev)
     scene_c = torch.stack(
         [testing.moving_blobs(H, W, N_FRAMES, seed=s, device=dev)
@@ -1821,6 +2086,7 @@ def main() -> int:
     color = void_mpx(at, scene_c, T_CHUNK, dev)
     log(f"# phase 4: void path (host frames in, Empty sink) 1080p mono "
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
+    k_ms, k_q_ms = k1["fetched"], k1["fetched_queued"]
 
     rows_err, dvs_launches, k3r, glue = dvs_phases(dev, card)
     k4, raster, davis_launches = davis_phases(dev, card)
@@ -1834,8 +2100,20 @@ def main() -> int:
          "replaces": "adder_tpu/ops/fused_resident.py:676",
          "launches": launches["adder_resident_chunk"],
          "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-         "bound_ms": k_bound, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": k_bound, "bound_by": "bytes", "library_ms": None,
+         "queued_ms": k_q_ms, "kernel_ms": parts.get(
+             "adder_resident_chunk_kernel"),
+         "issue_estimate_ms": k_issue.get("fetched"),
+         "void_ms": k1["void"], "void_queued_ms": k1["void_queued"],
+         "void_plain_ms": vp_ms, "void_bound_ms": v_bound},
         k1_display,
+        {"name": "adder_segment_copy", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/fused_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:676",
+         "launches": launches["adder_segment_copy"],
+         "max_abs_err": copy_err, "ms": c_ms, "plain_ms": cp_ms,
+         "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
+         "queued_ms": c_q_ms},
         {"name": "adder_exclusive_scan", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",

@@ -72,9 +72,51 @@ def test_video_cuda_bytes_equal_cpu(cuda, channels):
     frames = frames.reshape(12, 17, 33, channels)
     FR.reset_launch_counts()
     on_card = _raw_bytes(frames, cuda)
-    assert FR.LAUNCHES["adder_resident_chunk"] == 6  # COUNT + WRITE x 3
+    # one pass and one segment copy per chunk, x 3
+    assert FR.LAUNCHES["adder_resident_chunk"] == 3
+    assert FR.LAUNCHES["adder_segment_copy"] == 3
     assert on_card == _raw_bytes(frames, "cpu")
     assert len(on_card) > 1000
+
+
+def test_segment_copy_matches_plain(cuda):
+    """The segment copy kernel against its plain version on staging in
+    shuffled slab order: a ragged plane, a chunk with no events, every
+    pixel firing; small and kernel slabs; full and half capacity."""
+    FR.reset_launch_counts()
+    assert testing.check_segment_copy_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_segment_copy"] == 3 * 2 * 2
+
+
+def test_capacity_overflow_keeps_total_and_reruns(cuda):
+    """Every pixel fires: at a quarter of the events and at none (the
+    staging pool dry) the total stays exact; the rerun equals plain."""
+    assert testing.check_capacity_overflow(cuda) == 0.0
+
+
+def test_resident_chunks_never_wait_for_the_card(cuda):
+    """The resident engine's chunk calls (with the display and without)
+    launch their kernels and read nothing back: under
+    torch.cuda.set_sync_debug_mode("error") they run to the end."""
+    frames = testing.walk_frames(3, 8, 33 * 17).reshape(8, 17, 33, 1)
+    for keep in (False, True):
+        v = at.Video(at.PlaneSize(33, 17, 1), at.Mode.FramePerfect,
+                     device=cuda)
+        v._keep_running_frame = keep
+        run = v._run_chunk
+
+        def chunk(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        v._run_chunk = chunk
+        v.submit_chunk(frames[:4])
+        v.submit_chunk(frames[4:])
+        v.flush()
+        assert v.in_interval_count == 8
 
 
 def test_cuda_wrapper_rejects_bad_input(cuda):
@@ -83,9 +125,10 @@ def test_cuda_wrapper_rejects_bad_input(cuda):
     frames = torch.zeros((3, 32), dtype=torch.uint8, device=cuda)
     p = FR.ops.TranscodeParams()
     with pytest.raises(ValueError):
-        FR.fused_chunk_resident(st, frames.to(torch.int32), 255.0, p)
+        FR.fused_chunk_resident(st, frames.to(torch.int32), 255.0, p,
+                                event_cap=96)
     with pytest.raises(ValueError):
-        FR.fused_chunk_resident(st, frames[:, :16], 255.0, p)
+        FR.fused_chunk_resident(st, frames[:, :16], 255.0, p, event_cap=48)
     cpu_state = st._replace(length=st.length.cpu())
     with pytest.raises(ValueError):
         FR.group_chunk_resident(cpu_state, frames, 255.0, p)
@@ -108,7 +151,8 @@ def test_display_wrapper_rejects_bad_run0(cuda):
                  torch.zeros(31, dtype=torch.uint8, device=cuda),
                  torch.zeros(32, dtype=torch.uint8)):
         with pytest.raises(ValueError):
-            FR.fused_chunk_resident(st, frames, 255.0, p, run0)
+            FR.fused_chunk_resident(st, frames, 255.0, p, run0,
+                                    event_cap=96)
 
 
 def _features_run(frames, device, rate: bool):
@@ -152,7 +196,9 @@ def test_features_video_cuda_equals_cpu(cuda, env, rate, monkeypatch):
     FR.reset_launch_counts()
     card = _features_run(frames, cuda, rate)
     if env is None:
-        assert FR.LAUNCHES["adder_resident_chunk"] == 6  # COUNT + WRITE x 3
+        # one pass and one segment copy per chunk, x 3
+        assert FR.LAUNCHES["adder_resident_chunk"] == 3
+        assert FR.LAUNCHES["adder_segment_copy"] == 3
     cpu = _features_run(frames, "cpu", rate)
     assert card[0] == cpu[0] and len(card[0]) > 1000
     assert len(card[1]) == len(cpu[1]) == 3

@@ -13,6 +13,8 @@ N 512, T 3). Tolerances:
   contract a product and a sum differently on rounding near-ties.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,6 +59,11 @@ def _jax_state(frames, depth=K.DEPTH):
 
 def _port_chunk(st, frames, pp, fn=FR.fused_chunk_resident_plain):
     return fn(st, torch.from_numpy(frames), 255.0, pp)
+
+
+# The fetched chunk's wrapper at a capacity no chunk of N x T exceeds
+_fetched = functools.partial(FR.fused_chunk_resident,
+                             event_cap=P.K_SLOTS * N * T)
 
 
 def _u32(x):
@@ -155,19 +162,21 @@ def test_forced_depth6_overflow_sets_flag():
 
 @pytest.mark.parametrize("depth", [6, 8])
 def test_void_pass_equals_write_pass(depth):
-    """The Empty-sink chunk gives the fetched chunk's state, counts and
-    flags."""
+    """The Empty-sink chunk (the kernel without its staging) gives the
+    fetched chunk's state, counts, total and flags, through the wrappers;
+    the total counts the fetched chunk's events."""
     rng = np.random.default_rng(11)
     frames = _frames(rng)
     for mode, multi, tm in MODE_CASES:
         _, pp = _params(mode, multi, tm)
         st = P.set_initial_d(P.init_state(N, "cpu", depth=depth),
                              torch.from_numpy(frames[0].astype(np.int32)))
-        w = _port_chunk(st, frames, pp, FR.fused_chunk_resident_plain)
-        v = _port_chunk(st, frames, pp, FR.group_chunk_resident_plain)
+        w = _port_chunk(st, frames, pp, _fetched)
+        v = _port_chunk(st, frames, pp, FR.group_chunk_resident)
         assert v.pixd is None and v.t is None
         assert torch.equal(w.per_interval, v.per_interval)
-        assert int(w.per_interval.sum()) == len(w.pixd)
+        assert int(w.per_interval.sum()) == len(w.pixd) == len(w.t)
+        assert int(v.total) == int(w.total) == len(w.pixd)
         assert int(w.pmax) == int(v.pmax)
         for a, b in zip(w.state, v.state):
             assert torch.equal(a, b)
@@ -179,7 +188,7 @@ def test_wrappers_run_plain_on_cpu_tensors():
     st = P.set_initial_d(P.init_state(N, "cpu", depth=6),
                          torch.from_numpy(frames[0].astype(np.int32)))
     FR.reset_launch_counts()
-    w = _port_chunk(st, frames, pp, FR.fused_chunk_resident)
+    w = _port_chunk(st, frames, pp, _fetched)
     v = _port_chunk(st, frames, pp, FR.group_chunk_resident)
     ref = _port_chunk(st, frames, pp)
     assert set(FR.LAUNCHES.values()) == {0}
@@ -196,8 +205,88 @@ def test_wrappers_run_plain_on_cpu_tensors():
 
 def test_kernel_check_harness_runs_on_cpu():
     """chip_smoke.py's kernel-against-plain check, on CPU tensors (where
-    both sides are the plain version): the harness itself runs clean."""
-    assert testing.check_kernels_against_plain("cpu", H=5, W=7, T=3) == 0.0
+    both sides are the plain version): the harness itself runs clean, its
+    extra chunks (one interval; a ragged plane) and the capacity overflow
+    included."""
+    assert testing.check_kernels_against_plain(
+        "cpu", H=5, W=7, T=3, extra=((3, 5, 1), (4, 9, 4))) == 0.0
+
+
+# --- the segment copy: staged events back into reference order ------------
+
+
+@pytest.fixture(scope="module")
+def copy_cases():
+    return {name: (res, n) for name, res, n in testing.segment_copy_cases()}
+
+
+@pytest.mark.parametrize("slab", ["largest segment", "kernel"])
+@pytest.mark.parametrize("case", ["walk", "no events", "every pixel fires"])
+def test_segment_copy_plain_restores_reference_order(copy_cases, case, slab):
+    """The plain chunk's events, staged in slabs taken by the warps in a
+    shuffled order (as the one-pass kernel's atomics hand them out), come
+    back from `segment_copy_plain` in exactly the plain chunk's order, on a
+    47 x 61 plane whose last warp holds 19 pixels. With slabs as small as
+    the largest segment most segments run over into a second slab."""
+    res, n = copy_cases[case]
+    counts = testing.segment_counts(res, n)
+    assert counts.shape == (2 if case == "no events" else 8, 90)
+    size = max(int(counts.max()), 1) if slab != "kernel" else (
+        FR.slab_entries(6))
+    stage, seg_start, counts_t, link = testing.stage_segments(res, n, size,
+                                                              seed=3)
+    total = int(res.total)
+    assert (total == 0) == (case == "no events")
+    if case == "every pixel fires":
+        assert (counts[1:] > 0).all()  # every warp, every interval
+    if case == "walk" and slab != "kernel":
+        assert (link >= 0).sum() > 10  # segments that run over
+    offsets = FR.exclusive_scan_plain(counts_t)
+    flags = torch.zeros(3, dtype=torch.int32)
+    pixd, t = FR.segment_copy(stage, seg_start, counts_t, offsets, link,
+                              size, total, flags)
+    assert torch.equal(pixd, res.pixd) and torch.equal(t, res.t)
+    # a smaller capacity keeps the prefix; a staging overflow writes nothing
+    half = total // 2
+    pixd, t = FR.segment_copy_plain(stage, seg_start, counts_t, offsets,
+                                    link, size, half, flags)
+    assert torch.equal(pixd, res.pixd[:half]) and torch.equal(t, res.t[:half])
+    flags[2] = 1
+    pixd, _ = FR.segment_copy_plain(stage, seg_start, counts_t, offsets, link,
+                                    size, total, flags)
+    assert not pixd.any()
+
+
+def test_staging_order_is_shuffled(copy_cases):
+    """The staging the copy tests start from is not the reference order:
+    the seeded interleaving of the warps moves segments apart."""
+    res, n = copy_cases["walk"]
+    stage, _, _, _ = testing.stage_segments(res, n, 64, seed=3)
+    staged = stage[stage >= 0].view(torch.int32).view(-1, 2)[:, 0]
+    assert len(staged) == len(res.pixd)
+    assert not torch.equal(staged, res.pixd)
+    assert torch.equal(staged.sort().values, res.pixd.sort().values)
+
+
+def test_segment_copy_check_harness_runs_on_cpu():
+    """chip_smoke.py's segment-copy check, on CPU tensors."""
+    assert testing.check_segment_copy_against_plain("cpu") == 0.0
+
+
+def test_capacity_overflow_keeps_the_total():
+    """A chunk whose every pixel fires, given too small a capacity: the
+    total stays exact (the harness of the card's check, on the CPU), and
+    the plain version's total is its events."""
+    assert testing.check_capacity_overflow("cpu", H=15, W=20) == 0.0
+    n, T = 15 * 20, 32
+    frames = torch.from_numpy(testing.firing_frames(T, n))
+    st = P.set_initial_d(P.init_state(n, "cpu", c_thresh=0, depth=6),
+                         frames[0].to(torch.int32))
+    pp = P.TranscodeParams(mode=1, multi_mode=0, time_mode=1, ref_time=255,
+                           delta_t_max=255, c_thresh_max=0,
+                           c_increase_velocity=1)
+    res = FR.fused_chunk_resident(st, frames, 255.0, pp, event_cap=n)
+    assert int(res.total) == len(res.pixd) > n  # past the capacity
 
 
 # --- the display output (emit_running) ---------------------------------------
@@ -282,20 +371,22 @@ def test_run0_guard_and_no_display_without_it():
     frames = torch.from_numpy(_frames(np.random.default_rng(4)))
     st = P.set_initial_d(P.init_state(N, "cpu", depth=6),
                          frames[0].to(torch.int32))
-    assert FR.fused_chunk_resident(st, frames, 255.0, pp).runnings is None
+    assert _fetched(st, frames, 255.0, pp).runnings is None
     assert FR.group_chunk_resident(st, frames, 255.0, pp).runnings is None
     for bad in (torch.zeros(N, dtype=torch.int32),
                 torch.zeros(N - 1, dtype=torch.uint8),
                 torch.zeros((1, N), dtype=torch.uint8)):
-        for fn in (FR.fused_chunk_resident, FR.group_chunk_resident):
+        for fn in (_fetched, FR.group_chunk_resident):
             with pytest.raises(ValueError):
                 fn(st, frames, 255.0, pp, bad)
     run0 = torch.zeros(N, dtype=torch.uint8)
-    got = FR.fused_chunk_resident(st, frames, 255.0, pp, run0)
+    got = _fetched(st, frames, 255.0, pp, run0)
     want = FR.fused_chunk_resident_plain(st, frames, 255.0, pp)
     assert torch.equal(got.pixd, want.pixd)  # the display changes no event
 
 
 def test_display_check_harness_runs_on_cpu():
-    """chip_smoke.py's display-against-plain check, on CPU tensors."""
-    assert testing.check_display_against_plain("cpu", H=5, W=7, T=3) == 0.0
+    """chip_smoke.py's display-against-plain check, on CPU tensors, with
+    small extra chunks."""
+    assert testing.check_display_against_plain(
+        "cpu", H=5, W=7, T=3, extra=((3, 5, 1), (4, 9, 4))) == 0.0

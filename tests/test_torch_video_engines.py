@@ -151,6 +151,45 @@ def test_capacity_and_pack_reruns(engine, monkeypatch):
     np.testing.assert_array_equal(outs[1][1], outs[0][1])
 
 
+def test_resident_capacity_rerun(monkeypatch):
+    """The resident engine's capacity contract: with the full-capacity
+    shortcut off a chunk starts at N x T events, content that swings every
+    pixel past its threshold overflows it, and with two chunks in flight
+    the overflowing chunk reruns from its pre-chunk state at a doubled
+    capacity. `_cap_mult` grows; the bytes and the display after every
+    chunk equal adder_tpu's."""
+    monkeypatch.delenv("ADDER_TPU_RESIDENT", raising=False)
+    monkeypatch.delenv("ADDER_TPU_FUSED", raising=False)
+    monkeypatch.setattr(TV, "FULL_CAP_VOLUME", 0)
+    caps = []
+    orig = TV.fused_resident.fused_chunk_resident
+
+    def chunk(state, frames, time, p, run0=None, *, event_cap):
+        res = orig(state, frames, time, p, run0, event_cap=event_cap)
+        caps.append((event_cap, int(res.total)))
+        return res
+
+    monkeypatch.setattr(TV.fused_resident, "fused_chunk_resident", chunk)
+    frames = synth_frames(16, 10, 12, 1, seed=5)
+    frames[1::2] = 255 - frames[1::2]  # every pixel crosses its threshold
+    plane = PlaneSize(12, 10, 1)
+    outs = []
+    for cls, kw in ((JaxVideo, {}), (Video, {"device": "cpu"})):
+        buf = io.BytesIO()
+        v = _video(cls, plane, buf, 4, Mode.Continuous, PixelMultiMode.Normal,
+                   dtm_mult=1, c0=0, **kw)
+        shown = _submit_all(v, frames, 4)
+        outs.append((buf.getvalue(), shown))
+    assert v.engine == "resident" and v._cap_mult > 1
+    n_t = 12 * 10 * 4
+    assert caps[0][0] == n_t and caps[0][1] > n_t  # the first chunk overflows
+    reruns = [c for c, _ in caps if c > n_t]
+    assert reruns and all(c % n_t == 0 for c in reruns)
+    assert all(total <= cap for cap, total in caps if cap > n_t)
+    assert len(outs[0][0]) > 1000 and outs[0][0] == outs[1][0]
+    np.testing.assert_array_equal(outs[1][1], outs[0][1])
+
+
 def test_resume_from_jax_depth8_state(engine):
     """adder_tpu transcodes the first chunk; the port's engine takes its
     depth-8 state (through numpy) and its display frame and transcodes the

@@ -3,10 +3,24 @@
 The port of `adder_tpu` (JAX on a TPU) to PyTorch and an NVIDIA H100. This
 package imports torch and never jax, and nothing of `adder_tpu`: the host
 modules it needs (core types, the codec, the native planners, the aedat4
-container, EDI) are copies of the JAX package's, each naming its source.
+container, EDI, the ffmpeg decoder, the host framer, the player) are copies
+of the JAX package's, each naming its source.
 
 Layers, entry point first:
-  transcoder/framed.py    FramedArray: (T, H, W, C) u8 frames -> Video
+  models/simulproc.py     SimulProcessor: a framed source transcoded on the
+                          card while a host thread frames its events
+  models/player.py        AdderPlayer: .adder -> paced frames (host framer)
+  models/live_transcoder.py  LiveTranscoder: chunked transcode, live params
+  models/adder_to_dvs.py  .adder -> DVS polarity events (host numpy)
+  framer/device.py        DeviceFramer: events -> frames in torch ops on the
+                          card, values converted on the host at pop
+  framer/driver.py        FramerBuilder, FrameSequence: the host framer,
+                          its ingest the native walk (framer/native_ingest.py,
+                          ops/native/framer_fill.cpp)
+  framer/scale_intensity.py  (d, delta_t) -> frame values, f64
+  transcoder/framed.py    FramedArray: (T, H, W, C) u8 frames -> Video;
+                          Framed, FramedStream: a video file (ffmpeg through
+                          transcoder/ffdec.py, or cv2) -> Video
   transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks (K3)
   transcoder/davis.py     Davis: DAVIS packets (APS frames + DVS events)
                           -> lane chunks (K4) and frame chunks (K3)
@@ -36,8 +50,11 @@ from .core.types import (  # noqa: F401
     SourceCamera,
     TimeMode,
 )
+from .framer.device import DeviceFramer  # noqa: F401
+from .framer.driver import FramerBuilder, FrameSequence  # noqa: F401
+from .models.simulproc import SimulProcessor  # noqa: F401
 from .transcoder.davis import Davis, TranscoderMode  # noqa: F401
 from .transcoder.edi import EdiReconstructor  # noqa: F401
-from .transcoder.framed import FramedArray  # noqa: F401
+from .transcoder.framed import Framed, FramedArray, FramedStream  # noqa: F401
 from .transcoder.prophesee import Prophesee  # noqa: F401
 from .transcoder.video import Video  # noqa: F401

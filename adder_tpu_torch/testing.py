@@ -1128,3 +1128,32 @@ def check_interval_slots_against_plain(device, H: int = 150, W: int = 200,
         else:
             e = max(e, bitwise_max_err(a, b, f"slot chunk {f}"))
     return max(err, e)
+
+
+def framer_chains(plane, k_per_px: int, dtm: int, seed, absolute: bool):
+    """Seeded per-pixel event chains for the framers, honouring delta_t_max:
+    every gap (and the first event) is within `dtm` ticks, each chain cut
+    where the shortest one ends (so no pixel falls silent), in time order
+    across pixels. `plane` is (W, H, C). Returns the (x, y, c, d, t) numpy
+    arrays of an EventArray (t absolute or per-pixel deltas), about 5% of
+    the events D_EMPTY."""
+    rng = np.random.default_rng(seed)
+    W, H, C = plane
+    npx = W * H * C
+    gaps = rng.integers(1, dtm, (npx, k_per_px)).astype(np.uint64)
+    t_abs = np.cumsum(gaps, axis=1)
+    end = t_abs[:, -1].min()
+    pix = np.repeat(np.arange(npx), k_per_px)
+    t_abs, gaps = t_abs.reshape(-1), gaps.reshape(-1)
+    live = t_abs <= end
+    pix, t_abs, gaps = pix[live], t_abs[live], gaps[live]
+    order = np.argsort(t_abs, kind="stable")
+    pix = pix[order]
+    x = ((pix // C) % W).astype(np.uint16)
+    y = ((pix // C) // W).astype(np.uint16)
+    c = ((pix % C).astype(np.uint8) if C > 1
+         else np.full(len(pix), 255, np.uint8))
+    d = rng.integers(0, 32, len(pix)).astype(np.uint8)
+    d[rng.random(len(pix)) < 0.05] = 255  # D_EMPTY fillers
+    t = (t_abs if absolute else gaps)[order].astype(np.uint32)
+    return x, y, c, d, t

@@ -1,15 +1,21 @@
-"""FAST features and colour conversion.
+"""FAST features, colour conversion and quality metrics.
 
 Copies from `adder_tpu/utils/cv.py` (ref: adder-codec-rs src/utils/cv.rs):
 `CIRCLE3`, `INTENSITY_THRESHOLD`, `STREAK_SIZE`, `is_feature`, `_streak`,
 `fast_mask` and `_streak_mask` (the FAST-9/16 corner test, scalar and dense
-numpy), and `handle_color` (the DAVIS path's EDI reconstructor). New here:
+numpy), `handle_color` (the DAVIS path's EDI reconstructor),
+`handle_color_rgb_videors` and `handle_color_videors` (the file sources'
+conversions), and `QualityMetrics`, `calculate_quality_metrics`,
+`calculate_mse`, `calculate_psnr` and `calculate_ssim`. New here:
 `fast_mask_torch`, the counterpart of `fast_mask_jax` in torch ops on the
 caller's device, batched over a leading axis, which the feature pipeline of
 `Video` runs over a chunk's display frames.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -131,3 +137,109 @@ def handle_color(frame_bgr: np.ndarray, color: bool) -> np.ndarray:
         + frame_bgr[..., 2].astype(np.float64) * 0.299
     )
     return gray.astype(np.uint8)[..., None]
+
+
+def handle_color_rgb_videors(frame_rgb: np.ndarray, color: bool) -> np.ndarray:
+    """The framed-source conversion applied to frames already in video-rs
+    RGB order (the native ffmpeg decode path): coefficients
+    (0.114, 0.587, 0.299) land on channels (0, 1, 2) exactly as the
+    reference computes them (ref: cv.rs:215-232 via framed.rs:128), i.e.
+    the 0.114 weight on RED — truncating, not rounding. Color passthrough
+    keeps RGB (the reference's channel order for color transcodes)."""
+    if color:
+        return frame_rgb
+    gray = (
+        frame_rgb[..., 0].astype(np.float64) * 0.114
+        + frame_rgb[..., 1].astype(np.float64) * 0.587
+        + frame_rgb[..., 2].astype(np.float64) * 0.299
+    )
+    return gray.astype(np.uint8)[..., None]
+
+
+def handle_color_videors(frame_bgr: np.ndarray, color: bool) -> np.ndarray:
+    """The framed-source conversion, reference-faithful to a quirk that is
+    golden-pinned against the committed `lake_scaled_out`: the reference
+    applies coefficients (0.114, 0.587, 0.299) to channels (0, 1, 2) of
+    frames that video-rs delivers in RGB order, so the 0.114 weight lands
+    on RED (truncated, not rounded). cv2 delivers BGR, so the weights are
+    mirrored here to reproduce the same bytes. Only the mp4 framed source
+    uses this; other BGR inputs use the ITU-correct handle_color."""
+    if color:
+        return frame_bgr
+    b = frame_bgr[..., 0].astype(np.float64)
+    g = frame_bgr[..., 1].astype(np.float64)
+    r = frame_bgr[..., 2].astype(np.float64)
+    gray = 0.114 * r + 0.587 * g + 0.299 * b
+    return gray.astype(np.uint8)[..., None]
+
+
+# --- quality metrics (ref: cv.rs:282-429) -----------------------------------
+
+
+@dataclass
+class QualityMetrics:
+    psnr: Optional[float] = 0.0
+    mse: Optional[float] = 0.0
+    ssim: Optional[float] = None
+
+
+def calculate_quality_metrics(
+    original: np.ndarray, reconstructed: np.ndarray, results: QualityMetrics
+) -> QualityMetrics:
+    if original.shape != reconstructed.shape:
+        raise ValueError("shapes must match")
+    mse = calculate_mse(original, reconstructed)
+    if mse == 0.0:
+        mse = 1e-7  # keep PSNR defined (ref: cv.rs:316-319)
+    if results.mse is not None:
+        results.mse = mse
+    if results.psnr is not None:
+        results.psnr = calculate_psnr(mse)
+    if results.ssim is not None:
+        results.ssim = calculate_ssim(original, reconstructed)
+    return results
+
+
+def calculate_mse(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+
+
+def calculate_psnr(mse: float) -> float:
+    return 20.0 * np.log10(255.0) - 10.0 * np.log10(mse)
+
+
+_WINDOW = 8
+_C1 = (0.01 * 255.0) ** 2
+_C2 = (0.03 * 255.0) ** 2
+
+
+def calculate_ssim(original: np.ndarray, reconstructed: np.ndarray) -> float:
+    """Sliding 8x8-window SSIM averaged over channels, scaled to [0, 100].
+
+    Matches the reference's formulation (ref: cv.rs:353-429), including its
+    use of raw (un-normalized) sums for variance/covariance.
+    """
+    scores = []
+    for c in range(original.shape[2]):
+        a = original[..., c].astype(np.float64)
+        b = reconstructed[..., c].astype(np.float64)
+        mu_a = _win_mean(a)
+        mu_b = _win_mean(b)
+        n = _WINDOW * _WINDOW
+        # reference covariance = sum((x-mx)(y-my)) without dividing by n
+        var_a = (_win_mean(a * a) - mu_a**2) * n
+        var_b = (_win_mean(b * b) - mu_b**2) * n
+        cov = (_win_mean(a * b) - mu_a * mu_b) * n
+        num = (2 * mu_a * mu_b + _C1) * (2 * cov + _C2)
+        den = (mu_a**2 + mu_b**2 + _C1) * (var_a + var_b + _C2)
+        scores.append(float(np.mean(num / den)))
+    return float(np.mean(scores)) * 100.0
+
+
+def _win_mean(x: np.ndarray) -> np.ndarray:
+    """Mean over all sliding 8x8 windows via integral image."""
+    ii = np.zeros((x.shape[0] + 1, x.shape[1] + 1))
+    ii[1:, 1:] = np.cumsum(np.cumsum(x, axis=0), axis=1)
+    w = _WINDOW
+    s = ii[w:, w:] - ii[:-w, w:] - ii[w:, :-w] + ii[:-w, :-w]
+    return s / (w * w)

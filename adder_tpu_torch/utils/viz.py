@@ -1,13 +1,14 @@
-"""Feature markers and rectangles on a display frame.
+"""Feature markers and rectangles on a display frame, and frames to a video file.
 
-Copy of `ShowFeatureMode`, `draw_feature_coord` and `draw_rect` from
-`adder_tpu/utils/viz.py` (ref: adder-codec-rs src/utils/viz.rs), the part
-of that module the feature pipeline of `Video` draws with.
+Copy of `adder_tpu/utils/viz.py` (ref: adder-codec-rs src/utils/viz.rs):
+`ShowFeatureMode`, `draw_feature_coord` and `draw_rect`, which the feature
+pipeline of `Video` draws with, and `write_frames_to_video`.
 """
 
 from __future__ import annotations
 
 import enum
+import pathlib
 
 import numpy as np
 
@@ -55,3 +56,29 @@ def draw_rect(
     for yy in range(y0, y1 + 1):
         put(yy, x0)
         put(yy, x1)
+
+
+def write_frames_to_video(
+    frames: np.ndarray, path: str, fps: float = 30.0
+) -> bool:
+    """Write (T, H, W[, C]) uint8 frames to an mp4 via cv2
+    (replaces the reference's ffmpeg shell-out, viz.rs:45-54)."""
+    try:
+        import cv2
+    except ImportError:
+        return False
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = frames[..., None]
+    T, H, W, C = frames.shape
+    fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+    vw = cv2.VideoWriter(str(path), fourcc, fps, (W, H), isColor=True)
+    if not vw.isOpened():
+        return False
+    for t in range(T):
+        f = frames[t]
+        if C == 1:
+            f = np.repeat(f, 3, axis=2)
+        vw.write(f)
+    vw.release()
+    return pathlib.Path(path).exists()

@@ -116,11 +116,36 @@ Phases (any failure raises and the script exits non-zero):
      uninterrupted run's bytes and end on its display frame;
   16. timings: K1 and K2 with and without the display at 1080p mono, T =
      16, in turns, from the host and on the card alone, with their bounds; fast_mask_torch per chunk; the features-on Raw wall
-     beside the features-off one; a stage breakdown of the features-on run.
+     beside the features-off one; a stage breakdown of the features-on run;
+  17. simulproc at 1080p: phase 3's 64 frames as a FramedArray source at 30
+     fps with the defaults of tools/adder_simulproc.py (ref_time 255,
+     delta_t_max 7650, crf 3, AbsoluteT, Normal), Raw sink, through
+     SimulProcessor (the card transcodes, a host thread frames the fetched
+     events with FrameSequence): K1's counters must rise; the first 8
+     frames' .adder and reconstructed frames must equal the CPU plain
+     path's; the wall, frames/s, the framer thread's busy share, the main
+     thread's waits on its queue, and the card's busy share under
+     torch.profiler;
+  18. the device framer at 1080p on both chain modes: phase 3's .adder
+     (DeltaT, made again) and phase 17's (AbsoluteT), decoded whole, framed
+     by DeviceFramer on the card (a warm pass, then a timed ingest and
+     drain; its window holding every frame an event fills, and its span
+     bound taken from the stream's longest gap, since D_EMPTY fillers run
+     past delta_t_max) and by the host FrameSequence (the native walk):
+     every frame equal bit for bit, and phase 17's equal to the frames its
+     framer thread wrote; Mev/s of both, the batches, the peak memory; the
+     card's operations per batch, the top device operations of the framer
+     step and its busy share under torch.profiler over its first batches;
+  19. the file sources: a seeded 640x360 colour clip of 24 frames written
+     with cv2.VideoWriter (FFV1, lossless), read by Framed (colour) and
+     FramedStream (mono) with cv2 decode on the card (the card's host has
+     cv2 but no libav to link the ffmpeg decoder against): K1's counter
+     must rise and each .adder must equal Framed's on the CPU.
 The sha256 of each whole output of a full-size run (the .adder files of
-phases 3, 6 and 9; the feature set and display frame of phase 15) is
-logged and held to a constant (DIGESTS), so that a kernel which reorders
-events past the prefixes the CPU checks cannot pass.
+phases 3, 6, 9 and 17; the feature set and display frame of phase 15; the
+reconstructed frames of phases 17 and 18) is logged and held to a
+constant (DIGESTS), so that a kernel which reorders events past the
+prefixes the CPU checks cannot pass.
 Every kernel of the record carries its bound: the bytes it must move over
 3.35 TB/s, counted for the lane kernels (K3, K4) from the chunk's carrier
 (20 bytes per row with an active sub-step, the state of the pixels with
@@ -135,6 +160,7 @@ record. Without CUDA the script exits non-zero and prints no result.
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -144,6 +170,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 H, W = 1080, 1920
@@ -154,6 +181,9 @@ DVS_PREFIX_US = 25_000
 DAVIS_W, DAVIS_H = 346, 260
 DAVIS_FRAMES = 40
 DAVIS_PREFIX_PACKETS = 2
+# phase 18 traces the device framer's first batches; phase 19's clip
+PROFILED_BATCHES = 16
+CLIP_W, CLIP_H, CLIP_FRAMES = 640, 360, 24
 # H100 SXM HBM3 peak (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 # sha256 of each whole output of the seeded full-size runs (hold_digest),
@@ -167,6 +197,14 @@ DIGESTS = {
         "36451913da1c442a1fc429e5d495bd0e0688483939a64172e4b465518ef83e86",
     "phase 15 features and display, 1080p bench scene":
         "58fcb4754be8d3554b5aa2ce72ff3f30c3ea27a8df08dd0c8ad605cbf811def5",
+    "phase 17 simulproc 1080p Raw .adder":
+        "6cc7a487613e867b5c0caf21b8f7da929f110217d7f4a2323d50c1922166d813",
+    "phase 17 simulproc 1080p reconstructed frames":
+        "ee3a370e1678176b49640897a8e62b1f9b290d87900ef190e76a97933439d6fc",
+    "phase 18 framer 1080p frames of phase 3's .adder (DeltaT)":
+        "dc4b77711b9e8542fe6658e4ab080d183b1780ef29ab200c1c93c5e9cdd96d58",
+    "phase 18 framer 1080p frames of phase 17's .adder (AbsoluteT)":
+        "ee3a370e1678176b49640897a8e62b1f9b290d87900ef190e76a97933439d6fc",
 }
 
 
@@ -571,6 +609,19 @@ def void_mpx(at, frames, chunk, device) -> float:
     return frames.shape[1] * frames.shape[2] * len(frames) / dt / 1e6
 
 
+def device_events(prof) -> dict:
+    """{name: (count, microseconds)} of the operations a torch.profiler
+    trace recorded on the device (kernels, copies, memsets). Only the
+    device-side events: an aten operator's own device time repeats its
+    kernels'."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return out
+
+
 def device_busy_seconds(fn) -> float:
     """Sum of the device time torch.profiler records over fn() (kernels
     and copies), in seconds; 0.0 when it records none."""
@@ -579,11 +630,7 @@ def device_busy_seconds(fn) -> float:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    total = 0.0
-    for e in prof.key_averages():
-        total += getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-    return total / 1e6
+    return sum(us for _, us in device_events(prof).values()) / 1e6
 
 
 class Patches:
@@ -1829,6 +1876,341 @@ def interval_phases(dev, card, scene, main_digest, st6, p):
     ]
 
 
+def simulproc_run(at, frames, device, adder_path, raw_path, chunk,
+                  before=None):
+    """tools/adder_simulproc.py's drive with its defaults (ref_time 255,
+    delta_t_max 7650, crf 3, AbsoluteT, Normal; the builder's and the
+    encoder options' CRF alike, as simulproc_from_args sets them) over a
+    FramedArray of `frames` at 30 fps, Raw sink into `adder_path`, frames
+    reconstructed by SimulProcessor's framer thread into `raw_path`;
+    `before(proc)` runs before the run. Returns (seconds, frames written,
+    the SimulProcessor)."""
+    from adder_tpu_torch.models.simulproc import SimulProcessor
+
+    src = at.FramedArray(frames, 30.0, chunk_frames=chunk, device=device)
+    src.auto_time_parameters(255, 7650, at.TimeMode.AbsoluteT)
+    src.crf(3)
+    opts = at.EncoderOptions.default(src.video.plane)
+    opts.crf.update_quality(3)
+    with open(adder_path, "wb") as ev, open(raw_path, "wb") as raw:
+        src.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Normal, None, at.EncoderType.Raw,
+                      opts, ev)
+        proc = SimulProcessor(src, 255, raw, framer_fps=src.source_fps)
+        if before:
+            before(proc)
+        t0 = time.perf_counter()
+        n = proc.run()
+        sync(device)
+        dt = time.perf_counter() - t0
+    return dt, n, proc
+
+
+def simulproc_clocks(proc, clocks: dict) -> None:
+    """Time, into `clocks`, the framer thread's ingest and frame writes
+    ("framer") and the main thread's blocking puts on its queue ("wait")."""
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                clocks[key] = clocks.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    fr = proc.framer
+    fr.ingest_event_array = timed("framer", fr.ingest_event_array)
+    fr.write_multi_frame_bytes = timed("framer", fr.write_multi_frame_bytes)
+    proc._queue.put = timed("wait", proc._queue.put)
+
+
+def simulproc_phase(at, FR, dev, card, frames, tmp) -> dict:
+    """Phase 17; returns K1's launches on the run and the .adder's path."""
+    t0 = time.perf_counter()
+    adder, raw = os.path.join(tmp, "sim.adder"), os.path.join(tmp, "sim.raw")
+    clocks = {}
+    FR.reset_launch_counts()
+    wall, n_frames, _ = simulproc_run(
+        at, frames, dev, adder, raw, T_CHUNK,
+        before=lambda proc: simulproc_clocks(proc, clocks))
+    launches = dict(FR.LAUNCHES)
+    if min(launches["adder_resident_chunk"], launches["adder_segment_copy"],
+           launches["adder_exclusive_scan"]) < 1:
+        raise AssertionError(f"simulproc missed a kernel: {launches}")
+    frame_bytes = H * W
+    if n_frames < 1 or os.path.getsize(raw) != n_frames * frame_bytes:
+        raise AssertionError(f"simulproc wrote {n_frames} frames, "
+                             f"{os.path.getsize(raw)} bytes")
+    n_events = len(at.open_file_decoder(adder).digest_all())
+    log(f"# phase 17: simulproc 1080p mono: {N_FRAMES} frames in, "
+        f"{n_events} events, {n_frames} frames out, {wall} s: "
+        f"{N_FRAMES / wall} frames/s, {H * W * N_FRAMES / wall / 1e6} Mpx/s; "
+        f"the framer thread busy {clocks.get('framer', 0.0)} s "
+        f"({clocks.get('framer', 0.0) / wall:.1%} of the wall), the main "
+        f"thread waiting on the queue {clocks.get('wait', 0.0)} s; "
+        f"launches {launches} [{card}]")
+    hold_digest("phase 17 simulproc 1080p Raw .adder", file_digest(adder))
+    hold_digest("phase 17 simulproc 1080p reconstructed frames",
+                file_digest(raw))
+    wall2, _, _ = simulproc_run(at, frames, dev, os.path.join(tmp, "s2.adder"),
+                                os.path.join(tmp, "s2.raw"), T_CHUNK)
+    walls = []
+    busy = device_busy_seconds(lambda: walls.append(simulproc_run(
+        at, frames, dev, os.path.join(tmp, "s3.adder"),
+        os.path.join(tmp, "s3.raw"), T_CHUNK)[0]))
+    log(f"# phase 17: second run {wall2} s ({N_FRAMES / wall2} frames/s); "
+        f"under torch.profiler {walls[0]} s, the card busy {busy} s "
+        f"({busy / walls[0]:.1%})")
+    outs = []
+    for device in (dev, "cpu"):
+        a = os.path.join(tmp, f"p8_{torch.device(device).type}.adder")
+        r = a[:-6] + ".raw"
+        simulproc_run(at, frames[:8], device, a, r, 8)
+        with open(a, "rb") as fa, open(r, "rb") as fr:
+            outs.append((fa.read(), fr.read()))
+    if outs[0] != outs[1]:
+        raise AssertionError("simulproc, first 8 frames: card and CPU differ")
+    log(f"# phase 17: first 8 frames: .adder ({len(outs[0][0])} bytes) and "
+        f"{len(outs[0][1]) // frame_bytes} reconstructed frames identical on "
+        f"the card and the CPU; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["adder_resident_chunk"], "adder": adder,
+            "raw_digest": file_digest(raw)}
+
+
+def framer_builder(at, dec):
+    """The framer of a decoded file at its own rate (tps / ref_interval),
+    as bench.py's reconstruction drive builds it."""
+    from adder_tpu_torch.framer.driver import FramerBuilder
+
+    m = dec.meta
+    return (FramerBuilder(m.plane)
+            .time_parameters(m.tps, m.ref_interval, m.delta_t_max,
+                             m.tps / max(m.ref_interval, 1))
+            .codec_meta(m.codec_version, m.time_mode)
+            .source_info(dec.get_source_type(), m.source_camera))
+
+
+def longest_gap(dec, events, device) -> int:
+    """The longest time between a pixel's consecutive events (and before
+    its first), in ticks: DeltaT times are the gaps; AbsoluteT times are
+    sorted by pixel on the card and differenced."""
+    from adder_tpu_torch.core.types import TimeMode
+
+    if dec.meta.time_mode == TimeMode.DeltaT:
+        return int(events.t.max())
+    m = dec.meta.plane
+    pix = torch.from_numpy((events.y.astype(np.int64) * m.width
+                            + events.x) * m.channels).to(device)
+    pix += torch.from_numpy(np.where(events.c == 255, 0, events.c)
+                            .astype(np.int64)).to(device)
+    t = torch.from_numpy(events.t.astype(np.int64)).to(device)
+    pix, order = torch.sort(pix, stable=True)
+    t = t[order]
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    gap = torch.where(first, t, t - torch.roll(t, 1))
+    return int(gap.max())
+
+
+def host_frames(b, events):
+    """FrameSequence over all events: pop the complete frames, then one
+    back-filling flush (the drive DeviceFramer.drain mirrors). Returns the
+    frames and the last frame index any event filled."""
+    fs = b.finish()
+    fs.ingest_event_array(events)
+    last = max(fs.frames)
+    out = []
+    while fs.is_frame_0_filled():
+        out.append(fs.pop_next_frame()[0])
+    if fs.flush_frame_buffer():
+        while fs.is_frame_0_filled():
+            out.append(fs.pop_next_frame()[0])
+    return out, last
+
+
+def framer_phase(at, dev, card, path, name) -> dict:
+    """Phase 18 on one file: DeviceFramer on the card against the host
+    FrameSequence, bit for bit, timed and traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adder_tpu_torch.framer.device import DeviceFramer
+
+    t0 = time.perf_counter()
+    dec = at.open_file_decoder(path)
+    events = dec.digest_all()
+    b = framer_builder(at, dec)
+    n_ev = len(events)
+    th = time.perf_counter()
+    want, last = host_frames(b, events)
+    host_s = time.perf_counter() - th
+    # one ingest of the whole file: the window holds every frame an event
+    # fills (a DeltaT chain, rounded up to ref_interval at every event,
+    # runs ahead of the source's 64 frames). The device framer bounds a
+    # span by delta_t_max (max_span = delta_t_max // tpf + 2, as the JAX
+    # package's does), and a stream's D_EMPTY fillers can run past it; its
+    # builder takes the stream's longest gap instead, which the Intensity
+    # view's values do not read
+    window = max(64, last + 2)
+    gap = longest_gap(dec, events, dev)
+    ref = dec.meta.ref_interval
+    bd = framer_builder(at, dec)
+    bd.delta_t_max = max(bd.delta_t_max, -(-gap // ref) * ref)
+    warm = DeviceFramer(bd, window=window, device=dev)
+    warm.ingest_event_array(events)
+    warm.drain()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    df = DeviceFramer(bd, window=window, device=dev)
+    td = time.perf_counter()
+    df.ingest_event_array(events)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - td
+    got = df.drain()
+    dev_s = time.perf_counter() - td
+    peak = torch.cuda.max_memory_allocated()
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{name}: device {len(got)} frames, host "
+                             f"{len(want)}")
+    h = hashlib.sha256()
+    for i, (g, w_) in enumerate(zip(got, want)):
+        if g.dtype != w_.dtype or not np.array_equal(g, w_):
+            raise AssertionError(f"{name}: frame {i} differs from the host "
+                                 f"framer's")
+        h.update(g.tobytes())
+    batches = -(-n_ev // df.batch_cap)
+    # the trace: the first PROFILED_BATCHES batches (a whole ingest's trace
+    # takes minutes to read back)
+    df2 = DeviceFramer(bd, window=window, device=dev)
+    prefix = events[: PROFILED_BATCHES * df2.batch_cap]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        df2.ingest_event_array(prefix)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - tp
+    del df2
+    ops = device_events(prof)
+    busy = sum(us for _, us in ops.values()) / 1e6
+    n_device_ops = sum(c for c, _ in ops.values())
+    top = [f"{k[:60]} x{c} {us / 1e3:.2f} ms" for k, (c, us) in
+           sorted(ops.items(), key=lambda kv: -kv[1][1])[:8]]
+    log(f"# phase 18: {name}: {n_ev} events, {len(got)} frames equal bit for "
+        f"bit; host FrameSequence {host_s} s ({n_ev / host_s / 1e6} Mev/s); "
+        f"DeviceFramer ingest + drain {dev_s} s ({n_ev / dev_s / 1e6} Mev/s; "
+        f"the ingest {ingest_s} s), window {df.window}, the longest gap "
+        f"{gap} ticks (delta_t_max {dec.meta.delta_t_max}), max_span "
+        f"{df.max_span}, {batches} batches of {df.batch_cap}, "
+        f"peak memory {peak / 2**30:.2f} GiB ({base_mem / 2**30:.2f} GiB "
+        f"held before it) [{card}]")
+    log(f"#   the ingest of the first {PROFILED_BATCHES} batches under "
+        f"torch.profiler: {n_device_ops / PROFILED_BATCHES:.0f} device "
+        f"operations a batch, {prof_s} s, the card busy "
+        f"{busy} s ({busy / prof_s:.1%}); top device operations: {top}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"digest": h.hexdigest(), "host_mev": n_ev / host_s / 1e6,
+            "device_mev": n_ev / dev_s / 1e6}
+
+
+def pipeline_phases(at, FR, dev, card, frames) -> dict:
+    """Phases 17 and 18; returns K1's launches on the simulproc run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = simulproc_phase(at, FR, dev, card, frames, tmp)
+        t0 = time.perf_counter()
+        main = os.path.join(tmp, "main.adder")
+        transcode_raw(at, frames, dev, main, T_CHUNK)
+        hold_digest("phase 3 framed 1080p mono Raw .adder", file_digest(main))
+        log(f"# phase 18: phase 3's .adder made again in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path, name in ((main, "phase 3's .adder (DeltaT)"),
+                           (sim["adder"], "phase 17's .adder (AbsoluteT)")):
+            r = framer_phase(at, dev, card, path, name)
+            hold_digest(f"phase 18 framer 1080p frames of {name}",
+                        r["digest"])
+        # simulproc's framer thread wrote what the framers pop from its file
+        if r["digest"] != sim["raw_digest"]:
+            raise AssertionError("phase 17's reconstructed frames differ "
+                                 "from the framers' on its .adder")
+    return sim
+
+
+def write_clip(cv2, path, seed: int = 5) -> str:
+    """A seeded colour clip (moving gradients with noise, 30 fps) in FFV1,
+    lossless, through cv2.VideoWriter."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:CLIP_H, 0:CLIP_W]
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FFV1"), 30.0,
+                         (CLIP_W, CLIP_H), isColor=True)
+    if not vw.isOpened():
+        raise AssertionError("cv2.VideoWriter cannot write FFV1 here")
+    for t in range(CLIP_FRAMES):
+        f = np.stack([(xx * 3 + yy * 2 + t * 9) % 256,
+                      128 + 100 * np.cos(yy / 23 - t / 5),
+                      128 + 100 * np.sin(xx / 31 + t / 4)], -1)
+        f = f + rng.integers(-12, 13, f.shape)
+        vw.write(np.clip(f, 0, 255).astype(np.uint8))
+    vw.release()
+
+
+def file_source_run(at, cls, path, color, device) -> tuple:
+    """A file source with cv2 decode, chunks of 8, crf 3, AbsoluteT, Raw
+    sink: (.adder bytes, the source)."""
+    src = cls(path, color, chunk_frames=8, decoder="cv2", device=device)
+    src.auto_time_parameters(255, 255 * 30, at.TimeMode.AbsoluteT)
+    src.crf(3)
+    buf = io.BytesIO()
+    video = src.get_video_ref()
+    src.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+                  at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                  at.EncoderOptions.default(video.plane), buf)
+    while True:
+        try:
+            src.consume_batch()
+        except EOFError:
+            break
+    video.end_write_stream()
+    return buf.getvalue(), src
+
+
+def file_source_phase(at, FR, dev, card) -> int:
+    """Phase 19: Framed and FramedStream on the card, cv2 decode (this host
+    has cv2 and no libav to link the ffmpeg decoder), against the CPU plain
+    path; returns K1's launches on the card's runs."""
+    import cv2
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        write_clip(cv2, path)
+        FR.reset_launch_counts()
+        runs = {}
+        for cls, color in ((at.Framed, True), (at.FramedStream, False)):
+            tc = time.perf_counter()
+            got, src = file_source_run(at, cls, path, color, dev)
+            sync(dev)
+            card_s = time.perf_counter() - tc
+            if src.decoder != "cv2" or src.frame_idx != CLIP_FRAMES:
+                raise AssertionError(f"{cls.__name__}: decoder {src.decoder}"
+                                     f", {src.frame_idx} frames")
+            runs[(cls.__name__, color)] = (got, card_s)
+        launches = FR.LAUNCHES["adder_resident_chunk"]
+        if launches < 2 * CLIP_FRAMES // 8:
+            raise AssertionError(f"file sources missed K1: {dict(FR.LAUNCHES)}")
+        for (name, color), (got, card_s) in runs.items():
+            want, _ = file_source_run(at, at.Framed, path, color, "cpu")
+            if got != want or len(want) < 1000:
+                raise AssertionError(f"{name} {color}: card and CPU differ")
+            log(f"# phase 19: {name}, cv2 decode, {CLIP_W}x{CLIP_H} "
+                f"{'colour' if color else 'mono'} FFV1, {CLIP_FRAMES} "
+                f"frames: .adder identical on the card and the CPU "
+                f"({len(got)} bytes; {card_s} s on the card) [{card}]")
+    log(f"# phase 19: K1 launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -2093,6 +2475,8 @@ def main() -> int:
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
     k1_display = features_phases(dev, card, scene, main_digest, st, p)
     k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
+    sim = pipeline_phases(at, FR, dev, card, frames)
+    file_launches = file_source_phase(at, FR, dev, card)
 
     record = {"kernels": [
         {"name": "adder_resident_chunk", "route": "cuda",
@@ -2105,7 +2489,9 @@ def main() -> int:
              "adder_resident_chunk_kernel"),
          "issue_estimate_ms": k_issue.get("fetched"),
          "void_ms": k1["void"], "void_queued_ms": k1["void_queued"],
-         "void_plain_ms": vp_ms, "void_bound_ms": v_bound},
+         "void_plain_ms": vp_ms, "void_bound_ms": v_bound,
+         "simulproc_launches": sim["launches"],
+         "file_source_launches": file_launches},
         k1_display,
         {"name": "adder_segment_copy", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",

@@ -397,3 +397,44 @@ def test_one_interval_engines_cuda_bytes_equal_cpu(cuda, env, monkeypatch):
     assert on_card == on_cpu and len(on_card) > 1000
     for a, b in zip(shown_card, shown_cpu):
         assert (a == b).all()
+
+
+@pytest.mark.parametrize("t_mode", [0, 1], ids=["deltaT", "absT"])
+@pytest.mark.parametrize("view", ["Intensity", "SAE", "coordless"])
+def test_device_framer_cuda_equals_cpu(cuda, t_mode, view):
+    """DeviceFramer on the card pops the frames it pops on the CPU, on
+    seeded per-pixel chains, with carries across batches and a window that
+    wraps, and on one ingest of the whole stream."""
+    from adder_tpu_torch.framer.device import DeviceFramer
+    from adder_tpu_torch.framer.driver import FramerBuilder
+    from adder_tpu_torch.framer.scale_intensity import FramedViewMode
+
+    plane = (40, 30, 1)
+    ev = testing.framer_chains(plane, 20, 8000, 5, t_mode == 1)
+    b = FramerBuilder(at.PlaneSize(*plane))
+    if view == "coordless":
+        b.coordless = True
+    else:
+        b.view_mode = FramedViewMode[view]
+    b = (b.time_parameters(60_000, 1000, 8000, 60.0)
+         .codec_meta(2 if t_mode else 0, at.TimeMode(t_mode))
+         .source_info(at.core.types.SourceType.U8, at.SourceCamera.FramedU8))
+    outs = []
+    for device in ("cpu", cuda):
+        for window, step in ((24, 700), (None, 0)):
+            df = DeviceFramer(b, batch_cap=1000, window=window, device=device)
+            frames = []
+            cuts = [*range(step, len(ev[0]), step), len(ev[0])] if step \
+                else [len(ev[0])]
+            lo = 0
+            for hi in cuts:
+                df.ingest_event_array(at.EventArray(*[a[lo:hi] for a in ev]))
+                frames.extend(df.pop_ready_frames())
+                lo = hi
+            frames.extend(df.drain())
+            outs.append(frames)
+    assert len(outs[0]) > 40
+    for cpu_frames, card_frames in zip(outs[:2], outs[2:]):
+        assert len(cpu_frames) == len(card_frames)
+        for a, b_ in zip(cpu_frames, card_frames):
+            assert (a == b_).all()

@@ -1,7 +1,11 @@
 """The port's own copies of the JAX package's host modules behave like the
 originals: the core constants, the raw and compressed encoders (the same
 bytes), the decoder (reads what JAX wrote), the native DVS and DAVIS
-planners (the same rows and chain state), and the aedat4 container. The
+planners (the same rows and chain state), the aedat4 container, the cv and
+viz helpers, the frame-value conversion, the ffmpeg decoder and the C++
+sources of the decoder and the framer's walk (the host framer, the player
+and adder_to_dvs are held to theirs in test_torch_framer.py and
+test_torch_pipelines.py). The
 classes differ across the two packages, so values cross as numpy arrays
 and IntEnum values. A subprocess checks that the port imports no jax and
 no `adder_tpu` module. Tolerance: none.
@@ -262,3 +266,145 @@ def test_port_modules_import_no_jax_and_no_adder_tpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
     assert len(names) > 20
+
+
+# --- the file sources' and the framer's copies ------------------------------
+
+
+@pytest.mark.parametrize("rel", ["transcoder/native/videodec.cpp",
+                                 "ops/native/framer_fill.cpp"])
+def test_native_sources_are_copies(rel):
+    """The C++ copies equal their originals but for the header line that
+    names the source."""
+    jax_src = {"transcoder/native/videodec.cpp":
+               "adder_tpu/transcoder/native/videodec.cpp",
+               "ops/native/framer_fill.cpp":
+               "adder_tpu/ops/native/framer_fill.cpp"}[rel]
+    head, body = (PORT / rel).read_text().split("\n", 1)
+    assert jax_src in head
+    assert body == (REPO / jax_src).read_text()
+
+
+def test_scale_intensity_copy_equals_jax():
+    """FramedViewMode, event_to_intensity, practical_d_max_for and
+    get_frame_values in every view mode and output type, on seeded events
+    (d past 128 and D_EMPTY included, dt 0 included)."""
+    from adder_tpu.framer import scale_intensity as JSI
+    from adder_tpu_torch.framer import scale_intensity as SI
+
+    assert [(m.name, int(m)) for m in SI.FramedViewMode] == [
+        (m.name, int(m)) for m in JSI.FramedViewMode]
+    rng = np.random.default_rng(8)
+    d = rng.integers(0, 256, 3000).astype(np.int64)
+    dt = rng.integers(0, 9000, 3000).astype(np.uint64)
+    dt[::17] = 0
+    np.testing.assert_array_equal(SI.event_to_intensity(d, dt),
+                                  JSI.event_to_intensity(d, dt))
+    run_t = dt + rng.integers(0, 500, 3000).astype(np.uint64)
+    for dtype in (np.uint8, np.uint16, np.uint32, np.uint64):
+        pdm = SI.practical_d_max_for(float(np.iinfo(dtype).max), 7650, 255)
+        assert pdm == JSI.practical_d_max_for(float(np.iinfo(dtype).max),
+                                              7650, 255)
+        for m in SI.FramedViewMode:
+            sae = dict(sae_running_t=run_t, sae_last_fired_t=dt)
+            for src_t in (T.SourceType.U8, T.SourceType.U16):
+                got = SI.get_frame_values(d, dt, dtype, src_t, 255.0, pdm,
+                                          7650, m, **sae)
+                want = JSI.get_frame_values(d, dt, dtype,
+                                            JT.SourceType(int(src_t)), 255.0,
+                                            pdm, 7650,
+                                            JSI.FramedViewMode(int(m)), **sae)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want, err_msg=f"{m}")
+
+
+def test_file_source_colour_helpers_and_quality_metrics_equal_jax():
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 256, (21, 30, 3), dtype=np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 10, a.shape), 0,
+                255).astype(np.uint8)
+    for name in ("handle_color_rgb_videors", "handle_color_videors"):
+        for color in (False, True):
+            np.testing.assert_array_equal(getattr(CV, name)(a, color),
+                                          getattr(JCV, name)(a, color))
+    assert CV.calculate_mse(a, b) == JCV.calculate_mse(a, b)
+    assert CV.calculate_psnr(3.5) == JCV.calculate_psnr(3.5)
+    assert CV.calculate_ssim(a, b) == JCV.calculate_ssim(a, b)
+    for q in ((0.0, 0.0, None), (None, 0.0, 0.0)):
+        got = CV.calculate_quality_metrics(a, b, CV.QualityMetrics(*q))
+        want = JCV.calculate_quality_metrics(a, b, JCV.QualityMetrics(*q))
+        assert (got.psnr, got.mse, got.ssim) == (want.psnr, want.mse,
+                                                 want.ssim)
+    z = CV.calculate_quality_metrics(a, a, CV.QualityMetrics())
+    assert z.mse == 1e-7 == JCV.calculate_quality_metrics(
+        a, a, JCV.QualityMetrics()).mse
+    with pytest.raises(ValueError):
+        CV.calculate_quality_metrics(a, b[:-1], CV.QualityMetrics())
+
+
+def test_write_frames_to_video_equals_jax(tmp_path):
+    import cv2
+
+    rng = np.random.default_rng(10)
+    for shape in ((5, 16, 24), (5, 16, 24, 3)):
+        frames = rng.integers(0, 256, shape, dtype=np.uint8)
+        decoded = []
+        for mod in (VIZ, JVIZ):
+            path = tmp_path / f"{mod.__name__}.{len(shape)}.mp4"
+            assert mod.write_frames_to_video(frames, str(path), 24.0)
+            cap = cv2.VideoCapture(str(path))
+            got = []
+            while True:
+                ok, f = cap.read()
+                if not ok:
+                    break
+                got.append(f)
+            cap.release()
+            decoded.append(np.stack(got))
+        assert len(decoded[0]) == 5
+        np.testing.assert_array_equal(decoded[0], decoded[1])
+
+
+def test_ffdec_copy_decodes_like_jax(tmp_path):
+    """decode_frames and StreamDecoder at scale 1 and 0.5 give the JAX
+    copy's RGB24 frames; the library builds in the port's tree, named by
+    a digest that covers the libav link arguments."""
+    from adder_tpu.transcoder import ffdec as JFF
+    from adder_tpu_torch.transcoder import ffdec as FF
+    from test_torch_file_sources import write_clip
+
+    clip = str(write_clip(tmp_path / "c.avi", "FFV1", n_frames=6, seed=2))
+    for scale in (1.0, 0.5):
+        got, fps = FF.decode_frames(clip, scale, max_frames=5)
+        want, jfps = JFF.decode_frames(clip, scale, max_frames=5)
+        assert fps == jfps and got.shape == want.shape == (
+            5, int(32 * scale), int(48 * scale), 3)
+        np.testing.assert_array_equal(got, want)
+        sd, jsd = FF.StreamDecoder(clip, scale), JFF.StreamDecoder(clip, scale)
+        assert (sd.width, sd.height, sd.fps) == (jsd.width, jsd.height,
+                                                 jsd.fps)
+        n = 0
+        while (f := sd.read()) is not None:
+            np.testing.assert_array_equal(f, jsd.read())
+            n += 1
+        assert n == 6 and jsd.read() is None
+    so = native_build.library_path(FF._SOURCE, FF.LINK)
+    assert so.exists() and so.parent == PORT / "build" / "native"
+    assert so != native_build.library_path(FF._SOURCE)
+
+
+def test_native_ingest_builds_in_the_port_tree_and_raises_on_failure(
+        monkeypatch):
+    from adder_tpu_torch.framer import native_ingest as NI
+
+    NI._get_lib()
+    so = native_build.library_path(NI._SOURCE)
+    assert so.exists() and so.parent == PORT / "build" / "native"
+
+    def broken(src, link=()):
+        raise RuntimeError("g++ failed on framer_fill.cpp")
+
+    monkeypatch.setattr(NI, "_lib", None)
+    monkeypatch.setattr(native_build, "load", broken)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        NI._get_lib()

@@ -25,7 +25,14 @@ Layers, entry point first:
   transcoder/davis.py     Davis: DAVIS packets (APS frames + DVS events)
                           -> lane chunks (K4) and frame chunks (K3)
   transcoder/edi.py       EdiReconstructor: aedat4 -> deblurred packets
+  transcoder/sharded.py   ShardedVideo: Video over pixel bands on several
+                          devices (or k bands on one card), one process's
+                          pixels of a multi-process job
   transcoder/video.py     Video: chunked submit/collect, depth rerun, encoder
+  parallel/sharding.py    the plane in bands: the chunk wrappers per band,
+                          the bands' events merged into the reference order
+  parallel/multihost.py   torch.distributed jobs: rows per process, event
+                          part files, their merge
   ops/fused_resident.py   one chunk (framed, DVS or DAVIS lanes): plain
                           torch version and the CUDA wrappers
   ops/dvs_batch.py        masked DVS / DAVIS sub-steps, the lane plans
@@ -33,7 +40,8 @@ Layers, entry point first:
   ops/cuda_build.py       nvcc build of csrc/ at first use, ctypes binding
   ops/native_build.py     g++ build of the host C++ helpers at first use
   csrc/                   the Hopper kernels (CUDA C++, sm_90a)
-  codec/, core/, utils/   the codec, the core types, aedat4 (copies)
+  codec/, core/, utils/   the codec, the core types, aedat4 (copies);
+                          utils/tracing.py the stage timer (ADDER_TPU_TRACE)
   convert.py              state to and from the JAX package through numpy
 
 Every entry point runs on the card (`device="cuda"`) unless the caller asks
@@ -57,4 +65,5 @@ from .transcoder.davis import Davis, TranscoderMode  # noqa: F401
 from .transcoder.edi import EdiReconstructor  # noqa: F401
 from .transcoder.framed import Framed, FramedArray, FramedStream  # noqa: F401
 from .transcoder.prophesee import Prophesee  # noqa: F401
+from .transcoder.sharded import ShardedVideo  # noqa: F401
 from .transcoder.video import Video  # noqa: F401

@@ -3,7 +3,9 @@
 `state_from_numpy` takes anything that names the PixelState fields: a mapping
 of field name to array, or an object with those attributes (such as
 `adder_tpu.ops.integrate.PixelState`, whose fields go through np.asarray).
-Both packages then start from one mid-stream state.
+Both packages then start from one mid-stream state. `shard_jax_state` and
+`bands_to_numpy` carry a ShardedVideo's state between the JAX package's
+padded plane and the port's unpadded bands.
 """
 
 from __future__ import annotations
@@ -76,3 +78,28 @@ def carry_davis_state(src, dst) -> None:
     dst.dvs_last_timestamps[...] = src.dvs_last_timestamps
     dst.dvs_last_ln_val[...] = src.dvs_last_ln_val
     dst._val_cache[...] = np.nan
+
+
+def shard_jax_state(jax_state, n: int, mesh) -> list:
+    """A JAX `ShardedVideo`'s state (its whole plane padded to
+    pallas_block x n_devices, `adder_tpu/transcoder/sharded.py:76-78`) as
+    the port's bands over `mesh`: the padding cut, the n real pixels split
+    by `parallel.sharding.band_bounds`."""
+    from .parallel import sharding
+
+    return sharding.shard_state(_cut_state(jax_state, n, "cpu"), mesh)
+
+
+def bands_to_numpy(states, n_state: int) -> dict:
+    """The port's bands joined into one plane and padded to `n_state`
+    pixels with `init_state` values (field name -> numpy): the state of a
+    JAX `ShardedVideo` whose plane pads to n_state."""
+    from .ops.integrate import init_state
+    from .parallel import sharding
+
+    whole = sharding.gather_state(states, "cpu")
+    n = whole.length.shape[0]
+    pad = init_state(n_state - n, "cpu", depth=whole.node_d.shape[0])
+    return state_to_numpy(PixelState(*(
+        x if x.dim() == 0 else torch.cat([x, p], dim=-1)
+        for x, p in zip(whole, pad))))

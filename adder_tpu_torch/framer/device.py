@@ -49,6 +49,7 @@ import torch
 
 from ..core.types import D_EMPTY, NO_CHANNEL, EventArray, TimeMode, is_framed
 from ..transcoder.video import resolve_device
+from ..utils import tracing
 from .driver import FramerBuilder
 from .scale_intensity import (
     FramedViewMode,
@@ -286,23 +287,26 @@ class DeviceFramer:
         if m == 0:
             return self.is_frame_0_filled()
         # ONE upload per ingest: [pix, bits(t), d] as an int32 carrier
-        packed = np.empty((3, m), np.int32)
-        packed[0] = self._pix_index(events)
-        packed[1] = events.t.astype(np.uint32).view(np.int32)
-        packed[2] = events.d
-        packed = torch.from_numpy(packed).to(self.device)
-        pix_all = packed[0].to(torch.int64)
-        t_all = packed[1].to(torch.int64) & 0xFFFFFFFF
-        d_all = packed[2].to(torch.int64)
-        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        for i in range(0, m, self.batch_cap):
-            j = min(i + self.batch_cap, m)
-            self._step(pix_all[i:j], t_all[i:j], d_all[i:j],
-                       self.frames_written, overflow)
+        with tracing.stage("device_framer.pack"):
+            packed = np.empty((3, m), np.int32)
+            packed[0] = self._pix_index(events)
+            packed[1] = events.t.astype(np.uint32).view(np.int32)
+            packed[2] = events.d
+        with tracing.stage("device_framer.dispatch"):
+            packed = torch.from_numpy(packed).to(self.device)
+            pix_all = packed[0].to(torch.int64)
+            t_all = packed[1].to(torch.int64) & 0xFFFFFFFF
+            d_all = packed[2].to(torch.int64)
+            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+            for i in range(0, m, self.batch_cap):
+                j = min(i + self.batch_cap, m)
+                self._step(pix_all[i:j], t_all[i:j], d_all[i:j],
+                           self.frames_written, overflow)
         # ONE read back for the control outputs: the window's fill counts
         # after the last batch and the overflow flags of every batch
-        ctl = torch.cat([torch.count_nonzero(self.win_filled, dim=1),
-                         overflow.view(1).to(torch.int64)]).cpu()
+        with tracing.stage("device_framer.sync_fetch"):
+            ctl = torch.cat([torch.count_nonzero(self.win_filled, dim=1),
+                             overflow.view(1).to(torch.int64)]).cpu()
         if bool(ctl[-1]):
             raise OverflowError(
                 "device framer window overflow (increase `window`; the "
@@ -377,19 +381,23 @@ class DeviceFramer:
         rows_h = np.array([(self.frames_written + i) % F for i in range(k)],
                           np.int64)
         rows = torch.from_numpy(rows_h).to(self.device)
-        dd = self.win_d.index_select(0, rows).to(torch.uint8)
-        dtt = self.win_dt.index_select(0, rows)
         narrow = self.delta_t_max < (1 << 16)
-        if narrow:
-            dtt = dtt.to(torch.int16)
-        dd, dtt = dd.cpu().numpy(), dtt.cpu().numpy()
+        with tracing.stage("device_framer.pop_d2h"):
+            dd = self.win_d.index_select(0, rows).to(torch.uint8)
+            dtt = self.win_dt.index_select(0, rows)
+            if narrow:
+                dtt = dtt.to(torch.int16)
+            dd, dtt = dd.cpu().numpy(), dtt.cpu().numpy()
         dtt = dtt.view(np.uint16 if narrow else np.uint32)
-        self._recycle(rows)
-        self._counts[rows_h] = 0
+        with tracing.stage("device_framer.recycle"):
+            self._recycle(rows)
+            self._counts[rows_h] = 0
         out = []
-        for i in range(k):
-            vals = self._values_for(dd[i], dtt[i])
-            out.append(vals.reshape(self.plane.shape).astype(self.out_dtype))
+        with tracing.stage("device_framer.convert"):
+            for i in range(k):
+                vals = self._values_for(dd[i], dtt[i])
+                out.append(
+                    vals.reshape(self.plane.shape).astype(self.out_dtype))
         self.frames_written += k
         return out
 

@@ -7,6 +7,7 @@ device for 1080p), so the CPU tests and the card see the same data.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,19 +36,23 @@ def walk_frames(seed, T: int, n: int) -> np.ndarray:
     return frames
 
 
-def moving_blobs(H: int, W: int, T: int, seed: int, device) -> torch.Tensor:
+def moving_blobs(H: int, W: int, T: int, seed: int, device,
+                 rows: Optional[tuple] = None) -> torch.Tensor:
     """(T, H, W) u8 scene: a smooth background with six bright Gaussian
     blobs moving across it (the bench scene of the JAX package), made on
-    `device` from numpy-seeded blob paths."""
+    `device` from numpy-seeded blob paths. With `rows=(r0, r1)`, only those
+    rows, (T, r1 - r0, W): each pixel is computed on its own, so they equal
+    the whole scene's rows bit for bit."""
     rng = np.random.default_rng(seed)
     n_blobs = 6
     cx0, cy0 = rng.uniform(0, W, n_blobs), rng.uniform(0, H, n_blobs)
     vx, vy = rng.uniform(-25, 25, n_blobs), rng.uniform(-15, 15, n_blobs)
     dev = torch.device(device)
+    r0, r1 = (0, H) if rows is None else rows
     x = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
-    y = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    y = torch.arange(r0, r1, dtype=torch.float32, device=dev)[:, None]
     background = 128 + 60 * torch.sin(x / 97.0) + 30 * torch.cos(y / 53.0)
-    out = torch.empty((T, H, W), dtype=torch.uint8, device=dev)
+    out = torch.empty((T, r1 - r0, W), dtype=torch.uint8, device=dev)
     for t in range(T):
         img = background.clone()
         for b in range(n_blobs):

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.types import EventArray, Mode, PlaneSize, TimeMode
+from ..utils import tracing
 from ..utils.cv import handle_color_rgb_videors, handle_color_videors
 from . import ffdec
 from .video import SourceError, Video, resolve_device
@@ -283,14 +284,15 @@ class FramedStream:
 
     def _next_chunk(self) -> list:
         frames = []
-        while len(frames) < self.video.chunk_frames:
-            item = self._q.get()
-            if item is self._done:
-                self._exhausted = True
-                if self._err is not None:
-                    raise self._err
-                break
-            frames.append(item)
+        with tracing.stage("framed.decode_wait"):
+            while len(frames) < self.video.chunk_frames:
+                item = self._q.get()
+                if item is self._done:
+                    self._exhausted = True
+                    if self._err is not None:
+                        raise self._err
+                    break
+                frames.append(item)
         return frames
 
     def consume_batch(self, max_frames=None):

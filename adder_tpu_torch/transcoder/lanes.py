@@ -10,6 +10,7 @@ from ..core.types import NO_CHANNEL, EventArray, Mode, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
+from ..utils import tracing
 from .video import Video
 
 
@@ -35,11 +36,13 @@ def run_lane_chunk(fn, state, args, p, void: bool, width: int, **kw):
     (the state, updated in place and returned by the wrapper; its events as
     (x, y, d, t) host arrays, or None when `void`: the VOID pass, no
     fetch)."""
-    res = fn(state, *args, p, events=not void, **kw)
+    with tracing.stage("dvs.dispatch"):
+        res = fn(state, *args, p, events=not void, **kw)
     if void:
         return res.state, None
-    pixd = res.pixd.cpu().numpy().view(np.uint32)
-    t = res.t.cpu().numpy().view(np.uint32)
+    with tracing.stage("dvs.event_fetch", items=res.pixd.numel()):
+        pixd = res.pixd.cpu().numpy().view(np.uint32)
+        t = res.t.cpu().numpy().view(np.uint32)
     return res.state, dvs_batch.wire_to_events(pixd, t, width)
 
 
@@ -80,5 +83,6 @@ def ingest_parts(encoder, parts: list) -> EventArray:
         d = np.zeros(0, np.uint8)
         t = np.zeros(0, np.uint32)
     arr = EventArray(x, y, np.full(len(x), NO_CHANNEL, np.uint8), d, t)
-    encoder.ingest_event_array(arr)
+    with tracing.stage("dvs.encode", items=len(arr)):
+        encoder.ingest_event_array(arr)
     return arr

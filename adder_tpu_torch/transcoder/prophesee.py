@@ -45,6 +45,7 @@ from ..core.types import EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
+from ..utils import tracing
 from .lanes import (gap_rows, ingest_parts, lane_params, run_lane_chunk,
                     run_raster_chunk)
 from .video import SourceError, Video, resolve_device
@@ -243,7 +244,10 @@ class Prophesee:
     def _run_group(self, g: dvs_batch.DvsCompact, n_lanes: int, p):
         """One lane group from its carrier, through the row route; the
         carried state is updated in place."""
-        carrier = torch.from_numpy(FR.pack_dvs_plan(g)).to(self.device)
+        with tracing.stage("dvs.pack", items=len(g.pix)):
+            packed = FR.pack_dvs_plan(g)
+        with tracing.stage("dvs.upload", items=packed.shape[1]):
+            carrier = torch.from_numpy(packed).to(self.device)
         self.state, events = run_lane_chunk(
             FR.dvs_rows_resident, self.state, (carrier, 2 * n_lanes), p,
             self.void_events, self.plane.width)
@@ -298,12 +302,13 @@ class Prophesee:
         parts: list = []
         for i, lo in enumerate(bounds):
             hi = bounds[i + 1] if i + 1 < len(bounds) else n_ev
-            plan = dvs_batch.plan_dvs_compact(
-                ts[lo:hi], xs[lo:hi], ys[lo:hi], ps[lo:hi], self.plane.width,
-                self.dvs_last_timestamps, self.dvs_last_ln_val,
-                self.camera_theta, int(self.video.ref_time),
-                val_cache=self._val_cache,
-            )
+            with tracing.stage("dvs.plan", items=hi - lo):
+                plan = dvs_batch.plan_dvs_compact(
+                    ts[lo:hi], xs[lo:hi], ys[lo:hi], ps[lo:hi],
+                    self.plane.width, self.dvs_last_timestamps,
+                    self.dvs_last_ln_val, self.camera_theta,
+                    int(self.video.ref_time), val_cache=self._val_cache,
+                )
             n_lanes = plan.n_lanes
             for g0 in range(0, n_lanes, LANE_GROUP):
                 g = (plan.lane_slice(g0, g0 + LANE_GROUP)

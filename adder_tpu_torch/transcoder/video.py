@@ -36,7 +36,7 @@ from ..core.types import (
 from .. import convert
 from ..ops import fused_kernel, fused_resident
 from ..ops import integrate as ops
-from ..utils import cv
+from ..utils import cv, tracing
 from ..utils.viz import ShowFeatureMode, draw_feature_coord, draw_rect
 
 SHALLOW_DEPTH = 6  # the reference's SmallVec inline capacity
@@ -139,6 +139,8 @@ class Video:
     file layout.
     """
 
+    _trace = "video"  # the tracing stages' prefix
+
     def __init__(self, plane: PlaneSize, pixel_tree_mode: Mode,
                  chunk_frames: int = 8, *, device="cuda"):
         self.device = resolve_device(device)
@@ -159,8 +161,8 @@ class Video:
         self.chunk_frames = chunk_frames
         self.roi: Optional[Roi] = None
         self.engine = engine_from_env()
-        depth = ops.DEPTH if self.engine == SLOTS else SHALLOW_DEPTH
-        self.state = ops.init_state(self.n, self.device, depth=depth)
+        self.state = self._new_state(
+            ops.DEPTH if self.engine == SLOTS else SHALLOW_DEPTH)
         self._cap_mult = 1  # event capacity = _cap_mult * N * T per chunk
         self._pack = 4  # slot-packing lanes
         self._keep_running_frame = False  # set True to always sync display
@@ -181,6 +183,10 @@ class Video:
         # With an Empty encoder, events can stay on the device ("the void",
         # matching the reference's EmptyOutput bench mode)
         self.void_events = False
+
+    def _new_state(self, depth: int):
+        """The initial state of every pixel, at arena depth `depth`."""
+        return ops.init_state(self.n, self.device, depth=depth)
 
     @property
     def _emit_running(self) -> bool:
@@ -285,10 +291,9 @@ class Video:
     def update_roi(self, roi: Optional[Roi]) -> None:
         self.roi = roi
 
-    def _apply_roi(self) -> None:
-        """Lower c_thresh inside the ROI (ref: video.rs:865-881)."""
-        if self.roi is None:
-            return
+    def _roi_mask(self) -> tuple:
+        """The (N,) pixel-channels inside the ROI, and the c_thresh they
+        take (ref: video.rs:865-881)."""
         base = min(self.encoder.options.crf.get_parameters().c_thresh_baseline, 2)
         mask = np.zeros(self.plane.shape, dtype=bool)
         mask[
@@ -296,8 +301,15 @@ class Video:
             self.roi.start_x : self.roi.end_x + 1,
             :,
         ] = True
+        return mask.reshape(-1), base
+
+    def _apply_roi(self) -> None:
+        """Lower c_thresh inside the ROI (ref: video.rs:865-881)."""
+        if self.roi is None:
+            return
+        mask, base = self._roi_mask()
         c = self.state.c_thresh.clone()
-        c[torch.from_numpy(mask.reshape(-1)).to(self.device)] = base
+        c[torch.from_numpy(mask).to(self.device)] = base
         self.state = self.state._replace(c_thresh=c)
 
     # -- getters (API parity) --
@@ -405,7 +417,8 @@ class Video:
             if self.n * T <= FULL_CAP_VOLUME:
                 mult = ops.K_SLOTS
             pending.update(mult=mult, cap=mult * self.n * T, pack=self._pack)
-        pending["outs"] = self._run_chunk(self.state, pending)
+        with tracing.stage("video.submit_chunk", items=T * self.n):
+            pending["outs"] = self._run_chunk(self.state, pending)
         self.state = pending["outs"].state
         self._inflight.append(pending)
         while len(self._inflight) > 2:
@@ -445,7 +458,9 @@ class Video:
         (video.py:533-559)."""
         outs = pending["outs"]
         shallow = pending["state_before"].node_d.shape[0] < ops.DEPTH
-        if (int(outs.pmax) >> 16) & 1 and shallow:
+        with tracing.stage("video.collect.control_fetch"):
+            flags = int(outs.pmax)
+        if (flags >> 16) & 1 and shallow:
             # the arena outgrew the shallow depth: this chunk's state is
             # wrong, and so is every chunk submitted on top of it. Rerun
             # them all, in order, at full depth (which then sticks: the
@@ -470,8 +485,9 @@ class Video:
         depth_rerun = False
         while True:
             outs = pending["outs"]
-            total, per_max, pmax = (int(x) for x in torch.stack(
-                [outs.total, outs.per_interval.max(), outs.pmax]).tolist())
+            with tracing.stage("video.collect.control_fetch"):
+                total, per_max, pmax = (int(x) for x in torch.stack(
+                    [outs.total, outs.per_interval.max(), outs.pmax]).tolist())
             cap, pack = pending["cap"], pending["pack"]
             if fused:  # any interval may fill the rest of the buffer
                 take = cap
@@ -509,7 +525,7 @@ class Video:
             self.state = outs.state
         return self._finish_chunk(
             outs, None if self.void_events and not self.feature_detection
-            else (outs.pixd[:total], outs.t[:total]))
+            else self._fetch(outs.pixd[:total], outs.t[:total]))
 
     def _rerun_inflight(self, outs):
         """After a depth rerun: the chunks submitted on top of the rerun one
@@ -528,8 +544,8 @@ class Video:
 
     def _finish_chunk(self, outs, wire) -> EventArray:
         """The collected chunk's display frame, then its events (`wire`,
-        the device pair, or None when they stay on the device) fed to the
-        encoder, then the features (video.py:656-693)."""
+        the host pair `_fetch` gives, or None when they stay on the device)
+        fed to the encoder, then the features (video.py:656-693)."""
         self._last_runnings = outs.runnings
         if self._emit_running:
             self._last_runnings = self._runnings(outs)
@@ -537,7 +553,7 @@ class Video:
             ).reshape(self.plane.shape)
         if wire is None:
             return EventArray.empty()
-        events = self._ingest(*wire)
+        events = self._encode(*wire)
         if self.feature_detection:
             self._handle_features(events, outs.per_interval.cpu().numpy(),
                                   self._last_runnings)
@@ -553,15 +569,21 @@ class Video:
         return torch.zeros((outs.per_interval.shape[0], self.n),
                            dtype=torch.uint8, device=self.device)
 
-    def _ingest(self, pixd: torch.Tensor, t: torch.Tensor) -> EventArray:
-        """Fetch wire events (`pix << 8 | d`, t as int32 u32 patterns) and
-        feed them to the encoder."""
-        pixd = pixd.cpu().numpy().view(np.uint32)
-        t = t.cpu().numpy().view(np.uint32)
+    def _fetch(self, pixd: torch.Tensor, t: torch.Tensor) -> tuple:
+        """Wire events (`pix << 8 | d`, t as int32 u32 patterns) to the
+        host, as uint32 arrays."""
+        with tracing.stage("video.collect.event_fetch", items=pixd.numel()):
+            return (pixd.cpu().numpy().view(np.uint32),
+                    t.cpu().numpy().view(np.uint32))
+
+    def _encode(self, pixd: np.ndarray, t: np.ndarray) -> EventArray:
+        """Host wire events (uint32 `pix << 8 | d`, t) to an EventArray,
+        fed to the encoder."""
         events = self._events_from_flat(
             (pixd >> 8).astype(np.int64), (pixd & 0xFF).astype(np.uint8), t
         )
-        self.encoder.ingest_event_array(events)
+        with tracing.stage(f"{self._trace}.encode", items=len(events)):
+            self.encoder.ingest_event_array(events)
         return events
 
     def _events_from_flat(self, pix, d, t) -> EventArray:
@@ -633,7 +655,8 @@ class Video:
             )[ci]
             xx = xs[ci].astype(np.int32)
             yy = ys[ci].astype(np.int32)
-            is_f = self._feature_mask_lookup(runnings, ii, yy, xx)
+            with tracing.stage("video.features.mask_lookup", items=len(ci)):
+                is_f = self._feature_mask_lookup(runnings, ii, yy, xx)
             # Exact replay of the stream-order set updates, vectorized:
             # membership after the chunk = the key's LAST candidate's mask
             # bit, and a key was ADDED iff some candidate has f=True while
@@ -686,7 +709,7 @@ class Video:
             # old c_thresh may still be read by a pending rerun, so it is
             # never written in place
             r = params.feature_c_radius
-            c = self.state.c_thresh.cpu().numpy().copy()
+            c = self._c_thresh_numpy()
             c3 = c.reshape(self.plane.shape[:2] + (-1,))
             for (x, y) in set(new_features):
                 lo_y, hi_y = max(y - r, 0), min(y + r, H - 1)
@@ -694,10 +717,19 @@ class Video:
                 c3[lo_y : hi_y + 1, lo_x : hi_x + 1, :] = min(
                     params.c_thresh_baseline, 2
                 )
-            self.state = self.state._replace(
-                c_thresh=torch.from_numpy(c).to(self.device))
+            self._put_c_thresh(c)
         if self.feature_cluster and new_features:
             self.cluster(set(new_features))
+
+    def _c_thresh_numpy(self) -> np.ndarray:
+        """A host copy of every pixel's c_thresh (N,)."""
+        return self.state.c_thresh.cpu().numpy().copy()
+
+    def _put_c_thresh(self, c: np.ndarray) -> None:
+        """Replace c_thresh by the host (N,) `c`: a new tensor, never
+        written in place."""
+        self.state = self.state._replace(
+            c_thresh=torch.from_numpy(c).to(self.device))
 
     def _feature_mask_lookup(self, runnings: torch.Tensor, ii, yy,
                              xx) -> np.ndarray:
@@ -765,17 +797,21 @@ class Video:
         (`n_state` is `n`: the port pads no plane), the arena depth, the
         display frame and each PixelState field as `state_<field>`."""
         self.flush()
-        state = {f"state_{k}": v
-                 for k, v in convert.state_to_numpy(self.state).items()}
+        fields = self._state_numpy()
+        state = {f"state_{k}": v for k, v in fields.items()}
         np.savez_compressed(
             path,
             in_interval_count=np.int64(self.in_interval_count),
             n=np.int64(self.n),
             n_state=np.int64(self.n),
-            depth=np.int64(self.state.node_d.shape[0]),
+            depth=np.int64(fields["node_d"].shape[0]),
             running_intensities=self.running_intensities,
             **state,
         )
+
+    def _state_numpy(self) -> dict:
+        """The whole plane's state, field name -> host numpy array."""
+        return convert.state_to_numpy(self.state)
 
     def load_checkpoint(self, path) -> None:
         """Restore state saved by either package's save_checkpoint (same

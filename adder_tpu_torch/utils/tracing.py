@@ -1,0 +1,170 @@
+"""Per-stage tracing: wall time and call counts by stage name.
+
+Copy of `adder_tpu/utils/tracing.py` with two changes, both where the
+device is touched: `hard_sync` synchronises the CUDA device of the tensor
+it is given (torch.cuda.synchronize), and `device_trace` records a
+torch.profiler trace (CPU and CUDA activities) into a directory as a
+Chrome trace. The registry, `stage`, `add_items`, `report`, `reset`,
+`summary_table` and the `ADDER_TPU_TRACE` gate are the original's.
+
+Enable with ADDER_TPU_TRACE=1 (read at import; `set_enabled` switches it
+later). Disabled, a stage does nothing but test one flag; enabled, it reads
+the host clock twice and never the device, so a stage around a chunk's
+launches adds no host read inside the chunk.
+
+Where the port records the JAX package's stage names:
+- transcoder/video.py: `video.submit_chunk` (the chunk's launches),
+  `video.collect.control_fetch` (the one read of a chunk's control
+  scalars), `video.collect.event_fetch`, `video.encode`,
+  `video.features.mask_lookup`. The JAX `video.collect.assemble` has no
+  counterpart: the port's kernels write the reference order, and there is
+  no host assembler to time;
+- transcoder/sharded.py: `sharded.submit_chunk`,
+  `sharded.collect.control_fetch`, `sharded.collect.event_fetch`,
+  `sharded.collect.assemble` (the bands' streams merged into the global
+  order), `sharded.encode`;
+- transcoder/prophesee.py and transcoder/lanes.py: `dvs.plan`, `dvs.pack`,
+  `dvs.upload`, `dvs.dispatch`, `dvs.event_fetch`, `dvs.encode` (the Davis
+  source's lane chunks go through the same lanes.py calls and record under
+  the same names). The JAX `dvs.sync` and `dvs.assemble` have no
+  counterpart: the row wrappers read their totals themselves, and their
+  events come back in the reference order;
+- transcoder/framed.py: `framed.decode_wait` (FramedStream waiting on its
+  decoder thread);
+- framer/device.py: `device_framer.pack`, `.dispatch`, `.sync_fetch`,
+  `.pop_d2h`, `.recycle`, `.convert`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+_ENABLED = os.environ.get("ADDER_TPU_TRACE", "0") not in ("", "0")
+_LOCK = threading.Lock()
+
+
+@dataclass
+class StageStats:
+    calls: int = 0
+    total_s: float = 0.0
+    max_s: float = 0.0
+    items: int = 0  # optional unit count (pixels, events, bytes)
+
+    @property
+    def mean_ms(self) -> float:
+        return self.total_s / self.calls * 1e3 if self.calls else 0.0
+
+
+_REGISTRY: Dict[str, StageStats] = {}
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(on: bool) -> None:
+    global _ENABLED
+    _ENABLED = on
+
+
+@contextlib.contextmanager
+def stage(name: str, items: int = 0):
+    """Accumulate wall time under `name`; `items` adds to a unit counter
+    so report() can derive rates (px/s, events/s)."""
+    if not _ENABLED:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _LOCK:
+            s = _REGISTRY.setdefault(name, StageStats())
+            s.calls += 1
+            s.total_s += dt
+            s.max_s = max(s.max_s, dt)
+            s.items += items
+
+
+def add_items(name: str, items: int) -> None:
+    if not _ENABLED:
+        return
+    with _LOCK:
+        _REGISTRY.setdefault(name, StageStats()).items += items
+
+
+def report() -> Dict[str, StageStats]:
+    with _LOCK:
+        return {k: StageStats(**vars(v)) for k, v in _REGISTRY.items()}
+
+
+def reset() -> None:
+    with _LOCK:
+        _REGISTRY.clear()
+
+
+def summary_table() -> str:
+    rows = ["stage                          calls   total_ms   mean_ms     rate"]
+    for name, s in sorted(report().items(), key=lambda kv: -kv[1].total_s):
+        rate = (
+            f"{s.items / s.total_s / 1e6:8.2f}M/s" if s.items and s.total_s
+            else "        -"
+        )
+        rows.append(
+            f"{name:<30} {s.calls:>5} {s.total_s*1e3:>10.1f}"
+            f" {s.mean_ms:>9.2f} {rate}"
+        )
+    return "\n".join(rows)
+
+
+def _first_tensor(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for leaf in tree:
+            found = _first_tensor(leaf)
+            if found is not None:
+                return found
+    return None
+
+
+def hard_sync(tree) -> None:
+    """Wait until the CUDA device of the first tensor in `tree` (a tensor,
+    or nested tuples, lists, NamedTuples and dicts of them) has finished
+    its queued work; nothing for CPU tensors."""
+    import torch
+
+    leaf = _first_tensor(tree)
+    if leaf is not None and leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """torch.profiler trace (CPU and, where there is a card, CUDA
+    activities) around a region, written to `log_dir` as a Chrome trace;
+    no-op when log_dir is None."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

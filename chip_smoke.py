@@ -140,9 +140,28 @@ Phases (any failure raises and the script exits non-zero):
      with cv2.VideoWriter (FFV1, lossless), read by Framed (colour) and
      FramedStream (mono) with cv2 decode on the card (the card's host has
      cv2 but no libav to link the ffmpeg decoder against): K1's counter
-     must rise and each .adder must equal Framed's on the CPU.
+     must rise and each .adder must equal Framed's on the CPU;
+  20. sharded on the one card: phase 3's 64 frames through ShardedVideo
+     with k = 2 and 4 pixel bands on cuda:0 (Raw sink, k = 2 traced with
+     the stage tracer on and no chunk call waiting for the card): each
+     .adder must hash to phase 3's constant and K1's pass and copy counters
+     rise by k a chunk; a k = 4 Empty-sink run (K2 per band) must end in
+     the single-device void run's state; a k = 2 features-on run (K1's
+     display per band) must give phase 15's feature and display digest and
+     phase 3's bytes; one 1080p chunk through fused_chunk_sharded (K5) and
+     transcode_chunk_sharded (K6) at k = 2 and 4 must give, merged, the
+     single-device chunk's events, display frames and state bit for bit;
+     the Raw wall and the void Mpx/s at k = 2 and 4 in turns with the
+     single-device run (recorded, no claim: every band runs on one card);
+  21. multi-process on the one card: two processes under gloo, both on
+     cuda:0, started as torchrun starts them (this script with
+     --band-job), each decoding only its host_rows band of phase 3's
+     scene, transcoding its pixel slice and writing a part file; rank 0
+     merges the parts into a Raw .adder that must hash to phase 3's
+     constant. A process that fails or outlives its timeout fails the
+     phase.
 The sha256 of each whole output of a full-size run (the .adder files of
-phases 3, 6, 9 and 17; the feature set and display frame of phase 15; the
+phases 3, 6, 9, 17, 20 and 21; the feature set and display frame of phase 15; the
 reconstructed frames of phases 17 and 18) is logged and held to a
 constant (DIGESTS), so that a kernel which reorders events past the
 prefixes the CPU checks cannot pass.
@@ -1370,7 +1389,7 @@ def staged_framed_run(at, frames, dev, path, keep_running=True,
         P.wrap(video, "_run_chunk", S.timed("chunks"))
         P.wrap(video, "_events_from_flat", S.timed("unpack"))
         P.wrap(video.encoder, "ingest_event_array", S.timed("encode"))
-        P.wrap(video, "_ingest", less_inner("fetch", ("unpack", "encode")))
+        P.wrap(video, "_fetch", S.timed("fetch"))
         P.wrap(video, "submit_chunk", less_inner(
             "submit", ("chunks", "fetch", "unpack", "encode")
             + feature_stages))
@@ -2211,6 +2230,351 @@ def file_source_phase(at, FR, dev, card) -> int:
     return launches
 
 
+def sharded_video(at, k, chunk, mesh_device="cuda:0", pixels=None):
+    """A ShardedVideo of k bands on one card at bench_source's config
+    (FramePerfect, DeltaT, ref_time 255, tps 255 x 30, delta_t_max 24 x
+    255, c_thresh 0)."""
+    v = at.ShardedVideo(at.PlaneSize(W, H, 1), at.Mode.FramePerfect, chunk,
+                        mesh=[mesh_device] * k, pixels=pixels)
+    v.time_parameters(int(255 * 30.0), 255, 255 * 24, at.TimeMode.DeltaT)
+    v.update_quality_manual(0, 0, 24, 1, 0)
+    return v
+
+
+def sharded_raw(at, frames, k, path, before=None):
+    """transcode_raw's drive through a ShardedVideo of k bands on the card:
+    (seconds, kernel event count, the Video)."""
+    video = sharded_video(at, k, T_CHUNK)
+    with open(path, "wb") as f:
+        video.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                        at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                        at.EncoderOptions.default(video.plane), f)
+        if before:
+            before(video)
+        t0 = time.perf_counter()
+        pendings = [video.submit_chunk(frames[i : i + T_CHUNK])
+                    for i in range(0, len(frames), T_CHUNK)]
+        video.end_write_stream()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    n_kernel = sum(int(o.per_interval.sum()) for p in pendings
+                   for o in p["outs"])
+    return dt, n_kernel, video
+
+
+def sharded_void_mpx(at, frames, k) -> float:
+    """void_mpx through a ShardedVideo of k bands on the card."""
+    video = sharded_video(at, k, T_CHUNK)
+    video.void_events = True
+    video.submit_chunk(frames[:T_CHUNK])  # warm-up chunk
+    video.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(frames), T_CHUNK):
+        video.submit_chunk(frames[i : i + T_CHUNK])
+    video.flush()
+    torch.cuda.synchronize()
+    return H * W * len(frames) / (time.perf_counter() - t0) / 1e6
+
+
+def same_chunk_outputs(sh, single, bands, n, what: str) -> int:
+    """Hold the merged outputs of a sharded chunk (per-band results) to the
+    single-device chunk's, bit for bit: events, interval counts, display
+    frames, state. Returns the event count."""
+    import numpy as np
+
+    dev = single.pixd.device
+    totals, _, per_int = sh.band_controls(bands, dev)
+    total = int(single.total)
+    pixd, t, per = sh.merge_bands(
+        [b.pixd[:k].cpu().numpy() for b, k in zip(bands, totals.tolist())],
+        [b.t[:k].cpu().numpy() for b, k in zip(bands, totals.tolist())],
+        totals, per_int, [lo for lo, _ in sh.band_bounds(n, len(bands))])
+    want_p = single.pixd[:total].cpu().numpy().view(np.uint32)
+    want_t = single.t[:total].cpu().numpy().view(np.uint32)
+    if not (np.array_equal(pixd, want_p) and np.array_equal(t, want_t)
+            and np.array_equal(per, single.per_interval.cpu().numpy())):
+        raise AssertionError(f"{what}: the merged events differ from the "
+                             f"single-device chunk's")
+    run = torch.cat([b.runnings for b in bands], dim=1)
+    if not torch.equal(run, single.runnings):
+        raise AssertionError(f"{what}: the display frames differ")
+    whole = sh.gather_state([b.state for b in bands], dev)
+    for name, a, b in zip(whole._fields, whole, single.state):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: state field {name} differs")
+    return total
+
+
+def sharded_phase(at, FR, dev, card, scene, frames, st6, p) -> dict:
+    """Phase 20: phase 3's 1080p scene through ShardedVideo with k bands on
+    the one card. Returns the launch counts of each run and the sharded K5
+    and K6 chunks."""
+    from adder_tpu_torch.ops import cuda_build
+    from adder_tpu_torch.ops import fused_kernel as FK
+    from adder_tpu_torch.ops import integrate as ops
+    from adder_tpu_torch.ops import pallas_kernel as PK
+    from adder_tpu_torch.parallel import sharding as sh
+    from adder_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    chunks = N_FRAMES // T_CHUNK
+    main_name = "phase 3 framed 1080p mono Raw .adder"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded.adder")
+        for k in (2, 4):
+            FR.reset_launch_counts()
+            # k = 2 traced (ADDER_TPU_TRACE's switch): the stages must not
+            # add a host read inside a chunk either
+            tracing.set_enabled(k == 2)
+            tracing.reset()
+            try:
+                raw_s, n_kernel, video = sharded_raw(
+                    at, frames, k, path, before=no_sync_in_chunks)
+            finally:
+                tracing.set_enabled(False)
+            launches = dict(FR.LAUNCHES)
+            out[f"raw_k{k}"] = launches["adder_resident_chunk"]
+            if (launches["adder_resident_chunk"] != k * chunks
+                    or launches["adder_segment_copy"] != k * chunks):
+                raise AssertionError(f"k = {k}: not one pass and one copy "
+                                     f"per band and chunk: {launches}")
+            log(f"# phase 20: ShardedVideo, {k} bands on {dev} "
+                f"({video.bounds[0][1]} px each), 1080p mono Raw: {n_kernel} "
+                f"events, {os.path.getsize(path)} bytes, {raw_s:.3f} s (first "
+                f"run), launches {launches}")
+            hold_digest(main_name, file_digest(path))
+            if k == 2:
+                log(f"# phase 20: k = 2 traced (tracing enabled, no chunk "
+                    f"call waited for the card):")
+                for line in tracing.summary_table().splitlines():
+                    log(f"#   {line}")
+
+        # the Empty sink: K2 per band, the single-device void run's state
+        FR.reset_launch_counts()
+        vd = sharded_video(at, 4, T_CHUNK)
+        vd.void_events = True
+        for i in range(0, N_FRAMES, T_CHUNK):
+            vd.submit_chunk(frames[i : i + T_CHUNK])
+        vd.flush()
+        void_launches = dict(FR.LAUNCHES)
+        out["void_k4"] = void_launches["adder_resident_chunk"]
+        if (void_launches["adder_resident_chunk"] != 4 * chunks
+                or void_launches["adder_segment_copy"]):
+            raise AssertionError(f"void, k = 4: {void_launches}")
+        src = bench_source(at, frames, dev, T_CHUNK)
+        single = src.get_video_mut()
+        single.void_events = True
+        for i in range(0, N_FRAMES, T_CHUNK):
+            single.submit_chunk(frames[i : i + T_CHUNK])
+        single.flush()
+        whole = sh.gather_state(vd.state, dev)
+        want = ops.pad_state_depth(single.state, ops.DEPTH)
+        for name, a, b in zip(whole._fields, whole, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"void, k = 4: state field {name} "
+                                     f"differs from the single-device run's")
+        log(f"# phase 20: Empty sink, 4 bands: K2 launches {void_launches}; "
+            f"the state equals the single-device void run's (depth "
+            f"{single.state.node_d.shape[0]} padded to {ops.DEPTH})")
+
+        # features on, 2 bands: K1's display output per band
+        FR.reset_launch_counts()
+        display = DisplayLaunches(cuda_build.load(), FR)
+        try:
+            feat_s, _, fv = sharded_raw(at, frames, 2, path,
+                                        before=features_on)
+        finally:
+            display.close()
+        out["features_k2"] = FR.LAUNCHES["adder_resident_chunk"]
+        if display.n != 2 * chunks or out["features_k2"] != 2 * chunks:
+            raise AssertionError(f"features, k = 2: {display.n} display "
+                                 f"launches of {FR.LAUNCHES}")
+        hold_digest(main_name, file_digest(path))
+        hold_digest("phase 15 features and display, 1080p bench scene",
+                    features_digest(fv))
+        log(f"# phase 20: features on, 2 bands: {display.n} K1 display "
+            f"launches, {len(fv.features)} features, {feat_s:.3f} s")
+
+    # one 1080p chunk through the sharded K5 and K6 chunk functions
+    n = H * W
+    f16 = scene[T_CHUNK : 2 * T_CHUNK].reshape(T_CHUNK, -1).contiguous()
+    run0 = torch.zeros(n, dtype=torch.uint8, device=dev)
+    st8 = ops.pad_state_depth(st6, ops.DEPTH)
+    single5 = FK.fused_chunk(st6, f16, 255.0, run0, p, 2 * n * T_CHUNK, 16)
+    single6 = ops.transcode_chunk(st8, f16, 255.0, run0, p, 4 * n * T_CHUNK,
+                                  ops.K_SLOTS)
+    for k in (2, 4):
+        bounds = sh.band_bounds(n, k)
+        mesh = [dev] * k
+        fr = [f16[:, lo:hi].contiguous() for lo, hi in bounds]
+        r0 = [run0[lo:hi].contiguous() for lo, hi in bounds]
+        n_local = bounds[0][1]
+        FK.reset_launch_counts()
+        b5 = sh.fused_chunk_sharded(sh.shard_state(st6, mesh), fr, 255.0, r0,
+                                    p, 2 * n_local * T_CHUNK, 16)
+        out[f"k5_k{k}"] = FK.LAUNCHES["adder_fused_interval"]
+        PK.reset_launch_counts()
+        b6 = sh.transcode_chunk_sharded(sh.shard_state(st8, mesh), fr, 255.0,
+                                        r0, p, 4 * n_local * T_CHUNK,
+                                        ops.K_SLOTS)
+        out[f"k6_k{k}"] = PK.LAUNCHES["adder_interval_slots"]
+        if out[f"k5_k{k}"] != k * T_CHUNK or out[f"k6_k{k}"] != k * T_CHUNK:
+            raise AssertionError(f"k = {k}: K5 {out[f'k5_k{k}']}, K6 "
+                                 f"{out[f'k6_k{k}']} launches, want "
+                                 f"{k * T_CHUNK} each")
+        e5 = same_chunk_outputs(sh, single5, b5, n, f"K5 sharded, k = {k}")
+        e6 = same_chunk_outputs(sh, single6, b6, n, f"K6 sharded, k = {k}")
+        log(f"# phase 20: one 1080p chunk (T = {T_CHUNK}, mid-stream) through "
+            f"fused_chunk_sharded (K5, pack 16, {out[f'k5_k{k}']} launches) "
+            f"and transcode_chunk_sharded (K6 and its glue, "
+            f"{out[f'k6_k{k}']} launches), {k} bands: {e5} and {e6} events, "
+            f"display frames and state equal the single-device chunk's")
+
+    # walls in turns: single, 2, 4, 4, 2, single (no claim: every band
+    # runs on the one card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "turns.adder")
+        walls = {"single": [], 2: [], 4: []}
+        voids = {"single": [], 2: [], 4: []}
+        for who in ("single", 2, 4, 4, 2, "single"):
+            if who == "single":
+                walls[who].append(transcode_raw(at, frames, dev, path,
+                                                T_CHUNK)[0])
+                voids[who].append(void_mpx(at, frames, T_CHUNK, dev))
+            else:
+                walls[who].append(sharded_raw(at, frames, who, path)[0])
+                voids[who].append(sharded_void_mpx(at, frames, who))
+    out["raw_s"] = {str(k): v for k, v in walls.items()}
+    out["void_mpx"] = {str(k): v for k, v in voids.items()}
+    log(f"# phase 20: in turns (single, 2, 4, 4, 2, single bands), 1080p "
+        f"mono [{card}]: Raw walls {out['raw_s']} s; void {out['void_mpx']} "
+        f"Mpx/s (all bands on one card: no scaling is claimed)")
+    log(f"# phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+MULTIHOST_TIMEOUT_S = 240
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(card) -> list:
+    """Phase 21: two processes under gloo, both on cuda:0, as torchrun
+    would start them (RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT): each runs `band_job`. Returns each rank's record."""
+    t_phase = time.perf_counter()
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        try:
+            for rank in range(2):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                           WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--band-job",
+                     tmp], env=env, stdout=logs[-1],
+                    stderr=subprocess.STDOUT, text=True))
+            deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+            for rank, proc in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(
+                        f"phase 21: rank {rank} did not finish within "
+                        f"{MULTIHOST_TIMEOUT_S} s")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        records = []
+        for rank, (proc, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 21: rank {rank} exited "
+                                     f"{proc.returncode}:\n{text[-3000:]}")
+            records.append(json.loads(text.strip().splitlines()[-1]))
+        path = os.path.join(tmp, "multihost.adder")
+        size = os.path.getsize(path)
+        log(f"# phase 21: 2 processes, {records[0]['backend']}, both on "
+            f"cuda:0; rank 0 merged {records[0]['merged']} events into "
+            f"{size} bytes; ranks {records}")
+        hold_digest("phase 3 framed 1080p mono Raw .adder", file_digest(path))
+    log(f"# phase 21: {time.perf_counter() - t_phase:.1f} s, the processes' "
+        f"start included [{card}]")
+    return records
+
+
+def band_job(out_dir: str) -> int:
+    """One process of phase 21's job (or of `torchrun --nproc-per-node 2
+    chip_smoke.py --band-job DIR`): decode only this process's rows of
+    phase 3's scene, transcode its pixel slice on cuda:0 through a
+    ShardedVideo of one band, write its part into `out_dir`; rank 0 merges
+    the parts into out_dir/multihost.adder. Prints its record as JSON."""
+    if not torch.cuda.is_available():
+        print("band job: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    import torch.distributed as dist
+
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.parallel import multihost as mh
+
+    t0 = time.perf_counter()
+    if not mh.init_multihost():
+        raise RuntimeError("band job: WORLD_SIZE must be above 1")
+    rank = mh.process_index()
+    rows = mh.host_rows(H, W, 1)
+    band = testing.moving_blobs(H, W, N_FRAMES, seed=7, device="cuda",
+                                rows=rows).cpu().numpy()[..., None]
+    local = mh.local_band_frames(band, H, W, 1)
+    video = sharded_video(at, 1, T_CHUNK,
+                          pixels=mh.host_pixel_slice(H * W))
+    # every rank attaches a sink with the same options (they carry the CRF
+    # parameters of the chunks); rank 0's is the file, the others' Empty
+    f = open(os.path.join(out_dir, "multihost.adder"), "wb") if rank == 0 \
+        else None
+    video.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                    at.PixelMultiMode.Collapse, None,
+                    at.EncoderType.Raw if f else at.EncoderType.Empty,
+                    at.EncoderOptions.default(video.plane), f)
+    FR.reset_launch_counts()
+    t1 = time.perf_counter()
+    for i in range(0, N_FRAMES, T_CHUNK):
+        video.submit_chunk(local[i : i + T_CHUNK])
+    video.flush()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    merged = mh.gather_parts(video, out_dir)
+    if f:
+        video.end_write_stream()
+        f.close()
+    t3 = time.perf_counter()
+    record = {"rank": rank, "backend": dist.get_backend(), "rows": rows,
+              "pixels": video.pixels, "launches": dict(FR.LAUNCHES),
+              "transcode_s": t2 - t1, "parts_s": t3 - t2,
+              "wall_s": t3 - t0, "merged": merged}
+    dist.destroy_process_group()
+    if record["launches"]["adder_resident_chunk"] != N_FRAMES // T_CHUNK:
+        raise AssertionError(f"rank {rank}: {record['launches']}")
+    print(json.dumps(record), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -2477,6 +2841,12 @@ def main() -> int:
     k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
     sim = pipeline_phases(at, FR, dev, card, frames)
     file_launches = file_source_phase(at, FR, dev, card)
+    sharded = sharded_phase(at, FR, dev, card, scene, frames, st, p)
+    band_records = multihost_phase(card)
+    k5_k6[0]["sharded_launches"] = {k: sharded[f"k5_{k}"]
+                                    for k in ("k2", "k4")}
+    k5_k6[1]["sharded_launches"] = {k: sharded[f"k6_{k}"]
+                                    for k in ("k2", "k4")}
 
     record = {"kernels": [
         {"name": "adder_resident_chunk", "route": "cuda",
@@ -2491,12 +2861,21 @@ def main() -> int:
          "void_ms": k1["void"], "void_queued_ms": k1["void_queued"],
          "void_plain_ms": vp_ms, "void_bound_ms": v_bound,
          "simulproc_launches": sim["launches"],
-         "file_source_launches": file_launches},
+         "file_source_launches": file_launches,
+         "sharded_launches": {k: sharded[k] for k in (
+             "raw_k2", "raw_k4", "void_k4", "features_k2")},
+         "multihost_launches": [r["launches"]["adder_resident_chunk"]
+                                for r in band_records],
+         "sharded_raw_s": sharded["raw_s"],
+         "sharded_void_mpx": sharded["void_mpx"]},
         k1_display,
         {"name": "adder_segment_copy", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",
          "launches": launches["adder_segment_copy"],
+         "sharded_launches": {k: sharded[k] for k in ("raw_k2", "raw_k4")},
+         "multihost_launches": [r["launches"]["adder_segment_copy"]
+                                for r in band_records],
          "max_abs_err": copy_err, "ms": c_ms, "plain_ms": cp_ms,
          "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
          "queued_ms": c_q_ms},
@@ -2552,4 +2931,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--band-job"]:
+        sys.exit(band_job(sys.argv[2]))
     sys.exit(main())

@@ -91,3 +91,38 @@ def test_nvcc_command_is_exact_ieee_for_sm90a():
     sources = [pathlib.Path(c) for c in cmd if c.endswith(".cu")]
     assert sources and all(s.exists() for s in sources)
     assert cuda_build.library_path().parent == cuda_build.BUILD_DIR
+
+
+_SHARDED_RUN = r"""
+import io, sys
+import numpy as np
+sys.modules["jax"] = sys.modules["adder_tpu"] = None
+import adder_tpu_torch as at
+from adder_tpu_torch.parallel import multihost, sharding
+from adder_tpu_torch.utils import tracing
+tracing.set_enabled(True)
+frames = np.random.default_rng(1).integers(0, 256, (4, 5, 7, 1)).astype(np.uint8)
+v = at.ShardedVideo(at.PlaneSize(7, 5, 1), at.Mode.FramePerfect,
+                    mesh=sharding.make_mesh(["cpu"] * 2))
+buf = io.BytesIO()
+v.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+            at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+            at.EncoderOptions.default(v.plane), buf)
+v.submit_chunk(frames)
+v.end_write_stream()
+assert len(buf.getvalue()) > 100 and "sharded.encode" in tracing.report()
+assert multihost.init_multihost() is False
+assert not any(m.split(".")[0] in ("jax", "adder_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_sharded_modules_run_without_jax():
+    """parallel/sharding.py, parallel/multihost.py, transcoder/sharded.py
+    and utils/tracing.py run with jax and adder_tpu blocked: a tiny
+    two-band ShardedVideo on the CPU, traced."""
+    proc = subprocess.run([sys.executable, "-c", _SHARDED_RUN], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")

@@ -438,3 +438,45 @@ def test_device_framer_cuda_equals_cpu(cuda, t_mode, view):
         assert len(cpu_frames) == len(card_frames)
         for a, b_ in zip(cpu_frames, card_frames):
             assert (a == b_).all()
+
+
+def _sharded_raw_bytes(frames, k, device, void=False):
+    """_raw_bytes' drive through a ShardedVideo of k bands on `device`."""
+    T_, H_, W_, C_ = frames.shape
+    v = at.ShardedVideo(at.PlaneSize(W_, H_, C_), at.Mode.FramePerfect,
+                        chunk_frames=4, mesh=[device] * k)
+    v.time_parameters(255 * 30, 255, 255 * 24, at.TimeMode.DeltaT)
+    v.update_quality_manual(0, 0, 24, 1, 0)
+    buf = io.BytesIO()
+    v.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                at.EncoderOptions.default(v.plane), buf)
+    v.void_events = void
+    for i in range(0, T_, 4):
+        v.submit_chunk(frames[i:i + 4])
+    v.end_write_stream()
+    return buf.getvalue(), v
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_sharded_video_on_one_card_equals_video(cuda, k):
+    """k bands on cuda:0: the one-card Video's bytes, one K1 pass and one
+    segment copy per band and chunk; the Empty sink launches K2 per band
+    and ends in the same state."""
+    from adder_tpu_torch.parallel import sharding
+
+    frames = testing.walk_frames(3, 12, 33 * 17).reshape(12, 17, 33, 1)
+    want = _raw_bytes(frames, cuda)
+    FR.reset_launch_counts()
+    got, v = _sharded_raw_bytes(frames, k, "cuda:0")
+    assert FR.LAUNCHES["adder_resident_chunk"] == 3 * k
+    assert FR.LAUNCHES["adder_segment_copy"] == 3 * k
+    assert got == want and len(got) > 1000
+    FR.reset_launch_counts()
+    _, vd = _sharded_raw_bytes(frames, k, "cuda:0", void=True)
+    assert FR.LAUNCHES["adder_resident_chunk"] == 3 * k
+    assert FR.LAUNCHES["adder_segment_copy"] == 0
+    a = sharding.gather_state(v.state, "cpu")
+    b = sharding.gather_state(vd.state, "cpu")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

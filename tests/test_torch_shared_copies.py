@@ -408,3 +408,60 @@ def test_native_ingest_builds_in_the_port_tree_and_raises_on_failure(
     monkeypatch.setattr(native_build, "load", broken)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         NI._get_lib()
+
+
+# --- the multi-process helpers' and the tracer's copies ----------------------
+
+
+def _code_of(fn_or_cls):
+    """The AST of a function or class without its docstrings and type
+    annotations, the JAX process queries named as the port's helpers."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = textwrap.dedent(inspect.getsource(fn_or_cls))
+    src = (src.replace("jax.process_index()", "process_index()")
+           .replace("jax.process_count()", "process_count()"))
+    tree = ast.parse(src)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(getattr(body[0], "value", None), ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            node.returns = None
+            for a in node.args.args + node.args.kwonlyargs:
+                a.annotation = None
+        if isinstance(node, ast.AnnAssign):
+            node.annotation = ast.Constant(None)
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ["host_pixel_slice", "host_rows",
+                                  "local_band_frames", "write_event_part",
+                                  "read_event_part", "merge_event_parts"])
+def test_multihost_numpy_helpers_are_copies(name):
+    """The plain numpy helpers of parallel/multihost.py are the JAX
+    package's, but for the docstrings, the annotations and the process
+    queries (torch.distributed's rank and world size for jax.process_index
+    and jax.process_count)."""
+    from adder_tpu.parallel import multihost as JMH
+    from adder_tpu_torch.parallel import multihost as MH
+
+    assert _code_of(getattr(MH, name)) == _code_of(getattr(JMH, name))
+    assert (MH._PART_MAGIC, MH._PART_VERSION) == (JMH._PART_MAGIC,
+                                                 JMH._PART_VERSION)
+
+
+@pytest.mark.parametrize("name", ["StageStats", "enabled", "set_enabled",
+                                  "stage", "add_items", "report", "reset",
+                                  "summary_table"])
+def test_tracing_copy_is_the_original(name):
+    """utils/tracing.py keeps the original's registry, stages and report;
+    only hard_sync and device_trace, which touch the device, differ."""
+    from adder_tpu.utils import tracing as JTR
+    from adder_tpu_torch.utils import tracing as TR
+
+    assert _code_of(getattr(TR, name)) == _code_of(getattr(JTR, name))

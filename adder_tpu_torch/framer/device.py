@@ -9,10 +9,9 @@ the torch device (the card unless the caller asks for the CPU):
   stable sort by pixel (keeps per-pixel order, the reference's own
   invariant) -> segmented chains (AbsoluteT monotonicity guard, framed
   ref_interval rounding, last-filled-frame cummax, the D_EMPTY payload
-  carry) -> span fill into a modular (F, N) frame window by `max_span`
-  scatter passes, first write wins (span length is bounded by
-  delta_t_max / tpf, the reference's guarantee that a pixel cannot stay
-  silent past dtm) -> the carries at each segment's last event.
+  carry) -> span fill into a modular (F, N) frame window by one scatter
+  pass per frame of the longest span, first write wins -> the carries at
+  each segment's last event.
 
 The window holds each cell's (d, delta_t) pair, never a display value; the
 host converts popped frames through the same f64 `get_frame_values` as the
@@ -22,11 +21,23 @@ Differences from the JAX step, none of which changes a popped frame:
 - the chains are computed in int64 (torch on CUDA has no uint32 division,
   maximum or cummax); the (F, N) window planes are stored as int32 (d, and
   the bits of the u32 delta_t), which halves the memory of int64 planes.
-  The limits stay the JAX package's: a DeltaT chain at or past 2^31, a span
-  longer than `max_span` and a frame past the window raise OverflowError.
-  Where the JAX step rounds `t` to ref_interval in u32 and wraps (t within
-  ref_interval of 2^32), int64 does not wrap and agrees with the host
-  framer's u64;
+  A DeltaT chain at or past 2^31 raises OverflowError, as in the JAX
+  package. Where the JAX step rounds `t` to ref_interval in u32 and wraps
+  (t within ref_interval of 2^32), int64 does not wrap and agrees with the
+  host framer's u64;
+- the span passes and the window follow the spans the ingest holds, where
+  the JAX step bounds a span by delta_t_max / tpf and the window by its
+  argument, and raises past either. Collapse mode's D_EMPTY fillers carry
+  the summed time of the events they replace, which can pass delta_t_max,
+  and the host framer fills every frame an event spans, growing its
+  buffer. Here the passes start at the header's bound, widened before the
+  upload where the host can bound the spans from the times alone (DeltaT:
+  the largest time; AbsoluteT: the window from the latest time); the step
+  measures the longest span and the furthest frame on the device, and an
+  ingest that needed more passes or rows than it had runs again from a
+  clone of the carries, with both grown (its writes so far are the rerun's
+  own, so the window needs no clone). A window that would outgrow the
+  card's free memory raises OverflowError before it is allocated;
 - the segmented scans are a global cumsum minus each segment's base, and a
   cummax of keys offset by segment (`_seg_cumsum`, `_seg_cummax`), in
   place of `jax.lax.associative_scan` with a segment flag;
@@ -36,8 +47,11 @@ Differences from the JAX step, none of which changes a popped frame:
   read;
 - a batch is the events themselves, no padding to `batch_cap`: the whole
   ingest is uploaded once and sliced on the device, and nothing is read
-  back per batch. The overflow flags stay on the device and are read with
-  the window's fill counts once per `ingest_event_array`.
+  back per batch. The measured needs and the chain flag stay on the device
+  and are read with the window's fill counts once per `ingest_event_array`
+  (twice on a rerun);
+- popped rows narrow delta_t to u16 when every payload stored so far fits
+  (the largest is read with the control outputs), not by delta_t_max.
 """
 
 from __future__ import annotations
@@ -93,6 +107,14 @@ def _seg_exclusive(inclusive: torch.Tensor, seg_start: torch.Tensor,
     return torch.where(seg_start, carry, prev)
 
 
+def _free_bytes(device: torch.device) -> Optional[int]:
+    """The device memory free for the window (None on the CPU, where the
+    host's memory is not checked)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
 def _write_pass(planes, flat: torch.Tensor, values) -> None:
     """One span-fill pass: planes[k][flat] = values[k] for each flat plane.
     Masked events carry the dummy index (the planes' last slot)."""
@@ -139,8 +161,11 @@ class DeviceFramer:
             and not self._absolute
             and not self.coordless
         )
+        # the span passes and the window rows to start from; both grow to
+        # what an ingest holds
         self.max_span = max(self.delta_t_max // max(self.tpf, 1) + 2, 4)
         self.window = window or max(2 * self.max_span, 64)
+        self._dt_hi = 0  # the largest delta_t payload stored so far
         self.batch_cap = batch_cap
         self.frames_written = 0
 
@@ -194,10 +219,13 @@ class DeviceFramer:
             + events.x.astype(np.int64)
         ) * self.plane.channels + c
 
-    def _step(self, pix, t, d, base: int, overflow: torch.Tensor) -> None:
+    def _step(self, pix, t, d, base: int, passes: int, need: torch.Tensor,
+              overflow: torch.Tensor) -> None:
         """One batch: pix, t, d are int64 (E,) on the device, in arrival
-        order. Updates the carries and the window in place and ORs the
-        batch's overflow conditions into `overflow` (no host read)."""
+        order. Updates the carries and the window in place, fills `passes`
+        frames of each span at most and none past the window, raises `need`
+        to (frames past `base`, longest span, largest delta_t payload) and
+        ORs the DeltaT chain's overflow into `overflow` (no host read)."""
         n, F = self.n, self.window
         pix, order = torch.sort(pix, stable=True)
         t = t[order]
@@ -251,25 +279,29 @@ class DeviceFramer:
         fill_dt = torch.where(has_src, dt_for_value[gsrc], self.li_dt[pix])
 
         # span fill: a fired event fills frames (prev_lf, f_idx] with its
-        # payload, first write wins
+        # payload, first write wins; a pixel's spans are disjoint and start
+        # past its filled frames, so each cell has one writer in an ingest
         lo = torch.clamp(prev_lf + 1, min=base)
         hi = f_idx
         zero = torch.zeros((), dtype=torch.int64, device=pix.device)
-        overflow |= torch.where(fires, hi - base, zero).max() >= F
+        need.copy_(torch.maximum(need, torch.stack([
+            torch.where(fires, hi - base + 1, zero).max(),
+            torch.where(fires, hi - lo + 1, zero).max(),
+            fill_dt.max(),
+        ])))
         planes = (self._wd, self._wdt, self._wf)
         values = (fill_d.to(torch.int32), fill_dt.to(torch.int32),
                   torch.ones((), dtype=torch.bool, device=pix.device))
         dummy = F * n
-        for s in range(self.max_span):
+        # frames past the window wait for the rerun
+        hi_w = torch.clamp(hi, max=base + F - 1)
+        for s in range(passes):
             fr = lo + s
-            m = fires & (fr <= hi)
+            m = fires & (fr <= hi_w)
             flat = torch.where(m, torch.remainder(fr, F) * n + pix, dummy)
             write = m & ~self._wf[flat]
             _write_pass(planes, torch.where(write, flat, dummy), values)
 
-        # span overflow (hi - lo + 1 can exceed max_span only on corrupt
-        # streams; the dtm contract bounds it)
-        overflow |= torch.where(fires, hi - lo, zero).max() >= self.max_span
         if not self._absolute:
             overflow |= incl_rt.max() >= (1 << 31)
 
@@ -282,6 +314,41 @@ class DeviceFramer:
         self.li_d[seg_pix] = fill_d
         self.li_dt[seg_pix] = fill_dt
 
+    def _grow(self, rows: int) -> None:
+        """Widen the window to at least `rows` rows (a multiple of 8),
+        moving the rows of frames [frames_written, frames_written + F) to
+        their places modulo the new width."""
+        F, n = self.window, self.n
+        F2 = -(-rows // 8) * 8
+        if F2 <= F:
+            return
+        # d and delta_t as int32 and the fill flag, per cell
+        grown_bytes = F2 * n * 9
+        free = _free_bytes(self.device)
+        if free is not None and grown_bytes > free + F * n * 9:
+            raise OverflowError(
+                f"device framer: one ingest spans {F2} frames, a window of "
+                f"{grown_bytes / 2**30:.2f} GiB against "
+                f"{free / 2**30:.2f} GiB free on {self.device}; ingest the "
+                f"events in smaller arrays, popping frames between them")
+        frames = self.frames_written + np.arange(F)
+        old_h, new_h = frames % F, frames % F2
+        old = torch.from_numpy(old_h).to(self.device)
+        new = torch.from_numpy(new_h).to(self.device)
+        for name in ("_wd", "_wdt", "_wf"):
+            plane = getattr(self, name)
+            grown = torch.zeros(F2 * n + 1, dtype=plane.dtype,
+                                device=self.device)
+            grown[:-1].view(F2, n)[new] = plane[:-1].view(F, n)[old]
+            setattr(self, name, grown)
+        counts = np.zeros(F2, np.int64)
+        counts[new_h] = self._counts[old_h]
+        self._counts = counts
+        self.window = F2
+
+    def _carries(self) -> tuple:
+        return (self.running_ts, self.last_filled, self.li_d, self.li_dt)
+
     def ingest_event_array(self, events: EventArray) -> bool:
         m = len(events)
         if m == 0:
@@ -292,27 +359,52 @@ class DeviceFramer:
             packed[0] = self._pix_index(events)
             packed[1] = events.t.astype(np.uint32).view(np.int32)
             packed[2] = events.d
+            # what the times alone bound: a DeltaT span lasts at most the
+            # largest time (rounded up) plus a frame; an AbsoluteT event
+            # fills no frame past the latest time's
+            t_hi = int(events.t.max())
+            base = self.frames_written
+            if not self._absolute:
+                self.max_span = max(self.max_span,
+                                    (t_hi + self.ref_interval) // self.tpf + 2)
+            else:
+                self._grow((max(t_hi, 1) - 1) // self.tpf - base + 1)
         with tracing.stage("device_framer.dispatch"):
             packed = torch.from_numpy(packed).to(self.device)
             pix_all = packed[0].to(torch.int64)
             t_all = packed[1].to(torch.int64) & 0xFFFFFFFF
             d_all = packed[2].to(torch.int64)
-            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-            for i in range(0, m, self.batch_cap):
-                j = min(i + self.batch_cap, m)
-                self._step(pix_all[i:j], t_all[i:j], d_all[i:j],
-                           self.frames_written, overflow)
-        # ONE read back for the control outputs: the window's fill counts
-        # after the last batch and the overflow flags of every batch
-        with tracing.stage("device_framer.sync_fetch"):
-            ctl = torch.cat([torch.count_nonzero(self.win_filled, dim=1),
-                             overflow.view(1).to(torch.int64)]).cpu()
-        if bool(ctl[-1]):
-            raise OverflowError(
-                "device framer window overflow (increase `window`; the "
-                "stream violates the delta_t_max span bound)"
-            )
-        self._counts = ctl[:-1].numpy().astype(np.int64)
+            saved = tuple(c.clone() for c in self._carries())
+        while True:
+            with tracing.stage("device_framer.dispatch"):
+                need = torch.zeros(3, dtype=torch.int64, device=self.device)
+                overflow = torch.zeros((), dtype=torch.bool,
+                                       device=self.device)
+                for i in range(0, m, self.batch_cap):
+                    j = min(i + self.batch_cap, m)
+                    self._step(pix_all[i:j], t_all[i:j], d_all[i:j], base,
+                               self.max_span, need, overflow)
+            # ONE read back for the control outputs: the window's fill
+            # counts after the last batch, the needs and the chain flag
+            with tracing.stage("device_framer.sync_fetch"):
+                ctl = torch.cat([torch.count_nonzero(self.win_filled, dim=1),
+                                 need, overflow.view(1).to(torch.int64)]
+                                ).cpu().numpy().astype(np.int64)
+            if ctl[-1]:
+                raise OverflowError(
+                    "device framer: a DeltaT chain reached 2^31 ticks")
+            rows, span, dt_hi = (int(v) for v in ctl[-4:-1])
+            self._dt_hi = max(self._dt_hi, dt_hi)
+            if rows <= self.window and span <= self.max_span:
+                break
+            # more frames or a longer span than this pass had room for:
+            # grow, put the carries back and run the ingest again
+            with tracing.stage("device_framer.rerun"):
+                self.max_span = max(self.max_span, span)
+                self._grow(rows)
+                for c, s in zip(self._carries(), saved):
+                    c.copy_(s)
+        self._counts = ctl[:-4]
         return self.is_frame_0_filled()
 
     def is_frame_0_filled(self) -> bool:
@@ -381,7 +473,7 @@ class DeviceFramer:
         rows_h = np.array([(self.frames_written + i) % F for i in range(k)],
                           np.int64)
         rows = torch.from_numpy(rows_h).to(self.device)
-        narrow = self.delta_t_max < (1 << 16)
+        narrow = self._dt_hi < (1 << 16)
         with tracing.stage("device_framer.pop_d2h"):
             dd = self.win_d.index_select(0, rows).to(torch.uint8)
             dtt = self.win_dt.index_select(0, rows)

@@ -5,8 +5,10 @@ Copies from `adder_tpu/utils/cv.py` (ref: adder-codec-rs src/utils/cv.rs):
 `fast_mask` and `_streak_mask` (the FAST-9/16 corner test, scalar and dense
 numpy), `handle_color` (the DAVIS path's EDI reconstructor),
 `handle_color_rgb_videors` and `handle_color_videors` (the file sources'
-conversions), and `QualityMetrics`, `calculate_quality_metrics`,
-`calculate_mse`, `calculate_psnr` and `calculate_ssim`. New here:
+conversions), `feature_precision_recall_accuracy` (the feature evaluation),
+`QualityMetrics`, `calculate_quality_metrics`, `calculate_mse`,
+`calculate_psnr` and `calculate_ssim`, and the log-intensity clamps
+`clamp_u8` and `mid_clamp_u8`. New here:
 `fast_mask_torch`, the counterpart of `fast_mask_jax` in torch ops on the
 caller's device, batched over a leading axis, which the feature pipeline of
 `Video` runs over a chunk's display frames.
@@ -173,6 +175,22 @@ def handle_color_videors(frame_bgr: np.ndarray, color: bool) -> np.ndarray:
     return gray.astype(np.uint8)[..., None]
 
 
+def feature_precision_recall_accuracy(
+    gt_coords: set, prediction: set, plane: PlaneSize
+) -> tuple:
+    """Precision/recall/accuracy of predicted features vs ground truth
+    (ref: cv.rs:235-279). Both sets contain (x, y) tuples."""
+    tp = len(gt_coords & prediction)
+    fp = len(prediction - gt_coords)
+    fn = len(gt_coords - prediction)
+    total = plane.area_wh()
+    tn = total - tp - fp - fn
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    accuracy = (tp + tn) / total
+    return precision, recall, accuracy
+
+
 # --- quality metrics (ref: cv.rs:282-429) -----------------------------------
 
 
@@ -243,3 +261,20 @@ def _win_mean(x: np.ndarray) -> np.ndarray:
     w = _WINDOW
     s = ii[w:, w:] - ii[:-w, w:] - ii[w:, :-w] + ii[:-w, :-w]
     return s / (w * w)
+
+
+# --- log-intensity clamps (ref: cv.rs:432-449), used by DVS integration -----
+
+
+def clamp_u8(frame_val: float, last_val_ln: float) -> tuple:
+    if frame_val <= 0.0:
+        return 0.0, np.log1p(0.0)
+    if frame_val > 255.0:
+        return 255.0, np.log1p(1.0)
+    return frame_val, last_val_ln
+
+
+def mid_clamp_u8(frame_val: float, last_val_ln: float) -> tuple:
+    if frame_val < 0.0 or frame_val > 255.0:
+        return 128.0, np.log1p(128.0 / 255.0)
+    return frame_val, last_val_ln

@@ -129,9 +129,9 @@ Phases (any failure raises and the script exits non-zero):
   18. the device framer at 1080p on both chain modes: phase 3's .adder
      (DeltaT, made again) and phase 17's (AbsoluteT), decoded whole, framed
      by DeviceFramer on the card (a warm pass, then a timed ingest and
-     drain; its window holding every frame an event fills, and its span
-     bound taken from the stream's longest gap, since D_EMPTY fillers run
-     past delta_t_max) and by the host FrameSequence (the native walk):
+     drain; its window holding every frame an event fills, its builder the
+     header's, though phase 3's D_EMPTY fillers span more than its
+     delta_t_max) and by the host FrameSequence (the native walk):
      every frame equal bit for bit, and phase 17's equal to the frames its
      framer thread wrote; Mev/s of both, the batches, the peak memory; the
      card's operations per batch, the top device operations of the framer
@@ -159,10 +159,26 @@ Phases (any failure raises and the script exits non-zero):
      scene, transcoding its pixel slice and writing a part file; rank 0
      merges the parts into a Raw .adder that must hash to phase 3's
      constant. A process that fails or outlives its timeout fails the
-     phase.
+     phase;
+  22. the command-line tools on the card, each main(argv) in-process with
+     the default --torch-device cuda, the launch counts set to 0 before
+     each and read after, on the inputs of phases 3, 6, 9 and 19 made
+     again from their seeds: prophesee_to_adder (phase 6's digest, K3),
+     davis_to_adder -t raw-davis (phase 9's, K4 and K3), adder_simulproc on
+     phase 3's scene written as lossless FFV1 (decoded by cv2 to the scene
+     bit for bit first; phase 17's two digests, K1), adder_to_framed and
+     decode_benchmark --frame --device on phase 3's .adder (phase 18's
+     digest; the device framer under the header's delta_t_max, equal to
+     the host framer), evaluate_crf_sweep --crfs 0,3 --frames 24 (K1) and
+     evaluate_feature_detection (K1's display) on phase 19's clip,
+     adder_info, adder_to_dvs, adder_recompress (addrn and back) and
+     migrate_raw_v0_v1_to_v2 on phase 19's .adder, and one start and stop
+     of adder_viz's play tab over HTTP on 127.0.0.1:0 until a PNG frame
+     comes back. A transcode tool that launched none of its kernels fails
+     the phase.
 The sha256 of each whole output of a full-size run (the .adder files of
-phases 3, 6, 9, 17, 20 and 21; the feature set and display frame of phase 15; the
-reconstructed frames of phases 17 and 18) is logged and held to a
+phases 3, 6, 9, 17, 20, 21 and 22; the feature set and display frame of
+phase 15; the reconstructed frames of phases 17, 18 and 22) is logged and held to a
 constant (DIGESTS), so that a kernel which reorders events past the
 prefixes the CPU checks cannot pass.
 Every kernel of the record carries its bound: the bytes it must move over
@@ -2064,16 +2080,13 @@ def framer_phase(at, dev, card, path, name) -> dict:
     host_s = time.perf_counter() - th
     # one ingest of the whole file: the window holds every frame an event
     # fills (a DeltaT chain, rounded up to ref_interval at every event,
-    # runs ahead of the source's 64 frames). The device framer bounds a
-    # span by delta_t_max (max_span = delta_t_max // tpf + 2, as the JAX
-    # package's does), and a stream's D_EMPTY fillers can run past it; its
-    # builder takes the stream's longest gap instead, which the Intensity
-    # view's values do not read
+    # runs ahead of the source's 64 frames). The builder is the header's:
+    # the stream's D_EMPTY fillers span more than its delta_t_max (the
+    # longest gap is logged), and the framer sizes its span passes from
+    # the spans the ingest holds
     window = max(64, last + 2)
     gap = longest_gap(dec, events, dev)
-    ref = dec.meta.ref_interval
     bd = framer_builder(at, dec)
-    bd.delta_t_max = max(bd.delta_t_max, -(-gap // ref) * ref)
     warm = DeviceFramer(bd, window=window, device=dev)
     warm.ingest_event_array(events)
     warm.drain()
@@ -2193,10 +2206,11 @@ def file_source_run(at, cls, path, color, device) -> tuple:
     return buf.getvalue(), src
 
 
-def file_source_phase(at, FR, dev, card) -> int:
+def file_source_phase(at, FR, dev, card) -> tuple:
     """Phase 19: Framed and FramedStream on the card, cv2 decode (this host
     has cv2 and no libav to link the ffmpeg decoder), against the CPU plain
-    path; returns K1's launches on the card's runs."""
+    path; returns K1's launches on the card's runs and the .adder bytes of
+    the colour Framed run on the card (phase 22's codec tools read them)."""
     import cv2
 
     t0 = time.perf_counter()
@@ -2227,7 +2241,7 @@ def file_source_phase(at, FR, dev, card) -> int:
                 f"({len(got)} bytes; {card_s} s on the card) [{card}]")
     log(f"# phase 19: K1 launches {launches}; "
         f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, runs[("Framed", True)][0]
 
 
 def sharded_video(at, k, chunk, mesh_device="cuda:0", pixels=None):
@@ -2575,6 +2589,292 @@ def band_job(out_dir: str) -> int:
     return 0
 
 
+# -- phase 22: the command-line tools on the card -------------------------
+
+
+def grey_as_bgr(frame):
+    """A (H, W) grey u8 frame as the BGR frame that the mono cv2 path of
+    the file sources (`handle_color_videors`: 0.114 r + 0.587 g + 0.299 b,
+    truncated) turns back into it: r = g = v and b = v + 1 (v at 255), so
+    that the weights' rounding cannot truncate v to v - 1."""
+    b = np.minimum(frame.astype(np.int16) + 1, 255).astype(np.uint8)
+    return np.dstack([b, frame, frame])
+
+
+def write_scene_ffv1(cv2, path, frames) -> None:
+    """Phase 3's scene as a lossless FFV1 file at 30 fps (cv2.VideoWriter)."""
+    T_, H_, W_ = frames.shape[:3]
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FFV1"), 30.0,
+                         (W_, H_), isColor=True)
+    if not vw.isOpened():
+        raise AssertionError("cv2.VideoWriter cannot write FFV1 here")
+    for f in frames[..., 0]:
+        vw.write(grey_as_bgr(f))
+    vw.release()
+
+
+def decoded_mono(cv2, path, CV) -> np.ndarray:
+    """The frames the file sources' cv2 path gives for `path`, mono."""
+    cap = cv2.VideoCapture(str(path))
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        out.append(CV.handle_color_videors(f, False))
+    cap.release()
+    return np.stack(out)
+
+
+class ToolRuns:
+    """Phase 22's drive of one tool's main(argv) in-process: its stdout
+    kept and logged, the launch counts set to 0 just before the call and
+    read just after (K1's display launches apart), its wall."""
+
+    def __init__(self, FR, display, card, dev):
+        self.FR, self.display, self.card, self.dev = FR, display, card, dev
+        self.launches = {}
+        self.walls = {}
+
+    def run(self, name, fn):
+        self.FR.reset_launch_counts()
+        self.display.n = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        sync(self.dev)
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in self.FR.LAUNCHES.items() if v}
+        if self.display.n:
+            got["adder_resident_chunk (display)"] = self.display.n
+        self.launches[name] = got
+        self.walls[name] = wall
+        text = buf.getvalue().strip().splitlines()
+        log(f"# phase 22: {name}: {wall:.3f} s, launches {got} [{self.card}]")
+        for line in text[:4]:
+            log(f"#   | {line}")
+        if out not in (0, None) and not isinstance(out, list):
+            raise AssertionError(f"{name} exited {out}")
+        return out
+
+
+def tools_phase(at, FR, dev, card, frames, clip_adder) -> dict:
+    """Phase 22: each tool's main(argv) in-process with the default
+    --torch-device cuda, on the inputs of earlier phases made again from
+    their seeds (phase 19's .adder kept). Returns the launches per tool."""
+    import cv2
+
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import cuda_build
+    from adder_tpu_torch.tools import (adder_info, adder_recompress,
+                                       adder_simulproc, adder_to_dvs,
+                                       adder_to_framed, adder_viz,
+                                       davis_to_adder, decode_benchmark,
+                                       evaluate_crf_sweep,
+                                       evaluate_feature_detection,
+                                       migrate_raw_v0_v1_to_v2,
+                                       prophesee_to_adder)
+    from adder_tpu_torch.utils import cv as CV
+
+    t_phase = time.perf_counter()
+    display = DisplayLaunches(cuda_build.load(), FR)
+    runs = ToolRuns(FR, display, card, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        t0 = time.perf_counter()
+        j = lambda name: os.path.join(tmp, name)  # noqa: E731
+        testing.write_prophesee_raw(j("dvs.raw"), DVS_W, DVS_H,
+                                    *testing.dvs_stream(
+                                        11, DVS_W, DVS_H, 1_000_000,
+                                        n_hot=200, hot_events=1000,
+                                        band_events=1_260_000,
+                                        background_events=540_000))
+        events, aps = testing.davis_stream(
+            21, DAVIS_W, DAVIS_H, 1_000_000, n_frames=DAVIS_FRAMES,
+            exposure_us=10_000, n_hot=100, hot_events=1000,
+            edge_events=600_000, background_events=300_000)
+        testing.write_davis_aedat4(j("davis.aedat4"), DAVIS_W, DAVIS_H,
+                                   events, aps)
+        write_scene_ffv1(cv2, j("scene.avi"), frames)
+        decoded = decoded_mono(cv2, j("scene.avi"), CV)
+        if decoded.shape != frames.shape or not np.array_equal(decoded,
+                                                               frames):
+            raise AssertionError("the FFV1 scene does not decode to phase "
+                                 "3's frames")
+        transcode_raw(at, frames, dev, j("main.adder"), T_CHUNK)
+        with open(j("clip.adder"), "wb") as f:
+            f.write(clip_adder)
+        write_clip(cv2, j("clip.avi"))
+        log(f"# phase 22: inputs made again from their seeds in "
+            f"{time.perf_counter() - t0:.1f} s: phase 6's stream, phase 9's "
+            f"aedat4, phase 3's scene as FFV1 (decoded by cv2 to phase 3's "
+            f"frames, bit for bit) and .adder, phase 19's clip and .adder")
+
+        # the transcoders
+        runs.run("prophesee_to_adder", lambda: prophesee_to_adder.main(
+            ["-i", j("dvs.raw"), "-o", j("dvs.adder")]))
+        hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
+                    file_digest(j("dvs.adder")))
+        runs.run("davis_to_adder", lambda: davis_to_adder.main(
+            ["-i", j("davis.aedat4"), "--output-events-filename",
+             j("davis.adder"), "-t", "raw-davis"]))
+        hold_digest("phase 9 DAVIS 346x260 raw-davis Raw .adder",
+                    file_digest(j("davis.adder")))
+        # the framed pipeline: the scene's file at the CLI's defaults
+        runs.run("adder_simulproc", lambda: adder_simulproc.main(
+            ["-i", j("scene.avi"), "--output-events-filename",
+             j("sim.adder"), "--output-raw-video-filename", j("sim.raw")]))
+        hold_digest("phase 17 simulproc 1080p Raw .adder",
+                    file_digest(j("sim.adder")))
+        hold_digest("phase 17 simulproc 1080p reconstructed frames",
+                    file_digest(j("sim.raw")))
+        # reconstruction: phase 3's file framed by the host framer, and by
+        # the device framer under the header's delta_t_max
+        runs.run("adder_to_framed", lambda: adder_to_framed.main(
+            ["-i", j("main.adder"), "-o", j("main.gray")]))
+        hold_digest("phase 18 framer 1080p frames of phase 3's .adder "
+                    "(DeltaT)", file_digest(j("main.gray")))
+        fps = ["--fps", "30"]
+        host = runs.run("decode_benchmark --frame", lambda:
+                        decode_benchmark.benchmark(decode_benchmark.parse_args(
+                            ["-i", j("main.adder"), "--frame", *fps])))
+        device = runs.run("decode_benchmark --frame --device", lambda:
+                          decode_benchmark.benchmark(
+                              decode_benchmark.parse_args(
+                                  ["-i", j("main.adder"), "--frame",
+                                   "--device", *fps])))
+        h = hashlib.sha256()
+        if len(device) != len(host) or not host:
+            raise AssertionError(f"decode_benchmark: {len(device)} device "
+                                 f"frames, {len(host)} host frames")
+        for i, (a, b) in enumerate(zip(host, device)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"decode_benchmark: device frame {i} "
+                                     f"differs from the host's")
+            h.update(b.tobytes())
+        hold_digest("phase 18 framer 1080p frames of phase 3's .adder "
+                    "(DeltaT)", h.hexdigest())
+        log(f"# phase 22: decode_benchmark --device: {len(device)} frames "
+            f"of phase 3's .adder under its header (delta_t_max 6120) equal "
+            f"the host framer's")
+        del host, device
+        # the evaluations on phase 19's clip
+        runs.run("evaluate_crf_sweep", lambda: evaluate_crf_sweep.main(
+            ["-i", j("clip.avi"), "--crfs", "0,3", "--frames", "24",
+             "--output", j("sweep.jsonl")]))
+        with open(j("sweep.jsonl")) as f:
+            for line in f:
+                log(f"#   row {line.strip()}")
+        runs.run("evaluate_feature_detection",
+                 lambda: evaluate_feature_detection.main(
+                     ["-i", j("clip.avi"), "--log", j("features.jsonl")]))
+        with open(j("features.jsonl")) as f:
+            for line in f.read().splitlines()[:5]:
+                log(f"#   log {line}")
+        # the codec-only tools on phase 19's .adder
+        runs.run("adder_info", lambda: adder_info.main(
+            ["-i", j("clip.adder"), "-d"]))
+        runs.run("adder_to_dvs", lambda: adder_to_dvs.main(
+            ["-i", j("clip.adder"), "--output-events", j("clip.dvs")]))
+        runs.run("adder_recompress addrn", lambda: adder_recompress.main(
+            ["-i", j("clip.adder"), "-o", j("clip.addrn")]))
+        runs.run("adder_recompress raw", lambda: adder_recompress.main(
+            ["-i", j("clip.addrn"), "-o", j("back.adder"), "--codec",
+             "raw"]))
+        a = at.open_file_decoder(j("clip.adder")).digest_all()
+        b = at.open_file_decoder(j("back.adder")).digest_all()
+        from adder_tpu_torch.core.types import D_EMPTY
+
+        def keys(ev, keep):
+            k = ((ev.y.astype(np.int64) * 4096 + ev.x) * 4 + (ev.c % 4)) \
+                * 2**40 + ev.t.astype(np.int64) * 256 + ev.d
+            return np.sort(k[keep(ev)])
+
+        if not np.array_equal(keys(a, lambda e: e.d != D_EMPTY),
+                              keys(b, lambda e: e.d != D_EMPTY)):
+            raise AssertionError("adder_recompress: the round trip changed "
+                                 "the events")
+        log(f"# phase 22: adder_recompress round trip: {len(a)} events in, "
+            f"{len(b)} back, every event but D_EMPTY fillers equal "
+            f"({int((a.d == D_EMPTY).sum()) - int((b.d == D_EMPTY).sum())} "
+            f"fillers not carried)")
+        runs.run("migrate_raw_v0_v1_to_v2",
+                 lambda: migrate_raw_v0_v1_to_v2.main(
+                     ["-i", j("clip.adder"), "-o", j("migrated.adder")]))
+        # the GUI: one headless start and stop of the play tab
+        t0 = time.perf_counter()
+        png = viz_play_once(adder_viz, j("clip.adder"))
+        runs.walls["adder_viz"] = time.perf_counter() - t0
+        log(f"# phase 22: adder_viz: the play tab on phase 19's .adder over "
+            f"HTTP on 127.0.0.1:0, started, one PNG frame ({len(png)} "
+            f"bytes), stopped, in {runs.walls['adder_viz']:.3f} s")
+    finally:
+        display.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    need = {"prophesee_to_adder": ("adder_dvs_rows", "adder_rows_group"),
+            "davis_to_adder": ("adder_davis_rows", "adder_dvs_rows"),
+            "adder_simulproc": ("adder_resident_chunk",
+                                "adder_segment_copy"),
+            "evaluate_crf_sweep": ("adder_resident_chunk",),
+            "evaluate_feature_detection": (
+                "adder_resident_chunk (display)",)}
+    for name, keys_ in need.items():
+        missing = [k for k in keys_ if not runs.launches[name].get(k)]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}: "
+                                 f"{runs.launches[name]}")
+    wall = time.perf_counter() - t_phase
+    log(f"# phase 22: every tool ran; walls {runs.walls}; the phase "
+        f"{wall:.1f} s, its inputs included [{card}]")
+    return {"launches": runs.launches, "walls": runs.walls, "wall": wall}
+
+
+def viz_play_once(adder_viz, path) -> bytes:
+    """Start adder_viz's play tab on `path` through its HTTP API on
+    127.0.0.1:0, wait for one PNG frame, stop it and the server."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    srv = adder_viz.make_server("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def post(route, cfg):
+        urllib.request.urlopen(urllib.request.Request(
+            base + route, json.dumps(cfg).encode(), method="POST"),
+            timeout=30)
+
+    try:
+        post("/api/start", {"tab": "play", "path": path, "crf": 3,
+                            "view_mode": 0, "features": "off", "roi": "",
+                            "dtref": 255, "dtmult": 30, "outpath": ""})
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            try:
+                png = urllib.request.urlopen(base + "/api/frame",
+                                             timeout=30).read()
+                if png[:8] == b"\x89PNG\r\n\x1a\n":
+                    break
+            except urllib.error.HTTPError:
+                pass
+            time.sleep(0.05)
+        else:
+            raise AssertionError("adder_viz: no PNG frame in 30 s")
+        post("/api/stop", {})
+        if adder_viz.SESSION.thread is not None:
+            raise AssertionError("adder_viz: the worker outlived stop")
+        return png
+    finally:
+        adder_viz.SESSION.stop()
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -2840,9 +3140,10 @@ def main() -> int:
     k1_display = features_phases(dev, card, scene, main_digest, st, p)
     k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
     sim = pipeline_phases(at, FR, dev, card, frames)
-    file_launches = file_source_phase(at, FR, dev, card)
+    file_launches, clip_adder = file_source_phase(at, FR, dev, card)
     sharded = sharded_phase(at, FR, dev, card, scene, frames, st, p)
     band_records = multihost_phase(card)
+    tools = tools_phase(at, FR, dev, card, frames, clip_adder)
     k5_k6[0]["sharded_launches"] = {k: sharded[f"k5_{k}"]
                                     for k in ("k2", "k4")}
     k5_k6[1]["sharded_launches"] = {k: sharded[f"k6_{k}"]
@@ -2916,6 +3217,10 @@ def main() -> int:
          "passes_ms": k4["passes_ms"]},
         *k5_k6,
     ]}
+    # phase 22: what each tool launched of each kernel
+    for k in record["kernels"]:
+        k["tools_launches"] = {tool: got[k["name"]] for tool, got in
+                               tools["launches"].items() if got.get(k["name"])}
     log(f"# all phases passed in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
     imported = sorted(m for m in sys.modules

@@ -73,6 +73,9 @@ def test_port_sources_never_import_jax():
     assert pat.search("    import adder_tpu  # noqa")
     assert not pat.search("from adder_tpu_torch.ops import integrate")
     sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    # the command-line tools and the examples are among them
+    for sub in ("tools", "examples"):
+        assert len([p for p in sources if p.parent == PORT / sub]) > 2, sub
     offenders = [
         str(p.relative_to(REPO)) for p in sources if pat.search(p.read_text())
     ]

@@ -480,3 +480,76 @@ def test_sharded_video_on_one_card_equals_video(cuda, k):
     b = sharding.gather_state(vd.state, "cpu")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _tool_bytes(name, argv, out, device):
+    import importlib
+
+    mod = importlib.import_module(f"adder_tpu_torch.tools.{name}")
+    assert mod.main([*argv, "--torch-device", device]) == 0
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def test_prophesee_to_adder_tool_cuda_bytes_equal_cpu(cuda, tmp_path):
+    """The Prophesee CLI with its defaults on the card (K3 and its row glue)
+    and on the CPU: the same bytes."""
+    path = str(tmp_path / "s.raw")
+    testing.write_prophesee_raw(path, 64, 48, *testing.dvs_stream(
+        3, 64, 48, 40_000, n_hot=4, hot_events=90, band_events=3000,
+        background_events=1500))
+    out = str(tmp_path / "out.adder")
+    FR.reset_launch_counts()
+    on_card = _tool_bytes("prophesee_to_adder", ["-i", path, "-o", out],
+                          out, "cuda")
+    assert FR.LAUNCHES["adder_dvs_rows"] >= 6
+    assert FR.LAUNCHES["adder_rows_group"] > 0
+    assert on_card == _tool_bytes("prophesee_to_adder",
+                                  ["-i", path, "-o", out], out, "cpu")
+    assert len(on_card) > 1000
+
+
+@pytest.mark.parametrize("mode", ["raw-davis", "raw-dvs"])
+def test_davis_to_adder_tool_cuda_bytes_equal_cpu(cuda, tmp_path, mode):
+    """The DAVIS CLI without --crf on the card (K4 for the lanes, K3 for
+    the frames and gaps) and on the CPU: the same bytes."""
+    events, frames = testing.davis_stream(
+        5, 64, 48, 100_000, n_frames=4, exposure_us=10_000, n_hot=4,
+        hot_events=60, edge_events=6000, background_events=2000)
+    path = str(tmp_path / "s.aedat4")
+    testing.write_davis_aedat4(path, 64, 48, events, frames)
+    out = str(tmp_path / "out.adder")
+    argv = ["-i", path, "--output-events-filename", out, "-t", mode]
+    FR.reset_launch_counts()
+    on_card = _tool_bytes("davis_to_adder", argv, out, "cuda")
+    assert FR.LAUNCHES["adder_davis_rows"] > 0
+    if mode == "raw-davis":
+        assert FR.LAUNCHES["adder_dvs_rows"] > 0
+    assert on_card == _tool_bytes("davis_to_adder", argv, out, "cpu")
+    assert len(on_card) > 1000
+
+
+def test_decode_benchmark_device_frames_fillers_past_delta_t_max(cuda,
+                                                                 tmp_path):
+    """`decode_benchmark --frame --device` on the card, on a Collapse
+    DeltaT stream of the transcoder (the bench config on a crop of the
+    bench scene, transcoded on the card) whose D_EMPTY fillers span more
+    than the header's delta_t_max: the device framer's frames equal the
+    host framer's."""
+    from adder_tpu_torch.core.types import D_EMPTY
+    from adder_tpu_torch.tools import decode_benchmark as DB
+
+    scene = testing.moving_blobs(1080, 1920, 64, seed=7, device="cpu",
+                                 rows=(100, 108))
+    frames = scene[:, :, 600:700].contiguous().numpy()[..., None]
+    path = str(tmp_path / "collapse.adder")
+    with open(path, "wb") as f:
+        f.write(_raw_bytes(frames, cuda))
+    ev = at.open_file_decoder(path).digest_all()
+    assert (ev.t[ev.d == D_EMPTY] > 6120).any()
+    argv = ["-i", path, "--fps", "30", "--frame", "--torch-device", "cuda"]
+    host = DB.benchmark(DB.parse_args(argv))
+    device = DB.benchmark(DB.parse_args([*argv, "--device"]))
+    assert len(device) == len(host) > 50
+    for a, b_ in zip(host, device):
+        assert (a == b_).all()

@@ -8,9 +8,13 @@
 - `DeviceFramer` on CPU tensors pops the frames of the JAX `DeviceFramer`
   (CPU jit) and of the host framer, on per-pixel chains that honour
   delta_t_max (the inputs of tests/test_device_framer.py), with a small
-  `batch_cap` so carries cross batches, and a window that wraps; its three
-  overflow conditions raise as the JAX ones do; no real window cell is
-  written twice in one span-fill pass.
+  `batch_cap` so carries cross batches, and a window that wraps; a DeltaT
+  chain past 2^31 raises as the JAX one does, while a span past
+  delta_t_max and an ingest deeper than the window, where the JAX framer
+  raises, give the host framer's frames (the passes and the window grow),
+  as does a Collapse DeltaT stream of the transcoder whose D_EMPTY fillers
+  span more than delta_t_max; no real window cell is written twice in one
+  span-fill pass.
 Inputs are made from numpy seeds; the two packages' EventArray classes
 differ, so the events cross as numpy arrays.
 """
@@ -261,16 +265,54 @@ def overflow_inputs(kind):
 
 @pytest.mark.parametrize("kind", ["window", "span", "chain"])
 def test_device_framer_overflows_raise(kind):
+    """Only the DeltaT chain past 2^31 raises in the port; the JAX device
+    framer raises on all three. Past its window or its header span bound
+    the port grows and pops the host framer's frames."""
     args, ev, window = overflow_inputs(kind)
     df = DEV.DeviceFramer(builder("port", *args), window=window,
                           device="cpu")
-    if kind == "chain":
-        assert df.max_span > 8 and df.window > 8
-    with pytest.raises(OverflowError):
-        df.ingest_event_array(events_of(T, ev))
+    rows, span = df.window, df.max_span
     with pytest.raises(OverflowError):
         JDEV.DeviceFramer(builder("jax", *args), window=window
                           ).ingest_event_array(events_of(JT, ev))
+    if kind == "chain":
+        assert df.max_span > 8 and df.window > 8
+        with pytest.raises(OverflowError):
+            df.ingest_event_array(events_of(T, ev))
+        return
+    got = drive_device(df, T, ev, ())
+    host = drive_host_whole(builder("port", *args), T, ev)
+    assert len(got) == len(host) > 15
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g, h)
+    assert (df.window > rows) if kind == "window" else (df.max_span > span)
+
+
+@pytest.mark.parametrize("t_mode", [1, 0], ids=["absT", "deltaT"])
+def test_device_framer_window_past_free_memory_raises(monkeypatch, t_mode):
+    """A window that would outgrow the device's free memory raises a named
+    OverflowError before it is allocated (AbsoluteT: grown from the latest
+    time before the upload; DeltaT: grown for the rerun), and one that
+    fits grows as before."""
+    args = ((1, 1, 1), 60_000, 1000, 8000, 60.0, 2, t_mode)
+    t = np.arange(1, 91) * 1000 if t_mode else np.full(90, 1000)
+    ev = (np.zeros(90, np.uint16), np.zeros(90, np.uint16),
+          np.full(90, 255, np.uint8), np.full(90, 5, np.uint8),
+          t.astype(np.uint32))
+    df = DEV.DeviceFramer(builder("port", *args), device="cpu")
+    # 64 rows held, 96 wanted: 9 bytes a cell, one cell a row
+    monkeypatch.setattr(DEV, "_free_bytes",
+                        lambda device: 96 * 9 - 64 * 9 - 1)
+    with pytest.raises(OverflowError, match="free"):
+        df.ingest_event_array(events_of(T, ev))
+    assert df.window == 64
+    monkeypatch.setattr(DEV, "_free_bytes", lambda device: 96 * 9 - 64 * 9)
+    df = DEV.DeviceFramer(builder("port", *args), device="cpu")
+    got = drive_device(df, T, ev, ())
+    host = drive_host_whole(builder("port", *args), T, ev)
+    assert df.window == 96 and len(got) == len(host) >= 89
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g, h)
 
 
 def test_device_framer_inside_limits_does_not_raise():
@@ -347,3 +389,83 @@ def test_device_framer_holds_to_host_where_u32_rounding_wraps():
     assert len(got) == len(host) == 253
     for g, h in zip(got, host):
         np.testing.assert_array_equal(g, h)
+
+
+def collapse_deltat_adder(path):
+    """A 100 x 8 crop of the bench scene (rows 100-107, columns 600-699 of
+    `moving_blobs(1080, 1920, 64, seed=7)`) transcoded by the port at the
+    reference's criterion-bench config (FramePerfect, Collapse, DeltaT,
+    ref_time 255, delta_t_max 24 x 255, c_thresh 0) into `path`."""
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+
+    frames = testing.moving_blobs(1080, 1920, 64, seed=7, device="cpu",
+                                  rows=(100, 108)).numpy()
+    src = at.FramedArray(np.ascontiguousarray(frames[:, :, 600:700, None]),
+                         30.0, chunk_frames=16, device="cpu")
+    src.auto_time_parameters(255, 255 * 24, at.TimeMode.DeltaT)
+    src.quality_manual(0, 0, 24, 1, 0)
+    with open(path, "wb") as f:
+        src.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                      at.EncoderOptions.default(src.video.plane), f)
+        while True:
+            try:
+                src.consume_batch()
+            except EOFError:
+                break
+        src.video.end_write_stream()
+
+
+@pytest.mark.parametrize("step,window", [(0, 16), (2000, None)],
+                         ids=["one-ingest", "ingests"])
+def test_device_framer_frames_collapse_fillers_past_delta_t_max(tmp_path,
+                                                                step, window):
+    """Collapse mode's D_EMPTY fillers carry the summed time of the events
+    they replace: on this crop of the bench scene they span 8160 ticks,
+    more than the header's delta_t_max of 6120. DeviceFramer, built from
+    the header as it stands, pops the frames of the port's host
+    FrameSequence bit for bit, and the JAX FrameSequence gives the same
+    frames. The JAX DeviceFramer bounds a span by delta_t_max and raises
+    OverflowError on this stream, so it is not the yardstick here. One
+    ingest of the whole file into a window of 16 rows runs again, grown;
+    ingests of 2000 events pop between them."""
+    from adder_tpu.codec.decoder import open_file_decoder as jax_open
+    from adder_tpu_torch.codec.decoder import open_file_decoder
+
+    path = tmp_path / "collapse.adder"
+    collapse_deltat_adder(path)
+    dec = open_file_decoder(str(path))
+    m = dec.meta
+    events = dec.digest_all()
+    assert m.delta_t_max == 6120 and m.time_mode == T.TimeMode.DeltaT
+    fillers = events.d == T.D_EMPTY
+    assert fillers.any() and events.t[fillers].max() > m.delta_t_max
+    ev = tuple(getattr(events, f) for f in ("x", "y", "c", "d", "t"))
+    fps = m.tps / m.ref_interval
+
+    def b(pkg):
+        types, drv, _ = PKGS[pkg]
+        d = jax_open(str(path)) if pkg == "jax" else dec
+        return (drv.FramerBuilder(types.PlaneSize(
+                    m.plane.width, m.plane.height, m.plane.channels))
+                .time_parameters(m.tps, m.ref_interval, m.delta_t_max, fps)
+                .codec_meta(m.codec_version, types.TimeMode(int(m.time_mode)))
+                .source_info(types.SourceType(int(d.get_source_type())),
+                             types.SourceCamera(int(m.source_camera))))
+
+    host = drive_host_whole(b("port"), T, ev)
+    jax_host = drive_host_whole(b("jax"), JT, ev)
+    with pytest.raises(OverflowError):
+        JDEV.DeviceFramer(b("jax")).ingest_event_array(events_of(JT, ev))
+    df = DEV.DeviceFramer(b("port"), batch_cap=4096, window=window,
+                          device="cpu")
+    splits = range(step, len(ev[0]), step) if step else ()
+    got = drive_device(df, T, ev, splits)
+    assert len(got) == len(host) == len(jax_host) > 50
+    for i, (g, h, j) in enumerate(zip(got, host, jax_host)):
+        assert g.dtype == h.dtype
+        np.testing.assert_array_equal(g, h, err_msg=f"frame {i} vs host")
+        np.testing.assert_array_equal(h, j, err_msg=f"frame {i} vs jax")
+    assert df.max_span > m.delta_t_max // m.ref_interval + 2
+    assert df.window >= (len(got) if window else 64)

@@ -2,8 +2,9 @@
 originals: the core constants, the raw and compressed encoders (the same
 bytes), the decoder (reads what JAX wrote), the native DVS and DAVIS
 planners (the same rows and chain state), the aedat4 container, the cv and
-viz helpers, the frame-value conversion, the ffmpeg decoder and the C++
-sources of the decoder and the framer's walk (the host framer, the player
+viz helpers, the frame-value conversion, the ffmpeg decoder, the tools'
+info, logging and stream-migration modules and the C++ sources of the
+decoder and the framer's walk (the host framer, the player
 and adder_to_dvs are held to theirs in test_torch_framer.py and
 test_torch_pipelines.py). The
 classes differ across the two packages, so values cross as numpy arrays
@@ -465,3 +466,113 @@ def test_tracing_copy_is_the_original(name):
     from adder_tpu_torch.utils import tracing as TR
 
     assert _code_of(getattr(TR, name)) == _code_of(getattr(JTR, name))
+
+
+# --- the tools' copies: info, logging, stream migration, cv ------------------
+
+
+def _v1_deltat_file(types, enc, hdr, path):
+    """A v1 DeltaT Raw stream of 2000 seeded framed events (`types`' and
+    `enc`'s classes)."""
+    plane = types.PlaneSize(13, 11, 1)
+    meta = hdr.CodecMetadata(codec_version=1, plane=plane, tps=255 * 30,
+                             ref_interval=255, delta_t_max=255 * 10,
+                             time_mode=types.TimeMode.DeltaT,
+                             source_camera=types.SourceCamera.FramedU8)
+    rng = np.random.default_rng(8)
+    n = 2000
+    e = enc.Encoder.new_raw(meta, open(path, "wb"),
+                            enc.EncoderOptions.default(plane))
+    d = rng.integers(0, 20, n).astype(np.uint8)
+    d[rng.random(n) < 0.05] = types.D_EMPTY
+    e.ingest_event_array(types.EventArray(
+        rng.integers(0, 13, n).astype(np.uint16),
+        rng.integers(0, 11, n).astype(np.uint16),
+        np.full(n, types.NO_CHANNEL, np.uint8), d,
+        rng.integers(1, 255 * 10, n).astype(np.uint32)))
+    e.close_writer().close()
+
+
+def test_info_copy_prints_jax_report(tmp_path):
+    """`adder_info` with and without the dynamic range, on an AbsoluteT
+    colour stream and a v1 DeltaT one."""
+    from adder_tpu.utils import info as JINFO
+    from adder_tpu_torch.utils import info as INFO
+
+    a = tmp_path / "abs.adder"
+    a.write_bytes(_encode(JT, JENC, JHDR, "raw", 3))
+    v1 = tmp_path / "v1.adder"
+    _v1_deltat_file(T, ENC, HDR, v1)
+    for path in (a, v1):
+        for dr in (False, True):
+            got = INFO.adder_info(str(path), dr)
+            assert got == JINFO.adder_info(str(path), dr)
+            assert ("Dynamic range" in got) == dr
+
+
+def test_stream_migration_copy_writes_jax_bytes(tmp_path):
+    """`migrate_v2` of a v1 DeltaT stream into a v3 AbsoluteT one: the same
+    bytes; into a DeltaT one, the events passed through."""
+    from adder_tpu.utils import stream_migration as JMIG
+    from adder_tpu_torch.utils import stream_migration as MIG
+
+    src = tmp_path / "v1.adder"
+    _v1_deltat_file(T, ENC, HDR, src)
+    outs = []
+    for types, enc, hdr, dec, mig in ((T, ENC, HDR, DEC, MIG),
+                                      (JT, JENC, JHDR, JDEC, JMIG)):
+        for mode in (types.TimeMode.AbsoluteT, types.TimeMode.DeltaT):
+            d = dec.open_file_decoder(str(src))
+            m = d.meta
+            meta = hdr.CodecMetadata(
+                codec_version=hdr.LATEST_CODEC_VERSION, time_mode=mode,
+                plane=types.PlaneSize(m.plane.width, m.plane.height, 1),
+                tps=m.tps, ref_interval=m.ref_interval,
+                delta_t_max=m.delta_t_max, source_camera=types.SourceCamera(
+                    int(m.source_camera)))
+            buf = io.BytesIO()
+            e = enc.Encoder(enc.RawOutput(meta, buf),
+                            enc.EncoderOptions.default(meta.plane))
+            mig.migrate_v2(d, e).close_writer()
+            outs.append(buf.getvalue())
+    assert outs[0] == outs[2] and outs[1] == outs[3]
+    assert len(outs[0]) > 2000 * 9 and outs[0] != outs[1]
+
+
+def test_logging_copy_writes_jax_records():
+    """FeatureLogger's JSON lines for every record kind, and LogFeature."""
+    from adder_tpu.utils import logging as JLOG
+    from adder_tpu_torch.utils import logging as LOG
+
+    texts = []
+    for mod, types in ((LOG, T), (JLOG, JT)):
+        fh = io.StringIO()
+        lg = mod.FeatureLogger(fh, types.PlaneSize(7, 5, 3))
+        lg.log_bitrate(1234.5, 9)
+        lg.log_features([mod.LogFeature(1, 2, "ADDER"), (3, 4)], "OpenCV",
+                        77)
+        lg.log_quality(30.5, 2.25, 91.0)
+        lg.log_precision_recall(0.5, 0.25, 0.99)
+        timer = mod.StageTimer(None)
+        timer.start("s")
+        assert timer.stop("s") >= 0
+        texts.append(fh.getvalue())
+    assert texts[0] == texts[1] and len(texts[0].splitlines()) == 5
+
+
+def test_cv_tool_helpers_equal_jax():
+    """`feature_precision_recall_accuracy` on seeded coordinate sets (and
+    empty ones), and the log-intensity clamps at and past their edges."""
+    rng = np.random.default_rng(13)
+    for k in (0, 5, 40):
+        gt = {tuple(v) for v in rng.integers(0, 20, (k, 2)).tolist()}
+        pred = {tuple(v) for v in rng.integers(0, 20, (k + 3, 2)).tolist()}
+        for a, b in ((gt, pred), (set(), pred), (gt, set())):
+            assert CV.feature_precision_recall_accuracy(
+                a, b, T.PlaneSize(20, 20, 1)) == \
+                JCV.feature_precision_recall_accuracy(
+                    a, b, JT.PlaneSize(20, 20, 1))
+    for v in (-1.0, 0.0, 0.5, 128.0, 255.0, 255.5, 1e9):
+        for ln in (0.1, 2.0):
+            assert CV.clamp_u8(v, ln) == JCV.clamp_u8(v, ln)
+            assert CV.mid_clamp_u8(v, ln) == JCV.mid_clamp_u8(v, ln)

@@ -21,7 +21,10 @@ Layers, entry point first:
   transcoder/framed.py    FramedArray: (T, H, W, C) u8 frames -> Video;
                           Framed, FramedStream: a video file (ffmpeg through
                           transcoder/ffdec.py, or cv2) -> Video
-  transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks (K3)
+  transcoder/prophesee.py Prophesee: DVS RAW stream -> lane chunks (K3, on
+                          the 8-byte carrier), pipelined (transcoder/lanes.py);
+                          batched=False: the scalar oracle
+                          (transcoder/pixel_oracle.py), as Davis
   transcoder/davis.py     Davis: DAVIS packets (APS frames + DVS events)
                           -> lane chunks (K4) and frame chunks (K3)
   transcoder/edi.py       EdiReconstructor: aedat4 -> deblurred packets

@@ -62,8 +62,12 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // The row walk's passes (K3, K4); the framed chunk kernel runs one pass
 enum { PASS_COUNT = 0, PASS_WRITE = 1, PASS_VOID = 2 };
 // What a carrier row holds (AdderRowsArgs.src): a DVS lane's gap and tick
-// (pack_dvs_plan) or one DAVIS event (pack_davis_plan)
-enum { SRC_DVS = 1, SRC_DAVIS = 2 };
+// (pack_dvs_plan's 20 bytes, or pack_dvs_plan8's 8 bytes and dictionary) or
+// one DAVIS event (pack_davis_plan)
+enum { SRC_DVS = 1, SRC_DAVIS = 2, SRC_DVS8 = 3 };
+// The (value, fv) dictionary that follows the rows of an 8-byte carrier
+// (DICT_CAP in fused_resident.py)
+constexpr int kDictCap = 64;
 constexpr int kLaneDepth = 16;  // the arena depth of the lane kernels
 
 struct Params {
@@ -923,7 +927,8 @@ struct AdderRowsArgs {
   int pass;        // PASS_COUNT, PASS_WRITE, PASS_VOID
   int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
   int depth;       // 16
-  int src;         // SRC_DVS (adder_dvs_rows) or SRC_DAVIS (adder_davis_rows)
+  int src;         // SRC_DVS (adder_dvs_rows), SRC_DAVIS (adder_davis_rows)
+                   // or SRC_DVS8 (adder_dvs_rows8)
   long long n;     // pixels of the plane
   long long rows;  // E >= 1 carrier rows
   int ref_time;
@@ -931,7 +936,8 @@ struct AdderRowsArgs {
   int c_thresh_max;
   int vel_m1;
   void* state[14];        // read and, on WRITE and VOID, written in place
-  const void* carrier;    // (5, E) i32, pack_dvs_plan's or pack_davis_plan's
+  const void* carrier;    // (5, E) i32, pack_dvs_plan's or pack_davis_plan's;
+                          // SRC_DVS8: (2, E + 64) i32, pack_dvs_plan8's
   const void* order;      // (E,) rows sorted by (pixel, lane)
   const void* row_start;  // (E + 2,) run starts in `order`, one per
                           // pixel that has rows, then E
@@ -945,6 +951,9 @@ struct AdderRowsArgs {
   void* out_pixd;
   void* out_t;
   void* flags;            // [max per-cell count, depth overflow]
+  long long cap;          // WRITE: entries of out_pixd / out_t; an event
+                          // past it is not written
+  int pb;                 // SRC_DVS8: the bits of the pixel field
 };
 
 }  // extern "C"
@@ -969,6 +978,8 @@ struct RArgs {
   unsigned* out_pixd;
   unsigned* out_t;
   int* flags;
+  long long cap;
+  int pb;
 };
 
 inline RArgs make_rargs(const AdderRowsArgs* a) {
@@ -1001,6 +1012,8 @@ inline RArgs make_rargs(const AdderRowsArgs* a) {
   r.out_pixd = (unsigned*)a->out_pixd;
   r.out_t = (unsigned*)a->out_t;
   r.flags = (int*)a->flags;
+  r.cap = a->cap;
+  r.pb = a->pb;
   return r;
 }
 
@@ -1009,31 +1022,52 @@ inline RArgs make_rargs(const AdderRowsArgs* a) {
 // thread's events of one cell go to that cell's own offset. SRC picks what
 // a row holds. SRC_DVS, the carrier of pack_dvs_plan: two sub-steps of
 // run_interval (the gap, then the tick; a half that is off counts 0
-// events). SRC_DAVIS, the carrier of pack_davis_plan: one sub-step of
+// events). SRC_DVS8, the carrier of pack_dvs_plan8: the same two sub-steps,
+// each row's two u32 words decoded as unpack_dvs_carrier8 does, with the
+// carrier's 64-entry (value, fv) dictionary staged once per block in shared
+// memory. SRC_DAVIS, the carrier of pack_davis_plan: one sub-step of
 // run_davis_event (an inactive row counts 0 events and leaves the state
 // alone, as the reference's compute-then-restore does).
 template <int D, bool COLLAPSE, int PASS, int SRC>
 __global__ void __launch_bounds__(kRowsBlock)
     adder_lane_rows_kernel(const RArgs a) {
-  static_assert(SRC == SRC_DVS || SRC == SRC_DAVIS,
-                "the row walk takes a DVS or a DAVIS carrier");
+  static_assert(SRC == SRC_DVS || SRC == SRC_DAVIS || SRC == SRC_DVS8,
+                "the row walk takes a DVS (20 or 8 bytes) or a DAVIS carrier");
+  static_assert(kRowsBlock >= kDictCap, "one dictionary entry a thread");
   constexpr int K = D + 3;
-  constexpr int SUBSTEPS = SRC == SRC_DVS ? 2 : 1;  // per row
+  constexpr int SUBSTEPS = SRC == SRC_DAVIS ? 1 : 2;  // per row
   const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * kRowsBlock + threadIdx.x;
+  // SRC_DVS8: row 0 of the carrier holds the rows' first words, then the
+  // dictionary's f32 values; row 1 their second words, then the fvs
+  __shared__ float dict_val[kDictCap];
+  __shared__ int dict_fv[kDictCap];
+  const long long stride = SRC == SRC_DVS8 ? a.rows + kDictCap : a.rows;
+  if constexpr (SRC == SRC_DVS8) {
+    if (threadIdx.x < kDictCap) {
+      dict_val[threadIdx.x] = __int_as_float(a.carrier[a.rows + threadIdx.x]);
+      dict_fv[threadIdx.x] = a.carrier[stride + a.rows + threadIdx.x];
+    }
+    __syncthreads();
+  }
   int maxcnt = 0;
   bool ovf_any = false;
   if (j < *a.n_active) {
     const long long r0 = a.row_start[j], r1 = a.row_start[j + 1];
-    // row 0: pix | lane << 20 | on bits from bit 27; row 1: the fv bytes;
-    // rows 2-4, as f32 bits: DVS gap_int, gap_time, tick_int; DAVIS
-    // first_int, dt_ticks, fval
+    // SRC_DVS, SRC_DAVIS: row 0: pix | lane << 20 | on bits from bit 27;
+    // row 1: the fv bytes; rows 2-4, as f32 bits: DVS gap_int, gap_time,
+    // tick_int; DAVIS first_int, dt_ticks, fval.
+    // SRC_DVS8: word 0: pix[0:pb] | lane << pb | gap_on << pb + 6 |
+    // tick_on << pb + 7 | gap_n_hi << pb + 8; word 1: gap_n_lo[0:20] |
+    // gap_idx << 20 | tick_idx << 26
     const int* meta_row = a.carrier;
-    const int* fv_row = a.carrier + a.rows;
-    const int* r2 = a.carrier + 2 * a.rows;
-    const int* r3 = a.carrier + 3 * a.rows;
-    const int* r4 = a.carrier + 4 * a.rows;
-    const long long pix = meta_row[a.order[r0]] & 0xFFFFF;
+    const int* fv_row = a.carrier + stride;
+    const int* r2 = a.carrier + 2 * stride;
+    const int* r3 = a.carrier + 3 * stride;
+    const int* r4 = a.carrier + 4 * stride;
+    const unsigned pmask =
+        SRC == SRC_DVS8 ? (1u << a.pb) - 1u : 0xFFFFFu;
+    const long long pix = (unsigned)meta_row[a.order[r0]] & pmask;
     const unsigned pbase = (unsigned)pix << 8;
     Pixel<D> s;
     load_state(s, a.in, pix, a.n);
@@ -1042,7 +1076,9 @@ __global__ void __launch_bounds__(kRowsBlock)
       const int meta = meta_row[row], fvs = fv_row[row];
 #pragma unroll 1
       for (int h = 0; h < SUBSTEPS; ++h) {  // DVS: the gap, then the tick
-        const bool on = (meta >> (27 + h)) & 1;
+        const bool on = SRC == SRC_DVS8
+                            ? ((unsigned)meta >> (a.pb + 6 + h)) & 1u
+                            : (meta >> (27 + h)) & 1;
         const long long cell = h ? a.cell_tick[row] : a.cell_gap[row];
         int cnt = 0;
         if (on) {
@@ -1050,11 +1086,31 @@ __global__ void __launch_bounds__(kRowsBlock)
           unsigned st[K];
           bool ovf = false;
           unsigned m;
-          if constexpr (SRC == SRC_DVS) {
-            const float inten = __int_as_float(h ? r4[row] : r2[row]);
-            // a tick spans one source tick, f32(ref_time)
-            const float tspan = h ? a.P.ref_f : __int_as_float(r3[row]);
-            const int fv = (fvs >> (8 * h)) & 0xFF;
+          if constexpr (SRC == SRC_DVS || SRC == SRC_DVS8) {
+            float inten, tspan;
+            int fv;
+            if constexpr (SRC == SRC_DVS) {
+              inten = __int_as_float(h ? r4[row] : r2[row]);
+              // a tick spans one source tick, f32(ref_time)
+              tspan = h ? a.P.ref_f : __int_as_float(r3[row]);
+              fv = (fvs >> (8 * h)) & 0xFF;
+            } else if (h) {  // the tick: its value and fv by index
+              const int ti = ((unsigned)fvs >> 26) & 63u;
+              inten = dict_val[ti];
+              tspan = a.P.ref_f;
+              fv = dict_fv[ti] & 0xFF;
+            } else {  // the gap: value x gap_n, over gap_n x ref_time ticks
+              const int gi = ((unsigned)fvs >> 20) & 63u;
+              const int shift = a.pb + 8;
+              const unsigned hi =
+                  shift < 32 ? (unsigned)meta >> shift : 0u;
+              const int gn = (int)((hi << 20) | ((unsigned)fvs & 0xFFFFFu));
+              // the f32 product that defines the planner's gap_int, and
+              // the exact i32 product (the host bounds it) rounded once
+              inten = __fmul_rn(dict_val[gi], __int2float_rn(gn));
+              tspan = __int2float_rn(gn * (int)a.P.ref_u);
+              fv = dict_fv[gi] & 0xFF;
+            }
             // (u32(time) // ref_time) % 256 per sub-step
             // (integrate.py:606-609)
             const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
@@ -1074,8 +1130,10 @@ __global__ void __launch_bounds__(kRowsBlock)
 #pragma unroll
             for (int k = 0; k < K; ++k) {
               if ((m >> k) & 1u) {
-                a.out_pixd[off] = pbase | ((unsigned)sd[k] & 0xFFu);
-                a.out_t[off] = st[k];
+                if (off < a.cap) {
+                  a.out_pixd[off] = pbase | ((unsigned)sd[k] & 0xFFu);
+                  a.out_t[off] = st[k];
+                }
                 ++off;
               }
             }
@@ -1111,8 +1169,9 @@ void launch_rows_pass(const RArgs& r, int pass, cudaStream_t st) {
 }
 
 // The checks and the launch of the row entry points adder_dvs_rows
-// (SRC_DVS) and adder_davis_rows (SRC_DAVIS): each instantiates the six
-// kernels of its own carrier (Normal and Collapse x COUNT, WRITE, VOID).
+// (SRC_DVS), adder_dvs_rows8 (SRC_DVS8) and adder_davis_rows (SRC_DAVIS):
+// each instantiates the six kernels of its own carrier (Normal and Collapse
+// x COUNT, WRITE, VOID).
 template <int SRC>
 int launch_rows(const AdderRowsArgs* a, void* stream) {
   if (a->pass < PASS_COUNT || a->pass > PASS_VOID || a->src != SRC ||
@@ -1121,7 +1180,12 @@ int launch_rows(const AdderRowsArgs* a, void* stream) {
       a->carrier == nullptr || a->order == nullptr ||
       a->row_start == nullptr || a->n_active == nullptr ||
       a->cell_gap == nullptr ||
-      (SRC == SRC_DVS && a->cell_tick == nullptr)) {
+      (SRC != SRC_DAVIS && a->cell_tick == nullptr) ||
+      (a->pass == PASS_WRITE &&
+       (a->cap < 0 || a->offsets == nullptr ||
+        (a->cap > 0 && (a->out_pixd == nullptr || a->out_t == nullptr)))) ||
+      (SRC == SRC_DVS8 &&
+       (a->pb < 1 || a->pb > 24 || (a->n - 1) >> a->pb != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const RArgs r = make_rargs(a);

@@ -1,5 +1,7 @@
 // Hopper kernel for one chunk of DVS lane sub-steps (sm_90a): K3, by rows,
-// and the grouping glue the row kernels of K3 and K4 share.
+// on the 20-byte carrier (adder_dvs_rows) and on the 8-byte one
+// (adder_dvs_rows8), and the grouping glue the row kernels of K3 and K4
+// share.
 //
 // Replaces the TPU kernel adder_tpu/ops/fused_resident.py::make_resident_call
 // in its DVS mode (dvs=True; make_dvs_chunk_resident :1017, reached through
@@ -58,6 +60,29 @@
 //     increment, the flags are those of the framed kernel.
 // The depth-16 arena (80 values) and the 19 slot pairs of the WRITE pass
 // press on the 255-register limit; ptxas -v reports any spill.
+//
+// adder_dvs_rows8 runs the same walk from the 8-byte carrier of
+// make_dvs_chunk_resident_packed8 (:1214; pack_dvs_plan8 :1284-1336, the
+// decode unpack_dvs_carrier8 :1254-1281), which the Prophesee source takes
+// by default (the fused native planner adder_plan_dvs_pack8 writes it):
+// (2, E + 64) i32, two u32 words a row (pix in pb bits, the lane, the two
+// on bits, gap_n in a hi/lo split, two 6-bit dictionary indices), then a
+// dictionary of 64 (f32 value, fv) pairs. Its plain version is
+// adder_tpu_torch/ops/fused_resident.py::dvs_rows8_resident_plain.
+//   What bounds it: as adder_dvs_rows, the serial state machine; the bytes
+//   it must move fall to 8 per active row plus the 512-byte dictionary.
+//   What the design does about it:
+//   - the decode is in the walk, not a separate 8 -> 20 byte pass: such a
+//     pass would add a launch per lane group and write the 20-byte rows
+//     back to HBM, where the point of the layout is that only 8 bytes a row
+//     move;
+//   - each block stages the dictionary once in shared memory (512 B); the
+//     gap's intensity is the f32 product value x f32(gap_n) and its span
+//     the exact i32 product gap_n x ref_time rounded once (__fmul_rn,
+//     __int2float_rn: no contraction), the planner's own definitions, so
+//     the decoded fields equal the 20-byte carrier's bit for bit;
+//   - the glue keys the rows with the same lane << 20 | pix
+//     (rows_keys_kernel<true>), so everything after the keys is shared.
 
 #include "adder_interval.cuh"
 
@@ -74,12 +99,18 @@ namespace {
 
 constexpr int kGlueBlock = 256;
 
+// EIGHT: row 0 of pack_dvs_plan8's carrier, pix in the low pb bits and the
+// lane in the 6 above; else the low 27 bits of the 20-byte carriers.
+template <bool EIGHT>
 __global__ void __launch_bounds__(kGlueBlock)
-    rows_keys_kernel(const int* __restrict__ meta, long long rows,
+    rows_keys_kernel(const int* __restrict__ meta, long long rows, int pb,
                      int* __restrict__ key_pl, int* __restrict__ key_lp) {
   const long long i = (long long)blockIdx.x * kGlueBlock + threadIdx.x;
   if (i < rows) {
-    const int k = meta[i] & 0x7FFFFFF;
+    const unsigned w = (unsigned)meta[i];
+    const int k =
+        EIGHT ? (int)((((w >> pb) & 63u) << 20) | (w & ((1u << pb) - 1u)))
+              : (int)(w & 0x7FFFFFFu);
     key_lp[i] = k;
     key_pl[i] = ((k & 0xFFFFF) << 7) | (k >> 20);
   }
@@ -164,8 +195,22 @@ extern "C" {
 int adder_rows_keys(const void* meta, long long rows, void* key_pl,
                     void* key_lp, void* stream) {
   if (rows < 1 || rows >= (1LL << 30)) return (int)cudaErrorInvalidValue;
-  rows_keys_kernel<<<glue_grid(rows), kGlueBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)meta, rows, (int*)key_pl, (int*)key_lp);
+  rows_keys_kernel<false>
+      <<<glue_grid(rows), kGlueBlock, 0, (cudaStream_t)stream>>>(
+          (const int*)meta, rows, 0, (int*)key_pl, (int*)key_lp);
+  return (int)cudaGetLastError();
+}
+
+// The keys of an 8-byte carrier's rows (row 0 of pack_dvs_plan8's, whose
+// pixel field has pb <= 20 bits, so lane << 20 | pix keeps both).
+int adder_rows_keys8(const void* meta, long long rows, int pb, void* key_pl,
+                     void* key_lp, void* stream) {
+  if (rows < 1 || rows >= (1LL << 30) || pb < 1 || pb > 20) {
+    return (int)cudaErrorInvalidValue;
+  }
+  rows_keys_kernel<true>
+      <<<glue_grid(rows), kGlueBlock, 0, (cudaStream_t)stream>>>(
+          (const int*)meta, rows, pb, (int*)key_pl, (int*)key_lp);
   return (int)cudaGetLastError();
 }
 
@@ -199,6 +244,10 @@ int adder_rows_starts(const void* head, const void* pos, long long rows,
 
 int adder_dvs_rows(const AdderRowsArgs* a, void* stream) {
   return launch_rows<SRC_DVS>(a, stream);
+}
+
+int adder_dvs_rows8(const AdderRowsArgs* a, void* stream) {
+  return launch_rows<SRC_DVS8>(a, stream);
 }
 
 }  // extern "C"

@@ -114,31 +114,34 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# The C signature of every entry point of the library (each returns a
+# cudaError_t as int): pointers and the stream as c_void_p, so that ctypes
+# never cuts them to a 32-bit int. tests/test_torch_boundary.py holds this
+# table to the `extern "C"` entries of the sources.
+SIGNATURES = {
+    **{entry: [_PTR, _PTR] for entry in (
+        "adder_resident_chunk", "adder_segment_copy", "adder_dvs_rows",
+        "adder_dvs_rows8", "adder_davis_rows", "adder_fused_interval",
+        "adder_interval_slots")},
+    "adder_exclusive_scan": [_PTR, _PTR, _I64, _PTR, _PTR],
+    "adder_rows_keys": [_PTR, _I64, _PTR, _PTR, _PTR],
+    "adder_rows_keys8": [_PTR, _I64, _INT, _PTR, _PTR, _PTR],
+    "adder_rows_rank": [_PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR, _PTR, _PTR,
+                        _PTR, _PTR],
+    "adder_rows_starts": [_PTR, _PTR, _I64, _PTR, _PTR],
+}
+
+
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for entry in ("adder_resident_chunk", "adder_segment_copy",
-                          "adder_dvs_rows", "adder_davis_rows",
-                          "adder_fused_interval", "adder_interval_slots"):
+            for entry, argtypes in SIGNATURES.items():
                 fn = getattr(lib, entry)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.adder_exclusive_scan.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.adder_exclusive_scan.restype = ctypes.c_int
-            ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-            lib.adder_rows_keys.argtypes = [ptr, i64, ptr, ptr, ptr]
-            lib.adder_rows_rank.argtypes = [ptr, ptr, ptr, i64, ctypes.c_int,
-                                            ctypes.c_int, ptr, ptr, ptr, ptr,
-                                            ptr]
-            lib.adder_rows_starts.argtypes = [ptr, ptr, i64, ptr, ptr]
-            for fn in (lib.adder_rows_keys, lib.adder_rows_rank,
-                       lib.adder_rows_starts):
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.adder_cuda_error_string.argtypes = [ctypes.c_int]
             lib.adder_cuda_error_string.restype = ctypes.c_char_p

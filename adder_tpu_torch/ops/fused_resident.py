@@ -4,7 +4,9 @@ Counterpart of `adder_tpu/ops/fused_resident.py` in its two framed modes,
 `make_fused_chunk_resident` (events fetched) and `make_group_chunk_resident`
 (the Empty sink, where only counts and the depth flag are read), in its
 DVS mode, `make_dvs_chunk_resident_packed` (lane sub-steps from the (5, E)
-carrier of `pack_dvs_plan`, at depth 16), and in its DAVIS mode,
+carrier of `pack_dvs_plan`, at depth 16) and
+`make_dvs_chunk_resident_packed8` (the same from the (2, E + 64) carrier
+of `pack_dvs_plan8`, 8 bytes a row and a dictionary), and in its DAVIS mode,
 `make_davis_chunk_resident_packed` (one DAVIS event per pixel and sub-step,
 from the carrier of `pack_davis_plan`, at depth 16).
 
@@ -12,18 +14,19 @@ Each entry point has two implementations:
 
 - the plain PyTorch version (`fused_chunk_resident_plain`,
   `group_chunk_resident_plain`, `dvs_rows_resident_plain`,
-  `davis_rows_resident_plain`): a Python loop over the T intervals of
+  `dvs_rows8_resident_plain`, `davis_rows_resident_plain`): a Python loop
+  over the T intervals of
   `integrate._interval_core` (for DVS, `dvs_batch.masked_step`; for DAVIS,
   `dvs_batch.davis_masked_step`, each over the carrier scattered into dense
   (T, N) planes), then the per-interval slots compacted into the
   reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk`,
   `adder_segment_copy` and `adder_exclusive_scan` in fused_resident.cu,
-  `adder_dvs_rows` and the grouping glue in dvs_resident.cu,
-  `adder_davis_rows` in davis_resident.cu), reached through the wrappers
-  `fused_chunk_resident`, `group_chunk_resident`, `dvs_rows_resident` and
-  `davis_rows_resident` (and `segment_copy`, whose plain version is
-  `segment_copy_plain`).
+  `adder_dvs_rows`, `adder_dvs_rows8` and the grouping glue in
+  dvs_resident.cu, `adder_davis_rows` in davis_resident.cu), reached
+  through the wrappers `fused_chunk_resident`, `group_chunk_resident`,
+  `dvs_rows_resident`, `dvs_rows8_resident` and `davis_rows_resident` (and
+  `segment_copy`, whose plain version is `segment_copy_plain`).
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
@@ -41,7 +44,10 @@ per-(interval, warp) counts gives each segment its offset, and the segment
 copy moves them there. The buffers are sized by the caller's capacity, as
 the JAX resident chunk's `event_cap`, and nothing is read back to the host
 inside the chunk: `total` says on the device whether the events fit. The
-lane chunks size their buffers from one host read of the scan's total.
+lane chunks size their buffers from one host read of the scan's total,
+unless the caller gives `event_cap`, a bound it knows (the Prophesee lane
+groups: 19 events at most for each active cell of the host's plan); then
+nothing is read back either.
 
 Outputs (`ChunkResult`):
   state        the PixelState after the chunk (`overflow` passed through
@@ -57,7 +63,7 @@ Outputs (`ChunkResult`):
                after each interval, carried forward from `run0` where a pixel
                shows nothing new (`fused_resident.py:890-899`); else None.
                The kernel carries it in the thread's register;
-  total        0-d int64, the chunk's events (None for the lane chunks).
+  total        0-d int64, the chunk's events.
 """
 
 from __future__ import annotations
@@ -79,12 +85,15 @@ MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
 
 PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2  # the row walk's passes
 DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
-SRC_DVS, SRC_DAVIS = 1, 2  # AdderRowsArgs.src: what a carrier row holds
+# AdderRowsArgs.src: what a carrier row holds
+SRC_DVS, SRC_DAVIS, SRC_DVS8 = 1, 2, 3
+DICT_CAP = 64  # the 8-byte carrier's shared (value, fv) dictionary
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"adder_resident_chunk": 0, "adder_segment_copy": 0,
             "adder_exclusive_scan": 0, "adder_dvs_rows": 0,
-            "adder_rows_group": 0, "adder_davis_rows": 0}
+            "adder_dvs_rows8": 0, "adder_rows_group": 0,
+            "adder_davis_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -279,6 +288,99 @@ def unpack_dvs_carrier(packed: torch.Tensor):
     )
 
 
+def pix_bits(n: int) -> int:
+    """The bits of the 8-byte carrier's pixel field for a plane of n
+    pixels (`pb`)."""
+    return max(1, int(n - 1).bit_length())
+
+
+def pack_dvs_plan8(plan, n: int, ref_time: int):
+    """A DvsCompact (or a lane slice of one) -> ((2, E + DICT_CAP) int32
+    carrier, pb), 8 bytes per row, or None when the rows do not fit the
+    factored layout and the caller falls back to `pack_dvs_plan`'s 20-byte
+    carrier. Copy of `pack_dvs_plan8` (`adder_tpu/ops/fused_resident.py:
+    1284-1336`) with E_pad = E: the port's carriers have no padding, so the
+    dictionary follows the E rows.
+
+    Bit layout (within u32 rows; pb = bits for a pixel index < n):
+      row0: pix[0:pb] | lane[pb:pb+6] | gap_on[pb+6] | tick_on[pb+7]
+            | gap_n_hi[pb+8:32]
+      row1: gap_n_lo[0:20] | gap_idx[20:26] | tick_idx[26:32]
+      dict appendix (columns E .. E+DICT_CAP):
+            row0 = f32 bits of the value, row1 = its frame value
+    One shared dictionary holds the unique (value, fv) pairs of both the
+    gap side (gap_val/gap_fv) and the tick side (tick_int/tick_fv).
+    Infeasible when: pixel indices need > 24 bits, a lane id >= 64, the
+    dictionary exceeds DICT_CAP, or gap_n overflows its field / the exact
+    i32 gap_n * ref_time product."""
+    E = len(plan.pix)
+    pb = pix_bits(n)
+    hi_bits = 24 - pb
+    if hi_bits < 0 or E == 0:
+        return None
+    gn = np.where(plan.gap_on, plan.gap_n, 0).astype(np.int64)
+    if int(plan.lane.max()) >= 64:
+        return None
+    mx = int(gn.max())
+    if mx >= (1 << (20 + hi_bits)) or mx > (2**31 - 1) // max(ref_time, 1):
+        return None
+    gv = plan.gap_val.view(np.int32).astype(np.int64)
+    tv = plan.tick_int.view(np.int32).astype(np.int64)
+    gkey = (gv << 32) | (plan.gap_fv.astype(np.int64) & 0xFFFFFFFF)
+    tkey = (tv << 32) | (plan.tick_fv.astype(np.int64) & 0xFFFFFFFF)
+    keys, inv = np.unique(np.concatenate([gkey, tkey]), return_inverse=True)
+    if len(keys) > DICT_CAP:
+        return None
+    gidx = inv[:E].astype(np.uint32)
+    tidx = inv[E:].astype(np.uint32)
+    row0 = (
+        plan.pix.astype(np.uint32)
+        | (plan.lane.astype(np.uint32) << pb)
+        | (plan.gap_on.astype(np.uint32) << (pb + 6))
+        | (plan.tick_on.astype(np.uint32) << (pb + 7))
+        | ((gn >> 20).astype(np.uint32) << (pb + 8))
+    )
+    row1 = (gn & 0xFFFFF).astype(np.uint32) | (gidx << 20) | (tidx << 26)
+    packed = np.zeros((2, E + DICT_CAP), np.uint32)
+    packed[0, :E] = row0
+    packed[1, :E] = row1
+    packed[0, E : E + len(keys)] = (keys >> 32).astype(np.uint32)
+    packed[1, E : E + len(keys)] = (keys & 0xFFFFFFFF).astype(np.uint32)
+    return packed.view(np.int32), pb
+
+
+def unpack_dvs_carrier8(packed: torch.Tensor, pb: int, ref_time: int):
+    """The (2, E + DICT_CAP) carrier of `pack_dvs_plan8` -> the nine row
+    fields of `build_dvs_planes` (pix, lane, gap_on, gap_fv, gap_int,
+    gap_time, tick_on, tick_fv, tick_int), with torch ops on the carrier's
+    device: the plain version of the decode in `adder_dvs_rows8` (port of
+    `unpack_dvs_carrier8`, `adder_tpu/ops/fused_resident.py:1254-1281`).
+      gap_int  = f32(dict value[gap_idx]) * f32(gap_n)  (f32 multiply)
+      gap_time = f32(gap_n * ref_time)                  (exact i32 product)
+      tick_int, gap_fv, tick_fv from the dictionary.
+    Gap-side values of tick-only rows are don't-cares (the plane scatter
+    drops them through gap_on); the rest equals the planner's fields bit
+    for bit."""
+    E = packed.shape[1] - DICT_CAP
+    u = packed.to(torch.int64) & 0xFFFFFFFF  # the u32 words
+    r0, r1 = u[0, :E], u[1, :E]
+    dval = packed[0, E:].contiguous().view(torch.float32)
+    dfv = packed[1, E:]
+    gn = (((r0 >> (pb + 8)) << 20) | (r1 & 0xFFFFF)).to(torch.int32)
+    gidx, tidx = (r1 >> 20) & 63, (r1 >> 26) & 63
+    return (
+        (r0 & ((1 << pb) - 1)).to(torch.int32),
+        ((r0 >> pb) & 63).to(torch.int32),
+        ((r0 >> (pb + 6)) & 1) != 0,
+        dfv[gidx],
+        dval[gidx] * gn.to(torch.float32),
+        (gn * ref_time).to(torch.float32),
+        ((r0 >> (pb + 7)) & 1) != 0,
+        dfv[tidx],
+        dval[tidx],
+    )
+
+
 # --- lane chunks by rows: the grouping (K3 and K4) ---------------------------
 
 
@@ -311,22 +413,26 @@ class RowGroups(NamedTuple):
     sub_start: torch.Tensor
 
 
-def group_dvs_rows(carrier: torch.Tensor, T: int,
-                   per_lane: int = 2) -> RowGroups:
+def group_dvs_rows(carrier: torch.Tensor, T: int, per_lane: int = 2,
+                   pb: Optional[int] = None) -> RowGroups:
     """Group the rows of a (5, E >= 1) carrier of T / per_lane lanes by
     pixel and rank their cells in output order: `pack_dvs_plan`'s with
     per_lane 2, `pack_davis_plan`'s with per_lane 1 (the low 27 bits of row
-    0 are lane << 20 | pix in both). Each (lane, pixel) holds at most one
-    row, as the planners guarantee (the sorts are not stable); the rows may
-    come in any order. For a CUDA carrier two `torch.sort`s, the glue
-    kernels of csrc/dvs_resident.cu (`adder_rows_keys`, `adder_rows_rank`,
-    `adder_rows_starts`, counted as LAUNCHES["adder_rows_group"]) and one
-    `exclusive_scan`; for a CPU carrier `group_dvs_rows_plain`."""
-    if per_lane not in (1, 2):
-        raise ValueError(f"{per_lane} sub-steps a lane; the glue takes 1 or 2")
+    0 are lane << 20 | pix in both); with `pb`, the (2, E + DICT_CAP)
+    carrier of `pack_dvs_plan8` (per_lane 2), whose row 0 holds pix in its
+    low pb bits and the lane in the 6 above. Each (lane, pixel) holds at
+    most one row, as the planners guarantee (the sorts are not stable); the
+    rows may come in any order. For a CUDA carrier two `torch.sort`s, the
+    glue kernels of csrc/dvs_resident.cu (`adder_rows_keys` or
+    `adder_rows_keys8`, `adder_rows_rank`, `adder_rows_starts`, counted as
+    LAUNCHES["adder_rows_group"]) and one `exclusive_scan`; for a CPU
+    carrier `group_dvs_rows_plain`."""
+    if per_lane not in (1, 2) or (pb is not None and per_lane != 2):
+        raise ValueError(f"{per_lane} sub-steps a lane; the glue takes 1 or "
+                         f"2, and 2 for the 8-byte carrier")
     if not carrier.is_cuda:
-        return group_dvs_rows_plain(carrier, T, per_lane)
-    meta = carrier[0]
+        return group_dvs_rows_plain(carrier, T, per_lane, pb)
+    meta = _row0(carrier, pb)
     E, dev = meta.shape[0], meta.device
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -339,8 +445,12 @@ def group_dvs_rows(carrier: torch.Tensor, T: int,
         LAUNCHES["adder_rows_group"] += 1
 
     keys = torch.empty((2, E), dtype=torch.int32, device=dev)
-    launch(lib.adder_rows_keys, meta.data_ptr(), E, keys[0].data_ptr(),
-           keys[1].data_ptr())
+    if pb is None:
+        launch(lib.adder_rows_keys, meta.data_ptr(), E, keys[0].data_ptr(),
+               keys[1].data_ptr())
+    else:
+        launch(lib.adder_rows_keys8, meta.data_ptr(), E, pb,
+               keys[0].data_ptr(), keys[1].data_ptr())
     skey, order = torch.sort(keys[0])
     lkey, lorder = torch.sort(keys[1])
     head = torch.empty(E, dtype=torch.int32, device=dev)
@@ -358,14 +468,30 @@ def group_dvs_rows(carrier: torch.Tensor, T: int,
                      cells[1] if per_lane == 2 else cells[0, :0], sub_start)
 
 
-def group_dvs_rows_plain(carrier: torch.Tensor, T: int,
-                         per_lane: int = 2) -> RowGroups:
+def _row0(carrier: torch.Tensor, pb: Optional[int]) -> torch.Tensor:
+    """Row 0 of a carrier's rows: the whole first row of a 20-byte carrier,
+    the first E of an 8-byte one (its dictionary follows)."""
+    return carrier[0] if pb is None else carrier[0, :carrier.shape[1]
+                                                 - DICT_CAP]
+
+
+def row_keys_plain(carrier: torch.Tensor,
+                   pb: Optional[int] = None) -> torch.Tensor:
+    """Each row's lane << 20 | pix (int32): the low 27 bits of a 20-byte
+    carrier's row 0, or the fields of an 8-byte carrier's (`pb`)."""
+    meta = _row0(carrier, pb)
+    if pb is None:
+        return meta & 0x7FFFFFF
+    return (((meta >> pb) & 63) << 20) | (meta & ((1 << pb) - 1))
+
+
+def group_dvs_rows_plain(carrier: torch.Tensor, T: int, per_lane: int = 2,
+                         pb: Optional[int] = None) -> RowGroups:
     """Plain version of `group_dvs_rows`, with torch ops on the carrier's
     device (any E); it reads nothing back to the host either."""
-    meta = carrier[0]
-    E = meta.shape[0]
-    dev = meta.device
-    key = meta & 0x7FFFFFF  # lane << 20 | pix
+    key = row_keys_plain(carrier, pb)  # lane << 20 | pix
+    E = key.shape[0]
+    dev = key.device
     lane = (key >> 20).to(torch.int64)
     ar = torch.arange(E, dtype=torch.int64, device=dev)
     # the rows of each pixel, in lane order
@@ -422,6 +548,23 @@ def dvs_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
     n = state.length.shape[0]
     planes = build_dvs_planes(T, n, *unpack_dvs_carrier(carrier),
                               ref_time=p.ref_time)
+    return dvs_chunk_resident_plain(state, *planes, p, events)
+
+
+def dvs_rows8_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
+                             T: int, p: ops.TranscodeParams,
+                             events: bool = True, *,
+                             pb: int) -> ChunkResult:
+    """Plain version of `dvs_rows8_resident`, the DVS lane group given as
+    its 8-byte carrier (`make_dvs_chunk_resident_packed8`,
+    `adder_tpu/ops/fused_resident.py:1214`): the carrier decoded
+    (`unpack_dvs_carrier8`), scattered into dense planes and run through
+    `dvs_chunk_resident_plain`. Returns a new state; the input state is left
+    as it was."""
+    n = state.length.shape[0]
+    planes = build_dvs_planes(
+        T, n, *unpack_dvs_carrier8(carrier, pb, p.ref_time),
+        ref_time=p.ref_time)
     return dvs_chunk_resident_plain(state, *planes, p, events)
 
 
@@ -556,7 +699,8 @@ def group_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
 
 
 def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
-                      groups: Optional[RowGroups] = None) -> ChunkResult:
+                      groups: Optional[RowGroups] = None, *,
+                      event_cap: Optional[int] = None) -> ChunkResult:
     """One DVS lane group of T = 2 x lanes sub-steps given as its (5, E)
     int32 carrier (`pack_dvs_plan`): the events in (sub-step, raster pixel,
     slot) order, the per-sub-step counts and the flags of
@@ -571,11 +715,38 @@ def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
     The state is updated in place, on the card and on the CPU alike: only
     the pixels that have rows change, so no copy of the other pixels is
     made, and the result's `state` is the caller's `state`. A caller that
-    still needs the old state clones it first (`clone_state`)."""
+    still needs the old state clones it first (`clone_state`).
+
+    `event_cap`, where given, is a bound on the group's events that the
+    caller knows without the card (at most DVS_DEPTH + 3 for each active
+    cell): on the card the event buffers get that many entries, WRITE
+    follows COUNT with no host read, and the result's `total` (0-d, on the
+    card) says how many of them are the events. Without it the wrapper
+    reads the total back and the buffers hold the events exactly."""
     if not carrier.is_cuda:
         return _in_place(state, dvs_rows_resident_plain(state, carrier, T, p,
                                                         events))
-    return _rows_cuda(SRC_DVS, state, carrier, T, p, events, groups)
+    return _rows_cuda(SRC_DVS, state, carrier, T, p, events, groups,
+                      event_cap=event_cap)
+
+
+def dvs_rows8_resident(state, carrier, T: int, p, events: bool = True,
+                       groups: Optional[RowGroups] = None, *, pb: int,
+                       event_cap: Optional[int] = None) -> ChunkResult:
+    """`dvs_rows_resident` for a lane group given as the (2, E + DICT_CAP)
+    int32 carrier of `pack_dvs_plan8` (or of the fused native planner),
+    whose pixel field has `pb` bits (`pix_bits` of the plane): for a CUDA
+    carrier the glue `group_dvs_rows` on the 8-byte keys, then the K3 row
+    kernel `adder_dvs_rows8`, which decodes each row's two words and the
+    dictionary as `unpack_dvs_carrier8` does; for a CPU carrier
+    `dvs_rows8_resident_plain`. The same events, counts, flags and state
+    as `dvs_rows_resident` on the 20-byte carrier of the same rows; the
+    state updated in place, `event_cap` as there."""
+    if not carrier.is_cuda:
+        return _in_place(state, dvs_rows8_resident_plain(
+            state, carrier, T, p, events, pb=pb))
+    return _rows_cuda(SRC_DVS8, state, carrier, T, p, events, groups, pb=pb,
+                      event_cap=event_cap)
 
 
 def davis_rows_resident(state, carrier, T: int, p,
@@ -890,23 +1061,35 @@ class _RowsArgs(ctypes.Structure):
         ("out_pixd", ctypes.c_void_p),
         ("out_t", ctypes.c_void_p),
         ("flags", ctypes.c_void_p),
+        ("cap", ctypes.c_longlong),
+        ("pb", ctypes.c_int),
     ]
 
 
-# each row source: its C entry point and its sub-steps per lane
-_ROW_ENTRIES = {SRC_DVS: ("adder_dvs_rows", 2), SRC_DAVIS: ("adder_davis_rows", 1)}
+# each row source: its C entry point, its sub-steps per lane and the rows of
+# its carrier
+_ROW_ENTRIES = {SRC_DVS: ("adder_dvs_rows", 2, 5),
+                SRC_DAVIS: ("adder_davis_rows", 1, 5),
+                SRC_DVS8: ("adder_dvs_rows8", 2, 2)}
 
 
 def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
-               groups: Optional[RowGroups] = None) -> ChunkResult:
-    """`dvs_rows_resident` (src SRC_DVS) or `davis_rows_resident`
-    (SRC_DAVIS) for a CUDA carrier. `groups`: the grouping made beforehand
-    (for the raster chunks and the timings)."""
-    entry, per_lane = _ROW_ENTRIES[src]
+               groups: Optional[RowGroups] = None, pb: Optional[int] = None,
+               event_cap: Optional[int] = None) -> ChunkResult:
+    """`dvs_rows_resident` (src SRC_DVS), `dvs_rows8_resident` (SRC_DVS8,
+    with `pb`) or `davis_rows_resident` (SRC_DAVIS) for a CUDA carrier.
+    `groups`: the grouping made beforehand (for the raster chunks and the
+    timings); `event_cap`: the caller's bound on the events, which spares
+    the host read of the total."""
+    entry, per_lane, height = _ROW_ENTRIES[src]
+    width = "E + 64" if src == SRC_DVS8 else "E"
     if (carrier.dtype != torch.int32 or carrier.dim() != 2
-            or carrier.shape[0] != 5 or not carrier.is_contiguous()):
-        raise ValueError(f"carrier must be contiguous (5, E) int32, got "
-                         f"{carrier.dtype} {tuple(carrier.shape)}")
+            or carrier.shape[0] != height or not carrier.is_contiguous()):
+        raise ValueError(f"carrier must be contiguous ({height}, {width}) "
+                         f"int32, got {carrier.dtype} "
+                         f"{tuple(carrier.shape)}")
+    if event_cap is not None and event_cap < 0:
+        raise ValueError(f"event_cap {event_cap} is negative")
     if T % per_lane or not per_lane <= T <= MAX_T:
         raise ValueError(f"group of {T} sub-steps; {entry} takes "
                          f"{per_lane} x lanes in {per_lane}..{MAX_T}")
@@ -915,13 +1098,22 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
     n, E, dev = state.length.shape[0], carrier.shape[1], carrier.device
     if n > 1 << 20:
         raise ValueError(f"{n} pixels: the carrier holds pixels below 2^20")
+    if src == SRC_DVS8:
+        E -= DICT_CAP
+        if E < 0 or pb != pix_bits(n):
+            raise ValueError(f"an 8-byte carrier of a {n}-pixel plane has "
+                             f"a {pix_bits(n)}-bit pixel field and at least "
+                             f"{DICT_CAP} columns; got pb {pb}, "
+                             f"{carrier.shape[1]} columns")
     _check_state(state, carrier, (DVS_DEPTH,), n)
     if E == 0:  # no row, nothing to launch: the state stays as it is
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         ev = torch.empty(0, dtype=torch.int32, device=dev) if events else None
-        return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero)
+        return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero,
+                           total=zero)
     if groups is None:
-        g = group_dvs_rows(carrier, T, per_lane)
+        g = group_dvs_rows(carrier, T, per_lane,
+                           pb if src == SRC_DVS8 else None)
     else:
         g = groups
         shapes = ((E,), (E + 2,), (1,), (E,), (E if per_lane == 2 else 0,),
@@ -935,7 +1127,7 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
     flags = torch.zeros(2, dtype=torch.int32, device=dev)  # atomic max / or
     a = _RowsArgs()
     a.multi_mode, a.depth, a.src = int(p.multi_mode), DVS_DEPTH, src
-    a.n, a.rows = n, E
+    a.n, a.rows, a.pb = n, E, pb or 0
     a.ref_time, a.delta_t_max = p.ref_time, p.delta_t_max
     a.c_thresh_max = p.c_thresh_max
     a.vel_m1, _ = ops.c_thresh_scalars(0.0, p)
@@ -956,18 +1148,20 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
     launch(PASS_COUNT if events else PASS_VOID)
     offsets = exclusive_scan(cell_counts)
     if events:
-        total = int(offsets[-1])  # host read: sizes the event buffers
-        pixd = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-        t = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-        a.offsets = offsets.data_ptr()
+        # the caller's bound, or a host read of the total
+        cap = int(offsets[-1]) if event_cap is None else event_cap
+        pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+        t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+        a.offsets, a.cap = offsets.data_ptr(), cap
         a.out_pixd, a.out_t = pixd.data_ptr(), t.data_ptr()
         launch(PASS_WRITE)
-        pixd, t = pixd[:total], t[:total]
+        pixd, t = pixd[:cap], t[:cap]
     # the cells of one sub-step are contiguous: a segment sum of the counts
     at = offsets[g.sub_start]
     per_interval = at[1:] - at[:-1]
     pmax = flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
-    return ChunkResult(state, pixd, t, per_interval, pmax)
+    return ChunkResult(state, pixd, t, per_interval, pmax,
+                       total=offsets[-1])
 
 
 # Counts per block of `adder_exclusive_scan`, as the kernel is built.

@@ -22,7 +22,9 @@ band results. Part files keep the JAX layout (npz, magic `adpt`, version
 `init_multihost` starts torch.distributed from torchrun's environment
 (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`; where JAX reads
 `JAX_COORDINATOR_ADDRESS`) or from explicit arguments. A single-process job
-is a no-op.
+is a no-op. Under NCCL each process takes the card of its `LOCAL_RANK`
+(`torch.cuda.set_device`), and `sharding.make_mesh()` then gives that card
+alone.
 """
 
 from __future__ import annotations
@@ -54,7 +56,9 @@ def init_multihost(init_method: Optional[str] = None,
     backend defaults to NCCL only when every process of this host has a
     card of its own (LOCAL_WORLD_SIZE, else the world size, at most the
     visible cards), and to gloo otherwise: for CPU tensors, and for
-    processes that share a card."""
+    processes that share a card. Under NCCL the process takes the card of
+    its LOCAL_RANK (else of its rank modulo the visible cards) as its
+    current device, before the group starts."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -70,6 +74,10 @@ def init_multihost(init_method: Optional[str] = None,
         own_card = (torch.cuda.is_available()
                     and local <= torch.cuda.device_count())
         backend = "nccl" if own_card else "gloo"
+    if backend == "nccl":
+        local_rank = int(os.environ.get(
+            "LOCAL_RANK", str(rank % max(torch.cuda.device_count(), 1))))
+        torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     return True

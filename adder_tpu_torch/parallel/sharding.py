@@ -57,14 +57,21 @@ from ..ops import integrate as ops
 def make_mesh(devices=None) -> list:
     """The devices the bands run on, in band order: `devices` (names or
     torch devices; one may repeat, e.g. ["cuda:0"] * 4), or by default every
-    visible card. A CUDA device without a card raises; nothing falls back
-    to the CPU."""
+    visible card; inside an NCCL job (`multihost.init_multihost`), this
+    process's own card, its current device. A CUDA device without a card
+    raises; nothing falls back to the CPU."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh: no CUDA device is visible; pass the devices, "
                 "e.g. ['cpu'] * k")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        import torch.distributed as dist
+
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_backend() == "nccl"):
+            devices = [f"cuda:{torch.cuda.current_device()}"]
+        else:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     mesh = [torch.device(d) for d in devices]
     if not mesh:
         raise ValueError("make_mesh: no devices given")

@@ -612,20 +612,26 @@ def dvs_group_carrier(plan, lane_lo: int, lane_hi: int, device) -> torch.Tensor:
 
 def rows_carrier(pix, lane, gap_on, tick_on, gap_fv, gap_val, gap_n, tick_fv,
                  tick_int, ref_time: int = 20) -> np.ndarray:
-    """Hand-made rows as the (5, E) carrier, with the planner's field
-    definitions: gap_int = f32(gap_val) * f32(gap_n), gap_time =
-    f32(gap_n * ref_time)."""
+    """Hand-made rows as the (5, E) carrier (`rows_plan`)."""
+    return FR.pack_dvs_plan(rows_plan(pix, lane, gap_on, tick_on, gap_fv,
+                                      gap_val, gap_n, tick_fv, tick_int,
+                                      ref_time))
+
+
+def rows_plan(pix, lane, gap_on, tick_on, gap_fv, gap_val, gap_n, tick_fv,
+              tick_int, ref_time: int = 20) -> dvs_batch.DvsCompact:
+    """Hand-made rows as a plan, with the planner's field definitions:
+    gap_int = f32(gap_val) * f32(gap_n), gap_time = f32(gap_n * ref_time)."""
     gap_val = np.asarray(gap_val, np.float32)
     gap_n = np.asarray(gap_n, np.int64)
     E = len(gap_n)
-    plan = dvs_batch.DvsCompact(
+    return dvs_batch.DvsCompact(
         np.asarray(pix, np.int32), np.asarray(lane, np.int32),
         np.asarray(gap_on, bool), np.asarray(gap_fv, np.int32),
         gap_val * gap_n.astype(np.float32),
         (gap_n * ref_time).astype(np.float32), np.asarray(tick_on, bool),
         np.asarray(tick_fv, np.int32), np.asarray(tick_int, np.float32),
         np.full(E, ref_time, np.float32), gap_val, gap_n)
-    return FR.pack_dvs_plan(plan)
 
 
 def synthetic_rows(seed, n: int, lanes: int, density: float = 0.3,
@@ -747,6 +753,177 @@ def check_dvs_rows_against_plain(device, H: int = 150, W: int = 200,
                          np.full(n, 128), np.full(n, 128.0))
     e, want = check_rows_group(st, torch.from_numpy(every).to(dev), 2,
                                _dvs_params(1), "forced depth-16 overflow")
+    if not (int(want.pmax) >> 16) & 1:
+        raise AssertionError("the forced overflow did not overflow")
+    return max(err, e)
+
+
+# --- DVS lane groups on the 8-byte carrier ------------------------------------
+
+
+def lattice_plan(seed, n: int, lanes: int, density: float = 0.3,
+                 flags=((1, 1), (0, 1), (1, 0), (0, 0)), pixels=None,
+                 n_values: int = 8, gap_n=(1, 3000),
+                 ref_time: int = 20) -> dvs_batch.DvsCompact:
+    """A seeded plan of `lanes` lanes with the planner's field definitions,
+    whose held and new values come from a lattice of `n_values` (value,
+    fv) pairs, so it fits the 8-byte carrier's dictionary when n_values <=
+    64 and not beyond: in each lane a random subset of the plane (or of
+    `pixels`) in random order; each row's (gap_on, tick_on) drawn from
+    `flags`; gap_n uniform in the closed range `gap_n`. The dictionary of
+    `FR.pack_dvs_plan8` holds every pair that the rows draw."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(n) if pixels is None else np.asarray(pixels)
+    pix, lane = [], []
+    for k in range(lanes):
+        m = max(1, int(len(pool) * density))
+        pix.append(rng.permutation(pool)[:m])
+        lane.append(np.full(m, k))
+    pix, lane = np.concatenate(pix), np.concatenate(lane)
+    E = len(pix)
+    on = np.asarray(flags)[rng.integers(0, len(flags), E)]
+    vals = np.float32(np.sort(rng.choice(25_500, n_values, replace=False))
+                      / 100.0)
+    fvs = vals.astype(np.int32)
+    gi, ti = rng.integers(0, n_values, E), rng.integers(0, n_values, E)
+    gi[: min(E, n_values)] = np.arange(min(E, n_values))  # every pair drawn
+    gn = rng.integers(gap_n[0], gap_n[1] + 1, E).astype(np.int64)
+    gv = vals[gi]
+    return dvs_batch.DvsCompact(
+        pix.astype(np.int32), lane.astype(np.int32), on[:, 0] != 0,
+        fvs[gi], gv * gn.astype(np.float32),
+        (gn * ref_time).astype(np.float32), on[:, 1] != 0, fvs[ti],
+        vals[ti], np.full(E, ref_time, np.float32), gv, gn)
+
+
+def carriers(plan, n: int, device, ref_time: int = 20):
+    """The rows of a plan as both carriers on `device`: ((2, E + 64) 8-byte
+    carrier, pb, (5, E) 20-byte carrier). Raises when the rows do not fit
+    the 8-byte layout; a plan of no rows gives an 8-byte carrier of the
+    dictionary alone."""
+    if len(plan.pix) == 0:
+        c8, pb = np.zeros((2, FR.DICT_CAP), np.int32), FR.pix_bits(n)
+    else:
+        packed = FR.pack_dvs_plan8(plan, n, ref_time)
+        if packed is None:
+            raise AssertionError("the rows do not fit the 8-byte carrier")
+        c8, pb = packed
+    return (torch.from_numpy(c8).to(device), pb,
+            torch.from_numpy(FR.pack_dvs_plan(plan)).to(device))
+
+
+def check_rows8_group(state: ops.PixelState, plan, n: int, T: int,
+                      p: ops.TranscodeParams, what: str, want=None):
+    """One lane group on the 8-byte carrier (`dvs_rows8_resident`: WRITE,
+    VOID, and WRITE with the capacity the Prophesee path gives it, the
+    caller's state updated in place) against its plain version on the same
+    carrier (`want`, where the caller has run it), bit for bit; the 20-byte
+    route on the same rows (`dvs_rows_resident`, the kernel on the card)
+    against the same; the 8-byte glue against its plain version and
+    against the 20-byte carrier's grouping. `state` is left as it was.
+    Returns (the largest absolute difference, the plain result)."""
+    dev = state.length.device
+    c8, pb, c20 = carriers(plan, n, dev, p.ref_time)
+    if want is None:
+        want = FR.dvs_rows8_resident_plain(state, c8, T, p, pb=pb)
+    err = 0.0
+    E = len(plan.pix)
+    if E:  # the 8-byte grouping: its plain version, the 20-byte one's
+        g20 = FR.group_dvs_rows_plain(c20, T)
+        for name, g in (("glue", FR.group_dvs_rows(c8, T, 2, pb)),
+                        ("plain glue", FR.group_dvs_rows_plain(c8, T, 2,
+                                                               pb))):
+            for field, a, b in zip(g._fields, g, g20):
+                if field == "row_start":  # the last slot is scratch
+                    a, b = a[: E + 1], b[: E + 1]
+                err = max(err, bitwise_max_err(
+                    a, b, f"{what} 8-byte {name} {field}"))
+    cap = (FR.DVS_DEPTH + 3) * int(plan.gap_on.sum() + plan.tick_on.sum())
+    runs = ((FR.dvs_rows8_resident, c8, {"pb": pb}, True, None),
+            (FR.dvs_rows8_resident, c8, {"pb": pb}, False, None),
+            (FR.dvs_rows8_resident, c8, {"pb": pb}, True, cap),
+            (FR.dvs_rows_resident, c20, {}, True, cap))
+    for fn, carrier, kw, events, ev_cap in runs:
+        st = FR.clone_state(state)
+        got = fn(st, carrier, T, p, events=events, event_cap=ev_cap, **kw)
+        if any(a is not b for a, b in zip(got.state, st)):
+            raise AssertionError(f"{what}: the rows chunk did not return "
+                                 f"the caller's state")
+        ref = want if events else want._replace(pixd=None, t=None)
+        err = max(err, compare_chunks(
+            got, ref, f"{what} {fn.__name__} events {events} cap {ev_cap}"))
+    return err, want
+
+
+def check_dvs_rows8_against_plain(device, H: int = 150, W: int = 200,
+                                  lanes=(1, 19, 64), seed: int = 0,
+                                  big=(480, 640)) -> float:
+    """The K3 row kernel on the 8-byte carrier (`adder_dvs_rows8`) against
+    its plain version and against the 20-byte route, bit for bit
+    (`check_rows8_group`): for Normal and Collapse, from the state after
+    the bootstrap, two chained groups of T = 2 L sub-steps for each lane
+    count L, planned by the port's planner from a seeded stream (packed by
+    `FR.pack_dvs_plan8`); a group with no rows; one whose rows sit in one
+    pixel; rows with one half or both off; a dictionary of exactly 64
+    entries; gap_n past 2^20 (its hi/lo split); a forced depth-16 overflow;
+    the planned groups on a small ragged plane and, unless `big` is None,
+    on a plane of `big` (H, W) (pb 19 at 480 x 640). Raises on any difference; returns the largest
+    absolute difference (0.0)."""
+    from .transcoder.prophesee import bootstrap_carrier
+
+    dev = torch.device(device)
+    err = 0.0
+    planes = [(H, W, lanes), (47, 61, (3,))] + ([(*big, (2,))] if big else [])
+    for h, w, ls in planes:
+        n = h * w
+        plan = _check_plan(seed, w, h, 2 * sum(ls))
+        boot = bootstrap_carrier(n, 20, dev)
+        for multi in (0, 1):
+            p = _dvs_params(multi)
+            st = FR.dvs_rows_resident_plain(
+                ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH), boot,
+                2, p).state
+            lo = 0
+            for L in ls:
+                for rep in range(2):
+                    e, want = check_rows8_group(
+                        st, plan.lane_slice(lo, lo + L), n, 2 * L, p,
+                        f"{w}x{h} multi {multi} T {2 * L} group {rep}")
+                    st, err = want.state, max(err, e)
+                    lo += L
+            if (h, w) != (H, W):
+                continue
+            top = max(ls)
+            hot = int(np.bincount(plan.pix).argmax())
+            cases = (
+                ("no rows", lattice_plan(seed, n, 1, density=0.0), 2),
+                ("one pixel", lattice_plan(seed + 1, n, top, flags=((1, 1),),
+                                           pixels=[hot]), 2 * top),
+                ("halves off", lattice_plan(seed + 2, n, 6), 12),
+                ("dictionary of 64", lattice_plan(seed + 3, n, 4,
+                                                  n_values=64), 8),
+                ("gap_n past 2^20", lattice_plan(
+                    seed + 4, n, 2, gap_n=(1 << 20, (1 << 20) + 50_000)), 4),
+            )
+            for what, g, T in cases:
+                if what == "no rows":
+                    g = g.lane_slice(1, 1)
+                e, _ = check_rows8_group(st, g, n, T, p,
+                                         f"{w}x{h} multi {multi} {what}")
+                err = max(err, e)
+            if FR.pack_dvs_plan8(lattice_plan(seed + 3, n, 4, n_values=65),
+                                 n, 20) is not None:
+                raise AssertionError("a dictionary of 65 entries fitted")
+    n = H * W
+    st = forced_overflow_state(torch.full((n,), 128, dtype=torch.uint8,
+                                          device=dev), n // 10,
+                               depth=FR.DVS_DEPTH)
+    ones = np.ones(n, bool)
+    every = rows_plan(np.arange(n), np.zeros(n), ones, ones, np.full(n, 128),
+                      np.full(n, 128.0), np.ones(n), np.full(n, 128),
+                      np.full(n, 128.0))
+    e, want = check_rows8_group(st, every, n, 2, _dvs_params(1),
+                                "forced depth-16 overflow")
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)

@@ -2,7 +2,8 @@
 
 The port's twin of `tools/davis_to_adder.py`: the same flags, defaults,
 printed line and `.adder` bytes, transcoding on `--torch-device` (K4 for the
-DVS lanes, K3 for the frames and gaps as raster chunks).
+DVS lanes, K3 for the frames and gaps as raster chunks; `--no-batched`, the
+scalar oracle, on the host).
 
 ref: adder-codec-rs/src/bin_cv/davis_to_adder.rs (args: edi_args /
 transcode_from {framed, raw-davis, raw-dvs} / adder_c_thresh_pos/neg /
@@ -16,7 +17,7 @@ reconstructor (transcoder/edi.py) instead of davis-edi-rs.
 import argparse
 import sys
 
-from . import add_torch_device, refuse_scalar_oracle
+from . import add_torch_device
 
 
 def main(argv=None) -> int:
@@ -46,14 +47,12 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--batched", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="batched device integration (the only route of "
-                         "the port); --no-batched, the scalar oracle, is "
-                         "refused")
+                    help="batched device integration (default); "
+                         "--no-batched selects the scalar oracle")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="run EDI inline instead of on a worker thread")
     add_torch_device(ap)
     args = ap.parse_args(argv)
-    refuse_scalar_oracle(ap, args)
 
     from ..codec.encoder import EncoderOptions, EncoderType
     from ..core.types import PixelMultiMode, SourceCamera, TimeMode
@@ -87,7 +86,7 @@ def main(argv=None) -> int:
     dtm = int(args.ref_time * 1_000_000 * args.delta_t_max_multiplier)
     src = Davis(
         recon, ref_time=args.ref_time, tps=tps, delta_t_max=max(dtm, args.ref_time),
-        mode=mode, device=args.torch_device,
+        mode=mode, batched=args.batched, device=args.torch_device,
     )
     out = open(args.output_events_filename, "wb")
     src.write_out(

@@ -2,7 +2,7 @@
 
 The port's twin of `tools/prophesee_to_adder.py`: the same flags, defaults,
 printed line and `.adder` bytes, transcoding on `--torch-device` (K3 and
-its row glue on the card).
+its row glue on the card; `--no-batched`, the scalar oracle, on the host).
 
     python -m adder_tpu_torch.tools.prophesee_to_adder -i in.raw -o out.adder
 """
@@ -13,7 +13,7 @@ import sys
 from ..codec.encoder import EncoderOptions, EncoderType
 from ..core.types import PixelMultiMode, SourceCamera, TimeMode
 from ..transcoder.prophesee import Prophesee
-from . import add_torch_device, refuse_scalar_oracle
+from . import add_torch_device
 
 
 def main(argv=None) -> int:
@@ -25,14 +25,14 @@ def main(argv=None) -> int:
     p.add_argument("--max-intervals", type=int, default=0)
     p.add_argument(
         "--batched", action=argparse.BooleanOptionalAction, default=True,
-        help="integrate on the device kernels (the only route of the "
-             "port); --no-batched, the scalar oracle, is refused",
+        help="integrate on the device kernels; --no-batched selects the "
+             "scalar per-event oracle",
     )
     add_torch_device(p)
     args = p.parse_args(argv)
-    refuse_scalar_oracle(p, args)
 
-    src = Prophesee(args.ref_time, args.input, device=args.torch_device)
+    src = Prophesee(args.ref_time, args.input, batched=args.batched,
+                    device=args.torch_device)
     src.crf(args.crf)
     src.write_out(
         SourceCamera.Dvs,
@@ -53,6 +53,7 @@ def main(argv=None) -> int:
         intervals += 1
         if args.max_intervals and intervals >= args.max_intervals:
             break
+    n_events += len(src.drain())  # the windows' groups still in flight
     src.end_write_stream().close()
     print(f"transcoded {n_events} ADDER events over {intervals} view intervals")
     return 0

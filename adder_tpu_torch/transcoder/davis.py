@@ -28,8 +28,12 @@ the carried state in place.
 
 Events reach the encoder in the order of the JAX package's scan engine (the
 one it runs on the CPU): lane by lane, and within a lane by raster pixel,
-then slot. Not ported: the scalar per-event oracle (`batched=False`) and the
-XLA scan engine; on the CPU the plain versions take their place.
+then slot.
+
+`batched=False` runs the scalar per-event oracle (`transcoder/pixel_oracle`)
+as the JAX source does: each DVS event, the gap to a frame and the frame,
+pixel by pixel on the host, with no tensor operation. Not ported: the XLA
+scan engine; on the CPU the plain versions take its place.
 """
 
 from __future__ import annotations
@@ -41,10 +45,12 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..core.types import EventArray, Mode, PlaneSize, TimeMode
+from ..core.types import Coord, EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
+from ..utils.cv import clamp_u8
+from . import pixel_oracle as O
 from .lanes import (gap_rows, ingest_parts, lane_params, run_lane_chunk,
                     run_raster_chunk)
 from .video import SourceError, Video, resolve_device
@@ -150,12 +156,14 @@ class Davis:
     batched engines use for DVS gap cascades. With `prefetch` the provider
     runs on its own worker thread (ref: davis.rs:626-632). With
     `void_events` set (and the Empty sink) events never leave the device:
-    the chunks run their VOID pass, with no fetch and no host sync."""
+    the chunks run their VOID pass, with no fetch and no host sync.
+    `batched=False`: the scalar oracle, per event on the host."""
 
     def __init__(self, provider, ref_time: int = 255,
                  tps: int = 255_000_000, delta_t_max: Optional[int] = None,
                  mode: TranscoderMode = TranscoderMode.RawDavis,
-                 prefetch: bool = True, *, device="cuda"):
+                 batched: bool = True, prefetch: bool = True, *,
+                 device="cuda"):
         self.device = resolve_device(device)
         n = provider.plane.volume()
         if n > 1 << 20:
@@ -177,7 +185,17 @@ class Davis:
         self.dvs_last_timestamps = np.zeros(n, dtype=np.int64)
         self.dvs_last_ln_val = np.full(n, np.log1p(0.5), dtype=np.float64)
         self._val_cache = np.full(n, np.nan, np.float64)  # exp(last_ln) memo
-        self.state = ops.init_state(n, self.device, depth=FR.DVS_DEPTH)
+        self.batched = batched
+        self.state = None
+        self._pixels: list = []
+        if batched:
+            self.state = ops.init_state(n, self.device, depth=FR.DVS_DEPTH)
+        else:  # the scalar oracle's arenas (Continuous mode)
+            w = self.plane.width
+            self._pixels = [O.PixelArena(1.0, Coord(i % w, i // w, None))
+                            for i in range(n)]
+            for px in self._pixels:
+                px.set_time_mode(TimeMode.AbsoluteT)
         self.void_events = False
         self._iter = iter(provider)
 
@@ -189,10 +207,15 @@ class Davis:
         state, as in the JAX package."""
         self.video.update_crf(crf)
         base = self.video.encoder.options.crf.get_parameters().c_thresh_baseline
-        self.state = self.state._replace(
-            c_thresh=torch.full_like(self.state.c_thresh, base),
-            c_increase_counter=torch.zeros_like(self.state.c_increase_counter),
-        )
+        if self.batched:
+            self.state = self.state._replace(
+                c_thresh=torch.full_like(self.state.c_thresh, base),
+                c_increase_counter=torch.zeros_like(
+                    self.state.c_increase_counter),
+            )
+        for px in self._pixels:
+            px.c_thresh = base
+            px.c_increase_counter = 0
         return self
 
     def write_out(self, *args, **kwargs) -> "Davis":
@@ -297,6 +320,8 @@ class Davis:
         packet = next(self._iter, None)
         if packet is None:
             raise EOFError("davis source exhausted")
+        if not self.batched:
+            return self._consume_oracle(packet)
         parts: list = []
         if self.mode in (TranscoderMode.RawDavis, TranscoderMode.RawDvs):
             self._integrate_dvs_events(packet.events, parts)
@@ -312,3 +337,110 @@ class Davis:
                       np.maximum(self.dvs_last_timestamps,
                                  packet.frame_end_us))
         return ingest_parts(self.video.encoder, parts)
+
+    # -- the scalar oracle (batched=False; adder_tpu/transcoder/davis.py
+    # :175-259, :433-478) --
+
+    def _oracle_params(self):
+        v = self.video
+        crf = v.encoder.options.crf.get_parameters()
+        return (
+            Mode.Continuous, v.pixel_multi_mode, v.delta_t_max, v.ref_time,
+            crf.c_thresh_max, max(crf.c_increase_velocity, 1),
+        )
+
+    def integrate_dvs_events(self, events, buffer: list) -> None:
+        """Log-space DVS integration (ref: davis.rs:235-465): integrate the
+        held intensity over the gap, then step ln intensity by *exp(+-c)."""
+        mode, multi, dtm, ref, cmax, cvel = self._oracle_params()
+        ticks_per_micro = self.video.tps / 1e6
+        W = self.plane.width
+        for e in events:
+            i = e.y * W + e.x
+            px = self._pixels[i]
+            last_ln = self.dvs_last_ln_val[i]
+            last_val = (np.exp(last_ln) - 1.0) * 255.0
+            delta_t_micro = e.t - self.dvs_last_timestamps[i]
+            if delta_t_micro == e.t or delta_t_micro < 0:
+                self.dvs_last_timestamps[i] = e.t
+                continue
+            delta_t_ticks = delta_t_micro * ticks_per_micro
+            first_integration = max(last_val / ref * delta_t_ticks, 0.0)
+
+            if px.need_to_pop_top:
+                buffer.append(px.pop_top_event(first_integration, mode, ref))
+            px.integrate(first_integration, delta_t_ticks, mode, dtm, ref,
+                         cmax, cvel, multi)
+            if px.need_to_pop_top:
+                buffer.append(px.pop_top_event(first_integration, mode, ref))
+
+            # the reference multiplies the ln value by exp(+-c) (davis.rs:365)
+            last_ln *= np.exp(self.dvs_c if e.on else -self.dvs_c)
+            frame_val = (np.exp(last_ln) - 1.0) * 255.0
+            frame_val, last_ln = clamp_u8(frame_val, last_ln)
+            self.dvs_last_ln_val[i] = last_ln
+            fv8 = int(frame_val)
+            if fv8 < max(px.base_val - px.c_thresh, 0) or fv8 > min(
+                px.base_val + px.c_thresh, 255
+            ):
+                px.pop_best_events(buffer, mode, multi, ref, frame_val)
+                px.base_val = fv8
+                ev = px.set_d_for_continuous(frame_val, ref)
+                if ev is not None:
+                    buffer.append(ev)
+            self.dvs_last_timestamps[i] = e.t
+
+    def integrate_frame_gaps(self, start_of_frame_us: int,
+                             buffer: list) -> None:
+        """Fill per-pixel time up to the APS frame start (ref: davis.rs:466+)."""
+        mode, multi, dtm, ref, cmax, cvel = self._oracle_params()
+        ticks_per_micro = self.video.tps / 1e6
+        for i, px in enumerate(self._pixels):
+            gap_us = start_of_frame_us - self.dvs_last_timestamps[i]
+            if gap_us <= 0:
+                continue
+            last_ln = self.dvs_last_ln_val[i]
+            last_val = (np.exp(last_ln) - 1.0) * 255.0
+            dt_ticks = gap_us * ticks_per_micro
+            intensity = max(last_val / ref * dt_ticks, 0.0)
+            O.integrate_for_px(
+                px, int(max(min(last_val, 255.0), 0.0)), intensity, dt_ticks,
+                buffer, mode, multi, dtm, ref, cmax, cvel,
+            )
+            self.dvs_last_timestamps[i] = start_of_frame_us
+
+    def integrate_frame(self, frame: np.ndarray, exposure_us: int,
+                        buffer: list) -> None:
+        """Integrate a (deblurred) APS frame like a framed source
+        (ref: davis.rs consume, :601-900)."""
+        mode, multi, dtm, ref, cmax, cvel = self._oracle_params()
+        ticks_per_micro = self.video.tps / 1e6
+        dt_ticks = max(exposure_us, 1) * ticks_per_micro
+        flat = frame.reshape(-1)
+        for i, px in enumerate(self._pixels):
+            fv = int(flat[i])
+            intensity = fv / ref * dt_ticks
+            O.integrate_for_px(
+                px, fv, intensity, dt_ticks, buffer, mode, multi, dtm, ref,
+                cmax, cvel,
+            )
+            self.dvs_last_ln_val[i] = np.log1p(fv / 255.0)
+
+    def _consume_oracle(self, packet: DavisPacket) -> EventArray:
+        buffer: list = []
+        if self.mode in (TranscoderMode.RawDavis, TranscoderMode.RawDvs):
+            self.integrate_dvs_events(packet.events, buffer)
+        if (self.mode in (TranscoderMode.Framed, TranscoderMode.RawDavis)
+                and packet.frame is not None):
+            if self.mode == TranscoderMode.RawDavis:
+                self.integrate_frame_gaps(packet.frame_start_us, buffer)
+            self.integrate_frame(
+                packet.frame, packet.frame_end_us - packet.frame_start_us,
+                buffer,
+            )
+            np.copyto(self.dvs_last_timestamps,
+                      np.maximum(self.dvs_last_timestamps,
+                                 packet.frame_end_us))
+        arr = EventArray.from_events(buffer)
+        self.video.encoder.ingest_event_array(arr)
+        return arr

@@ -7,15 +7,23 @@ last log intensity and the last timestamp; for each DVS event it integrates
 the held intensity over the gap, steps the log intensity by +-camera_theta
 and integrates one source tick of the new intensity.
 
-A window of events (1 / view_fps of the stream) is planned on the host by
-the native planner (`ops/dvs_batch.plan_dvs_compact`) into lanes:
-lane k holds each pixel's k-th event. Lanes run in groups of at most 64 as
-one chunk of T = 2 x lanes sub-steps. A group's rows reach the device as
-one (5, E) int32 carrier and run from it
-(`ops/fused_resident.dvs_rows_resident`: on a CUDA device the grouping glue
-and the K3 row kernel, which walks each pixel's own rows and updates the
-state in place; on the CPU its plain version, which scatters the rows into
-dense (T, N) planes). Windows of more than 1.5 segments
+A window of events (1 / view_fps of the stream) is planned on the host into
+lanes: lane k holds each pixel's k-th event. Lanes run in groups of at most
+64 as one chunk of T = 2 x lanes sub-steps. As in the JAX resident engine,
+the native planner first plans and packs a segment in one pass into the
+8-byte carrier (`ops/native_dvs_plan.plan_dvs_pack8_native`: two u32 words
+a row and a 64-entry (value, fv) dictionary); where the segment does not
+fit that layout, the classic plan (`ops/dvs_batch.plan_dvs_compact`) is
+packed per group into the 8-byte carrier (`FR.pack_dvs_plan8`) or, failing
+that, the (5, E) 20-byte one (`FR.pack_dvs_plan`). A group runs from its
+carrier (`FR.dvs_rows8_resident` or `FR.dvs_rows_resident`: on a CUDA
+device the grouping glue and the K3 row kernel, which walks each pixel's
+own rows and updates the state in place; on the CPU the plain version,
+which scatters the rows into dense (T, N) planes). The groups are
+pipelined (`lanes.LanePipeline`): a group's upload runs while the next is
+planned, at most one is staged and two are in flight, and their events are
+fetched on one worker, in order; nothing is read back on the calling
+thread inside a window's groups. Windows of more than 1.5 segments
 (ADDER_TPU_DVS_SEG_EVENTS events, default 262,144) are planned segment by
 segment, as the JAX resident engine does.
 
@@ -29,8 +37,14 @@ flush (the held intensity of every pixel with a gap) are carriers too: one
 row per pixel in raster order, built on the device for the bootstrap and on
 the host for the flush's pixels, run at T = 2 through the same row kernel
 with the grouping such a carrier has (`lanes.run_raster_chunk`; the flush's
-tick sub-step is empty). Not ported: the scalar per-event oracle (`batched=False`) and the XLA scan
-engine; on the CPU the plain version takes their place.
+tick sub-step is empty); the staged groups are dispatched, and for the flush
+collected, before either.
+
+`batched=False` runs the scalar per-event oracle (`transcoder/pixel_oracle`,
+the transcoder's semantic specification), as the JAX source does: the
+bootstrap, each event's gap and tick, and the flush, pixel by pixel on the
+host, with no tensor operation. Not ported: the XLA scan engine; on the CPU
+the plain versions take its place.
 """
 
 from __future__ import annotations
@@ -41,13 +55,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.types import EventArray, Mode, PlaneSize, TimeMode
+from ..core.types import Coord, EventArray, Mode, PlaneSize, TimeMode
 from ..ops import dvs_batch
 from ..ops import fused_resident as FR
 from ..ops import integrate as ops
+from ..ops import native_dvs_plan
 from ..utils import tracing
-from .lanes import (gap_rows, ingest_parts, lane_params, run_lane_chunk,
-                    run_raster_chunk)
+from ..utils.cv import mid_clamp_u8
+from . import pixel_oracle as O
+from .lanes import (LanePipeline, gap_rows, ingest_parts, lane_event_cap,
+                    lane_params, run_raster_chunk)
 from .video import SourceError, Video, resolve_device
 
 PROPHESEE_SOURCE_TPS = 1_000_000
@@ -130,10 +147,14 @@ class Prophesee:
     until t passes running_t + 1 s / view_fps (60 mirrors the reference's
     view interval; a bulk transcode may lower it). Per-pixel event streams
     do not depend on it. With `void_events` set (and the Empty sink) the
-    events never leave the device: no fetch, no host sync."""
+    events never leave the device: no fetch, no host sync. A window's last
+    groups may still be in flight when consume() returns: their events
+    reach the encoder (and a later consume()'s result) in order, and all
+    of them before the end-of-stream flush or `end_write_stream`.
+    `batched=False`: the scalar oracle, per event on the host."""
 
-    def __init__(self, ref_time: int, input_path: str, view_fps: int = 60,
-                 *, device="cuda"):
+    def __init__(self, ref_time: int, input_path: str, batched: bool = True,
+                 view_fps: int = 60, *, device="cuda"):
         self.device = resolve_device(device)
         with open(input_path, "rb") as f:
             bod, _, _, (h, w) = parse_header(f)
@@ -159,9 +180,19 @@ class Prophesee:
         self.dvs_last_ln_val = np.full(n, np.log1p(128.0 / 255.0),
                                        dtype=np.float64)
         self._val_cache = np.full(n, np.nan, np.float64)  # exp(last_ln) memo
-        # DVS gaps cascade deeper than framed intervals: depth 16 throughout
-        # (the JAX package's choice), with no depth rerun
-        self.state = ops.init_state(n, self.device, depth=FR.DVS_DEPTH)
+        self.batched = batched
+        self.state = None
+        self._pixels: list = []
+        if batched:
+            # DVS gaps cascade deeper than framed intervals: depth 16
+            # throughout (the JAX package's choice), with no depth rerun
+            self.state = ops.init_state(n, self.device, depth=FR.DVS_DEPTH)
+            self._lanes = LanePipeline(self.device, w)
+        else:  # the scalar oracle's arenas (Continuous mode)
+            self._pixels = [O.PixelArena(1.0, Coord(i % w, i // w, None))
+                            for i in range(n)]
+            for px in self._pixels:
+                px.set_time_mode(TimeMode.AbsoluteT)
         self._event_buf: Optional[tuple] = None
         self._event_pos = 0
         self._eof = False
@@ -173,10 +204,16 @@ class Prophesee:
     def crf(self, crf: int) -> "Prophesee":
         self.video.update_crf(crf)
         base = self.video.encoder.options.crf.get_parameters().c_thresh_baseline
-        self.state = self.state._replace(
-            c_thresh=torch.full_like(self.state.c_thresh, base),
-            c_increase_counter=torch.zeros_like(self.state.c_increase_counter),
-        )
+        if self.batched:
+            self._lanes.flush(self.state)
+            self.state = self.state._replace(
+                c_thresh=torch.full_like(self.state.c_thresh, base),
+                c_increase_counter=torch.zeros_like(
+                    self.state.c_increase_counter),
+            )
+        for px in self._pixels:
+            px.c_thresh = base
+            px.c_increase_counter = 0
         return self
 
     def write_out(self, source_camera, time_mode, pixel_multi_mode,
@@ -194,7 +231,18 @@ class Prophesee:
     def get_video_mut(self):
         return self.video
 
+    def drain(self) -> EventArray:
+        """Hand the lane groups still in flight to the encoder, in order,
+        and return their events (none on the oracle's path, or once the
+        stream is exhausted: its last window drains itself)."""
+        return self._ingest(self._lanes.drain(self.state) if self.batched
+                            else [])
+
     def end_write_stream(self):
+        """`drain`, then end the encoder's stream."""
+        self.drain()
+        if self.batched:
+            self._lanes.close()
         return self.video.end_write_stream()
 
     # -- internals --
@@ -241,17 +289,50 @@ class Prophesee:
                                               self.plane.width)
         return events
 
-    def _run_group(self, g: dvs_batch.DvsCompact, n_lanes: int, p):
-        """One lane group from its carrier, through the row route; the
-        carried state is updated in place."""
-        with tracing.stage("dvs.pack", items=len(g.pix)):
-            packed = FR.pack_dvs_plan(g)
-        with tracing.stage("dvs.upload", items=packed.shape[1]):
-            carrier = torch.from_numpy(packed).to(self.device)
-        self.state, events = run_lane_chunk(
-            FR.dvs_rows_resident, self.state, (carrier, 2 * n_lanes), p,
-            self.void_events, self.plane.width)
-        return events
+    def _run_group(self, carrier: np.ndarray, n_lanes: int,
+                   pb: Optional[int], cap: int, p) -> list:
+        """Stage one lane group's carrier (the 8-byte one with `pb`, else
+        the 20-byte one) of `cap` events at most; the parts of the groups
+        this moves out of the pipeline, in order."""
+        self._lanes.stage(carrier, n_lanes, pb, cap, p, self.void_events)
+        return self._lanes.step(self.state)
+
+    def _run_segment(self, pp, plan, p) -> list:
+        """The lane groups of one planned segment, in lane order: the fused
+        native plan `pp` sliced into 64-lane groups (its rows are lane-major
+        and a group's lanes are 64-aligned), or the classic `plan`, each
+        group packed into the 8-byte carrier where it fits and into the
+        20-byte one where it does not."""
+        parts: list = []
+        if pp is not None:
+            for g0 in range(0, pp.n_lanes, LANE_GROUP):
+                g1 = min(pp.n_lanes, g0 + LANE_GROUP)
+                r0, r1 = int(pp.lane_off[g0]), int(pp.lane_off[g1])
+                E = r1 - r0
+                with tracing.stage("dvs.pack", items=E):
+                    carrier = np.zeros((2, E + FR.DICT_CAP), np.uint32)
+                    carrier[0, :E] = pp.row0[r0:r1]
+                    carrier[1, :E] = pp.row1[r0:r1]
+                    carrier[0, E : E + len(pp.dict0)] = pp.dict0
+                    carrier[1, E : E + len(pp.dict1)] = pp.dict1
+                cap = lane_event_cap(pp.gap_cnt[g0:g1].sum()
+                                     + pp.tick_cnt[g0:g1].sum())
+                parts += self._run_group(carrier.view(np.int32), g1 - g0,
+                                         pp.pb, cap, p)
+            return parts
+        n, ref = self.plane.volume(), int(self.video.ref_time)
+        n_lanes = plan.n_lanes
+        for g0 in range(0, n_lanes, LANE_GROUP):
+            g = (plan.lane_slice(g0, g0 + LANE_GROUP)
+                 if n_lanes > LANE_GROUP else plan)
+            with tracing.stage("dvs.pack", items=len(g.pix)):
+                p8 = FR.pack_dvs_plan8(g, n, ref)
+                carrier, pb = p8 if p8 is not None else (
+                    FR.pack_dvs_plan(g), None)
+            cap = lane_event_cap(g.gap_on.sum() + g.tick_on.sum())
+            parts += self._run_group(carrier, min(n_lanes - g0, LANE_GROUP),
+                                     pb, cap, p)
+        return parts
 
     def _ingest(self, parts: list) -> EventArray:
         return ingest_parts(self.video.encoder, parts)
@@ -259,6 +340,7 @@ class Prophesee:
     def _bootstrap(self) -> EventArray:
         """Integrate two mid-grey (128) ticks in every pixel at t = 0
         (ref: prophesee.rs:117-133), from `bootstrap_carrier`."""
+        self._lanes.flush(self.state)
         carrier = bootstrap_carrier(self.plane.volume(), self.video.ref_time,
                                     self.device)
         part = self._run_raster(carrier, self._params())
@@ -267,10 +349,11 @@ class Prophesee:
 
     def _end_events(self) -> None:
         """Flush the held intensities at the end of the stream, once
-        (ref: prophesee.rs:325-365)."""
+        (ref: prophesee.rs:325-365), after every group in flight."""
         if self._end_flushed:
             return
         self._end_flushed = True
+        self._ingest(self._lanes.drain(self.state))
         ref = self.video.ref_time
         gap = self.running_t - self.dvs_last_timestamps.astype(np.int64)
         pix = np.flatnonzero(gap > 0)
@@ -287,6 +370,8 @@ class Prophesee:
     def consume(self) -> EventArray:
         """One view interval's worth of DVS events (ref: prophesee.rs:116-297).
         Raises EOFError once the stream is exhausted (after the flush)."""
+        if not self.batched:
+            return self._consume_oracle()
         if self.running_t == 0:
             self._bootstrap()
         batch = self._next_dvs_batch()
@@ -295,27 +380,129 @@ class Prophesee:
             raise EOFError("prophesee source exhausted")
         ts, xs, ys, ps = batch
         p = self._params()
+        n = self.plane.volume()
         seg = int(os.environ.get("ADDER_TPU_DVS_SEG_EVENTS",
                                  str(SEG_EVENTS_DEFAULT)))
         n_ev = len(ts)
         bounds = list(range(0, n_ev, seg)) if n_ev > seg + seg // 2 else [0]
         parts: list = []
         for i, lo in enumerate(bounds):
-            hi = bounds[i + 1] if i + 1 < len(bounds) else n_ev
-            with tracing.stage("dvs.plan", items=hi - lo):
-                plan = dvs_batch.plan_dvs_compact(
-                    ts[lo:hi], xs[lo:hi], ys[lo:hi], ps[lo:hi],
-                    self.plane.width, self.dvs_last_timestamps,
-                    self.dvs_last_ln_val, self.camera_theta,
-                    int(self.video.ref_time), val_cache=self._val_cache,
+            sl = slice(lo, bounds[i + 1] if i + 1 < len(bounds) else n_ev)
+            with tracing.stage("dvs.plan", items=sl.stop - lo):
+                # the fused plan + 8-byte pack; the classic plan where the
+                # segment does not fit (the chain is as it was then)
+                pp = native_dvs_plan.plan_dvs_pack8_native(
+                    ts[sl], xs[sl], ys[sl], ps[sl], self.plane.width, n,
+                    self.dvs_last_timestamps, self.dvs_last_ln_val,
+                    self.camera_theta, int(self.video.ref_time),
+                    val_cache=self._val_cache,
                 )
-            n_lanes = plan.n_lanes
-            for g0 in range(0, n_lanes, LANE_GROUP):
-                g = (plan.lane_slice(g0, g0 + LANE_GROUP)
-                     if n_lanes > LANE_GROUP else plan)
-                parts.append(
-                    self._run_group(g, min(n_lanes - g0, LANE_GROUP), p))
+                plan = None
+                if pp is None:
+                    plan = dvs_batch.plan_dvs_compact(
+                        ts[sl], xs[sl], ys[sl], ps[sl], self.plane.width,
+                        self.dvs_last_timestamps, self.dvs_last_ln_val,
+                        self.camera_theta, int(self.video.ref_time),
+                        val_cache=self._val_cache,
+                    )
+            parts += self._run_segment(pp, plan, p)
+        self._lanes.flush(self.state)
+        if self._event_pos >= len(self._event_buf[0]):
+            # the last window: every group's events, before the flush's
+            parts += self._lanes.drain(self.state)
         arr = self._ingest(parts)
         if self._eof:
             self._end_events()
         return arr
+
+    # -- the scalar oracle (batched=False; adder_tpu/transcoder/prophesee.py
+    # :238-256, :821-895) --
+
+    def _integrate_px(self, i, frame_val, intensity, time_spanned, buffer):
+        v = self.video
+        crf = v.encoder.options.crf.get_parameters()
+        O.integrate_for_px(
+            self._pixels[i], frame_val, intensity, time_spanned, buffer,
+            Mode.Continuous, v.pixel_multi_mode, v.delta_t_max, v.ref_time,
+            crf.c_thresh_max, max(crf.c_increase_velocity, 1),
+        )
+
+    def _bootstrap_oracle(self) -> None:
+        """Integrate 2 gray (128) frames at t=0 (ref: prophesee.rs:117-133)."""
+        events: list = []
+        ref = self.video.ref_time
+        for _ in range(2):
+            for i in range(len(self._pixels)):
+                self._integrate_px(i, 128, 128.0, float(ref), events)
+        self.running_t = 2
+        self.video.encoder.ingest_event_array(EventArray.from_events(events))
+
+    def _consume_oracle(self) -> EventArray:
+        if self.running_t == 0:
+            self._bootstrap_oracle()
+        batch = self._next_dvs_batch()
+        if batch is None:
+            self._end_events_oracle()
+            raise EOFError("prophesee source exhausted")
+        ts, xs, ys, ps = batch
+        W = self.plane.width
+        ref = self.video.ref_time
+        events: list = []
+        for k in range(len(ts)):
+            t = int(ts[k])
+            i = int(ys[k]) * W + int(xs[k])
+            last_t = int(self.dvs_last_timestamps[i])
+            if t < last_t:
+                continue
+            last_ln = self.dvs_last_ln_val[i]
+
+            if t > last_t + 1:
+                last_val = (np.exp(last_ln) - 1.0) * 255.0
+                last_val, last_ln = mid_clamp_u8(last_val, last_ln)
+                time_spanned = (t - last_t - 1) * ref
+                # the f32 product by definition, as the planners and the
+                # 8-byte carrier's decode compute it
+                intensity = np.float32(
+                    np.float32(last_val) * np.float32(t - last_t - 1)
+                )
+                self._integrate_px(i, int(last_val), float(intensity),
+                                   float(time_spanned), events)
+
+            new_ln = (last_ln - self.camera_theta if ps[k] == 0
+                      else last_ln + self.camera_theta)
+            self.dvs_last_ln_val[i] = new_ln
+            self.dvs_last_timestamps[i] = t
+
+            if t > last_t:
+                new_val = (np.exp(new_ln) - 1.0) * 255.0
+                new_val, new_ln = mid_clamp_u8(new_val, new_ln)
+                self.dvs_last_ln_val[i] = new_ln
+                self._integrate_px(i, int(new_val), float(new_val),
+                                   float(ref), events)
+
+        arr = EventArray.from_events(events)
+        self.video.encoder.ingest_event_array(arr)
+        if self._eof:
+            self._end_events_oracle()
+        return arr
+
+    def _end_events_oracle(self) -> None:
+        """Flush held intensities at EOF (ref: prophesee.rs:325-365), once."""
+        if self._end_flushed:
+            return
+        self._end_flushed = True
+        events: list = []
+        ref = self.video.ref_time
+        for i in range(len(self._pixels)):
+            last_ln = self.dvs_last_ln_val[i]
+            last_val = (np.exp(last_ln) - 1.0) * 255.0
+            gap = self.running_t - int(self.dvs_last_timestamps[i])
+            if gap <= 0:
+                continue
+            time_spanned = gap * ref
+            intensity = last_val * time_spanned
+            self._integrate_px(
+                i, int(max(min(last_val, 255.0), 0.0)), float(intensity),
+                float(time_spanned), events,
+            )
+        self.video.encoder.ingest_event_array(EventArray.from_events(events))

@@ -23,12 +23,17 @@ Where the port records the JAX package's stage names:
   `sharded.collect.control_fetch`, `sharded.collect.event_fetch`,
   `sharded.collect.assemble` (the bands' streams merged into the global
   order), `sharded.encode`;
-- transcoder/prophesee.py and transcoder/lanes.py: `dvs.plan`, `dvs.pack`,
-  `dvs.upload`, `dvs.dispatch`, `dvs.event_fetch`, `dvs.encode` (the Davis
-  source's lane chunks go through the same lanes.py calls and record under
-  the same names). The JAX `dvs.sync` and `dvs.assemble` have no
-  counterpart: the row wrappers read their totals themselves, and their
-  events come back in the reference order;
+- transcoder/prophesee.py and transcoder/lanes.py: `dvs.plan` (the fused
+  plan + 8-byte pack, or the classic plan), `dvs.pack`, `dvs.upload` (the
+  pinned copy and the h2d enqueue), `dvs.dispatch`, `dvs.event_fetch` (on
+  the pipeline's fetch worker for the Prophesee lane groups), `dvs.encode`
+  (the Davis source's lane chunks go through the same lanes.py calls and
+  record under the same names); new here, `dvs.fetch_wait` (the calling
+  thread waiting for the fetch worker) and `dvs.upload_pending` (items:
+  the groups whose upload had not finished when dispatched). The JAX
+  `dvs.sync` and `dvs.assemble` have no counterpart: the totals are read
+  by the fetch worker or the row wrappers, and the events come back in the
+  reference order;
 - transcoder/framed.py: `framed.decode_wait` (FramedStream waiting on its
   decoder thread);
 - framer/device.py: `device_framer.pack`, `.dispatch`, `.sync_fetch`,

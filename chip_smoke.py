@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
      adder_tpu_torch/csrc (one nvcc per source, in parallel, at first use),
      time the build and report ptxas registers and spills of every
-     instantiation, and the SASS of K1's interval loop (cuobjdump);
+     instantiation (the 8-byte K3 kernels among them), and the SASS of K1's
+     interval loop (cuobjdump);
   2. every kernel against its plain PyTorch version on the card, bit for
      bit: K1 (the one-pass chunk kernel, the scan of its segment counts,
      the segment copy) and K2 on a ragged 200x150 plane, 2 chunks of T = 8,
@@ -46,20 +47,36 @@ Phases (any failure raises and the script exits non-zero):
      chained groups planned from a seeded stream, Normal and Collapse, a
      group with no rows, one whose rows sit in one pixel, rows with one
      half or both off, the forced overflow; the grouping glue's kernels
-     (adder_rows_group) equal to their plain version in torch ops;
+     (adder_rows_group) equal to their plain version in torch ops; then K3
+     on the 8-byte carrier (adder_dvs_rows8) against its plain version and
+     against the 20-byte route on the same rows, bit for bit, in the same
+     cases and with a dictionary of exactly 64 entries, gap_n past 2^20, a
+     61x47 plane and a 640x480 one (pb 19), WRITE, VOID and WRITE with the
+     pipeline's capacity; its glue equal to its plain version and to the
+     20-byte grouping;
   6. the Prophesee path at 640x480 (the DSEC Gen3.1 VGA sensor) with the
      CLI defaults (ref_time 20, crf 3, Collapse, AbsoluteT, Raw sink,
      view_fps 60) on a seeded 1.0 s, 2,000,000-event stream, through
-     Prophesee(20, path, device="cuda"): every chunk must go through
-     adder_dvs_rows (the lane groups through the glue, the bootstrap and the
-     flush as raster chunks), no dense entry point may remain, and the
-     decoded event count must equal the kernels'; the first 0.025 s must
-     give the same bytes on the card and on the CPU; a bulk run (view_fps
-     1, Empty sink, void) must run segmented windows and T = 128 groups;
-  7. timings on one 64-lane group at 640x480 (T = 128): the row route
-     fetched and void, with and without its grouping glue, the glue alone
-     beside its plain version, against plain; end-to-end Mev/s (windowed
-     Raw, bulk void); a stage breakdown of the windowed Raw run;
+     Prophesee(20, path, device="cuda"): every lane group must go through
+     adder_dvs_rows8 (the 8-byte carrier of the fused native planner,
+     through the glue) and the bootstrap and the flush through
+     adder_dvs_rows as raster chunks, with no 20-byte lane group; no dense
+     entry point may remain; nothing may wait for the card on the calling
+     thread inside a window's lane groups; the decoded event count must
+     equal the kernels'; the run with the fused planner forced off (its
+     fallback: the classic plan, packed per group into 8 bytes) must hash
+     to the same constant; the first 0.025 s must give the same bytes on
+     the card and on the CPU; a bulk run (view_fps 1, Empty sink, void)
+     must run segmented windows and T = 128 groups;
+  7. timings on one 64-lane group at 640x480 (T = 128): the 20-byte and
+     the 8-byte row route, fetched and void, with and without the grouping
+     glue, the glue alone beside its plain version, against plain, with
+     their bounds; the carrier bytes and the h2d copy from pinned and from
+     pageable memory; the host's fused plan + pack against the classic
+     plan and the packs; end-to-end Mev/s (windowed Raw, bulk void) of the
+     pipelined 8-byte route and of the synchronous 20-byte route in turns;
+     a stage breakdown (utils/tracing, host clock, no synchronise) and the
+     device busy share of each route's windowed Raw run;
   8. the DAVIS lane kernel by rows (K4, adder_davis_rows, on the carrier)
      against its plain version, bit for bit, WRITE and VOID, the state
      updated in place: a ragged 61x47 plane, lanes planned from a seeded
@@ -175,7 +192,11 @@ Phases (any failure raises and the script exits non-zero):
      migrate_raw_v0_v1_to_v2 on phase 19's .adder, and one start and stop
      of adder_viz's play tab over HTTP on 127.0.0.1:0 until a PNG frame
      comes back. A transcode tool that launched none of its kernels fails
-     the phase.
+     the phase;
+  23. the scalar oracle (batched=False, transcoder/pixel_oracle.py, on the
+     host) on a 48x32 Prophesee stream of 20,000 events and a 48x32 DAVIS
+     stream (3 APS frames and their events), each also through the card
+     route: every pixel's event stream must be equal; the walls of both.
 The sha256 of each whole output of a full-size run (the .adder files of
 phases 3, 6, 9, 17, 20, 21 and 22; the feature set and display frame of
 phase 15; the reconstructed frames of phases 17, 18 and 22) is logged and held to a
@@ -183,8 +204,9 @@ constant (DIGESTS), so that a kernel which reorders events past the
 prefixes the CPU checks cannot pass.
 Every kernel of the record carries its bound: the bytes it must move over
 3.35 TB/s, counted for the lane kernels (K3, K4) from the chunk's carrier
-(20 bytes per row with an active sub-step, the state of the pixels with
-active rows read and written once, 8 bytes per event), for K5 from the
+(20 bytes per row with an active sub-step, or 8 and the 512-byte
+dictionary for the 8-byte carrier, the state of the pixels with active rows
+read and written once, 8 bytes per event), for K5 from the
 interval's state and its event count, for K6 from its state and its
 dense slot planes, for K1's display from K1's bytes and the display's
 (run0 read, T x N written).
@@ -370,6 +392,20 @@ def rows_bound(state, carrier, n_events: int) -> float:
                  // state.length.shape[0] + 8 * n_events)
 
 
+def rows8_bound(state, carrier, pb: int, n_events: int) -> float:
+    """`rows_bound` for the 8-byte carrier of pack_dvs_plan8: each row with
+    an active sub-step read once (its 8 bytes; bits pb + 6 and pb + 7 of
+    word 0 are the gap and the tick), the 512-byte dictionary, the state of
+    the pixels of those rows read once and written once, each event's pair
+    written once."""
+    E = carrier.shape[1] - 64
+    w0 = carrier[0, :E].to(torch.int64) & 0xFFFFFFFF
+    on = ((w0 >> (pb + 6)) & 3) != 0
+    pixels = int(torch.unique(w0[on] & ((1 << pb) - 1)).numel())
+    return bound(8 * int(on.sum()) + 64 * 8 + 2 * pixels * state_bytes(state)
+                 // state.length.shape[0] + 8 * n_events)
+
+
 def kernel_source(name: str) -> str:
     """Which kernel a mangled name instantiates: a one-interval kernel or
     the scan by its name, a row kernel by its last template argument (the
@@ -383,8 +419,9 @@ def kernel_source(name: str) -> str:
         return "scan"
     if "adder_lane_rows_kernel" in name:
         m = re.search(r"ELi(\d)E+v", name)
-        return {"1": "DVS rows (K3)", "2": "DAVIS rows (K4)"}.get(
-            m.group(1) if m else "", "other")
+        return {"1": "DVS rows (K3)", "2": "DAVIS rows (K4)",
+                "3": "DVS rows 8-byte (K3)"}.get(m.group(1) if m else "",
+                                                 "other")
     if "adder_resident_chunk_kernel" in name:
         return ("framed display (K1)" if re.search(r"ELb1E+v", name)
                 else "framed (K1/K2)")
@@ -396,10 +433,11 @@ def kernel_source(name: str) -> str:
 # Every kernel entry the port counts (fused_resident.LAUNCHES), and every
 # chunk wrapper it has: the lane chunks go by rows only.
 CHUNK_KERNELS = {"adder_resident_chunk", "adder_segment_copy",
-                 "adder_exclusive_scan", "adder_dvs_rows", "adder_rows_group",
-                 "adder_davis_rows"}
-CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows_resident",
-                  "fused_chunk_resident", "group_chunk_resident"]
+                 "adder_exclusive_scan", "adder_dvs_rows", "adder_dvs_rows8",
+                 "adder_rows_group", "adder_davis_rows"}
+CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows8_resident",
+                  "dvs_rows_resident", "fused_chunk_resident",
+                  "group_chunk_resident"]
 
 
 def hold_one_route(FR) -> None:
@@ -791,56 +829,116 @@ class Stages:
         return make
 
 
-def staged_prophesee_run(at, path, dev, raw_path, dvs_batch, FR, TP):
-    """The windowed Raw run with every stage timed on the host clock and a
-    synchronise after it: decode, the window search, plan, pack, host ->
-    device carrier copy, group (the row route's grouping glue: two sorts and
-    the cell ranks), kernels (COUNT + scan + WRITE, with the host read of
-    the total; the row kernel for the lane groups, the bootstrap and the
-    flush), event fetch, unpacking the wire pairs to x, y, d, t, encode;
-    "other" is the rest of the wall (the loop, event arrays, the bootstrap
-    and end-of-stream carriers and their raster groupings)."""
-    S = Stages(("decode", "window", "plan", "pack", "h2d", "group",
-                "kernels", "fetch", "unpack", "encode"))
-    st = S.seconds
-    P = Patches()
-    P.wrap(TP, "decode_events_np", S.timed("decode"))
-    P.wrap(dvs_batch, "plan_dvs_compact", S.timed("plan"))
-    P.wrap(FR, "pack_dvs_plan", S.pack)
-    P.wrap(FR, "group_dvs_rows", S.timed("group"))
-    P.wrap(FR, "dvs_rows_resident", S.rows("kernels"))
-    P.wrap(dvs_batch, "wire_to_events", S.timed("unpack"))
+@contextlib.contextmanager
+def strict_lane_groups():
+    """Inside the block, every call of the Prophesee lane groups' pipeline
+    (LanePipeline.stage, .step and .flush: planning aside, all a window's
+    lane groups do on the calling thread) raises on an operation that waits
+    for the card (torch.cuda.set_sync_debug_mode "error")."""
+    from adder_tpu_torch.transcoder import lanes
 
-    def window(orig):
-        def f():  # the decode runs inside the first call: not counted twice
-            d0, t0 = st["decode"], time.perf_counter()
+    P = lanes.LanePipeline
+    saved = {k: getattr(P, k) for k in ("stage", "step", "flush")}
+
+    def strict(orig):
+        def f(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return f
+
+    for k, f in saved.items():
+        setattr(P, k, strict(f))
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(P, k, f)
+
+
+@contextlib.contextmanager
+def dvs_route(route: str):
+    """The Prophesee route inside the block: "8" the default (the fused
+    native plan + 8-byte pack, the pipeline); "8 fallback" the fused
+    planner forced off (the classic plan, packed per group into 8 bytes);
+    "20" the 20-byte carrier alone, synchronous (nothing staged and nothing
+    in flight), the route before the pipeline."""
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.ops import native_dvs_plan as NP
+    from adder_tpu_torch.transcoder import lanes
+
+    P = lanes.LanePipeline
+    saved = (NP.plan_dvs_pack8_native, FR.pack_dvs_plan8, P.max_staged,
+             P.max_in_flight)
+    if route in ("8 fallback", "20"):
+        NP.plan_dvs_pack8_native = lambda *a, **k: None
+    if route == "20":
+        FR.pack_dvs_plan8 = lambda *a, **k: None
+        P.max_staged = P.max_in_flight = 0
+    try:
+        yield
+    finally:
+        (NP.plan_dvs_pack8_native, FR.pack_dvs_plan8, P.max_staged,
+         P.max_in_flight) = saved
+
+
+def traced_prophesee_run(at, path, dev, raw_path):
+    """The windowed Raw run with utils/tracing on (host clock, nothing
+    synchronised, so the pipeline runs as it does untraced): the main
+    thread's stages (the decode and window search, dvs.plan: the fused
+    plan + pack or the classic plan, dvs.pack: the group's carrier,
+    dvs.upload: the pinned copy and the h2d enqueue, dvs.dispatch: the
+    stream wait and the launches, dvs.fetch_wait: waiting for the fetch
+    worker, dvs.encode), "other" the rest of the wall, and the worker's
+    dvs.event_fetch and the groups whose upload had not finished when
+    dispatched (dvs.upload_pending), which overlap the main thread."""
+    from adder_tpu_torch.utils import tracing
+
+    window = {"s": 0.0}
+
+    def timed(orig):
+        def f():
+            t0 = time.perf_counter()
             r = orig()
-            st["window"] += time.perf_counter() - t0 - (st["decode"] - d0)
+            window["s"] += time.perf_counter() - t0
             return r
         return f
 
     def before(src):
-        P.wrap(src.video.encoder, "ingest_event_array", S.timed("encode"))
-        P.wrap(src, "_next_dvs_batch", window)
+        src._next_dvs_batch = timed(src._next_dvs_batch)
 
+    tracing.reset()
+    tracing.set_enabled(True)
     try:
-        wall, src = prophesee_run(at, path, dev, raw_path, before=before)
+        wall, _ = prophesee_run(at, path, dev, raw_path, before=before)
     finally:
-        P.restore()
-    st["other"] = wall - sum(st.values())
-    return wall, st, S.carrier_bytes
+        tracing.set_enabled(False)
+    rep_ = tracing.report()
+    stages = {"window": window["s"]}
+    for k in ("dvs.plan", "dvs.pack", "dvs.upload", "dvs.dispatch",
+              "dvs.fetch_wait", "dvs.encode"):
+        stages[k] = rep_[k].total_s if k in rep_ else 0.0
+    stages["other"] = wall - sum(stages.values())
+    worker = {k: (rep_[k].total_s, rep_[k].calls, rep_[k].items)
+              for k in ("dvs.event_fetch", "dvs.upload_pending") if k in rep_}
+    return wall, stages, worker
 
 
 def dvs_phases(dev, card):
-    """Phases 5-7 (the Prophesee path). Returns (the row route's max abs err
-    against plain, the windowed run's launch counts, the timings and bound
-    at T = 128 of the row route and of its grouping glue)."""
+    """Phases 5-7 (the Prophesee path). Returns (the 20-byte row route's max
+    abs err against plain, the windowed run's launch counts, the timings
+    and bound at T = 128 of the 20-byte row route, of its grouping glue and
+    of the 8-byte row route, the latter with its max abs err)."""
     import numpy as np
 
     import adder_tpu_torch as at
     from adder_tpu_torch import testing
     from adder_tpu_torch.ops import dvs_batch
     from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.ops import native_dvs_plan as NP
+    from adder_tpu_torch.transcoder import lanes
     from adder_tpu_torch.transcoder import prophesee as TP
 
     # -- phase 5: the DVS lane kernel by rows (K3) against plain -----------
@@ -866,6 +964,23 @@ def dvs_phases(dev, card):
         f"no rows, one pixel's rows, halves off, forced "
         f"depth-16 overflow; glue == plain; state in place (max abs err "
         f"{rows_err}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    FR.reset_launch_counts()
+    rows8_err = testing.check_dvs_rows8_against_plain(dev)
+    torch.cuda.synchronize()
+    if FR.LAUNCHES["adder_dvs_rows8"] < 1:
+        raise AssertionError(f"the 8-byte check ran no 8-byte row kernel: "
+                             f"{FR.LAUNCHES}")
+    log(f"# phase 5: K3 rows on the 8-byte carrier (adder_dvs_rows8) == "
+        f"plain == the 20-byte route on the same rows, at 200x150 (pb 15): "
+        f"T = 2/38/128 x 2 chained groups, Normal and Collapse, WRITE, VOID "
+        f"and WRITE with the pipeline's capacity, no rows, one pixel's "
+        f"rows, halves off, a dictionary of 64, gap_n past 2^20, forced "
+        f"depth-16 overflow; planned groups at 61x47 (pb 12) and 640x480 "
+        f"(pb 19); the 8-byte glue == its plain version == the 20-byte "
+        f"grouping; state in place (max abs err {rows8_err}); launches "
+        f"{FR.LAUNCHES['adder_dvs_rows8']}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: the Prophesee path at 640x480 ------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dvs_")
@@ -886,7 +1001,7 @@ def dvs_phases(dev, card):
             f"{time.perf_counter() - t0:.1f} s")
 
         out = os.path.join(tmp, "dvs.adder")
-        kernel_events, raster_calls = [], []
+        kernel_events, raster_calls, lane20, lane8 = [], [], [], []
         P = Patches()
 
         def count_events(orig):
@@ -895,25 +1010,38 @@ def dvs_phases(dev, card):
                 kernel_events.append(r.per_interval.sum())
                 if kw.get("groups") is not None:
                     raster_calls.append(a[1].shape[1])
+                elif "pb" in kw:
+                    lane8.append(a[2])
+                else:
+                    lane20.append(a[2])
                 return r
             return f
 
         P.wrap(FR, "dvs_rows_resident", count_events)
+        P.wrap(FR, "dvs_rows8_resident", count_events)
         FR.reset_launch_counts()
         try:
-            first_s, _ = prophesee_run(at, raw_in, dev, out)
+            with strict_lane_groups():
+                first_s, _ = prophesee_run(at, raw_in, dev, out)
         finally:
             P.restore()
         dvs_launches = dict(FR.LAUNCHES)
         hold_one_route(FR)
-        if min(dvs_launches["adder_dvs_rows"],
+        if min(dvs_launches["adder_dvs_rows8"],
+               dvs_launches["adder_dvs_rows"],
                dvs_launches["adder_rows_group"],
                dvs_launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"Prophesee path missed a kernel: "
                                  f"{dvs_launches}")
-        # the bootstrap (every pixel) and the flush went as raster chunks
+        # the bootstrap (every pixel) and the flush went as raster chunks,
+        # every lane group on the 8-byte carrier: 20-byte row launches are
+        # the two raster chunks' COUNT and WRITE alone
         if len(raster_calls) != 2 or raster_calls[0] != DVS_W * DVS_H:
             raise AssertionError(f"raster chunks of {raster_calls} rows")
+        if (lane20 or not lane8 or dvs_launches["adder_dvs_rows"] != 4
+                or dvs_launches["adder_dvs_rows8"] != 2 * len(lane8)):
+            raise AssertionError(f"lane groups: {len(lane8)} on 8 bytes, "
+                                 f"{len(lane20)} on 20; {dvs_launches}")
         n_kernel = int(sum(int(x) for x in kernel_events))
         n_decoded = len(at.open_file_decoder(out).digest_all())
         if n_decoded != n_kernel or n_kernel == 0:
@@ -921,10 +1049,30 @@ def dvs_phases(dev, card):
                                  f"kernel counted {n_kernel}")
         log(f"# phase 6: windowed Raw (60 fps): {n_kernel} ADΔER events, "
             f"{os.path.getsize(out)} bytes, {first_s:.3f} s (first run), "
-            f"launches {dvs_launches}; raster chunks (bootstrap, flush) of "
-            f"{raster_calls} rows")
+            f"launches {dvs_launches}; {len(lane8)} lane groups, every one "
+            f"on the 8-byte carrier (T up to {max(lane8)}), none on 20 "
+            f"bytes; raster chunks (bootstrap, flush) of {raster_calls} "
+            f"rows; no wait for the card on the calling thread inside the "
+            f"lane groups (sync debug mode error)")
         hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
                     file_digest(out))
+        fb = os.path.join(tmp, "fallback.adder")
+        lane8.clear()
+        P.wrap(FR, "dvs_rows8_resident", count_events)
+        FR.reset_launch_counts()
+        try:
+            with dvs_route("8 fallback"):
+                fb_s, _ = prophesee_run(at, raw_in, dev, fb)
+        finally:
+            P.restore()
+        if not lane8 or FR.LAUNCHES["adder_dvs_rows"] != 4:
+            raise AssertionError(f"the fallback ran {len(lane8)} 8-byte "
+                                 f"groups: {FR.LAUNCHES}")
+        log(f"# phase 6: the fused planner forced off: the classic plan, "
+            f"{len(lane8)} groups packed into 8 bytes by pack_dvs_plan8, "
+            f"{fb_s:.3f} s")
+        hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
+                    file_digest(fb))
         win_s, _ = prophesee_run(at, raw_in, dev, out)
         win_mev = n_in / win_s / 1e6
         log(f"# phase 6: windowed Raw path {win_mev} Mev/s ({win_s} s for "
@@ -961,8 +1109,9 @@ def dvs_phases(dev, card):
                 return orig(st, carrier, T, *a, **kw)
             return f
 
-        P.wrap(dvs_batch, "plan_dvs_compact", count_plans)
+        P.wrap(NP, "plan_dvs_pack8_native", count_plans)
         P.wrap(FR, "dvs_rows_resident", record_t)
+        P.wrap(FR, "dvs_rows8_resident", record_t)
         try:
             prophesee_run(at, raw_in, dev, None, view_fps=1)
         finally:
@@ -987,79 +1136,199 @@ def dvs_phases(dev, card):
         src._bootstrap()
         p_dvs, st_dvs = src._params(), src.state
         seg = TP.SEG_EVENTS_DEFAULT
-        plan = dvs_batch.plan_dvs_compact(
-            *(a[:seg] for a in stream), DVS_W, src.dvs_last_timestamps,
-            src.dvs_last_ln_val, src.camera_theta, 20)
+        seg_ev = tuple(a[:seg] for a in stream)
+
+        def chain():
+            return (src.dvs_last_timestamps.copy(),
+                    src.dvs_last_ln_val.copy(), np.full(n, np.nan))
+
+        # the host: the fused plan + 8-byte pack of the first segment
+        # against the classic plan and the packs of its groups
+        host = {}
+        for rep_ in range(2):
+            c = chain()
+            t0 = time.perf_counter()
+            pp = NP.plan_dvs_pack8_native(*seg_ev, DVS_W, n, c[0], c[1],
+                                          src.camera_theta, 20,
+                                          val_cache=c[2])
+            host.setdefault("fused plan + 8-byte pack", []).append(
+                time.perf_counter() - t0)
+            c = chain()
+            t0 = time.perf_counter()
+            plan = dvs_batch.plan_dvs_compact(*seg_ev, DVS_W, c[0], c[1],
+                                              src.camera_theta, 20,
+                                              val_cache=c[2])
+            host.setdefault("classic plan", []).append(
+                time.perf_counter() - t0)
+            for name, pack in (
+                    ("20-byte packs", lambda g: FR.pack_dvs_plan(g)),
+                    ("8-byte packs", lambda g: FR.pack_dvs_plan8(g, n, 20))):
+                t0 = time.perf_counter()
+                for g0 in range(0, plan.n_lanes, TP.LANE_GROUP):
+                    pack(plan.lane_slice(g0, g0 + TP.LANE_GROUP))
+                host.setdefault(name, []).append(time.perf_counter() - t0)
+        if pp is None or pp.n_lanes != plan.n_lanes:
+            raise AssertionError("the first segment did not fit 8 bytes")
         g = plan.lane_slice(0, TP.LANE_GROUP)
         packed = FR.pack_dvs_plan(g)
+        packed8, pb = FR.pack_dvs_plan8(g, n, 20)
         carrier = torch.from_numpy(packed).to(dev)
+        carrier8 = torch.from_numpy(packed8).to(dev)
         meta = carrier[0]
         active = float((((meta >> 27) & 1).sum() + ((meta >> 28) & 1).sum())
                        / (FR.MAX_T * n))
-        # rows (WRITE and VOID) against the plain version, the glue too
+        cells = int(g.gap_on.sum() + g.tick_on.sum())
+        cap = lanes.lane_event_cap(cells)
+        # rows (WRITE and VOID) against the plain version, the glue too;
+        # the 8-byte route against its plain version and the 20-byte route
         e, want = testing.check_rows_group(st_dvs, carrier, FR.MAX_T, p_dvs,
                                            "T=128 group")
         rows_err = max(rows_err, e)
+        # the plain version on the 8-byte carrier, timed once (seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want8 = FR.dvs_rows8_resident_plain(st_dvs, carrier8, FR.MAX_T,
+                                            p_dvs, pb=pb)
+        torch.cuda.synchronize()
+        r8p_ms = (time.perf_counter() - t0) * 1e3
+        e8, _ = testing.check_rows8_group(st_dvs, g, n, FR.MAX_T, p_dvs,
+                                          "T=128 group", want=want8)
+        rows8_err = max(rows8_err, e8)
         groups = FR.group_dvs_rows(carrier, FR.MAX_T)
-        log(f"# phase 7: K3 rows == plain on the "
+        groups8 = FR.group_dvs_rows(carrier8, FR.MAX_T, 2, pb)
+        log(f"# phase 7: K3 rows (20 and 8 bytes) == plain on the "
             f"{DVS_W}x{DVS_H} T=128 group ({len(g.pix)} planned rows, "
             f"{int(groups.n_active)} pixels with rows, longest "
             f"{int((groups.row_start[1:] - groups.row_start[:-1]).max())} "
-            f"rows, {active:.4%} of (sub-step, pixel) active, "
-            f"{len(want.pixd)} events)")
+            f"rows, {active:.4%} of (sub-step, pixel) active, {cells} active "
+            f"cells, {len(want.pixd)} events; pb {pb}, "
+            f"{int((packed8[0, len(g.pix):] != 0).sum())} dictionary "
+            f"entries)")
         k3_bound = rows_bound(st_dvs, carrier, len(want.pixd))
         k3v_bound = rows_bound(st_dvs, carrier, 0)
-        h2d_ms = cuda_ms(lambda: torch.from_numpy(packed).to(dev), 10)
-        # the row route: the whole wrapper (glue + passes), the passes alone
+        k38_bound = rows8_bound(st_dvs, carrier8, pb, len(want.pixd))
+        k38v_bound = rows8_bound(st_dvs, carrier8, pb, 0)
+        # the h2d copy of each carrier, from pageable and pinned memory
+        h2d = {}
+        for name, arr in (("20-byte", packed), ("8-byte", packed8)):
+            pin = torch.from_numpy(arr).pin_memory()
+            buf = torch.empty(arr.shape, dtype=torch.int32, device=dev)
+            h2d[name] = (arr.nbytes,
+                         cuda_ms(lambda: torch.from_numpy(arr).to(dev), 10),
+                         cuda_ms(lambda: buf.copy_(pin, non_blocking=True),
+                                 10))
+        # the row routes: the whole wrapper (glue + passes), the passes alone
         # on groups made before the clock starts, the glue alone
         glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
         glue_p_ms = cuda_ms(lambda: FR.group_dvs_rows_plain(carrier,
                                                             FR.MAX_T), 20)
         glue_q_ms = cuda_ms_queued(
             lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
+        glue8_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier8, FR.MAX_T, 2,
+                                                     pb), 20)
         sort_ms = cuda_ms(lambda: torch.sort(carrier[0]), 20)
         E = carrier.shape[1]
         # carrier row 0 read; order, row_start, the two cell arrays written
         glue_bound = bound(4 * E + 8 * (4 * E + 2) + 8 * (FR.MAX_T + 2))
-        rows_t = {}
+        rows_t, rows8_t = {}, {}
         for events in (True, False):
-            rows_t["fetched" if events else "void"] = (
+            key = "fetched" if events else "void"
+            rows_t[key] = (
                 rows_ms(lambda st: FR.dvs_rows_resident(
                     st, carrier, FR.MAX_T, p_dvs, events=events), st_dvs, 10,
                     FR.clone_state),
                 rows_ms(lambda st: FR._rows_cuda(
                     FR.SRC_DVS, st, carrier, FR.MAX_T, p_dvs, events, groups),
                     st_dvs, 10, FR.clone_state))
+            rows8_t[key] = (
+                rows_ms(lambda st: FR.dvs_rows8_resident(
+                    st, carrier8, FR.MAX_T, p_dvs, events=events, pb=pb),
+                    st_dvs, 10, FR.clone_state),
+                rows_ms(lambda st: FR._rows_cuda(
+                    FR.SRC_DVS8, st, carrier8, FR.MAX_T, p_dvs, events,
+                    groups8, pb=pb), st_dvs, 10, FR.clone_state))
+        rows8_t["fetched, the pipeline's capacity"] = (
+            rows_ms(lambda st: FR.dvs_rows8_resident(
+                st, carrier8, FR.MAX_T, p_dvs, pb=pb, event_cap=cap), st_dvs,
+                10, FR.clone_state),
+            rows_ms(lambda st: FR._rows_cuda(
+                FR.SRC_DVS8, st, carrier8, FR.MAX_T, p_dvs, True, groups8,
+                pb=pb, event_cap=cap), st_dvs, 10, FR.clone_state))
         r_ms = rows_t["fetched"][0]  # the wrapper's own time, glue included
+        r8_ms = rows8_t["fetched"][0]
         rp_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
             st_dvs, carrier, FR.MAX_T, p_dvs), 1)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
         for what, (with_glue, alone) in rows_t.items():
-            log(f"#   K3 rows, {what}: {with_glue} ms with glue, {alone} ms "
-                f"the passes alone")
+            log(f"#   K3 rows, 20 bytes, {what}: {with_glue} ms with glue, "
+                f"{alone} ms the passes alone")
+        for what, (with_glue, alone) in rows8_t.items():
+            log(f"#   K3 rows, 8 bytes, {what}: {with_glue} ms with glue, "
+                f"{alone} ms the passes alone")
         log(f"#   row grouping glue: {glue_ms} ms ({glue_q_ms} ms on the "
             f"card alone), its plain version in torch ops {glue_p_ms} ms, "
             f"one torch.sort of {E} int32 keys {sort_ms} ms, bound "
-            f"{glue_bound} ms")
-        log(f"#   K3 rows: plain {rp_ms} ms; bound {k3_bound} ms, void bound "
-            f"{k3v_bound} ms (the carrier's active rows, the state of their "
-            f"pixels, the events); the wrapper {r_ms} ms fetched (the bound "
-            f"is {k3_bound / r_ms:.2%} of it)")
-        log(f"#   carrier h2d {packed.nbytes} bytes in {h2d_ms} ms "
-            f"({packed.nbytes / h2d_ms / 1e3} MB/s, pageable)")
-        wall, stages, nbytes = staged_prophesee_run(
-            at, raw_in, dev, out, dvs_batch, FR, TP)
-        log(f"# phase 7: windowed Raw stage breakdown, {wall} s wall "
-            f"({n_in / wall / 1e6} Mev/s with a synchronise after each "
-            f"stage; {nbytes} carrier bytes) [{card}]:")
-        for name, sec in stages.items():
-            log(f"#   {name:8s} {sec:.6f} s  {sec / wall:.1%}")
+            f"{glue_bound} ms; on the 8-byte keys {glue8_ms} ms")
+        log(f"#   K3 rows, 20 bytes: plain {rp_ms} ms; bound {k3_bound} ms, "
+            f"void bound {k3v_bound} ms (the carrier's active rows, the "
+            f"state of their pixels, the events); the wrapper {r_ms} ms "
+            f"fetched (the bound is {k3_bound / r_ms:.2%} of it)")
+        log(f"#   K3 rows, 8 bytes: plain {r8p_ms} ms (one synchronised "
+            f"call); bound {k38_bound} ms, "
+            f"void bound {k38v_bound} ms (8 B a row with an active sub-step "
+            f"and the dictionary); the wrapper {r8_ms} ms fetched (the "
+            f"bound is {k38_bound / r8_ms:.2%} of it)")
+        for name, (nbytes, page_ms, pin_ms) in h2d.items():
+            log(f"#   {name} carrier h2d {nbytes} bytes: pageable {page_ms} "
+                f"ms ({nbytes / page_ms / 1e3} MB/s), pinned {pin_ms} ms "
+                f"({nbytes / pin_ms / 1e3} MB/s)")
+        log(f"#   the host on the first segment ({seg} events, "
+            f"{plan.n_lanes} lanes), two runs each (s): "
+            + "; ".join(f"{k} {v}" for k, v in host.items()))
+        # end to end, the pipelined 8-byte route and the synchronous
+        # 20-byte route (the route before the pipeline) in turns
+        mev = {"8": {"windowed": [], "bulk": []},
+               "20": {"windowed": [], "bulk": []}}
+        for route in ("8", "20", "20", "8"):
+            with dvs_route(route):
+                w_s, _ = prophesee_run(at, raw_in, dev, out)
+                if file_digest(out) != DIGESTS[
+                        "phase 6 Prophesee 640x480 windowed Raw .adder"]:
+                    raise AssertionError(f"route {route}: the bytes moved")
+                b_s, _ = prophesee_run(at, raw_in, dev, None, view_fps=1)
+            mev[route]["windowed"].append(n_in / w_s / 1e6)
+            mev[route]["bulk"].append(n_in / b_s / 1e6)
+        log(f"# phase 7: Mev/s in turns (8, 20, 20, 8; {n_in} input events) "
+            f"[{card}]: pipelined 8-byte route windowed Raw "
+            f"{mev['8']['windowed']}, bulk void {mev['8']['bulk']}; "
+            f"synchronous 20-byte route windowed Raw "
+            f"{mev['20']['windowed']}, bulk void {mev['20']['bulk']}")
+        for route in ("8", "20"):
+            with dvs_route(route):
+                wall, stages, worker = traced_prophesee_run(at, raw_in, dev,
+                                                            out)
+                busy = device_busy_seconds(
+                    lambda: prophesee_run(at, raw_in, dev, out))
+            name = ("pipelined 8-byte" if route == "8"
+                    else "synchronous 20-byte")
+            log(f"# phase 7: {name} route, windowed Raw stage breakdown "
+                f"(host clock, no synchronise), {wall} s wall "
+                f"({n_in / wall / 1e6} Mev/s) [{card}]:")
+            for k, sec in stages.items():
+                log(f"#   {k:15s} {sec:.6f} s  {sec / wall:.1%}")
+            log(f"#   on the fetch worker and in the stream: {worker}; "
+                f"device busy {busy} s under torch.profiler (another run)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     return (rows_err, dvs_launches,
             dict(ms=r_ms, plain_ms=rp_ms, bound_ms=k3_bound),
-            dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound))
+            dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound),
+            dict(ms=r8_ms, plain_ms=r8p_ms, bound_ms=k38_bound,
+                 max_abs_err=rows8_err, void_ms=rows8_t["void"][0],
+                 passes_ms=rows8_t["fetched"][1],
+                 capacity_ms=rows8_t["fetched, the pipeline's capacity"][0],
+                 route20_ms=r_ms, mev=mev))
 
 
 def davis_run(at, path, device, raw_path=None, before=None):
@@ -2813,7 +3082,8 @@ def tools_phase(at, FR, dev, card, frames, clip_adder) -> dict:
         display.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
-    need = {"prophesee_to_adder": ("adder_dvs_rows", "adder_rows_group"),
+    need = {"prophesee_to_adder": ("adder_dvs_rows8", "adder_dvs_rows",
+                                   "adder_rows_group"),
             "davis_to_adder": ("adder_davis_rows", "adder_dvs_rows"),
             "adder_simulproc": ("adder_resident_chunk",
                                 "adder_segment_copy"),
@@ -2829,6 +3099,104 @@ def tools_phase(at, FR, dev, card, frames, clip_adder) -> dict:
     log(f"# phase 22: every tool ran; walls {runs.walls}; the phase "
         f"{wall:.1f} s, its inputs included [{card}]")
     return {"launches": runs.launches, "walls": runs.walls, "wall": wall}
+
+
+def pixel_streams(path) -> dict:
+    """{pixel: [(d, t), ...]} of a Raw .adder, each pixel's events in the
+    order the file holds them."""
+    from adder_tpu_torch import open_file_decoder
+
+    dec = open_file_decoder(path)
+    ev = dec.digest_all()
+    pix = ev.y.astype(np.int64) * dec.meta.plane.width + ev.x
+    order = np.argsort(pix, kind="stable")
+    out = {}
+    bounds = np.flatnonzero(np.diff(pix[order])) + 1
+    for run in np.split(order, bounds):
+        if len(run):
+            out[int(pix[run[0]])] = list(zip(ev.d[run].tolist(),
+                                             ev.t[run].tolist()))
+    return out
+
+
+def oracle_phase(at, card) -> None:
+    """Phase 23: the scalar oracle (batched=False) on the card host, which
+    has no JAX, against the card route: a 48x32 Prophesee stream of 20,000
+    events (tools/prophesee_to_adder.py's drive) and a 48x32 DAVIS stream
+    of 3 APS frames and their events (tools/davis_to_adder.py -t raw-davis,
+    its manual quality). Every pixel's event stream must be equal (the
+    cross-pixel order is the route's own); the walls are logged."""
+    from adder_tpu_torch import testing
+
+    W_, H_ = 48, 32
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_oracle_")
+    try:
+        raw_in = os.path.join(tmp, "s.raw")
+        testing.write_prophesee_raw(raw_in, W_, H_, *testing.dvs_stream(
+            23, W_, H_, 400_000, n_hot=10, hot_events=400,
+            band_events=8_000, background_events=8_000))
+        walls = {}
+        for batched in (False, True):
+            out = os.path.join(tmp, f"dvs_{batched}.adder")
+            t0 = time.perf_counter()
+            src = at.Prophesee(20, raw_in, batched=batched)
+            src.crf(3)
+            with open(out, "wb") as f:
+                src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
+                              at.PixelMultiMode.Collapse, None,
+                              at.EncoderType.Raw,
+                              at.EncoderOptions.default(src.plane), f)
+                while True:
+                    try:
+                        src.consume()
+                    except EOFError:
+                        break
+                src.end_write_stream()
+            torch.cuda.synchronize()
+            walls[f"prophesee batched={batched}"] = time.perf_counter() - t0
+        a = pixel_streams(os.path.join(tmp, "dvs_False.adder"))
+        b = pixel_streams(os.path.join(tmp, "dvs_True.adder"))
+        n_ev = sum(len(v) for v in a.values())
+        if a != b or n_ev == 0:
+            raise AssertionError("Prophesee: the oracle's per-pixel streams "
+                                 "differ from the card's")
+        events, frames = testing.davis_stream(
+            29, W_, H_, 30_000, n_frames=3, exposure_us=4_000, n_hot=6,
+            hot_events=200, edge_events=3_000, background_events=1_500)
+        aedat = os.path.join(tmp, "d.aedat4")
+        testing.write_davis_aedat4(aedat, W_, H_, events, frames)
+        for batched in (False, True):
+            out = os.path.join(tmp, f"davis_{batched}.adder")
+            t0 = time.perf_counter()
+            src = at.Davis(at.EdiReconstructor(aedat), ref_time=255,
+                           tps=255_000_000, delta_t_max=255_000_000,
+                           mode=at.TranscoderMode.RawDavis, batched=batched)
+            with open(out, "wb") as f:
+                src.write_out(at.SourceCamera.DavisU8, at.TimeMode.AbsoluteT,
+                              at.PixelMultiMode.Collapse, None,
+                              at.EncoderType.Raw,
+                              at.EncoderOptions.default(src.plane), f)
+                src.get_video_ref().update_quality_manual(5, 5, 3921, 1, 2.0)
+                while True:
+                    try:
+                        src.consume()
+                    except EOFError:
+                        break
+                src.end_write_stream()
+            torch.cuda.synchronize()
+            walls[f"davis batched={batched}"] = time.perf_counter() - t0
+        c = pixel_streams(os.path.join(tmp, "davis_False.adder"))
+        d = pixel_streams(os.path.join(tmp, "davis_True.adder"))
+        n_dv = sum(len(v) for v in c.values())
+        if c != d or n_dv == 0:
+            raise AssertionError("DAVIS: the oracle's per-pixel streams "
+                                 "differ from the card's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"# phase 23: the scalar oracle (batched=False) == the card route, "
+        f"pixel by pixel: Prophesee {W_}x{H_} ({n_ev} ADΔER events, "
+        f"{len(a)} pixels), DAVIS {W_}x{H_} raw-davis ({n_dv} events, "
+        f"{len(c)} pixels); walls (s) {walls} [{card}]")
 
 
 def viz_play_once(adder_viz, path) -> bytes:
@@ -2902,8 +3270,9 @@ def main() -> int:
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
     for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
-                 "scan", "DVS rows (K3)", "DAVIS rows (K4)",
-                 "fused interval (K5)", "interval slots (K6)"):
+                 "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
+                 "DAVIS rows (K4)", "fused interval (K5)",
+                 "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
         if ks:
@@ -2916,7 +3285,8 @@ def main() -> int:
     for k, v in ptx.items():
         if kernel_source(k) in ("framed (K1/K2)", "framed display (K1)",
                                 "segment copy", "DVS rows (K3)",
-                                "DAVIS rows (K4)", "scan", "other"):
+                                "DVS rows 8-byte (K3)", "DAVIS rows (K4)",
+                                "scan", "other"):
             log(f"#   {k}: {v}")
     # the bench mode's chunk kernel (depth 6, FramePerfect, Collapse,
     # DeltaT, display off), events staged and not: its SASS per interval
@@ -3134,7 +3504,7 @@ def main() -> int:
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
     k_ms, k_q_ms = k1["fetched"], k1["fetched_queued"]
 
-    rows_err, dvs_launches, k3r, glue = dvs_phases(dev, card)
+    rows_err, dvs_launches, k3r, glue, k3r8 = dvs_phases(dev, card)
     k4, raster, davis_launches = davis_phases(dev, card)
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
     k1_display = features_phases(dev, card, scene, main_digest, st, p)
@@ -3144,6 +3514,7 @@ def main() -> int:
     sharded = sharded_phase(at, FR, dev, card, scene, frames, st, p)
     band_records = multihost_phase(card)
     tools = tools_phase(at, FR, dev, card, frames, clip_adder)
+    oracle_phase(at, card)
     k5_k6[0]["sharded_launches"] = {k: sharded[f"k5_{k}"]
                                     for k in ("k2", "k4")}
     k5_k6[1]["sharded_launches"] = {k: sharded[f"k6_{k}"]
@@ -3199,6 +3570,16 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "raster_ms": raster["ms"], "raster_plain_ms": raster["plain_ms"],
          "raster_bound_ms": raster["bound_ms"]},
+        {"name": "adder_dvs_rows8", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/dvs_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:1214",
+         "launches": dvs_launches["adder_dvs_rows8"],
+         "max_abs_err": k3r8["max_abs_err"], "ms": k3r8["ms"],
+         "plain_ms": k3r8["plain_ms"], "bound_ms": k3r8["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "void_ms": k3r8["void_ms"], "passes_ms": k3r8["passes_ms"],
+         "capacity_ms": k3r8["capacity_ms"],
+         "route20_ms": k3r8["route20_ms"], "mev_in_turns": k3r8["mev"]},
         {"name": "adder_rows_group", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1115",

@@ -129,3 +129,89 @@ def test_sharded_modules_run_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
+
+
+_DVS_RUN = r"""
+import io, os, sys
+import numpy as np
+sys.modules["jax"] = sys.modules["adder_tpu"] = None
+import adder_tpu_torch as at
+from adder_tpu_torch import testing
+from adder_tpu_torch.ops import fused_resident as FR
+from adder_tpu_torch.transcoder import davis as TD
+path = os.path.join(sys.argv[1], "s.raw")
+testing.write_prophesee_raw(path, 9, 7, *testing.dvs_stream(
+    3, 9, 7, 60_000, n_hot=2, hot_events=40, background_events=200))
+calls = []
+orig = FR.dvs_rows8_resident
+FR.dvs_rows8_resident = lambda *a, **k: calls.append(1) or orig(*a, **k)
+out = []
+for batched in (True, False):
+    src = at.Prophesee(20, path, batched=batched, device="cpu")
+    src.crf(3)
+    buf = io.BytesIO()
+    src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
+                  at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                  at.EncoderOptions.default(src.plane), buf)
+    while True:
+        try:
+            src.consume()
+        except EOFError:
+            break
+    src.end_write_stream()
+    out.append(len(buf.getvalue()))
+assert calls and min(out) > 1000, (calls, out)
+rng = np.random.default_rng(2)
+ev = TD.DvsEvents(t=np.sort(rng.integers(10, 900, 60)).astype(np.int64),
+                  x=rng.integers(0, 6, 60), y=rng.integers(0, 5, 60),
+                  on=rng.integers(0, 2, 60).astype(bool))
+pk = [TD.DavisPacket(rng.integers(40, 200, (5, 6)).astype(np.uint8), 1000,
+                     2000, ev)]
+src = at.Davis(TD.ArrayDavisProvider(pk, at.PlaneSize(6, 5, 1)),
+               batched=False, prefetch=False, device="cpu")
+buf = io.BytesIO()
+src.write_out(at.SourceCamera.DavisU8, at.TimeMode.AbsoluteT,
+              at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+              at.EncoderOptions.default(src.plane), buf)
+src.crf(3)
+assert len(src.consume()) > 0
+src.end_write_stream()
+assert not any(m.split(".")[0] in ("jax", "adder_tpu") for m in sys.modules
+               if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_dvs_routes_and_oracle_run_without_jax(tmp_path):
+    """With jax and adder_tpu blocked: a tiny Prophesee transcode on the
+    CPU through the 8-byte carrier route (ops/native_dvs_plan.py's fused
+    planner, the pipeline of transcoder/lanes.py) and through the scalar
+    oracle (transcoder/pixel_oracle.py, batched=False), and a DAVIS packet
+    through the oracle."""
+    proc = subprocess.run([sys.executable, "-c", _DVS_RUN, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_every_c_entry_has_its_signature_declared():
+    """Every `int adder_*(` entry the CUDA sources define is in
+    cuda_build.SIGNATURES (an entry without one gets its pointers cut to
+    32-bit ints by ctypes), with one c_void_p or integer type per
+    parameter, and nothing else is declared."""
+    import ctypes
+
+    defined = {}
+    for src in (PORT / "csrc").glob("*.cu"):
+        for name, params in re.findall(r"^int (adder_\w+)\(([^)]*)\)",
+                                       src.read_text(), re.M):
+            defined[name] = [p for p in params.split(",") if p.strip()]
+    assert set(defined) == set(cuda_build.SIGNATURES)
+    for name, params in defined.items():
+        argtypes = cuda_build.SIGNATURES[name]
+        assert len(argtypes) == len(params), name
+        for t, p in zip(argtypes, params):
+            want = (ctypes.c_void_p if "*" in p else ctypes.c_longlong
+                    if "long long" in p else ctypes.c_int)
+            assert t is want, (name, p)

@@ -228,6 +228,39 @@ def test_dvs_rows_kernel_matches_plain_and_dense(cuda):
     assert FR.LAUNCHES["adder_dvs_rows"] > 0
 
 
+def test_dvs_rows8_kernel_matches_plain_and_20_byte_route(cuda):
+    """K3 on the 8-byte carrier (`adder_dvs_rows8`) against its plain
+    version and the 20-byte route on the same rows: T = 2, 38 and 128 in
+    two chained groups, Normal and Collapse, WRITE, VOID and WRITE with the
+    pipeline's capacity, no rows, one pixel's rows, halves off, a
+    dictionary of 64, gap_n past 2^20, a forced depth-16 overflow, a 61 x
+    47 plane and a 640 x 480 one (pb 19); the 8-byte glue against its plain
+    version and the 20-byte grouping."""
+    FR.reset_launch_counts()
+    assert testing.check_dvs_rows8_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_dvs_rows8"] > 0
+
+
+def test_dvs_rows8_wrapper_rejects_bad_input(cuda):
+    p = testing._dvs_params(1)
+    n = 35
+    st = FR.ops.init_state(n, cuda, depth=FR.DVS_DEPTH)
+    c8, pb, _ = testing.carriers(testing.lattice_plan(6, n, 2), n, cuda)
+    with pytest.raises(ValueError):
+        FR.dvs_rows8_resident(st, c8.to(torch.int64), 4, p, pb=pb)
+    with pytest.raises(ValueError):
+        FR.dvs_rows8_resident(st, c8[:1].contiguous(), 4, p, pb=pb)
+    with pytest.raises(ValueError):  # a pixel field that is not the plane's
+        FR.dvs_rows8_resident(st, c8, 4, p, pb=pb + 1)
+    with pytest.raises(ValueError):
+        FR.dvs_rows8_resident(st, c8[:, :FR.DICT_CAP - 1].contiguous(), 4,
+                              p, pb=pb)
+    with pytest.raises(ValueError):
+        FR.dvs_rows8_resident(st, c8, 4, p, pb=pb, event_cap=-1)
+    with pytest.raises(ValueError):
+        FR.dvs_rows8_resident(st, c8, 4, p._replace(mode=0), pb=pb)
+
+
 def test_dvs_rows_wrapper_rejects_bad_input(cuda):
     p = testing._dvs_params(1)
     st = FR.ops.init_state(35, cuda, depth=FR.DVS_DEPTH)
@@ -269,13 +302,74 @@ def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
 
     FR.reset_launch_counts()
     on_card = run(cuda)
-    # every chunk by rows: the lane groups through the glue, the bootstrap
-    # and the flush as raster chunks (COUNT + WRITE each)
-    assert FR.LAUNCHES["adder_dvs_rows"] >= 6
+    # every chunk by rows: the lane groups on the 8-byte carrier through
+    # the glue, the bootstrap and the flush as 20-byte raster chunks (COUNT
+    # + WRITE each)
+    assert FR.LAUNCHES["adder_dvs_rows8"] >= 2
+    assert FR.LAUNCHES["adder_dvs_rows"] == 4
     assert FR.LAUNCHES["adder_rows_group"] > 0
     assert "adder_dvs_chunk" not in FR.LAUNCHES
     assert on_card == run("cpu")
     assert len(on_card) > 1000
+
+
+def test_prophesee_lane_groups_never_wait_for_the_card(cuda, tmp_path):
+    """Inside a window's lane groups (the pipeline's stage, step and flush)
+    nothing waits for the card on the calling thread
+    (torch.cuda.set_sync_debug_mode "error"); the fetch worker's waits are
+    on events. The bytes equal the synchronous 20-byte route's."""
+    from adder_tpu_torch.ops import native_dvs_plan as NP
+    from adder_tpu_torch.transcoder import lanes
+
+    t, x, y, p = testing.dvs_stream(3, 64, 48, 60_000, n_hot=4,
+                                    hot_events=150, band_events=4000,
+                                    background_events=2000)
+    path = str(tmp_path / "s.raw")
+    testing.write_prophesee_raw(path, 64, 48, t, x, y, p)
+
+    def strict(orig):
+        def f(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return f
+
+    def run():
+        src = at.Prophesee(20, path, view_fps=10, device=cuda)
+        src.crf(3)
+        buf = io.BytesIO()
+        src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                      at.EncoderOptions.default(src.plane), buf)
+        while True:
+            try:
+                src.consume()
+            except EOFError:
+                break
+        src.end_write_stream()
+        return buf.getvalue()
+
+    P = lanes.LanePipeline
+    saved = {k: getattr(P, k) for k in ("stage", "step", "flush")}
+    try:
+        for k, f in saved.items():
+            setattr(P, k, strict(f))
+        pipelined = run()
+    finally:
+        for k, f in saved.items():
+            setattr(P, k, f)
+    saved = (NP.plan_dvs_pack8_native, FR.pack_dvs_plan8, P.max_staged,
+             P.max_in_flight)
+    try:
+        NP.plan_dvs_pack8_native = FR.pack_dvs_plan8 = lambda *a, **k: None
+        P.max_staged = P.max_in_flight = 0
+        synchronous = run()
+    finally:
+        (NP.plan_dvs_pack8_native, FR.pack_dvs_plan8, P.max_staged,
+         P.max_in_flight) = saved
+    assert pipelined == synchronous and len(pipelined) > 1000
 
 
 def test_davis_kernel_matches_plain(cuda):
@@ -492,8 +586,9 @@ def _tool_bytes(name, argv, out, device):
 
 
 def test_prophesee_to_adder_tool_cuda_bytes_equal_cpu(cuda, tmp_path):
-    """The Prophesee CLI with its defaults on the card (K3 and its row glue)
-    and on the CPU: the same bytes."""
+    """The Prophesee CLI with its defaults on the card (K3 on the 8-byte
+    carrier for the lane groups, on 20 bytes for the bootstrap and the
+    flush, and its row glue) and on the CPU: the same bytes."""
     path = str(tmp_path / "s.raw")
     testing.write_prophesee_raw(path, 64, 48, *testing.dvs_stream(
         3, 64, 48, 40_000, n_hot=4, hot_events=90, band_events=3000,
@@ -502,7 +597,8 @@ def test_prophesee_to_adder_tool_cuda_bytes_equal_cpu(cuda, tmp_path):
     FR.reset_launch_counts()
     on_card = _tool_bytes("prophesee_to_adder", ["-i", path, "-o", out],
                           out, "cuda")
-    assert FR.LAUNCHES["adder_dvs_rows"] >= 6
+    assert FR.LAUNCHES["adder_dvs_rows8"] >= 2
+    assert FR.LAUNCHES["adder_dvs_rows"] == 4
     assert FR.LAUNCHES["adder_rows_group"] > 0
     assert on_card == _tool_bytes("prophesee_to_adder",
                                   ["-i", path, "-o", out], out, "cpu")

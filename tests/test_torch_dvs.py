@@ -398,7 +398,7 @@ def test_segmented_window_per_pixel_streams_match_jax_scan(
     port = TP.Prophesee(20, path, view_fps=1, device="cpu")
     groups = []
     orig = port._run_group
-    port._run_group = lambda g, L, pr: groups.append(L) or orig(g, L, pr)
+    port._run_group = lambda c, L, *a: groups.append(L) or orig(c, L, *a)
     got = open_file_decoder_bytes(_transcode(port))
     want = open_file_decoder_bytes(_transcode(
         JP.Prophesee(20, path, batched=True, view_fps=1, engine="scan")))

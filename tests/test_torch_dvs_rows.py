@@ -273,15 +273,23 @@ def test_row_walk_over_the_groups_equals_the_plain_chunk(case):
 
 
 def _spy_rows(monkeypatch):
-    """Record (T, E, whether a grouping was given) of each call."""
+    """Record (T, E, whether a grouping was given) of each call of either
+    DVS row wrapper (the 20-byte carrier's and the 8-byte one's, whose E
+    leaves out the dictionary's columns)."""
     calls = []
-    orig = FR.dvs_rows_resident
 
-    def spy(state, carrier, T, p, events=True, groups=None):
-        calls.append((T, carrier.shape[1], groups is not None))
-        return orig(state, carrier, T, p, events=events, groups=groups)
+    def spy(orig, rows):
+        def f(state, carrier, T, p, events=True, groups=None, **kw):
+            calls.append((T, rows(carrier), groups is not None))
+            return orig(state, carrier, T, p, events=events, groups=groups,
+                        **kw)
+        return f
 
-    monkeypatch.setattr(FR, "dvs_rows_resident", spy)
+    monkeypatch.setattr(FR, "dvs_rows_resident",
+                        spy(FR.dvs_rows_resident, lambda c: c.shape[1]))
+    monkeypatch.setattr(FR, "dvs_rows8_resident",
+                        spy(FR.dvs_rows8_resident,
+                            lambda c: c.shape[1] - FR.DICT_CAP))
     return calls
 
 

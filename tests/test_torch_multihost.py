@@ -50,6 +50,62 @@ def test_init_multihost_single_process_noop(monkeypatch):
     assert mh.init_multihost() is False
 
 
+@pytest.mark.parametrize("local_rank", [0, 1])
+def test_nccl_rank_takes_its_local_card(monkeypatch, local_rank):
+    """An NCCL job (two processes on a host of two cards, torch.cuda and
+    init_process_group faked): the process sets its device to
+    cuda:LOCAL_RANK before the group starts, and make_mesh() without
+    devices gives that card alone; outside the job, every card."""
+    import torch.distributed as dist
+
+    cur = {"dev": 0}
+    group = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: cur["dev"])
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: cur.update(dev=int(d)))
+
+    def init_process_group(backend, **kw):
+        group.update(kw, backend=backend, device_then=cur["dev"])
+
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    monkeypatch.setattr(dist, "is_initialized", lambda: bool(group))
+    monkeypatch.setattr(dist, "get_backend", lambda *a: group["backend"])
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", str(local_rank)),
+                 ("LOCAL_RANK", str(local_rank)), ("LOCAL_WORLD_SIZE", "2")):
+        monkeypatch.setenv(k, v)
+    assert sh.make_mesh() == [torch.device("cuda", 0),
+                              torch.device("cuda", 1)]
+    assert mh.init_multihost("tcp://localhost:1") is True
+    assert group["backend"] == "nccl" and group["rank"] == local_rank
+    assert group["device_then"] == local_rank == cur["dev"]
+    assert sh.make_mesh() == [torch.device("cuda", local_rank)]
+    assert sh.make_mesh(["cuda:0"] * 2) == [torch.device("cuda", 0)] * 2
+
+
+def test_gloo_job_keeps_the_device_and_every_card(monkeypatch):
+    """Processes that share a card (more processes than cards) start gloo:
+    no device is set, and make_mesh() keeps every visible card."""
+    import torch.distributed as dist
+
+    calls, group = [], {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", calls.append)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: group.update(backend=backend))
+    monkeypatch.setattr(dist, "is_initialized", lambda: bool(group))
+    monkeypatch.setattr(dist, "get_backend", lambda *a: group["backend"])
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert mh.init_multihost("tcp://localhost:1") is True
+    assert group["backend"] == "gloo" and calls == []
+    assert sh.make_mesh() == [torch.device("cuda", 0)]
+
+
 def test_host_pixel_slice_and_rows_equal_jax():
     assert mh.host_pixel_slice(48, 0, 2) == (0, 24)
     assert mh.host_pixel_slice(48, 1, 2) == (24, 48)

@@ -286,6 +286,22 @@ def test_native_sources_are_copies(rel):
     assert body == (REPO / jax_src).read_text()
 
 
+def test_pixel_oracle_is_a_copy():
+    """transcoder/pixel_oracle.py, the scalar oracle behind batched=False,
+    equals `adder_tpu/transcoder/pixel_oracle.py` but for the header line
+    that names it (its imports are relative, so it binds the port's own
+    core types)."""
+    jax_src = "adder_tpu/transcoder/pixel_oracle.py"
+    head, body = (PORT / "transcoder" / "pixel_oracle.py").read_text().split(
+        "\n", 1)
+    assert jax_src in head
+    assert body == (REPO / jax_src).read_text()
+    from adder_tpu_torch.core import types as port_types
+    from adder_tpu_torch.transcoder import pixel_oracle as O
+
+    assert O.Event is port_types.Event and O.Mode is port_types.Mode
+
+
 def test_scale_intensity_copy_equals_jax():
     """FramedViewMode, event_to_intensity, practical_d_max_for and
     get_frame_values in every view mode and output type, on seeded events

@@ -4,9 +4,10 @@ and `davis_to_adder --crf`, against `tools/prophesee_to_adder.py` and
 `.adder` bytes and the same printed line from the same seeded input. The
 Prophesee stream is the 14 x 10 stream of tests/test_torch_dvs.py, with no
 window segmented, so the JAX tool's default engine on the CPU, the scan
-engine, is the yardstick. The flags the port refuses or keeps:
-`--no-batched` exits 2 with its message, `--batched` is accepted, and the
-default `--torch-device cuda` raises without CUDA, for both transcoders.
+engine, is the yardstick. The flags the port keeps: `--no-batched` runs
+the scalar oracle and writes the JAX tool's `--no-batched` bytes,
+`--batched` is accepted, and the default `--torch-device cuda` raises
+without CUDA, for both transcoders.
 The DAVIS tool's other settings are held in tests/test_torch_tools_davis.py."""
 
 import numpy as np
@@ -55,19 +56,23 @@ def test_prophesee_to_adder_writes_jax_bytes(stream_path, tmp_path,
 @pytest.mark.parametrize("tool,argv", [
     ("prophesee_to_adder", ["-i", "in.raw", "-o", "out.adder"]),
     ("davis_to_adder", ["-i", "in.aedat4", "--output-events-filename",
-                        "out.adder"]),
+                        "out.adder", "-t", "raw-davis"]),
 ])
-def test_transcoders_refuse_no_batched(tool, argv, tmp_path, monkeypatch,
-                                       capsys):
-    """`--no-batched` (the JAX package's scalar oracle) exits 2 through
-    argparse with a message naming it, before any file is read."""
-    with pytest.raises(SystemExit) as e:
-        run_port_tool(tool, [*argv, "--no-batched"], tmp_path, monkeypatch,
-                      capsys)
-    assert e.value.code == 2
-    assert "--no-batched selects the scalar per-event oracle" in \
-        capsys.readouterr().err
-    assert not (tmp_path / "out.adder").exists()
+def test_transcoders_refuse_no_batched(tool, argv, stream_path,
+                                       aedat4_path,  # noqa: F811
+                                       tmp_path, monkeypatch, capsys):
+    """`--no-batched` runs the scalar per-event oracle in both tools, as in
+    the JAX tools: the same `.adder` bytes and printed line as the JAX
+    tool's `--no-batched` (the DAVIS tool with frames and events)."""
+    inputs = {"in.raw": stream_path, "in.aedat4": aedat4_path}
+    argv = [inputs.get(a, a) for a in argv] + ["--no-batched"]
+    (jrc, jout, jdir), (rc, out, pdir) = both(tool, argv, tmp_path,
+                                              monkeypatch, capsys)
+    assert rc == jrc == 0
+    assert out == jout and out.startswith("transcoded ")
+    want = (jdir / "out.adder").read_bytes()
+    assert len(want) > 1000
+    assert (pdir / "out.adder").read_bytes() == want
 
 
 @pytest.mark.parametrize("tool", ["prophesee_to_adder", "davis_to_adder"])

@@ -59,8 +59,6 @@ constexpr int D_EMPTY = 255;
 constexpr float F32_EPS = 1.1920929e-07f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// The row walk's passes (K3, K4); the framed chunk kernel runs one pass
-enum { PASS_COUNT = 0, PASS_WRITE = 1, PASS_VOID = 2 };
 // What a carrier row holds (AdderRowsArgs.src): a DVS lane's gap and tick
 // (pack_dvs_plan's 20 bytes, or pack_dvs_plan8's 8 bytes and dictionary) or
 // one DAVIS event (pack_davis_plan)
@@ -149,6 +147,23 @@ struct Pixel {
   bool need_pop, dtm_reached, popped_dtm;
 };
 
+// An optimisation barrier on a value read from the arena: it emits nothing,
+// but the compiler can no longer see the value as a load. The row walk
+// reads the tail node (the node at length - 1) through it: found by
+// comparing each constant index with the length, the tail's loads would
+// otherwise be merged into one load at the index length - 1, and that one
+// dynamic index keeps the whole arena in local memory, every write to it
+// stored through.
+__device__ __forceinline__ float opaque(float v) {
+  asm volatile("" : "+f"(v));
+  return v;
+}
+
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 // --- f32 exponent-bit helpers (integrate.py:219-235) -------------------------
 
 __device__ __forceinline__ int d_from_intensity(float x) {
@@ -230,7 +245,7 @@ __device__ __forceinline__ void pop_top(Pixel<D>& s, float next_i,
 
 // --- pop_best_events (integrate.py:346-420); called where the contrast
 // threshold is crossed. Fills slots OFF..OFF+D-1 of sd/st and their bits in
-// m (OFF is 1 in the framed slot order, 2 in the DAVIS one). ----------------
+// m (OFF is 1 in run_interval's slot order). --------------------------------
 
 template <int D, bool FP, bool ABS, bool COLLAPSE, int OFF>
 __device__ __forceinline__ void pop_best(Pixel<D>& s, float intensity,
@@ -323,9 +338,13 @@ __device__ __forceinline__ bool set_d_for_continuous(Pixel<D>& s,
 // (the arena outgrew DEPTH). With SKIP the walk branches over the nodes past
 // its end instead of running them predicated off: the same function (a
 // node past the end changes nothing), cheaper where the threads of a warp
-// do not walk in step anyway (the row walk). ----------------------------------
+// do not walk in step anyway (the row walk). LEN (the row walk only) also
+// ends the tail's two searches at the arena's length, reads the tail
+// through `opaque` and leaves the walk at its first inactive node, where
+// the default runs them to the depth: the same function, since no node
+// past the length is read or written there. -----------------------------
 
-template <int D, bool FP, bool COLLAPSE, bool SKIP = false>
+template <int D, bool FP, bool COLLAPSE, bool SKIP = false, bool LEN = false>
 __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
                                           float time, int c_inc,
                                           const Params& P) {
@@ -333,7 +352,11 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
   float tail_integ = 0.0f, tail_dt = 0.0f;
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    if (s.length - 1 == k) {
+    if constexpr (LEN) {  // the last node below the length is the tail
+      if (k >= s.length) break;
+      tail_integ = opaque(s.ni[k]);
+      tail_dt = opaque(s.ndt[k]);
+    } else if (s.length - 1 == k) {
       tail_integ = s.ni[k];
       tail_dt = s.ndt[k];
     }
@@ -342,7 +365,12 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
   const int d_aim = d_from_intensity(intensity);
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    if (s.length - 1 == k && tail_virgin) s.nd[k] = d_aim;
+    if constexpr (LEN) {
+      if (k >= s.length) break;
+      s.nd[k] = k + 1 == s.length && tail_virgin ? d_aim : s.nd[k];
+    } else if (s.length - 1 == k && tail_virgin) {
+      s.nd[k] = d_aim;
+    }
   }
 
   s.running_t = __fadd_rn(s.running_t, time);
@@ -358,7 +386,10 @@ __device__ __forceinline__ bool integrate(Pixel<D>& s, float intensity,
 
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    if (SKIP && !active) continue;
+    if (SKIP && !active) {
+      if (LEN) break;
+      continue;
+    }
     const int d = s.nd[k];
     const float integ = s.ni[k], dt = s.ndt[k];
     const float total = __fadd_rn(integ, i_cur);
@@ -489,42 +520,137 @@ __device__ __forceinline__ unsigned run_interval(
   return m;
 }
 
-// --- one DAVIS DVS event for one pixel (dvs_batch.py::davis_event_interval,
-// :520-572; ref davis.rs:235-465). Continuous mode. The op order differs
-// from run_interval: pop_top, integrate the held intensity first_int over
-// the gap dt_ticks, pop_top, then the contrast stage against the
-// post-ln-step frame value (fv8 for the threshold test, fval for pop_best
-// and set_d). Slot k of the pixel's chronological order is bit k of the
-// returned mask: 0 pre-integration pop_top, 1 post-integration pop_top,
-// 2..D+1 pop_best, D+2 set_d filler. Its one caller is the row walk, whose
-// threads do not walk in step: integrate skips the nodes past its end. ----
+// --- the row walk's sub-steps, events streamed (K3, K4: the lane kernels by
+// rows, Continuous, AbsoluteT). run_interval_rows is run_interval's
+// function, but each event leaves as it is produced, through
+// `out.put(d, t)`, in the reference's slot order, and nothing is kept in
+// slot arrays: the order of the calls below is the slot order. ------------
 
-template <int D, bool COLLAPSE, bool ABS>
-__device__ __forceinline__ unsigned run_davis_event(
-    Pixel<D>& s, float first_int, float dt_ticks, float fval, int fv8,
-    int c_inc, const Params& P, int (&sd)[D + 3], unsigned (&st)[D + 3],
-    bool& ovf) {
-  unsigned m = 0;
-  if (s.need_pop) {
-    pop_top<D, false, ABS>(s, first_int, P, sd[0], st[0]);
-    m |= 1u;
+// Where the row walk puts a cell's events: with STORE its staging slots
+// (pix << 8 | d in the low word, t in the high one), in the order they come;
+// without, their count alone (the void walk).
+template <bool STORE>
+struct CellEvents {
+  unsigned long long* at;  // STORE: the cell's first staging slot
+  unsigned pbase;          // pix << 8
+  int n;                   // events so far
+  __device__ __forceinline__ void put(int d, unsigned t) {
+    if (STORE) {
+      at[n] = (unsigned long long)(pbase | ((unsigned)d & 0xFFu)) |
+              ((unsigned long long)t << 32);
+    }
+    ++n;
   }
-  ovf = integrate<D, false, COLLAPSE, true>(s, first_int, dt_ticks, c_inc, P);
-  if (s.need_pop) {
-    pop_top<D, false, ABS>(s, first_int, P, sd[1], st[1]);
-    m |= 2u;
+};
+
+// pop_best (ABS, Continuous) that follows the arena's length: a node past
+// it emits nothing and is not the tail, so the walk stops there. Collapse is
+// decided before the first event leaves: where popped_dtm holds, only the
+// first emitting node's event is put, then (if there was one) the D_EMPTY
+// filler at running_t, as pop_best's rewrite keeps slots OFF and OFF + 1;
+// last_fired_t after that first event is overwritten by running_t there,
+// so the later nodes need not chain it.
+template <int D, bool COLLAPSE, class Out>
+__device__ __forceinline__ void pop_best_rows(Pixel<D>& s, float intensity,
+                                              const Params& P, Out& out) {
+  const bool col = COLLAPSE && s.popped_dtm;
+  bool any_emit = false, tail_zeroed = false;
+  int tail_d = 0;
+  float tail_integ = 0.0f, tail_dt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (k >= s.length) break;
+    const bool has_best = s.bd[k] >= 0;
+    const bool zero_ev = !has_best && s.ndt[k] > 0.0f && s.ni[k] == 0.0f;
+    const bool emit = has_best || zero_ev;
+    if (emit && !(col && any_emit)) {
+      float new_lft;
+      const unsigned t = emit_abs<false, true>(
+          s.lft, has_best ? s.bdt[k] : s.ndt[k], P.ref_u, new_lft);
+      out.put(has_best ? s.bd[k] : D_ZERO, t);
+      s.lft = new_lft;
+    }
+    any_emit = any_emit || emit;
+    // the last node below the length is the tail
+    tail_d = opaque(s.nd[k]);
+    tail_integ = opaque(s.ni[k]);
+    tail_dt = opaque(s.ndt[k]);
+    tail_zeroed = emit && zero_ev;
   }
-  // base_val and c_thresh as integrate left them (the adaptive update)
+  const bool collapse = col && any_emit;
+  if (collapse) {
+    out.put(D_EMPTY, as_u32(s.running_t));
+    s.lft = s.running_t;
+  }
+  // arena reset: normal -> arena[0] = tail node; collapse -> fresh node
+  if (tail_zeroed) tail_dt = 0.0f;
+  s.nd[0] = collapse ? d_from_intensity(intensity) : tail_d;
+  s.ni[0] = collapse ? 0.0f : tail_integ;
+  s.ndt[0] = collapse ? 0.0f : tail_dt;
+  s.bd[0] = -1;
+  s.length = 1;
+  s.need_pop = false;
+  s.dtm_reached = false;
+  s.popped_dtm = false;
+}
+
+template <int D, class Out>
+__device__ __forceinline__ void pop_top_rows(Pixel<D>& s, float next_i,
+                                             const Params& P, Out& out) {
+  int d;
+  unsigned t;
+  pop_top<D, false, true>(s, next_i, P, d, t);
+  out.put(d, t);
+}
+
+// run_interval's slot order: the pre-integration pop_top, pop_best, the
+// set_d filler, the post-integration pop_top. Returns the depth flag.
+template <int D, bool COLLAPSE, class Out>
+__device__ __forceinline__ bool run_interval_rows(Pixel<D>& s,
+                                                  float intensity, int fv,
+                                                  float time, int c_inc,
+                                                  const Params& P, Out& out) {
+  if (s.need_pop) pop_top_rows(s, intensity, P, out);
+  const int bv = s.base_val, c = s.c_thresh;
+  if (fv < max(bv - c, 0) || fv > min(bv + c, 255)) {
+    pop_best_rows<D, COLLAPSE>(s, intensity, P, out);
+    s.base_val = fv;
+    unsigned t;
+    if (set_d_for_continuous<D, true>(s, intensity, P, t)) out.put(D_EMPTY, t);
+  }
+  const bool ovf =
+      integrate<D, false, COLLAPSE, true, true>(s, intensity, time, c_inc, P);
+  if (s.need_pop) pop_top_rows(s, intensity, P, out);
+  return ovf;
+}
+
+// One DAVIS DVS event for one pixel (dvs_batch.py::davis_event_interval,
+// :520-572; ref davis.rs:235-465). Continuous mode. The op order differs
+// from run_interval_rows: pop_top, integrate the held intensity first_int
+// over the gap dt_ticks, pop_top, then the contrast stage against the
+// post-ln-step frame value (fv8 for the threshold test, fval for pop_best
+// and set_d), with base_val and c_thresh as integrate left them (the
+// adaptive update). The slot order is that chronological order: 0 the
+// pre-integration pop_top, 1 the post-integration pop_top, 2..D+1
+// pop_best, D+2 the set_d filler. Returns the depth flag.
+template <int D, bool COLLAPSE, class Out>
+__device__ __forceinline__ bool run_davis_rows(Pixel<D>& s, float first_int,
+                                               float dt_ticks, float fval,
+                                               int fv8, int c_inc,
+                                               const Params& P, Out& out) {
+  if (s.need_pop) pop_top_rows(s, first_int, P, out);
+  const bool ovf =
+      integrate<D, false, COLLAPSE, true, true>(s, first_int, dt_ticks, c_inc,
+                                                P);
+  if (s.need_pop) pop_top_rows(s, first_int, P, out);
   const int bv = s.base_val, c = s.c_thresh;
   if (fv8 < max(bv - c, 0) || fv8 > min(bv + c, 255)) {
-    pop_best<D, false, ABS, COLLAPSE, 2>(s, fval, P, sd, st, m);
+    pop_best_rows<D, COLLAPSE>(s, fval, P, out);
     s.base_val = fv8;
-    if (set_d_for_continuous<D, ABS>(s, fval, P, st[D + 2])) {
-      sd[D + 2] = D_EMPTY;
-      m |= 1u << (D + 2);
-    }
+    unsigned t;
+    if (set_d_for_continuous<D, true>(s, fval, P, t)) out.put(D_EMPTY, t);
   }
-  return m;
+  return ovf;
 }
 
 // --- the display intensity (integrate.py:681-707) of a pixel whose root
@@ -913,10 +1039,10 @@ void launch_chunk(const KArgs& k, bool events, cudaStream_t st) {
 
 }  // namespace
 
-// --- the row-walk lane kernels (dvs_resident.cu: adder_dvs_rows, K3;
-// davis_resident.cu: adder_davis_rows, K4): a lane group given as its
-// carrier rows, not as dense (T, n) planes. One thread per pixel that has
-// rows; it walks that pixel's rows in lane order. --------------------------
+// --- the row-walk lane kernels (dvs_resident.cu: adder_dvs_rows and
+// adder_dvs_rows8, K3; davis_resident.cu: adder_davis_rows, K4): a lane group
+// given as its carrier rows, not as dense (T, n) planes. One thread per
+// pixel that has rows; it walks that pixel's rows in lane order, once. ----
 
 extern "C" {
 
@@ -924,7 +1050,7 @@ extern "C" {
 // array is i64 on the device, as torch's sort, cumsum and searchsorted
 // leave it.
 struct AdderRowsArgs {
-  int pass;        // PASS_COUNT, PASS_WRITE, PASS_VOID
+  int events;      // 1: stage each cell's events; 0: counts only (void)
   int multi_mode;  // PixelMultiMode: 0 Normal, 1 Collapse
   int depth;       // 16
   int src;         // SRC_DVS (adder_dvs_rows), SRC_DAVIS (adder_davis_rows)
@@ -935,7 +1061,7 @@ struct AdderRowsArgs {
   int delta_t_max;
   int c_thresh_max;
   int vel_m1;
-  void* state[14];        // read and, on WRITE and VOID, written in place
+  void* state[14];        // read and written in place
   const void* carrier;    // (5, E) i32, pack_dvs_plan's or pack_davis_plan's;
                           // SRC_DVS8: (2, E + 64) i32, pack_dvs_plan8's
   const void* order;      // (E,) rows sorted by (pixel, lane)
@@ -945,14 +1071,11 @@ struct AdderRowsArgs {
   const void* cell_gap;   // (E,) each row's (first) cell in (sub-step,
                           // pixel) order
   const void* cell_tick;  // (E,) DVS: each row's tick cell; DAVIS: unread
-  void* cell_counts;      // (C,) i32 events per cell: COUNT, VOID; C = 2 E
-                          // for DVS (two sub-steps a row), E for DAVIS
-  const void* offsets;    // (C + 1,) i64 exclusive offsets: WRITE
-  void* out_pixd;
-  void* out_t;
+  void* cell_counts;      // (C,) i32 events per cell; C = 2 E for DVS (two
+                          // sub-steps a row), E for DAVIS
+  void* stage;            // events: (C x (depth + 3),) u64, cell c's events
+                          // in its slots [c (depth + 3), ...)
   void* flags;            // [max per-cell count, depth overflow]
-  long long cap;          // WRITE: entries of out_pixd / out_t; an event
-                          // past it is not written
   int pb;                 // SRC_DVS8: the bits of the pixel field
 };
 
@@ -974,11 +1097,8 @@ struct RArgs {
   long long n, rows;
   Params P;
   int* cell_counts;
-  const long long* offsets;
-  unsigned* out_pixd;
-  unsigned* out_t;
+  unsigned long long* stage;
   int* flags;
-  long long cap;
   int pb;
 };
 
@@ -1008,27 +1128,54 @@ inline RArgs make_rargs(const AdderRowsArgs* a) {
   r.n = a->n;
   r.rows = a->rows;
   r.cell_counts = (int*)a->cell_counts;
-  r.offsets = (const long long*)a->offsets;
-  r.out_pixd = (unsigned*)a->out_pixd;
-  r.out_t = (unsigned*)a->out_t;
+  r.stage = (unsigned long long*)a->stage;
   r.flags = (int*)a->flags;
-  r.cap = a->cap;
   r.pb = a->pb;
   return r;
 }
 
+// What the walk reads of one carrier row: row 0 (meta), row 1 (fvs), rows
+// 2-4 (the 20-byte carriers' f32 bits) and the row's cells.
+struct RowWords {
+  int meta, fvs, w2, w3, w4;
+  long long gap, tick;
+};
+
+template <int SRC>
+__device__ __forceinline__ RowWords load_row(const RArgs& a, long long stride,
+                                             long long row) {
+  RowWords w;
+  w.meta = a.carrier[row];
+  w.fvs = a.carrier[stride + row];
+  if (SRC != SRC_DVS8) {
+    w.w2 = a.carrier[2 * stride + row];
+    w.w3 = a.carrier[3 * stride + row];
+    w.w4 = a.carrier[4 * stride + row];
+  } else {
+    w.w2 = w.w3 = w.w4 = 0;
+  }
+  w.gap = a.cell_gap[row];
+  w.tick = SRC == SRC_DAVIS ? 0 : a.cell_tick[row];
+  return w;
+}
+
 // One thread per pixel that has rows: gather its state, walk its rows in
-// lane order, scatter its state back. No loop over T and no barrier: a
-// thread's events of one cell go to that cell's own offset. SRC picks what
-// a row holds. SRC_DVS, the carrier of pack_dvs_plan: two sub-steps of
-// run_interval (the gap, then the tick; a half that is off counts 0
-// events). SRC_DVS8, the carrier of pack_dvs_plan8: the same two sub-steps,
-// each row's two u32 words decoded as unpack_dvs_carrier8 does, with the
-// carrier's 64-entry (value, fv) dictionary staged once per block in shared
-// memory. SRC_DAVIS, the carrier of pack_davis_plan: one sub-step of
-// run_davis_event (an inactive row counts 0 events and leaves the state
+// lane order once, scatter its state back. No loop over T and no barrier:
+// each sub-step writes its cell's event count at the cell's rank and, with
+// EVENTS, the cell's events as they are produced into the cell's own
+// staging slots (D + 3 a cell, the most one sub-step emits), in slot order;
+// the exclusive scan of the counts and adder_rows_copy then put them in
+// (sub-step, raster pixel, slot) order. While a row's sub-steps run, the
+// next row's words and the index of the one after are on their way. SRC
+// picks what a row holds. SRC_DVS, the carrier of pack_dvs_plan: two
+// sub-steps of run_interval_rows (the gap, then the tick; a half that is off
+// counts 0 events). SRC_DVS8, the carrier of pack_dvs_plan8: the same two
+// sub-steps, each row's two u32 words decoded as unpack_dvs_carrier8 does,
+// with the carrier's 64-entry (value, fv) dictionary staged once per block
+// in shared memory. SRC_DAVIS, the carrier of pack_davis_plan: one sub-step
+// of run_davis_rows (an inactive row counts 0 events and leaves the state
 // alone, as the reference's compute-then-restore does).
-template <int D, bool COLLAPSE, int PASS, int SRC>
+template <int D, bool COLLAPSE, bool EVENTS, int SRC>
 __global__ void __launch_bounds__(kRowsBlock)
     adder_lane_rows_kernel(const RArgs a) {
   static_assert(SRC == SRC_DVS || SRC == SRC_DAVIS || SRC == SRC_DVS8,
@@ -1048,7 +1195,7 @@ __global__ void __launch_bounds__(kRowsBlock)
       dict_val[threadIdx.x] = __int_as_float(a.carrier[a.rows + threadIdx.x]);
       dict_fv[threadIdx.x] = a.carrier[stride + a.rows + threadIdx.x];
     }
-    __syncthreads();
+    __syncthreads();  // before any thread leaves
   }
   int maxcnt = 0;
   bool ovf_any = false;
@@ -1060,39 +1207,39 @@ __global__ void __launch_bounds__(kRowsBlock)
     // SRC_DVS8: word 0: pix[0:pb] | lane << pb | gap_on << pb + 6 |
     // tick_on << pb + 7 | gap_n_hi << pb + 8; word 1: gap_n_lo[0:20] |
     // gap_idx << 20 | tick_idx << 26
-    const int* meta_row = a.carrier;
-    const int* fv_row = a.carrier + stride;
-    const int* r2 = a.carrier + 2 * stride;
-    const int* r3 = a.carrier + 3 * stride;
-    const int* r4 = a.carrier + 4 * stride;
+    RowWords cur = load_row<SRC>(a, stride, a.order[r0]);
+    long long next = r0 + 1 < r1 ? a.order[r0 + 1] : 0;
     const unsigned pmask =
         SRC == SRC_DVS8 ? (1u << a.pb) - 1u : 0xFFFFFu;
-    const long long pix = (unsigned)meta_row[a.order[r0]] & pmask;
+    const long long pix = (unsigned)cur.meta & pmask;
     const unsigned pbase = (unsigned)pix << 8;
     Pixel<D> s;
     load_state(s, a.in, pix, a.n);
     for (long long i = r0; i < r1; ++i) {
-      const long long row = a.order[i];
-      const int meta = meta_row[row], fvs = fv_row[row];
+      RowWords nxt = cur;
+      long long after = 0;
+      if (i + 1 < r1) {
+        nxt = load_row<SRC>(a, stride, next);
+        if (i + 2 < r1) after = a.order[i + 2];
+      }
+      const int meta = cur.meta, fvs = cur.fvs;
 #pragma unroll 1
       for (int h = 0; h < SUBSTEPS; ++h) {  // DVS: the gap, then the tick
         const bool on = SRC == SRC_DVS8
                             ? ((unsigned)meta >> (a.pb + 6 + h)) & 1u
                             : (meta >> (27 + h)) & 1;
-        const long long cell = h ? a.cell_tick[row] : a.cell_gap[row];
-        int cnt = 0;
+        const long long cell = h ? cur.tick : cur.gap;
+        CellEvents<EVENTS> out{EVENTS ? a.stage + cell * K : nullptr, pbase,
+                               0};
         if (on) {
-          int sd[K];
-          unsigned st[K];
-          bool ovf = false;
-          unsigned m;
+          bool ovf;
           if constexpr (SRC == SRC_DVS || SRC == SRC_DVS8) {
             float inten, tspan;
             int fv;
             if constexpr (SRC == SRC_DVS) {
-              inten = __int_as_float(h ? r4[row] : r2[row]);
+              inten = __int_as_float(h ? cur.w4 : cur.w2);
               // a tick spans one source tick, f32(ref_time)
-              tspan = h ? a.P.ref_f : __int_as_float(r3[row]);
+              tspan = h ? a.P.ref_f : __int_as_float(cur.w3);
               fv = (fvs >> (8 * h)) & 0xFF;
             } else if (h) {  // the tick: its value and fv by index
               const int ti = ((unsigned)fvs >> 26) & 63u;
@@ -1114,36 +1261,24 @@ __global__ void __launch_bounds__(kRowsBlock)
             // (u32(time) // ref_time) % 256 per sub-step
             // (integrate.py:606-609)
             const int c_inc = (int)((as_u32(tspan) / a.P.ref_u) % 256u);
-            m = run_interval<D, false, COLLAPSE, true, true>(
-                s, inten, fv, tspan, c_inc, a.P, sd, st, ovf);
+            ovf = run_interval_rows<D, COLLAPSE>(s, inten, fv, tspan, c_inc,
+                                                 a.P, out);
           } else {
-            const float dt_ticks = __int_as_float(r3[row]);
+            const float dt_ticks = __int_as_float(cur.w3);
             const int c_inc = (int)((as_u32(dt_ticks) / a.P.ref_u) % 256u);
-            m = run_davis_event<D, COLLAPSE, true>(
-                s, __int_as_float(r2[row]), dt_ticks, __int_as_float(r4[row]),
-                fvs & 0xFF, c_inc, a.P, sd, st, ovf);
+            ovf = run_davis_rows<D, COLLAPSE>(
+                s, __int_as_float(cur.w2), dt_ticks, __int_as_float(cur.w4),
+                fvs & 0xFF, c_inc, a.P, out);
           }
           ovf_any = ovf_any || ovf;
-          cnt = __popc(m);
-          if (PASS == PASS_WRITE && cnt) {
-            long long off = a.offsets[cell];
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-              if ((m >> k) & 1u) {
-                if (off < a.cap) {
-                  a.out_pixd[off] = pbase | ((unsigned)sd[k] & 0xFFu);
-                  a.out_t[off] = st[k];
-                }
-                ++off;
-              }
-            }
-          }
         }
-        maxcnt = max(maxcnt, cnt);
-        if (PASS != PASS_WRITE) a.cell_counts[cell] = cnt;
+        maxcnt = max(maxcnt, out.n);
+        a.cell_counts[cell] = out.n;
       }
+      cur = nxt;
+      next = after;
     }
-    if (PASS != PASS_COUNT) store_state(s, a.out, pix, a.n);
+    store_state(s, a.out, pix, a.n);
   }
   const int wmax = __reduce_max_sync(kFull, maxcnt);
   const unsigned wovf = __reduce_or_sync(kFull, ovf_any ? 1u : 0u);
@@ -1154,36 +1289,32 @@ __global__ void __launch_bounds__(kRowsBlock)
 }
 
 template <bool CO, int SRC>
-void launch_rows_pass(const RArgs& r, int pass, cudaStream_t st) {
+void launch_rows_walk(const RArgs& r, bool events, cudaStream_t st) {
   const int grid = (int)((r.rows + kRowsBlock - 1) / kRowsBlock);
-  if (pass == PASS_COUNT) {
-    adder_lane_rows_kernel<kLaneDepth, CO, PASS_COUNT, SRC>
-        <<<grid, kRowsBlock, 0, st>>>(r);
-  } else if (pass == PASS_WRITE) {
-    adder_lane_rows_kernel<kLaneDepth, CO, PASS_WRITE, SRC>
+  if (events) {
+    adder_lane_rows_kernel<kLaneDepth, CO, true, SRC>
         <<<grid, kRowsBlock, 0, st>>>(r);
   } else {
-    adder_lane_rows_kernel<kLaneDepth, CO, PASS_VOID, SRC>
+    adder_lane_rows_kernel<kLaneDepth, CO, false, SRC>
         <<<grid, kRowsBlock, 0, st>>>(r);
   }
 }
 
 // The checks and the launch of the row entry points adder_dvs_rows
 // (SRC_DVS), adder_dvs_rows8 (SRC_DVS8) and adder_davis_rows (SRC_DAVIS):
-// each instantiates the six kernels of its own carrier (Normal and Collapse
-// x COUNT, WRITE, VOID).
+// each instantiates the four kernels of its own carrier (Normal and
+// Collapse x events staged or not).
 template <int SRC>
 int launch_rows(const AdderRowsArgs* a, void* stream) {
-  if (a->pass < PASS_COUNT || a->pass > PASS_VOID || a->src != SRC ||
+  if ((a->events != 0 && a->events != 1) || a->src != SRC ||
       a->depth != kLaneDepth || a->n < 1 || a->n > (1LL << 20) ||
       a->rows < 1 || a->rows >= (1LL << 30) || a->ref_time < 1 ||
       a->carrier == nullptr || a->order == nullptr ||
       a->row_start == nullptr || a->n_active == nullptr ||
-      a->cell_gap == nullptr ||
+      a->cell_gap == nullptr || a->cell_counts == nullptr ||
+      a->flags == nullptr ||
       (SRC != SRC_DAVIS && a->cell_tick == nullptr) ||
-      (a->pass == PASS_WRITE &&
-       (a->cap < 0 || a->offsets == nullptr ||
-        (a->cap > 0 && (a->out_pixd == nullptr || a->out_t == nullptr)))) ||
+      (a->events && a->stage == nullptr) ||
       (SRC == SRC_DVS8 &&
        (a->pb < 1 || a->pb > 24 || (a->n - 1) >> a->pb != 0))) {
     return (int)cudaErrorInvalidValue;
@@ -1191,9 +1322,9 @@ int launch_rows(const AdderRowsArgs* a, void* stream) {
   const RArgs r = make_rargs(a);
   cudaStream_t st = (cudaStream_t)stream;
   if (a->multi_mode == 1) {
-    launch_rows_pass<true, SRC>(r, a->pass, st);
+    launch_rows_walk<true, SRC>(r, a->events, st);
   } else {
-    launch_rows_pass<false, SRC>(r, a->pass, st);
+    launch_rows_walk<false, SRC>(r, a->events, st);
   }
   return (int)cudaGetLastError();
 }

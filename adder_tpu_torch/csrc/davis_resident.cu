@@ -24,29 +24,31 @@
 // written once, 8 bytes per event: a few microseconds. The work is the
 // state machine: a few hundred dependent scalar operations per sub-step, run
 // serially along each pixel's rows, so the pixel with the most events in
-// the chunk sets the floor, twice on the fetched path.
+// the chunk sets the floor.
 //
 // Design. The DVS row walk of dvs_resident.cu (adder_lane_rows_kernel in
-// adder_interval.cuh, SRC_DAVIS), with the DAVIS step run_davis_event in
+// adder_interval.cuh, SRC_DAVIS), with the DAVIS step run_davis_rows in
 // place of run_interval, one sub-step per row:
 //   - the grouping glue is the DVS one with one sub-step per lane
 //     (fused_resident.group_dvs_rows(..., per_lane=1)): the rows of each
 //     pixel in lane order, and for each row its cell, its rank among the
 //     rows in (lane, raster pixel) order; so the events leave in
-//     (sub-step, raster pixel, slot) order through COUNT ->
-//     adder_exclusive_scan -> WRITE, VOID for the Empty sink, as before;
-//   - one thread per pixel that has rows walks that pixel's rows only; an
+//     (sub-step, raster pixel, slot) order through one walk that stages
+//     each cell's events in its own 19 slots, adder_exclusive_scan of the
+//     cell counts and adder_rows_copy (dvs_resident.cu); the void walk for
+//     the Empty sink stages nothing;
+//   - one thread per pixel that has rows walks that pixel's rows only, once;
+//     each event is written to its cell's slots as it is produced; an
 //     inactive row counts 0 events and leaves the state alone (the
 //     reference computes it and restores every field; the plain version's
 //     literal restore holds the skip to that);
 //   - the c_thresh increment (u32(dt_ticks) // ref_time) % 256 is per row;
 //     every f32 operation is an _rn intrinsic (--fmad=false as well);
-//   - integrate's node walk branches past the arena's end (SKIP), as in K3;
+//   - pop_best and integrate follow the arena's length, as in K3;
 //   - the state is updated in place, for the pixels that have rows only.
 // Only what the path runs is instantiated: depth 16 x Continuous x AbsoluteT
-// x {Normal, Collapse} x {COUNT, WRITE, VOID} = 6 kernels. The depth-16
-// arena and the 19 slot pairs of the WRITE pass press on the 255-register
-// limit; ptxas -v reports any spill.
+// x {Normal, Collapse} x {events staged, void} = 4 kernels; ptxas -v
+// reports their registers and any spill.
 
 #include "adder_interval.cuh"
 

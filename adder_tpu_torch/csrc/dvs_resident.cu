@@ -12,11 +12,12 @@
 // source tick of the new intensity). A chunk is T = 2 x lanes <= 128
 // sub-steps, in Continuous mode, AbsoluteT, at arena depth 16 (K = 19 event
 // slots per sub-step). Events leave in (sub-step, raster pixel, slot) order
-// through COUNT -> scan -> WRITE (see fused_resident.cu), VOID for the Empty
-// sink, and every pass folds the largest per-cell event count and the depth
-// flag into `flags`. Only what the path runs is instantiated: depth 16 x
-// Continuous x AbsoluteT x {Normal, Collapse} x {COUNT, WRITE, VOID}, 6
-// kernels.
+// through one walk that stages each cell's events, the exclusive scan of
+// the cell counts and adder_rows_copy (below); the void walk (the Empty
+// sink) stages nothing; every walk folds the largest per-cell event count
+// and the depth flag into `flags`. Only what the path runs is
+// instantiated: depth 16 x Continuous x AbsoluteT x {Normal, Collapse} x
+// {events staged, void}, 4 kernels.
 //
 // adder_dvs_rows is the one route of every DVS chunk: the lane groups, which
 // are sparse (about 1% of the (sub-step, pixel) cells of a T = 128 group are
@@ -32,7 +33,7 @@
 //   that have rows, 8 B per event: a few tens of microseconds) but the state
 //   machine: a few hundred dependent scalar operations per sub-step, run
 //   serially along each pixel's rows, so the longest pixel (up to 128
-//   sub-steps) sets the floor, twice on the fetched path.
+//   sub-steps) sets the floor.
 //   What the design does about it (adder_lane_rows_kernel in
 //   adder_interval.cuh):
 //   - glue on the card, without a host read (fused_resident.group_dvs_rows:
@@ -41,25 +42,32 @@
 //     cell among the 2 E cells in (sub-step, pixel) order. A chunk of one row
 //     per pixel in raster order needs none: its grouping is known
 //     (fused_resident.raster_row_groups);
-//   - one thread per pixel that has rows: it gathers that pixel's state,
-//     walks its rows only (no loop over T, no barrier, no word read for an
-//     inactive cell) and writes each cell's event count at the cell's rank;
-//     the exclusive scan over the 2 E counts then gives every cell its
-//     offset, and WRITE repeats the walk and writes each cell's events
-//     there. The state machine runs once per active cell, not once per warp
-//     that holds one;
-//   - the threads of a warp do not walk in step, so integrate's node walk
-//     branches past its end (SKIP) instead of running all 16 nodes
-//     predicated off; most arenas hold one to three nodes;
-//   - the state is updated in place, for the pixels that have rows only;
-//     COUNT writes none, so WRITE starts from the same state;
+//   - one thread per pixel that has rows walks that pixel's rows only, once
+//     (no loop over T, no barrier, no word read for an inactive cell). Each
+//     sub-step writes its events as they are produced into its cell's own
+//     19 staging slots and its count at the cell's rank; the exclusive scan
+//     of the 2 E counts gives every cell its offset, and adder_rows_copy
+//     moves the staged events there. The state machine runs once per active
+//     cell, where a count pass and a write pass ran it twice;
+//   - the serial sub-step is short: no slot arrays (sd/st) are built and
+//     then stored; pop_best and integrate's tail searches follow the arena's
+//     length (most arenas hold one to three nodes), not its depth; the walk
+//     leaves integrate's node loop at its first inactive node; pop_top keeps
+//     the full shift, since the nodes past the length are carried state the
+//     plain version shifts too; the next row's words are loaded while a
+//     row's sub-steps run;
+//   - the arena stays in registers: the tail node is read through `opaque`
+//     (adder_interval.cuh), since a tail search by index comparison lets
+//     the compiler merge its loads into one at a dynamic index, which puts
+//     the whole arena in local memory and stores every write to it there;
+//   - the state is updated in place, for the pixels that have rows only, on
+//     the staged and the void walk alike;
 //   - blocks of 64 threads, so a block that holds a long pixel keeps few
 //     others waiting; threads take the pixels in raster order, so gathers
-//     of neighbours coalesce (longest pixel first was measured and lost);
-//   - run_interval and every _rn intrinsic, the per-sub-step c_thresh
-//     increment, the flags are those of the framed kernel.
-// The depth-16 arena (80 values) and the 19 slot pairs of the WRITE pass
-// press on the 255-register limit; ptxas -v reports any spill.
+//     of neighbours coalesce;
+//   - run_interval's arithmetic and every _rn intrinsic, the per-sub-step
+//     c_thresh increment, the flags are those of the framed kernel.
+// ptxas -v reports the registers and any spill of each instantiation.
 //
 // adder_dvs_rows8 runs the same walk from the 8-byte carrier of
 // make_dvs_chunk_resident_packed8 (:1214; pack_dvs_plan8 :1284-1336, the
@@ -85,6 +93,23 @@
 //     (rows_keys_kernel<true>), so everything after the keys is shared.
 
 #include "adder_interval.cuh"
+
+extern "C" {
+
+// Mirrored by adder_tpu_torch/ops/fused_resident.py::_RowsCopyArgs.
+struct AdderRowsCopyArgs {
+  long long cells;       // C
+  int slots;             // staging slots a cell, depth + 3 <= 32
+  long long cap;         // entries of out_pixd / out_t; an event past it is
+                         // not written
+  const void* counts;    // (C,) i32
+  const void* offsets;   // (C + 1,) i64 exclusive offsets, the total last
+  const void* stage;     // (C x slots,) u64
+  void* out_pixd;        // (cap,) u32 pix << 8 | d
+  void* out_t;           // (cap,) u32 t
+};
+
+}  // extern "C"
 
 namespace {
 
@@ -188,9 +213,73 @@ inline int glue_grid(long long threads) {
   return (int)((threads + kGlueBlock - 1) / kGlueBlock);
 }
 
+// --- the compaction of the row walk (adder_rows_copy; its plain version is
+// fused_resident.rows_copy_plain), for K3 and K4 alike. In the JAX package
+// the resident chunk's events leave through its host assembler
+// (assemble_resident_events), with no pl.pallas_call of their own; here the
+// walk stages each cell's events in the cell's own slots, and this kernel
+// moves them to the cell's exclusive offset, so they leave in (sub-step,
+// raster pixel, slot) order. What bounds it: bytes (each cell's count and
+// offset read, each event's 8 staged bytes read and 8 output bytes
+// written). Design: each warp takes 32 consecutive cells, reads their
+// counts and offsets once (coalesced), and copies each non-empty cell's
+// events with its lanes, one event a lane, from the cell's contiguous slots
+// to its contiguous output; an event past `cap` is not written. ---------
+constexpr int kCopyBlock = 256;
+
+__global__ void __launch_bounds__(kCopyBlock)
+    adder_rows_copy_kernel(const long long cells, const int slots,
+                           const long long cap,
+                           const int* __restrict__ counts,
+                           const long long* __restrict__ offsets,
+                           const unsigned long long* __restrict__ stage,
+                           unsigned* __restrict__ out_pixd,
+                           unsigned* __restrict__ out_t) {
+  const int lane = threadIdx.x & 31;
+  const long long base = ((long long)blockIdx.x * kCopyBlock + threadIdx.x)
+                         & ~31LL;
+  const long long cell = base + lane;
+  int cnt = 0;
+  long long off = 0;
+  if (cell < cells) {
+    cnt = counts[cell];
+    off = offsets[cell];
+  }
+  unsigned busy = __ballot_sync(kFull, cnt > 0);
+  while (busy) {
+    const int b = __ffs(busy) - 1;
+    busy &= busy - 1;
+    const int c = __shfl_sync(kFull, cnt, b);
+    const long long o = __shfl_sync(kFull, off, b) + lane;
+    if (lane < c && o < cap) {
+      const unsigned long long v = stage[(base + b) * slots + lane];
+      out_pixd[o] = (unsigned)v;
+      out_t[o] = (unsigned)(v >> 32);
+    }
+  }
+}
+
+inline int launch_rows_copy(const AdderRowsCopyArgs* c, void* stream) {
+  if (c->cells < 1 || c->slots < 1 || c->slots > 32 || c->cap < 0 ||
+      c->counts == nullptr || c->offsets == nullptr ||
+      c->stage == nullptr ||
+      (c->cap > 0 && (c->out_pixd == nullptr || c->out_t == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long grid = (c->cells + kCopyBlock - 1) / kCopyBlock;
+  adder_rows_copy_kernel<<<(unsigned)grid, kCopyBlock, 0,
+                           (cudaStream_t)stream>>>(
+      c->cells, c->slots, c->cap, (const int*)c->counts,
+      (const long long*)c->offsets, (const unsigned long long*)c->stage,
+      (unsigned*)c->out_pixd, (unsigned*)c->out_t);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+
 
 int adder_rows_keys(const void* meta, long long rows, void* key_pl,
                     void* key_lp, void* stream) {
@@ -248,6 +337,11 @@ int adder_dvs_rows(const AdderRowsArgs* a, void* stream) {
 
 int adder_dvs_rows8(const AdderRowsArgs* a, void* stream) {
   return launch_rows<SRC_DVS8>(a, stream);
+}
+
+// The compaction of K3's and K4's row walks.
+int adder_rows_copy(const AdderRowsCopyArgs* c, void* stream) {
+  return launch_rows_copy(c, stream);
 }
 
 }  // extern "C"

@@ -122,8 +122,8 @@ _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     **{entry: [_PTR, _PTR] for entry in (
         "adder_resident_chunk", "adder_segment_copy", "adder_dvs_rows",
-        "adder_dvs_rows8", "adder_davis_rows", "adder_fused_interval",
-        "adder_interval_slots")},
+        "adder_dvs_rows8", "adder_davis_rows", "adder_rows_copy",
+        "adder_fused_interval", "adder_interval_slots")},
     "adder_exclusive_scan": [_PTR, _PTR, _I64, _PTR, _PTR],
     "adder_rows_keys": [_PTR, _I64, _PTR, _PTR, _PTR],
     "adder_rows_keys8": [_PTR, _I64, _INT, _PTR, _PTR, _PTR],

@@ -22,11 +22,12 @@ Each entry point has two implementations:
   reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk`,
   `adder_segment_copy` and `adder_exclusive_scan` in fused_resident.cu,
-  `adder_dvs_rows`, `adder_dvs_rows8` and the grouping glue in
-  dvs_resident.cu, `adder_davis_rows` in davis_resident.cu), reached
-  through the wrappers `fused_chunk_resident`, `group_chunk_resident`,
-  `dvs_rows_resident`, `dvs_rows8_resident` and `davis_rows_resident` (and
-  `segment_copy`, whose plain version is `segment_copy_plain`).
+  `adder_dvs_rows`, `adder_dvs_rows8`, the grouping glue and
+  `adder_rows_copy` in dvs_resident.cu, `adder_davis_rows` in
+  davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
+  `group_chunk_resident`, `dvs_rows_resident`, `dvs_rows8_resident` and
+  `davis_rows_resident` (and `segment_copy` and `rows_copy`, whose plain
+  versions are `segment_copy_plain` and `rows_copy_plain`).
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
@@ -34,7 +35,11 @@ for CUDA tensors; a failed launch raises, there is no fallback.
 Every DVS and DAVIS chunk takes one route: its carrier, the grouping of
 its rows (on the card: `group_dvs_rows`; for a chunk of one row per pixel
 in raster order, `raster_row_groups`), and the row walk, which builds no
-plane and updates the state of the pixels that have rows in place.
+plane and updates the state of the pixels that have rows in place. With
+its events, the walk runs the state machine once: each cell (a pixel's
+sub-step) stages its events in its own DVS_DEPTH + 3 slots, the scan of
+the cell counts gives each cell its offset, and the rows copy moves them
+there.
 
 The events come back already in reference order, so the JAX package's
 pack reruns and its host assembler have no counterpart here. A framed
@@ -83,8 +88,10 @@ BLOCK = 256  # pixels per block of K5 and K6; kBlock in adder_interval.cuh
 MAX_T = 128  # intervals per chunk; kMaxT in adder_interval.cuh
 MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
 
-PASS_COUNT, PASS_WRITE, PASS_VOID = 0, 1, 2  # the row walk's passes
 DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
+# staging slots of one cell of the row walk: the most events one sub-step
+# emits at depth 16
+ROW_SLOTS = DVS_DEPTH + 3
 # AdderRowsArgs.src: what a carrier row holds
 SRC_DVS, SRC_DAVIS, SRC_DVS8 = 1, 2, 3
 DICT_CAP = 64  # the 8-byte carrier's shared (value, fv) dictionary
@@ -93,7 +100,7 @@ DICT_CAP = 64  # the 8-byte carrier's shared (value, fv) dictionary
 LAUNCHES = {"adder_resident_chunk": 0, "adder_segment_copy": 0,
             "adder_exclusive_scan": 0, "adder_dvs_rows": 0,
             "adder_dvs_rows8": 0, "adder_rows_group": 0,
-            "adder_davis_rows": 0}
+            "adder_davis_rows": 0, "adder_rows_copy": 0}
 
 
 def reset_launch_counts() -> None:
@@ -708,9 +715,10 @@ def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
     that carrier. For a CUDA carrier the grouping (`groups` where the
     caller knows it, as `raster_row_groups` for one row per pixel in raster
     order; else the glue `group_dvs_rows`), then the K3 row kernel
-    `adder_dvs_rows`, COUNT -> scan -> WRITE when `events`, the VOID pass
-    otherwise; for a CPU carrier `dvs_rows_resident_plain`, which needs no
-    grouping.
+    `adder_dvs_rows` once: with `events` it stages each cell's events, and
+    the scan of the cell counts and `rows_copy` put them in order; without,
+    it counts them; for a CPU carrier `dvs_rows_resident_plain`, which needs
+    no grouping.
 
     The state is updated in place, on the card and on the CPU alike: only
     the pixels that have rows change, so no copy of the other pixels is
@@ -719,10 +727,11 @@ def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
 
     `event_cap`, where given, is a bound on the group's events that the
     caller knows without the card (at most DVS_DEPTH + 3 for each active
-    cell): on the card the event buffers get that many entries, WRITE
-    follows COUNT with no host read, and the result's `total` (0-d, on the
-    card) says how many of them are the events. Without it the wrapper
-    reads the total back and the buffers hold the events exactly."""
+    cell): on the card the event buffers get that many entries, the copy
+    follows the walk with no host read, and the result's `total` (0-d, on
+    the card) says how many of them are the events (an event past the
+    capacity is not written). Without it the wrapper reads the total back
+    and the buffers hold the events exactly."""
     if not carrier.is_cuda:
         return _in_place(state, dvs_rows_resident_plain(state, carrier, T, p,
                                                         events))
@@ -756,9 +765,9 @@ def davis_rows_resident(state, carrier, T: int, p,
     raster pixel, slot) order, the per-sub-step counts and the flags of
     `davis_chunk_resident_plain` on the planes `build_davis_planes` makes of
     that carrier. For a CUDA carrier the glue `group_dvs_rows` with one
-    sub-step per lane, then the K4 row kernel `adder_davis_rows`, COUNT ->
-    scan -> WRITE when `events`, the VOID pass otherwise; for a CPU carrier
-    `davis_rows_resident_plain`. The state is updated in place, as
+    sub-step per lane, then the K4 row kernel `adder_davis_rows` once, its
+    events staged and copied as in `dvs_rows_resident` when `events`; for a
+    CPU carrier `davis_rows_resident_plain`. The state is updated in place, as
     `dvs_rows_resident` does: only the pixels that have active rows change,
     and the result's `state` is the caller's `state`."""
     if not carrier.is_cuda:
@@ -1039,7 +1048,7 @@ class _RowsArgs(ctypes.Structure):
     """Mirror of `struct AdderRowsArgs` in csrc/adder_interval.cuh."""
 
     _fields_ = [
-        ("pass_", ctypes.c_int),
+        ("events", ctypes.c_int),
         ("multi_mode", ctypes.c_int),
         ("depth", ctypes.c_int),
         ("src", ctypes.c_int),
@@ -1057,12 +1066,24 @@ class _RowsArgs(ctypes.Structure):
         ("cell_gap", ctypes.c_void_p),
         ("cell_tick", ctypes.c_void_p),
         ("cell_counts", ctypes.c_void_p),
+        ("stage", ctypes.c_void_p),
+        ("flags", ctypes.c_void_p),
+        ("pb", ctypes.c_int),
+    ]
+
+
+class _RowsCopyArgs(ctypes.Structure):
+    """Mirror of `struct AdderRowsCopyArgs` in csrc/dvs_resident.cu."""
+
+    _fields_ = [
+        ("cells", ctypes.c_longlong),
+        ("slots", ctypes.c_int),
+        ("cap", ctypes.c_longlong),
+        ("counts", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
+        ("stage", ctypes.c_void_p),
         ("out_pixd", ctypes.c_void_p),
         ("out_t", ctypes.c_void_p),
-        ("flags", ctypes.c_void_p),
-        ("cap", ctypes.c_longlong),
-        ("pb", ctypes.c_int),
     ]
 
 
@@ -1073,14 +1094,56 @@ _ROW_ENTRIES = {SRC_DVS: ("adder_dvs_rows", 2, 5),
                 SRC_DVS8: ("adder_dvs_rows8", 2, 2)}
 
 
+class RowWalk(NamedTuple):
+    """What one launch of a row kernel leaves on the card: per cell (a
+    pixel's sub-step, in (sub-step, raster pixel) order) its event count,
+    and with the events its staged events; the flags; the grouping."""
+
+    cell_counts: torch.Tensor  # (C,) int32
+    stage: Optional[torch.Tensor]  # (C x ROW_SLOTS,) int64, or None
+    flags: torch.Tensor  # (2,) int32: max per-cell count, depth overflow
+    groups: RowGroups
+
+
 def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
                groups: Optional[RowGroups] = None, pb: Optional[int] = None,
                event_cap: Optional[int] = None) -> ChunkResult:
     """`dvs_rows_resident` (src SRC_DVS), `dvs_rows8_resident` (SRC_DVS8,
-    with `pb`) or `davis_rows_resident` (SRC_DAVIS) for a CUDA carrier.
-    `groups`: the grouping made beforehand (for the raster chunks and the
-    timings); `event_cap`: the caller's bound on the events, which spares
-    the host read of the total."""
+    with `pb`) or `davis_rows_resident` (SRC_DAVIS) for a CUDA carrier: the
+    walk (`rows_walk`), the scan of its cell counts and, with the events,
+    `rows_copy`. `groups`: the grouping made beforehand (for the raster
+    chunks and the timings); `event_cap`: the caller's bound on the events,
+    which spares the host read of the total."""
+    if event_cap is not None and event_cap < 0:
+        raise ValueError(f"event_cap {event_cap} is negative")
+    walk = rows_walk(src, state, carrier, T, p, events, groups, pb)
+    dev = carrier.device
+    if walk is None:  # no row, nothing to launch: the state stays as it is
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        ev = torch.empty(0, dtype=torch.int32, device=dev) if events else None
+        return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero,
+                           total=zero)
+    offsets = exclusive_scan(walk.cell_counts)
+    pixd = t = None
+    if events:
+        # the caller's bound, or a host read of the total
+        cap = int(offsets[-1]) if event_cap is None else event_cap
+        pixd, t = rows_copy(walk.stage, walk.cell_counts, offsets, cap)
+    # the cells of one sub-step are contiguous: a segment sum of the counts
+    at = offsets[walk.groups.sub_start]
+    per_interval = at[1:] - at[:-1]
+    return ChunkResult(state, pixd, t, per_interval, _pmax(walk.flags),
+                       total=offsets[-1])
+
+
+def rows_walk(src: int, state, carrier, T: int, p, events: bool,
+              groups: Optional[RowGroups] = None,
+              pb: Optional[int] = None) -> Optional[RowWalk]:
+    """One launch of the row kernel of `src` on a CUDA carrier (the grouping
+    made first unless `groups` is given): the state of the pixels that have
+    rows updated in place, each cell's event count and, with `events`, its
+    events staged in its ROW_SLOTS slots. None for a carrier of no rows
+    (nothing is launched)."""
     entry, per_lane, height = _ROW_ENTRIES[src]
     width = "E + 64" if src == SRC_DVS8 else "E"
     if (carrier.dtype != torch.int32 or carrier.dim() != 2
@@ -1088,8 +1151,6 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
         raise ValueError(f"carrier must be contiguous ({height}, {width}) "
                          f"int32, got {carrier.dtype} "
                          f"{tuple(carrier.shape)}")
-    if event_cap is not None and event_cap < 0:
-        raise ValueError(f"event_cap {event_cap} is negative")
     if T % per_lane or not per_lane <= T <= MAX_T:
         raise ValueError(f"group of {T} sub-steps; {entry} takes "
                          f"{per_lane} x lanes in {per_lane}..{MAX_T}")
@@ -1106,11 +1167,8 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
                              f"{DICT_CAP} columns; got pb {pb}, "
                              f"{carrier.shape[1]} columns")
     _check_state(state, carrier, (DVS_DEPTH,), n)
-    if E == 0:  # no row, nothing to launch: the state stays as it is
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        ev = torch.empty(0, dtype=torch.int32, device=dev) if events else None
-        return ChunkResult(state, ev, ev, zero.expand(T).clone(), zero,
-                           total=zero)
+    if E == 0:
+        return None
     if groups is None:
         g = group_dvs_rows(carrier, T, per_lane,
                            pb if src == SRC_DVS8 else None)
@@ -1123,9 +1181,13 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
                     or x.device != dev or not x.is_contiguous()):
                 raise ValueError(f"groups.{f}: want contiguous int64 {shape} "
                                  f"on {dev}, got {x.dtype} {tuple(x.shape)}")
-    cell_counts = torch.empty(per_lane * E, dtype=torch.int32, device=dev)
+    cells = per_lane * E
+    cell_counts = torch.empty(cells, dtype=torch.int32, device=dev)
     flags = torch.zeros(2, dtype=torch.int32, device=dev)  # atomic max / or
+    stage = (torch.empty(cells * ROW_SLOTS, dtype=torch.int64, device=dev)
+             if events else None)
     a = _RowsArgs()
+    a.events = int(events)
     a.multi_mode, a.depth, a.src = int(p.multi_mode), DVS_DEPTH, src
     a.n, a.rows, a.pb = n, E, pb or 0
     a.ref_time, a.delta_t_max = p.ref_time, p.delta_t_max
@@ -1139,29 +1201,63 @@ def _rows_cuda(src: int, state, carrier, T: int, p, events: bool,
     a.cell_gap = g.cell_gap.data_ptr()
     a.cell_tick = g.cell_tick.data_ptr() if per_lane == 2 else None
     a.cell_counts, a.flags = cell_counts.data_ptr(), flags.data_ptr()
+    a.stage = stage.data_ptr() if events else None
+    _launch(entry, a, dev)
+    return RowWalk(cell_counts, stage, flags, g)
 
-    def launch(pass_: int) -> None:
-        a.pass_ = pass_
-        _launch(entry, a, dev)
 
-    pixd = t = None
-    launch(PASS_COUNT if events else PASS_VOID)
-    offsets = exclusive_scan(cell_counts)
-    if events:
-        # the caller's bound, or a host read of the total
-        cap = int(offsets[-1]) if event_cap is None else event_cap
-        pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
-        t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
-        a.offsets, a.cap = offsets.data_ptr(), cap
-        a.out_pixd, a.out_t = pixd.data_ptr(), t.data_ptr()
-        launch(PASS_WRITE)
-        pixd, t = pixd[:cap], t[:cap]
-    # the cells of one sub-step are contiguous: a segment sum of the counts
-    at = offsets[g.sub_start]
-    per_interval = at[1:] - at[:-1]
-    pmax = flags[0].to(torch.int64) | (flags[1].to(torch.int64) << 16)
-    return ChunkResult(state, pixd, t, per_interval, pmax,
-                       total=offsets[-1])
+def rows_copy(stage, counts, offsets, cap: int):
+    """The staged events of a row walk to their offsets, in (sub-step,
+    raster pixel, slot) order: (cap,) int32 `pixd` and `t` whose first
+    min(total, cap) entries are the events. The plain version for CPU
+    tensors, `adder_rows_copy` for CUDA tensors.
+
+    stage    (C x ROW_SLOTS,) int64: cell c's events in entries
+             [c ROW_SLOTS, c ROW_SLOTS + counts[c]), pix << 8 | d in the
+             low 32 bits, t above;
+    counts   (C,) int32 events per cell;
+    offsets  (C + 1,) int64 their exclusive scan, the total last."""
+    if not stage.is_cuda:
+        return rows_copy_plain(stage, counts, offsets, cap)
+    dev = stage.device
+    cells = counts.numel()
+    for name, x, dtype, numel in (
+            ("stage", stage, torch.int64, cells * ROW_SLOTS),
+            ("counts", counts, torch.int32, cells),
+            ("offsets", offsets, torch.int64, cells + 1)):
+        if (x.dtype != dtype or x.numel() != numel or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} of "
+                             f"{numel} entries on {dev}")
+    if cap < 0 or cells < 1:
+        raise ValueError(f"capacity {cap}, {cells} cells")
+    pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    c = _RowsCopyArgs()
+    c.cells, c.slots, c.cap = cells, ROW_SLOTS, cap
+    c.counts, c.offsets = counts.data_ptr(), offsets.data_ptr()
+    c.stage = stage.data_ptr()
+    c.out_pixd, c.out_t = pixd.data_ptr(), t.data_ptr()
+    _launch("adder_rows_copy", c, dev)
+    return pixd[:cap], t[:cap]
+
+
+def rows_copy_plain(stage, counts, offsets, cap: int):
+    """Plain version of `rows_copy`, with torch ops on the inputs' device:
+    each output entry finds its cell by a search of the offsets and reads
+    that cell's slot."""
+    dev = stage.device
+    pixd = torch.zeros(cap, dtype=torch.int32, device=dev)
+    t = torch.zeros(cap, dtype=torch.int32, device=dev)
+    n = min(int(offsets[-1]), cap)
+    if n == 0:
+        return pixd, t
+    o = torch.arange(n, dtype=torch.int64, device=dev)
+    cell = torch.searchsorted(offsets, o, right=True) - 1
+    words = stage[cell * ROW_SLOTS + (o - offsets[cell])]
+    words = words.view(torch.int32).view(-1, 2)
+    pixd[:n], t[:n] = words[:, 0], words[:, 1]
+    return pixd, t
 
 
 # Counts per block of `adder_exclusive_scan`, as the kernel is built.

@@ -534,7 +534,7 @@ def check_raster_chunks_against_plain(device, H: int = 260, W: int = 346,
     """The chunks of one row per pixel in raster order, as the sources build
     them and run them (`lanes.run_raster_chunk`: T = 2, the grouping
     `FR.raster_row_groups`, the K3 row kernel), against the plain version,
-    bit for bit (`check_rows_group`: WRITE and VOID, each grouping equal to
+    bit for bit (`check_rows_group`: events and void, each grouping equal to
     the glue's), for Normal and Collapse and chained: the Prophesee
     bootstrap from a fresh state; a flush of a seeded partial mask
     (`lanes.gap_rows`); a DAVIS APS frame's carrier, built on `device` by
@@ -661,7 +661,7 @@ def check_rows_group(state: ops.PixelState, carrier: torch.Tensor, T: int,
                      p: ops.TranscodeParams, what: str, src: int = FR.SRC_DVS,
                      groups=None):
     """One lane group through its row wrapper (`dvs_rows_resident` for src
-    FR.SRC_DVS, `davis_rows_resident` for FR.SRC_DAVIS; WRITE and VOID)
+    FR.SRC_DVS, `davis_rows_resident` for FR.SRC_DAVIS; events and void)
     against its plain version on the same carrier and state, bit for bit,
     each returning the caller's state updated in place, and the grouping
     (the glue `group_dvs_rows`, or `groups` where given) against the glue's
@@ -814,8 +814,8 @@ def carriers(plan, n: int, device, ref_time: int = 20):
 
 def check_rows8_group(state: ops.PixelState, plan, n: int, T: int,
                       p: ops.TranscodeParams, what: str, want=None):
-    """One lane group on the 8-byte carrier (`dvs_rows8_resident`: WRITE,
-    VOID, and WRITE with the capacity the Prophesee path gives it, the
+    """One lane group on the 8-byte carrier (`dvs_rows8_resident`: events,
+    void, and events with the capacity the Prophesee path gives it, the
     caller's state updated in place) against its plain version on the same
     carrier (`want`, where the caller has run it), bit for bit; the 20-byte
     route on the same rows (`dvs_rows_resident`, the kernel on the card)
@@ -1102,7 +1102,7 @@ def davis_rows(seed, pix, lane, active=None) -> np.ndarray:
 def check_davis_rows_against_plain(device, H: int = 47, W: int = 61,
                                    lanes=(1, 37, 128),
                                    seed: int = 0) -> float:
-    """The K4 row kernel (`davis_rows_resident`, WRITE and VOID) against its
+    """The K4 row kernel (`davis_rows_resident`, events and void) against its
     plain version on the same carrier and state, bit for bit, and the
     grouping glue with one sub-step per lane against its plain version
     (`check_rows_group`): for Normal and Collapse and each lane count T, two
@@ -1157,6 +1157,141 @@ def check_davis_rows_against_plain(device, H: int = 47, W: int = 61,
     if not (int(want.pmax) >> 16) & 1:
         raise AssertionError("the forced overflow did not overflow")
     return max(err, e)
+
+
+# --- the row walk's compaction (one pass: stage, scan, copy) -----------------
+
+
+def row_cell_keys(carrier: torch.Tensor, n: int, per_lane: int,
+                  pb: Optional[int] = None) -> torch.Tensor:
+    """Sorted (C,) int64 `sub-step * n + pix` of a carrier's cells, a cell
+    being one row's gap or tick half (DVS, per_lane 2) or one row (DAVIS):
+    the rank of a cell in this order is its index in the row walk's
+    `cell_counts` and staging."""
+    key = FR.row_keys_plain(carrier, pb).to(torch.int64)
+    lane, pix = key >> 20, key & 0xFFFFF
+    subs = [per_lane * lane + h for h in range(per_lane)]
+    return torch.sort(torch.cat([s * n + pix for s in subs]))[0]
+
+
+def stage_rows(want: FR.ChunkResult, carrier: torch.Tensor, n: int,
+               per_lane: int, pb: Optional[int] = None, seed: int = 0):
+    """What the one-pass row walk leaves for a lane group whose plain result
+    is `want`: (stage, counts) as CPU tensors, cell c's events in stage
+    entries [c ROW_SLOTS, c ROW_SLOTS + counts[c]) in slot order (pix << 8
+    | d in the low 32 bits, t above), every other entry seeded garbage."""
+    keys = row_cell_keys(carrier.cpu(), n, per_lane, pb)
+    C = keys.numel()
+    T = want.per_interval.numel()
+    pixd = want.pixd.cpu().to(torch.int64) & 0xFFFFFFFF
+    t = want.t.cpu().to(torch.int64) & 0xFFFFFFFF
+    sub = torch.repeat_interleave(torch.arange(T),
+                                  want.per_interval.cpu().to(torch.int64))
+    ekey = sub * n + (pixd >> 8)
+    cell = torch.searchsorted(keys, ekey)
+    if C and not torch.equal(keys[cell.clamp(max=C - 1)], ekey):
+        raise AssertionError("an event outside the carrier's cells")
+    counts = torch.bincount(cell, minlength=C).to(torch.int32)
+    first = torch.cumsum(counts.to(torch.int64), 0) - counts
+    at = cell * FR.ROW_SLOTS + torch.arange(len(cell)) - first[cell]
+    rng = np.random.default_rng(seed)
+    stage = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62,
+                                          C * FR.ROW_SLOTS))
+    stage[at] = pixd | (t << 32)
+    return stage, counts
+
+
+ROW_COPY_LANES = (1, 19, 64)  # DVS lanes of the copy checks: T 2, 38, 128
+
+
+def check_rows_copy_against_plain(device, H: int = 13, W: int = 19,
+                                  lanes=ROW_COPY_LANES,
+                                  seed: int = 0) -> float:
+    """The row walk's compaction (`FR.rows_copy`: `adder_rows_copy` on the
+    card, `rows_copy_plain` on the CPU) against the events of the plain
+    route, bit for bit, on the staging `stage_rows` makes of them: for
+    Normal and Collapse, chained DVS lane groups of T = 2 L for each lane
+    count L (8-byte carrier, planned from a seeded stream), a DAVIS group
+    of T = max(lanes) lanes, at the exact capacity, at half of it (the
+    first events, the total exact) and at none; a group with no rows. On
+    the card also the walk itself (`FR.rows_walk`): its cell counts, its
+    staged events and its state equal the harness's and the plain
+    version's. Raises on any difference; returns the largest absolute
+    difference (0.0)."""
+    from .transcoder.prophesee import bootstrap_carrier
+
+    dev = torch.device(device)
+    n = H * W
+    plan = _check_plan(seed, W, H, 2 * sum(lanes))
+    dplan = davis_plan(seed, W, H, max(lanes))
+    err = 0.0
+
+    def check(state, carrier, T, p, what, src, pb=None):
+        per_lane = 1 if src == FR.SRC_DAVIS else 2
+        plain = {FR.SRC_DVS8: lambda: FR.dvs_rows8_resident_plain(
+                     state, carrier, T, p, pb=pb),
+                 FR.SRC_DAVIS: lambda: FR.davis_rows_resident_plain(
+                     state, carrier, T, p)}[src]
+        want = plain()
+        stage, counts = stage_rows(want, carrier, n, per_lane, pb, seed)
+        total = int(want.per_interval.sum())
+        e = 0.0
+        offsets = FR.exclusive_scan(counts.to(dev))
+        # the kernel takes at least one cell: a group of no rows launches
+        # neither the walk nor the copy
+        copies = ((FR.rows_copy, FR.rows_copy_plain) if counts.numel()
+                  else (FR.rows_copy_plain,))
+        for cap in (total, total // 2, 0):
+            for copy in copies:
+                got = copy(stage.to(dev), counts.to(dev), offsets, cap)
+                for f, a in zip(("pixd", "t"), got):
+                    if a.numel() != cap:
+                        raise AssertionError(f"{what} {copy.__name__} cap "
+                                             f"{cap}: {a.numel()} entries")
+                    e = max(e, bitwise_max_err(
+                        a, getattr(want, f)[:cap].to(dev),
+                        f"{what} {copy.__name__} cap {cap} {f}"))
+        if dev.type == "cuda":
+            st = FR.clone_state(state)
+            walk = FR.rows_walk(src, st, carrier, T, p, True, pb=pb)
+            if walk is None:
+                if counts.numel():
+                    raise AssertionError(f"{what}: no walk for "
+                                         f"{counts.numel()} cells")
+            else:
+                slot = torch.arange(FR.ROW_SLOTS, device=dev)
+                filled = (slot[None, :]
+                          < walk.cell_counts[:, None]).reshape(-1)
+                e = max(e, bitwise_max_err(walk.cell_counts, counts.to(dev),
+                                           f"{what} walk cell counts"),
+                        bitwise_max_err(walk.stage[filled],
+                                        stage.to(dev)[filled],
+                                        f"{what} walk staging"),
+                        state_max_err(st, want.state, f"{what} walk state"))
+        return want.state, e
+
+    for multi in (0, 1):
+        p = _dvs_params(multi)
+        st = FR.dvs_rows_resident_plain(
+            ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH),
+            bootstrap_carrier(n, 20, dev), 2, p).state
+        lo = 0
+        for L in lanes:
+            c8, pb, _ = carriers(plan.lane_slice(lo, lo + L), n, dev)
+            st, e = check(st, c8, 2 * L, p, f"multi {multi} T {2 * L}",
+                          FR.SRC_DVS8, pb)
+            err, lo = max(err, e), lo + L
+        c8, pb, _ = carriers(lattice_plan(seed, n, 1, density=0.0)
+                             .lane_slice(1, 1), n, dev)
+        _, e = check(st, c8, 2, p, f"multi {multi} no rows", FR.SRC_DVS8, pb)
+        err = max(err, e)
+        pd = _davis_params(multi)
+        sd = ops.init_state(n, dev, c_thresh=3, depth=FR.DVS_DEPTH)
+        L = max(lanes)
+        _, e = check(sd, davis_group_carrier(dplan, 0, L, dev), L, pd,
+                     f"multi {multi} DAVIS T {L}", FR.SRC_DAVIS)
+        err = max(err, e)
+    return err
 
 
 # --- the one-interval kernels (K5 fused interval, K6 interval slots) -----------

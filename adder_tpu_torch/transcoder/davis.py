@@ -156,7 +156,7 @@ class Davis:
     batched engines use for DVS gap cascades. With `prefetch` the provider
     runs on its own worker thread (ref: davis.rs:626-632). With
     `void_events` set (and the Empty sink) events never leave the device:
-    the chunks run their VOID pass, with no fetch and no host sync.
+    the chunks run their void walk, with no fetch and no host sync.
     `batched=False`: the scalar oracle, per event on the host."""
 
     def __init__(self, provider, ref_time: int = 255,

@@ -40,7 +40,7 @@ def run_lane_chunk(fn, state, args, p, void: bool, width: int, **kw):
     `davis_rows_resident`) on `state`, `args` being its inputs between the
     state and the parameters (the carrier and T) and `kw` its keywords:
     (the state, updated in place and returned by the wrapper; its events as
-    (x, y, d, t) host arrays, or None when `void`: the VOID pass, no
+    (x, y, d, t) host arrays, or None when `void`: the void walk, no
     fetch)."""
     with tracing.stage("dvs.dispatch"):
         res = fn(state, *args, p, events=not void, **kw)
@@ -222,7 +222,7 @@ class LanePipeline:
 
     def _collect_oldest(self):
         job = self._in_flight.popleft()
-        if job is None:  # the VOID pass: nothing to fetch
+        if job is None:  # the void walk: nothing to fetch
             return None
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1)

@@ -2,13 +2,17 @@
 """Smoke run of adder_tpu_torch on one NVIDIA GPU: build, check, transcode, time.
 
 Usage, from the repository root:  python3 chip_smoke.py
+To time the row route (K3, K4) against another commit unpacked at DIR (its
+`git archive` in an ignored directory), in turns, each tree in its own
+process:  python3 chip_smoke.py --rows-turns DIR
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
      adder_tpu_torch/csrc (one nvcc per source, in parallel, at first use),
      time the build and report ptxas registers and spills of every
-     instantiation (the 8-byte K3 kernels among them), and the SASS of K1's
-     interval loop (cuobjdump);
+     instantiation (each line, the row walks' and the rows copy's among
+     them), the SASS of K1's interval loop and of the row walks' row loop
+     (cuobjdump);
   2. every kernel against its plain PyTorch version on the card, bit for
      bit: K1 (the one-pass chunk kernel, the scan of its segment counts,
      the segment copy) and K2 on a ragged 200x150 plane, 2 chunks of T = 8,
@@ -37,7 +41,7 @@ Phases (any failure raises and the script exits non-zero):
      host and on the card alone; the Empty-sink (void) path at 1080p mono
      and colour;
   5. the DVS lane kernel by rows (K3, adder_dvs_rows, on the carrier)
-     against its plain version, bit for bit, each chunk WRITE and VOID with
+     against its plain version, bit for bit, each chunk staged and void with
      the caller's state updated in place: the raster chunks at 346x260
      (T = 2, one row per pixel, with the grouping raster_row_groups, held
      equal to the glue's): the bootstrap, a flush of a partial mask, a
@@ -51,34 +55,40 @@ Phases (any failure raises and the script exits non-zero):
      on the 8-byte carrier (adder_dvs_rows8) against its plain version and
      against the 20-byte route on the same rows, bit for bit, in the same
      cases and with a dictionary of exactly 64 entries, gap_n past 2^20, a
-     61x47 plane and a 640x480 one (pb 19), WRITE, VOID and WRITE with the
+     61x47 plane and a 640x480 one (pb 19), staged, void and staged with the
      pipeline's capacity; its glue equal to its plain version and to the
-     20-byte grouping;
+     20-byte grouping; the one-pass walk's compaction (adder_rows_copy)
+     against its plain version and the plain route's events, and the
+     walk's own cell counts, staging and state;
   6. the Prophesee path at 640x480 (the DSEC Gen3.1 VGA sensor) with the
      CLI defaults (ref_time 20, crf 3, Collapse, AbsoluteT, Raw sink,
      view_fps 60) on a seeded 1.0 s, 2,000,000-event stream, through
      Prophesee(20, path, device="cuda"): every lane group must go through
      adder_dvs_rows8 (the 8-byte carrier of the fused native planner,
      through the glue) and the bootstrap and the flush through
-     adder_dvs_rows as raster chunks, with no 20-byte lane group; no dense
+     adder_dvs_rows as raster chunks, with no 20-byte lane group, each
+     chunk one walk and one rows copy; no dense
      entry point may remain; nothing may wait for the card on the calling
      thread inside a window's lane groups; the decoded event count must
      equal the kernels'; the run with the fused planner forced off (its
      fallback: the classic plan, packed per group into 8 bytes) must hash
      to the same constant; the first 0.025 s must give the same bytes on
      the card and on the CPU; a bulk run (view_fps 1, Empty sink, void)
-     must run segmented windows and T = 128 groups;
+     must run segmented windows and T = 128 groups; each row walk, copy and
+     scan of the windowed run timed under torch.profiler (count, mean, max);
   7. timings on one 64-lane group at 640x480 (T = 128): the 20-byte and
      the 8-byte row route, fetched and void, with and without the grouping
      glue, the glue alone beside its plain version, against plain, with
-     their bounds; the carrier bytes and the h2d copy from pinned and from
+     their bounds; the one-pass route at the pipeline's capacity (walk,
+     scan, copy), each kernel under torch.profiler, the copy alone, the
+     longest pixel's sub-steps and the chain estimate; the carrier bytes and the h2d copy from pinned and from
      pageable memory; the host's fused plan + pack against the classic
      plan and the packs; end-to-end Mev/s (windowed Raw, bulk void) of the
      pipelined 8-byte route and of the synchronous 20-byte route in turns;
      a stage breakdown (utils/tracing, host clock, no synchronise) and the
      device busy share of each route's windowed Raw run;
   8. the DAVIS lane kernel by rows (K4, adder_davis_rows, on the carrier)
-     against its plain version, bit for bit, WRITE and VOID, the state
+     against its plain version, bit for bit, staged and void, the state
      updated in place: a ragged 61x47 plane, lanes planned from a seeded
      burst by the port's planner, T = 1, 37 and 128 in two chained groups,
      Normal and Collapse, a group with no rows, one with inactive rows, one
@@ -94,8 +104,8 @@ Phases (any failure raises and the script exits non-zero):
      the first 2 packets must give the same bytes on the card and on the
      CPU; a void run must end in the fetched run's state;
   10. timings: K4 by rows on the largest packet's chunk, fetched and void,
-     with and without its glue, against plain; the raster T = 2 K3 chunk at
-     the frame chunk's shape; end-to-end Mev/s and APS frames/s; a stage
+     with and without its glue, against plain, and the one-pass fields of
+     phase 7; the raster T = 2 K3 chunk at the frame chunk's shape; end-to-end Mev/s and APS frames/s; a stage
      breakdown; the device's busy share;
   11. the fused one-interval kernel (K5) against its plain version, bit for
      bit: a ragged 200x150 plane, 2 chained chunks of T = 8 written from a
@@ -358,6 +368,106 @@ def rows_ms(fn, state, reps: int, clone) -> float:
     return cuda_ms(lambda: fn(next(copies)), reps)
 
 
+def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
+                      pb=None, reps: int = 10) -> dict:
+    """The one-pass row route of one lane chunk on groups made beforehand,
+    at capacity `cap` (no host read): the walk, the scan and the copy from
+    the host (`passes_ms`, each call on its own copy of the state), each
+    kernel's device time under torch.profiler, the copy alone on one walk's
+    staging beside its plain version and its bound, the longest pixel's
+    sub-steps (`chain_max`) and the chain estimate: the row kernel's SASS
+    per sub-step (phase 1) x chain_max at one instruction a clock, not a
+    bound."""
+    src = (FR.SRC_DVS8 if pb is not None else
+           FR.SRC_DAVIS if groups.cell_tick.numel() == 0 else FR.SRC_DVS)
+    per_lane = 1 if src == FR.SRC_DAVIS else 2
+
+    def route(st):
+        return FR._rows_cuda(src, st, carrier, T, p, True, groups, pb=pb,
+                             event_cap=cap)
+
+    passes = rows_ms(route, state, reps, FR.clone_state)
+    copies = iter([FR.clone_state(state) for _ in range(reps + 1)])
+    kernels = kernel_device_ms(lambda: route(next(copies)), reps, (
+        "adder_lane_rows_kernel", "adder_exclusive_scan_kernel",
+        "adder_rows_copy_kernel"))
+    walk = FR.rows_walk(src, FR.clone_state(state), carrier, T, p, True,
+                        groups, pb)
+    offsets = FR.exclusive_scan(walk.cell_counts)
+    n_ev = int(offsets[-1])
+    copy_ms = cuda_ms(lambda: FR.rows_copy(walk.stage, walk.cell_counts,
+                                           offsets, cap), 20)
+    copy_plain_ms = cuda_ms(lambda: FR.rows_copy_plain(
+        walk.stage, walk.cell_counts, offsets, cap), 2)
+    cells = walk.cell_counts.numel()
+    # each cell's count and offset read, each event's 8 staged bytes read
+    # and its 8 output bytes written
+    copy_bound = bound(12 * cells + 16 * n_ev)
+    run = groups.row_start[1:] - groups.row_start[:-1]
+    chain_max = per_lane * int(run.max())
+    sass = rows_sass.get((src, p.multi_mode == 1, True), {}).get("path", 0)
+    return {"passes_ms": passes, "kernels": kernels, "copy_ms": copy_ms,
+            "copy_plain_ms": copy_plain_ms, "copy_bound_ms": copy_bound,
+            "cells": cells, "events": n_ev,
+            "n_active": int(groups.n_active), "chain_max": chain_max,
+            "sass": sass,
+            "chain_estimate_ms": sass * chain_max / sm_clock_hz() * 1e3}
+
+
+def longest_first(groups):
+    """The same grouping with the pixels' runs laid out longest first: the
+    walk's thread j takes the j-th longest pixel instead of the j-th in
+    raster order. Cells, sub-steps and so the output stay as they are.
+    Torch ops on the card, no host read (the proposal measured in phases 7
+    and 10 before the glue would make it)."""
+    start = groups.row_start
+    E = groups.order.numel()
+    runlen = start[1:E + 1] - start[:E]  # 0 past the pixels that have rows
+    j = torch.arange(E, device=start.device)
+    perm = torch.sort((E + 1 - runlen) * (E + 1) + j)[1]
+    new_len = runlen[perm]
+    new_start = torch.cumsum(new_len, 0) - new_len
+    inv = torch.empty_like(perm)
+    inv[perm] = j
+    run_of = torch.searchsorted(start[:E + 1], j, right=True) - 1
+    at = new_start[inv[run_of]] + (j - start[run_of])
+    order = torch.empty_like(groups.order)
+    order[at] = groups.order
+    row_start = torch.cat([new_start, start.new_full((2,), E)])
+    return groups._replace(order=order, row_start=row_start)
+
+
+def order_turns(FR, src, state, carrier, T, p, groups, cap, pb=None,
+                reps: int = 10) -> dict:
+    """The walk + scan + copy at capacity `cap` on the raster grouping and
+    on its longest-first layout, in turns (raster, longest first, longest
+    first, raster), ms per chunk; raises unless both give the same chunk."""
+    lf = longest_first(groups)
+    out = {"raster": [], "longest first": []}
+    res = {}
+    for name in ("raster", "longest first", "longest first", "raster"):
+        g = groups if name == "raster" else lf
+        out[name].append(rows_ms(lambda st: FR._rows_cuda(
+            src, st, carrier, T, p, True, g, pb=pb, event_cap=cap), state,
+            reps, FR.clone_state))
+        res[name] = FR._rows_cuda(src, FR.clone_state(state), carrier, T, p,
+                                  True, g, pb=pb, event_cap=cap)
+    import adder_tpu_torch.testing as testing
+    testing.compare_chunks(res["longest first"], res["raster"],
+                           "longest first against raster order")
+    return out
+
+
+def walk_fields(w: dict) -> dict:
+    """The record's fields of a one-pass row route's timings."""
+    return {"passes_ms": w["passes_ms"], "copy_ms": w["copy_ms"],
+            "chain_max": w["chain_max"], "n_active": w["n_active"],
+            "chain_estimate_ms": w["chain_estimate_ms"],
+            "chain_estimate_sass": w["sass"], "kernels_ms": w["kernels"],
+            **({"order_turns_ms": w["order_turns"]} if "order_turns" in w
+               else {})}
+
+
 def state_bytes(state) -> int:
     """Bytes of a PixelState's per-pixel fields (the overflow scalar aside)."""
     return sum(x.numel() * x.element_size() for x in state[:-1])
@@ -409,8 +519,8 @@ def rows8_bound(state, carrier, pb: int, n_events: int) -> float:
 def kernel_source(name: str) -> str:
     """Which kernel a mangled name instantiates: a one-interval kernel or
     the scan by its name, a row kernel by its last template argument (the
-    carrier, adder_interval.cuh SRC_DVS / SRC_DAVIS), a framed chunk kernel
-    by its last (RUN, the display)."""
+    carrier, adder_interval.cuh SRC_DVS / SRC_DAVIS / SRC_DVS8), a framed
+    chunk kernel by its last (RUN, the display)."""
     if "adder_fused_interval_kernel" in name:
         return "fused interval (K5)"
     if "adder_interval_slots_kernel" in name:
@@ -427,6 +537,8 @@ def kernel_source(name: str) -> str:
                 else "framed (K1/K2)")
     if "adder_segment_copy_kernel" in name:
         return "segment copy"
+    if "adder_rows_copy_kernel" in name:
+        return "rows copy"
     return "other"
 
 
@@ -434,7 +546,7 @@ def kernel_source(name: str) -> str:
 # chunk wrapper it has: the lane chunks go by rows only.
 CHUNK_KERNELS = {"adder_resident_chunk", "adder_segment_copy",
                  "adder_exclusive_scan", "adder_dvs_rows", "adder_dvs_rows8",
-                 "adder_rows_group", "adder_davis_rows"}
+                 "adder_rows_group", "adder_davis_rows", "adder_rows_copy"}
 CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows8_resident",
                   "dvs_rows_resident", "fused_chunk_resident",
                   "group_chunk_resident"]
@@ -695,15 +807,56 @@ def device_events(prof) -> dict:
     return out
 
 
-def device_busy_seconds(fn) -> float:
+def device_busy_seconds(fn, per_launch: bool = False):
     """Sum of the device time torch.profiler records over fn() (kernels
-    and copies), in seconds; 0.0 when it records none."""
+    and copies), in seconds; 0.0 when it records none. With `per_launch`,
+    also {name: [microseconds of each launch]}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    return sum(us for _, us in device_events(prof).values()) / 1e6
+    busy = sum(us for _, us in device_events(prof).values()) / 1e6
+    if not per_launch:
+        return busy
+    launches = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return busy, launches
+
+
+# the row walks by their carrier (SRC, the last template argument)
+ROW_KERNELS = {"K3 8-byte walk": "3", "K3 20-byte walk": "1", "K4 walk": "2"}
+
+
+def row_walk_src(name: str) -> str:
+    """The carrier digit of a row walk's kernel name, demangled (as the
+    profiler gives it) or mangled (as ptxas does); "" for another kernel."""
+    m = (re.search(r"adder_lane_rows_kernel<\d+, \w+, \w+, (\d)>", name)
+         or re.search(r"adder_lane_rows_kernelI.*?ELi(\d)E+v", name))
+    return m.group(1) if m else ""
+
+
+def row_kernel_stats(per_launch: dict) -> dict:
+    """{kernel: {launches, mean_ms, max_ms, sum_ms}} of the row walks (by
+    carrier), the rows copy and the scan among per-launch device times."""
+    out = {}
+
+    def add(what, us):
+        if us:
+            out[what] = {"launches": len(us), "mean_ms": sum(us) / len(us)
+                         / 1e3, "max_ms": max(us) / 1e3,
+                         "sum_ms": sum(us) / 1e3}
+
+    for what, src in ROW_KERNELS.items():
+        add(what, [u for name, us in per_launch.items()
+                   if row_walk_src(name) == src for u in us])
+    for what, key in (("rows copy", "adder_rows_copy_kernel"),
+                      ("scan", "adder_exclusive_scan_kernel")):
+        add(what, [u for name, us in per_launch.items() if key in name
+                   for u in us])
+    return out
 
 
 class Patches:
@@ -926,7 +1079,7 @@ def traced_prophesee_run(at, path, dev, raw_path):
     return wall, stages, worker
 
 
-def dvs_phases(dev, card):
+def dvs_phases(dev, card, rows_sass):
     """Phases 5-7 (the Prophesee path). Returns (the 20-byte row route's max
     abs err against plain, the windowed run's launch counts, the timings
     and bound at T = 128 of the 20-byte row route, of its grouping glue and
@@ -953,15 +1106,15 @@ def dvs_phases(dev, card):
     log(f"# phase 5: K3 rows == plain on the raster chunks at {DAVIS_W}x"
         f"{DAVIS_H} (T = 2, raster grouping == glue): bootstrap, flush of a "
         f"partial mask, DAVIS frame (carrier built on the card == host f64) "
-        f"and gap, Normal and Collapse, WRITE and VOID, forced depth-16 "
+        f"and gap, Normal and Collapse, staged and void, forced depth-16 "
         f"overflow; state in place (max abs err {raster_err}); "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows_err = max(raster_err, testing.check_dvs_rows_against_plain(dev))
     torch.cuda.synchronize()
     log(f"# phase 5: K3 rows == plain on 200x150: T = 2/38/128 x "
-        f"2 chained groups, Normal and Collapse, WRITE and VOID, "
-        f"no rows, one pixel's rows, halves off, forced "
+        f"2 chained groups, Normal and Collapse, events staged and copied, "
+        f"and void, no rows, one pixel's rows, halves off, forced "
         f"depth-16 overflow; glue == plain; state in place (max abs err "
         f"{rows_err}); {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -973,14 +1126,30 @@ def dvs_phases(dev, card):
                              f"{FR.LAUNCHES}")
     log(f"# phase 5: K3 rows on the 8-byte carrier (adder_dvs_rows8) == "
         f"plain == the 20-byte route on the same rows, at 200x150 (pb 15): "
-        f"T = 2/38/128 x 2 chained groups, Normal and Collapse, WRITE, VOID "
-        f"and WRITE with the pipeline's capacity, no rows, one pixel's "
-        f"rows, halves off, a dictionary of 64, gap_n past 2^20, forced "
-        f"depth-16 overflow; planned groups at 61x47 (pb 12) and 640x480 "
-        f"(pb 19); the 8-byte glue == its plain version == the 20-byte "
-        f"grouping; state in place (max abs err {rows8_err}); launches "
-        f"{FR.LAUNCHES['adder_dvs_rows8']}; "
+        f"T = 2/38/128 x 2 chained groups, Normal and Collapse, events "
+        f"staged and copied, void, and staged with the pipeline's capacity, "
+        f"no rows, one pixel's rows, halves off, a dictionary of 64, gap_n "
+        f"past 2^20, forced depth-16 overflow; planned groups at 61x47 (pb "
+        f"12) and 640x480 (pb 19); the 8-byte glue == its plain version == "
+        f"the 20-byte grouping; state in place (max abs err {rows8_err}); "
+        f"launches {FR.LAUNCHES['adder_dvs_rows8']}; "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    FR.reset_launch_counts()
+    copy_err = testing.check_rows_copy_against_plain(dev)
+    torch.cuda.synchronize()
+    if FR.LAUNCHES["adder_rows_copy"] < 1:
+        raise AssertionError(f"the copy check ran no rows copy: "
+                             f"{FR.LAUNCHES}")
+    log(f"# phase 5: the one-pass walk's compaction: adder_rows_copy == "
+        f"rows_copy_plain == the plain route's events on the staging made "
+        f"of them (8-byte DVS T = 2/38/128 chained, DAVIS T = 64, Normal "
+        f"and Collapse, the exact capacity, half of it, none; no rows); "
+        f"the walk's own cell counts, staged events and state == the "
+        f"harness's and plain (max abs err {copy_err}); launches "
+        f"{FR.LAUNCHES['adder_rows_copy']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows_err = max(rows_err, copy_err)
 
     # -- phase 6: the Prophesee path at 640x480 ------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dvs_")
@@ -1035,11 +1204,12 @@ def dvs_phases(dev, card):
                                  f"{dvs_launches}")
         # the bootstrap (every pixel) and the flush went as raster chunks,
         # every lane group on the 8-byte carrier: 20-byte row launches are
-        # the two raster chunks' COUNT and WRITE alone
+        # the two raster chunks' walks alone; one walk and one copy a chunk
         if len(raster_calls) != 2 or raster_calls[0] != DVS_W * DVS_H:
             raise AssertionError(f"raster chunks of {raster_calls} rows")
-        if (lane20 or not lane8 or dvs_launches["adder_dvs_rows"] != 4
-                or dvs_launches["adder_dvs_rows8"] != 2 * len(lane8)):
+        if (lane20 or not lane8 or dvs_launches["adder_dvs_rows"] != 2
+                or dvs_launches["adder_dvs_rows8"] != len(lane8)
+                or dvs_launches["adder_rows_copy"] != len(lane8) + 2):
             raise AssertionError(f"lane groups: {len(lane8)} on 8 bytes, "
                                  f"{len(lane20)} on 20; {dvs_launches}")
         n_kernel = int(sum(int(x) for x in kernel_events))
@@ -1065,7 +1235,7 @@ def dvs_phases(dev, card):
                 fb_s, _ = prophesee_run(at, raw_in, dev, fb)
         finally:
             P.restore()
-        if not lane8 or FR.LAUNCHES["adder_dvs_rows"] != 4:
+        if not lane8 or FR.LAUNCHES["adder_dvs_rows"] != 2:
             raise AssertionError(f"the fallback ran {len(lane8)} 8-byte "
                                  f"groups: {FR.LAUNCHES}")
         log(f"# phase 6: the fused planner forced off: the classic plan, "
@@ -1077,13 +1247,19 @@ def dvs_phases(dev, card):
         win_mev = n_in / win_s / 1e6
         log(f"# phase 6: windowed Raw path {win_mev} Mev/s ({win_s} s for "
             f"{n_in} input events, second run) [{card}]")
-        busy = device_busy_seconds(lambda: prophesee_run(at, raw_in, dev,
-                                                         out))
+        busy, per_kernel = device_busy_seconds(
+            lambda: prophesee_run(at, raw_in, dev, out), per_launch=True)
         log(f"# phase 6: windowed Raw under torch.profiler: device busy "
             f"{busy} s (kernels and copies), {busy / win_s:.2%} of the "
             f"second run's wall [{card}]" if busy else
             "# phase 6: device busy share not measured (the profiler saw "
             "no device time)")
+        # each row walk, scan and copy of the run: count, mean and max (ms)
+        group_ms = row_kernel_stats(per_kernel)
+        log(f"# phase 6: the run's row-route kernels under torch.profiler, "
+            f"each launch's device time: {group_ms} [{card}]" if group_ms
+            else "# phase 6: per-launch times not measured (the profiler "
+            "saw no device time)")
 
         a, b = os.path.join(tmp, "cuda.adder"), os.path.join(tmp, "cpu.adder")
         prophesee_run(at, prefix_in, dev, a)
@@ -1179,7 +1355,7 @@ def dvs_phases(dev, card):
                        / (FR.MAX_T * n))
         cells = int(g.gap_on.sum() + g.tick_on.sum())
         cap = lanes.lane_event_cap(cells)
-        # rows (WRITE and VOID) against the plain version, the glue too;
+        # rows (staged and void) against the plain version, the glue too;
         # the 8-byte route against its plain version and the 20-byte route
         e, want = testing.check_rows_group(st_dvs, carrier, FR.MAX_T, p_dvs,
                                            "T=128 group")
@@ -1256,6 +1432,12 @@ def dvs_phases(dev, card):
                 pb=pb, event_cap=cap), st_dvs, 10, FR.clone_state))
         r_ms = rows_t["fetched"][0]  # the wrapper's own time, glue included
         r8_ms = rows8_t["fetched"][0]
+        walk8 = rows_walk_timings(FR, st_dvs, carrier8, FR.MAX_T, p_dvs,
+                                  groups8, cap, rows_sass, pb=pb)
+        walk20 = rows_walk_timings(FR, st_dvs, carrier, FR.MAX_T, p_dvs,
+                                   groups, cap, rows_sass)
+        walk8["order_turns"] = order_turns(FR, FR.SRC_DVS8, st_dvs, carrier8,
+                                           FR.MAX_T, p_dvs, groups8, cap, pb)
         rp_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
             st_dvs, carrier, FR.MAX_T, p_dvs), 1)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
@@ -1278,6 +1460,19 @@ def dvs_phases(dev, card):
             f"void bound {k38v_bound} ms (8 B a row with an active sub-step "
             f"and the dictionary); the wrapper {r8_ms} ms fetched (the "
             f"bound is {k38_bound / r8_ms:.2%} of it)")
+        for name, w in (("8 bytes", walk8), ("20 bytes", walk20)):
+            log(f"#   K3 rows, {name}, the one-pass route at the pipeline's "
+                f"capacity (walk + scan + copy, no glue, no host read): "
+                f"{w['passes_ms']} ms; its kernels under torch.profiler "
+                f"{w['kernels']}; the copy alone {w['copy_ms']} ms (plain "
+                f"{w['copy_plain_ms']} ms, bound {w['copy_bound_ms']} ms, "
+                f"{w['cells']} cells, {w['events']} events); {w['n_active']} "
+                f"pixels with rows, the longest {w['chain_max']} sub-steps; "
+                f"chain estimate {w['chain_estimate_ms']} ms ({w['sass']} "
+                f"SASS a sub-step x the longest chain at one a clock; not a "
+                f"bound)")
+        log(f"#   K3 rows, 8 bytes, the same in turns with the pixels' runs "
+            f"laid out longest first (same chunk): {walk8['order_turns']} ms")
         for name, (nbytes, page_ms, pin_ms) in h2d.items():
             log(f"#   {name} carrier h2d {nbytes} bytes: pageable {page_ms} "
                 f"ms ({nbytes / page_ms / 1e3} MB/s), pinned {pin_ms} ms "
@@ -1328,7 +1523,8 @@ def dvs_phases(dev, card):
                  max_abs_err=rows8_err, void_ms=rows8_t["void"][0],
                  passes_ms=rows8_t["fetched"][1],
                  capacity_ms=rows8_t["fetched, the pipeline's capacity"][0],
-                 route20_ms=r_ms, mev=mev))
+                 route20_ms=r_ms, mev=mev, walk=walk8, walk20=walk20,
+                 run_kernels=group_ms, copy_err=copy_err))
 
 
 def davis_run(at, path, device, raw_path=None, before=None):
@@ -1370,8 +1566,8 @@ def staged_davis_run(at, path, dev, raw_path, dvs_batch, FR):
     synchronise after it: set-up (the source's construction, write_out and
     the quality call, up to the first consume), the wait on the aedat4 +
     EDI worker thread, plan, pack, host -> device carrier copy, group (the
-    K4 route's grouping glue), K4 rows (COUNT + scan + WRITE, with the host
-    read of the total), the K3 raster chunks of the frames and the gaps to
+    K4 route's grouping glue), K4 rows (the walk, the scan, the copy, with
+    the host read of the total), the K3 raster chunks of the frames and the gaps to
     them, event fetch, the frame and gap carriers ("frame host": the gap
     rows on the host and the frame's u8 values to the card, the frame
     carrier built there, the raster groupings; the gap and frame steps less
@@ -1427,7 +1623,7 @@ def staged_davis_run(at, path, dev, raw_path, dvs_batch, FR):
     return wall, st
 
 
-def davis_phases(dev, card):
+def davis_phases(dev, card, rows_sass):
     """Phases 8-10 (the DAVIS path). Returns the K4 record entry's numbers,
     the raster K3 chunk's at the frame chunk's shape, and the DAVIS run's
     launch counts."""
@@ -1448,7 +1644,7 @@ def davis_phases(dev, card):
         raise AssertionError(f"the K4 check ran no row kernel: "
                              f"{FR.LAUNCHES}")
     log(f"# phase 8: K4 rows == plain on 61x47: T = 1/37/128 x 2 chained "
-        f"groups, Normal and Collapse, WRITE and VOID, no rows, inactive "
+        f"groups, Normal and Collapse, staged and void, no rows, inactive "
         f"rows, one pixel's rows, forced depth-16 overflow; glue (one "
         f"sub-step a lane) == plain; state in place (max abs err {k4_err}); "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1582,6 +1778,20 @@ def davis_phases(dev, card):
         log(f"#   K4 rows: glue alone {k4_glue_ms} ms; plain {k4p_ms} ms; "
             f"bound {k4_bound} ms, void bound {k4v_bound} ms (the carrier's "
             f"active rows, the state of their pixels, the events)")
+        k4_walk = rows_walk_timings(FR, st, carrier, T, p, groups,
+                                    len(want.pixd), rows_sass)
+        k4_walk["order_turns"] = order_turns(FR, FR.SRC_DAVIS, st, carrier,
+                                             T, p, groups, len(want.pixd))
+        log(f"#   K4 rows, one pass at the exact capacity (walk + scan + "
+            f"copy, no glue, no host read): {k4_walk['passes_ms']} ms; its "
+            f"kernels under torch.profiler {k4_walk['kernels']}; the copy "
+            f"alone {k4_walk['copy_ms']} ms (plain {k4_walk['copy_plain_ms']}"
+            f" ms, bound {k4_walk['copy_bound_ms']} ms); {k4_walk['n_active']}"
+            f" pixels with rows, the longest {k4_walk['chain_max']} "
+            f"sub-steps; chain estimate {k4_walk['chain_estimate_ms']} ms "
+            f"({k4_walk['sass']} SASS a sub-step; not a bound); in turns "
+            f"with the runs laid out longest first (same chunk): "
+            f"{k4_walk['order_turns']} ms")
 
         st1, c1, g1 = (frame_chunk[k] for k in ("state", "carrier", "groups"))
         e, want1 = testing.check_rows_group(st1, c1, 2, p, "frame chunk",
@@ -1598,11 +1808,17 @@ def davis_phases(dev, card):
         fv1 = c1[1].to(torch.uint8)
         carrier_ms = cuda_ms(lambda: frame_carrier(fv1, 255, 2_550_000.0), 20)
         raster_bound = rows_bound(st1, c1, len(want1.pixd))
+        raster_walk = rows_walk_timings(FR, st1, c1, 2, p, g1,
+                                        len(want1.pixd), rows_sass, reps=20)
         log(f"#   K3 rows at the frame chunk's shape (T = 2 raster, {n1} "
             f"rows, {len(want1.pixd)} events; == plain): fetched "
             f"{raster_ms} ms, void {raster_v_ms} ms, plain {raster_p_ms} ms, "
             f"bound {raster_bound} ms; its raster grouping {groups_ms} ms, "
-            f"the frame carrier built on the card {carrier_ms} ms")
+            f"the frame carrier built on the card {carrier_ms} ms; at the "
+            f"exact capacity (no host read) {raster_walk['passes_ms']} ms, "
+            f"its kernels {raster_walk['kernels']}, the copy alone "
+            f"{raster_walk['copy_ms']} ms; chain estimate "
+            f"{raster_walk['chain_estimate_ms']} ms (not a bound)")
         wall, _ = davis_run(at, path, dev, out)
         log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
             f"Mev/s, {len(frames) / wall} APS frames/s ({wall} s for {n_in} "
@@ -1612,10 +1828,12 @@ def davis_phases(dev, card):
         edi_s = time.perf_counter() - t0
         log(f"# phase 10: aedat4 read + EDI alone (one thread): {edi_s} s "
             f"for {n_pk} packets [{card}]")
-        busy = device_busy_seconds(lambda: davis_run(at, path, dev, out))
+        busy, per_kernel = device_busy_seconds(
+            lambda: davis_run(at, path, dev, out), per_launch=True)
         log(f"# phase 10: Raw run under torch.profiler: device busy {busy} s "
             f"(kernels and copies), {busy / wall:.2%} of the second run's "
-            f"wall [{card}]" if busy else
+            f"wall; the row-route kernels per launch "
+            f"{row_kernel_stats(per_kernel)} [{card}]" if busy else
             "# phase 10: device busy share not measured (the profiler saw "
             "no device time)")
         wall, stages = staged_davis_run(at, path, dev, out, dvs_batch, FR)
@@ -1629,9 +1847,10 @@ def davis_phases(dev, card):
 
     return (dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
                  void_ms=k4_t["void"][0], passes_ms=k4_t["fetched"][1],
-                 void_passes_ms=k4_t["void"][1], glue_ms=k4_glue_ms),
+                 void_passes_ms=k4_t["void"][1], glue_ms=k4_glue_ms,
+                 walk=k4_walk),
             dict(ms=raster_ms, void_ms=raster_v_ms, plain_ms=raster_p_ms,
-                 bound_ms=raster_bound),
+                 bound_ms=raster_bound, walk=raster_walk),
             launches)
 
 
@@ -3083,8 +3302,9 @@ def tools_phase(at, FR, dev, card, frames, clip_adder) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     need = {"prophesee_to_adder": ("adder_dvs_rows8", "adder_dvs_rows",
-                                   "adder_rows_group"),
-            "davis_to_adder": ("adder_davis_rows", "adder_dvs_rows"),
+                                   "adder_rows_group", "adder_rows_copy"),
+            "davis_to_adder": ("adder_davis_rows", "adder_dvs_rows",
+                               "adder_rows_copy"),
             "adder_simulproc": ("adder_resident_chunk",
                                 "adder_segment_copy"),
             "evaluate_crf_sweep": ("adder_resident_chunk",),
@@ -3271,7 +3491,7 @@ def main() -> int:
     ptx = ptxas_report(cuda_build.build_log())
     for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
                  "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
-                 "DAVIS rows (K4)", "fused interval (K5)",
+                 "DAVIS rows (K4)", "rows copy", "fused interval (K5)",
                  "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
@@ -3282,12 +3502,24 @@ def main() -> int:
                 f"{max(v['stack'] for v in ks.values())} bytes, spill stores max "
                 f"{max(v['spill_st'] for v in ks.values())} bytes, spill "
                 f"loads max {max(v['spill_ld'] for v in ks.values())} bytes")
+    # every instantiation's line: the row kernels and the rows copy are
+    # new in the one-pass walk, the others must read as their parent's
     for k, v in ptx.items():
-        if kernel_source(k) in ("framed (K1/K2)", "framed display (K1)",
-                                "segment copy", "DVS rows (K3)",
-                                "DVS rows 8-byte (K3)", "DAVIS rows (K4)",
-                                "scan", "other"):
-            log(f"#   {k}: {v}")
+        if "_kernel" in k or kernel_source(k) == "other":
+            log(f"#   {kernel_source(k)}: {k}: {v}")
+    # the row kernels' SASS per sub-step (the row loop's fewest
+    # instructions through one sub-step that runs), for the chain estimate
+    rows_sass = {}
+    for k in ptx:
+        m = re.search(r"adder_lane_rows_kernelILi16ELb([01])ELb([01])ELi(\d)E",
+                      k)
+        if m:
+            rows_sass[(int(m.group(3)), m.group(1) == "1",
+                       m.group(2) == "1")] = loop_issue_estimate(
+                cuda_build.library_path(), k)
+    log(f"# phase 1: row kernels' SASS per row (cuobjdump -sass; (carrier, "
+        f"Collapse, events staged): the row loop's body, all paths, and the "
+        f"fewest instructions through it that run a sub-step): {rows_sass}")
     # the bench mode's chunk kernel (depth 6, FramePerfect, Collapse,
     # DeltaT, display off), events staged and not: its SASS per interval
     k1_sass = {}
@@ -3504,8 +3736,9 @@ def main() -> int:
         f"{mono} Mpx/s, colour {color} Mpx/s (H x W pixels) [{card}]")
     k_ms, k_q_ms = k1["fetched"], k1["fetched_queued"]
 
-    rows_err, dvs_launches, k3r, glue, k3r8 = dvs_phases(dev, card)
-    k4, raster, davis_launches = davis_phases(dev, card)
+    rows_err, dvs_launches, k3r, glue, k3r8 = dvs_phases(dev, card,
+                                                         rows_sass)
+    k4, raster, davis_launches = davis_phases(dev, card, rows_sass)
     k5_k6 = interval_phases(dev, card, scene, main_digest, st, p)
     k1_display = features_phases(dev, card, scene, main_digest, st, p)
     k1_display["max_abs_err"] = max(k1_display["max_abs_err"], display_err)
@@ -3568,8 +3801,10 @@ def main() -> int:
          "max_abs_err": rows_err, "ms": k3r["ms"],
          "plain_ms": k3r["plain_ms"], "bound_ms": k3r["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
+         **walk_fields(k3r8["walk20"]),
          "raster_ms": raster["ms"], "raster_plain_ms": raster["plain_ms"],
-         "raster_bound_ms": raster["bound_ms"]},
+         "raster_bound_ms": raster["bound_ms"],
+         "raster": walk_fields(raster["walk"])},
         {"name": "adder_dvs_rows8", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1214",
@@ -3577,9 +3812,24 @@ def main() -> int:
          "max_abs_err": k3r8["max_abs_err"], "ms": k3r8["ms"],
          "plain_ms": k3r8["plain_ms"], "bound_ms": k3r8["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "void_ms": k3r8["void_ms"], "passes_ms": k3r8["passes_ms"],
+         "void_ms": k3r8["void_ms"],
+         **walk_fields(k3r8["walk"]),
+         "passes_host_read_ms": k3r8["passes_ms"],
          "capacity_ms": k3r8["capacity_ms"],
-         "route20_ms": k3r8["route20_ms"], "mev_in_turns": k3r8["mev"]},
+         "route20_ms": k3r8["route20_ms"], "mev_in_turns": k3r8["mev"],
+         "phase6_launches_ms": k3r8["run_kernels"]},
+        {"name": "adder_rows_copy", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/dvs_resident.cu",
+         "replaces": "adder_tpu/ops/fused_resident.py:1214",
+         "launches": (dvs_launches["adder_rows_copy"]
+                      + davis_launches["adder_rows_copy"]),
+         "max_abs_err": k3r8["copy_err"], "ms": k3r8["walk"]["copy_ms"],
+         "plain_ms": k3r8["walk"]["copy_plain_ms"],
+         "bound_ms": k3r8["walk"]["copy_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "cells": k3r8["walk"]["cells"],
+         "events": k3r8["walk"]["events"],
+         "k4_ms": k4["walk"]["copy_ms"],
+         "k4_bound_ms": k4["walk"]["copy_bound_ms"]},
         {"name": "adder_rows_group", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1115",
@@ -3595,7 +3845,8 @@ def main() -> int:
          "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "void_ms": k4["void_ms"],
-         "passes_ms": k4["passes_ms"]},
+         **walk_fields(k4["walk"]),
+         "passes_host_read_ms": k4["passes_ms"]},
         *k5_k6,
     ]}
     # phase 22: what each tool launched of each kernel
@@ -3616,7 +3867,252 @@ def main() -> int:
     return 0
 
 
+# -- the row route against another tree, in turns -----------------------------
+
+
+def route_times(FR, src, state, carrier, T, p, groups, cap, pb=None,
+                reps: int = 10) -> dict:
+    """One lane chunk's row route on groups made beforehand, through the
+    private entry both trees share (`_rows_cuda`): at capacity `cap` (no
+    host read), with the host read of the total, and void, each call on its
+    own copy of the state; its kernels' device time per call under
+    torch.profiler; the launches of one fetched call."""
+
+    def route(events, ev_cap):
+        return lambda st: FR._rows_cuda(src, st, carrier, T, p, events,
+                                        groups, pb=pb, event_cap=ev_cap)
+
+    FR.reset_launch_counts()
+    route(True, cap)(FR.clone_state(state))
+    launches = {k: v for k, v in FR.LAUNCHES.items() if v}
+    copies = iter([FR.clone_state(state) for _ in range(reps + 1)])
+    kernels = kernel_device_ms(lambda: route(True, cap)(next(copies)), reps,
+                               ("adder_lane_rows_kernel",
+                                "adder_exclusive_scan_kernel",
+                                "adder_rows_copy_kernel"))
+    return {"capacity_ms": rows_ms(route(True, cap), state, reps,
+                                   FR.clone_state),
+            "host_read_ms": rows_ms(route(True, None), state, reps,
+                                    FR.clone_state),
+            "void_ms": rows_ms(route(False, None), state, reps,
+                               FR.clone_state),
+            "kernels_ms": kernels,
+            "kernels_sum_ms": sum(kernels.values()), "launches": launches}
+
+
+def rows_worker(root: str) -> int:
+    """One turn of `--rows-turns`: with the package of the tree at `root`
+    (built there at first use), the row route's timings of phases 7 and 10
+    (the T = 128 Prophesee lane group on both carriers, DAVIS's largest
+    lane chunk and its frame chunk) and the end-to-end Prophesee (windowed
+    Raw, bulk void) and DAVIS (Raw) walls, each run's bytes held to DIGESTS;
+    the build's ptxas lines. Prints one JSON line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import adder_tpu_torch as at
+    from adder_tpu_torch import testing
+    from adder_tpu_torch.ops import cuda_build, dvs_batch
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.transcoder import lanes
+    from adder_tpu_torch.transcoder import prophesee as TP
+
+    if not os.path.abspath(FR.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {FR.__file__}, not {root}'s")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cuda_build.load()
+    out = {"root": root, "build_s": time.perf_counter() - t0,
+           "ptxas": ptxas_report(cuda_build.build_log()), "routes": {},
+           "row_sass": {}}
+    # each row walk's SASS: instructions, local loads and stores
+    for k in out["ptxas"]:
+        if "adder_lane_rows_kernel" in k:
+            ops_ = [op.split(".")[0] for _, _, op, _ in
+                    sass_lines(cuda_build.library_path(), k)]
+            out["row_sass"][k] = {"instructions": len(ops_),
+                                  "LDL": ops_.count("LDL"),
+                                  "STL": ops_.count("STL")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_turn_")
+    try:
+        stream = testing.dvs_stream(
+            11, DVS_W, DVS_H, 1_000_000, n_hot=200, hot_events=1000,
+            band_events=1_260_000, background_events=540_000)
+        n_dvs = len(stream[0])
+        raw_in = os.path.join(tmp, "stream.raw")
+        testing.write_prophesee_raw(raw_in, DVS_W, DVS_H, *stream)
+        n = DVS_W * DVS_H
+        src = at.Prophesee(20, raw_in, device=dev)
+        src.crf(3)
+        src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
+                      at.PixelMultiMode.Collapse, None, at.EncoderType.Empty,
+                      at.EncoderOptions.default(src.plane), None)
+        src.void_events = True
+        src._bootstrap()
+        p_dvs, st_dvs = src._params(), src.state
+        seg_ev = tuple(a[:TP.SEG_EVENTS_DEFAULT] for a in stream)
+        plan = dvs_batch.plan_dvs_compact(
+            *seg_ev, DVS_W, src.dvs_last_timestamps.copy(),
+            src.dvs_last_ln_val.copy(), src.camera_theta, 20,
+            val_cache=np.full(n, np.nan))
+        g = plan.lane_slice(0, TP.LANE_GROUP)
+        c20 = torch.from_numpy(FR.pack_dvs_plan(g)).to(dev)
+        packed8, pb = FR.pack_dvs_plan8(g, n, 20)
+        c8 = torch.from_numpy(packed8).to(dev)
+        cap = lanes.lane_event_cap(int(g.gap_on.sum() + g.tick_on.sum()))
+        g8 = FR.group_dvs_rows(c8, FR.MAX_T, 2, pb)
+        g20 = FR.group_dvs_rows(c20, FR.MAX_T)
+        out["routes"]["K3 8-byte, T=128 group"] = route_times(
+            FR, FR.SRC_DVS8, st_dvs, c8, FR.MAX_T, p_dvs, g8, cap, pb)
+        out["routes"]["K3 20-byte, T=128 group"] = route_times(
+            FR, FR.SRC_DVS, st_dvs, c20, FR.MAX_T, p_dvs, g20, cap)
+
+        events, frames = testing.davis_stream(
+            21, DAVIS_W, DAVIS_H, 1_000_000, n_frames=DAVIS_FRAMES,
+            exposure_us=10_000, n_hot=100, hot_events=1000,
+            edge_events=600_000, background_events=300_000)
+        n_davis = len(events[0])
+        path = os.path.join(tmp, "davis.aedat4")
+        testing.write_davis_aedat4(path, DAVIS_W, DAVIS_H, events, frames)
+        biggest, frame_chunk = {}, {}
+        P = Patches()
+
+        def keep_biggest(orig):
+            def f(state, carrier, T, p, **kw):
+                if T > biggest.get("T", 0):
+                    biggest.update(T=T, state=FR.clone_state(state),
+                                   carrier=carrier)
+                return orig(state, carrier, T, p, **kw)
+            return f
+
+        def keep_frame_chunk(orig):
+            def f(state, carrier, T, p, **kw):
+                if not frame_chunk and carrier.shape[1] == DAVIS_W * DAVIS_H:
+                    frame_chunk.update(state=FR.clone_state(state),
+                                       carrier=carrier, groups=kw["groups"])
+                return orig(state, carrier, T, p, **kw)
+            return f
+
+        P.wrap(FR, "davis_rows_resident", keep_biggest)
+        P.wrap(FR, "dvs_rows_resident", keep_frame_chunk)
+        try:
+            _, davis_src = davis_run(at, path, dev, None)
+        finally:
+            P.restore()
+        p_davis = davis_src._params()
+        st, carrier, T = biggest["state"], biggest["carrier"], biggest["T"]
+        total = int(FR.davis_rows_resident(FR.clone_state(st), carrier, T,
+                                           p_davis).total)
+        out["routes"][f"K4, largest chunk T={T}"] = route_times(
+            FR, FR.SRC_DAVIS, st, carrier, T, p_davis,
+            FR.group_dvs_rows(carrier, T, 1), total)
+        st1, c1, g1 = (frame_chunk[k] for k in ("state", "carrier", "groups"))
+        total = int(FR.dvs_rows_resident(FR.clone_state(st1), c1, 2, p_davis,
+                                         groups=g1).total)
+        out["routes"]["K3 raster, frame chunk"] = route_times(
+            FR, FR.SRC_DVS, st1, c1, 2, p_davis, g1, total, reps=20)
+
+        walls = {"Prophesee windowed Raw": [], "Prophesee bulk void": [],
+                 "DAVIS Raw": []}
+        adder = os.path.join(tmp, "out.adder")
+        for _ in range(2):
+            w_s, _ = prophesee_run(at, raw_in, dev, adder)
+            hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
+                        file_digest(adder))
+            walls["Prophesee windowed Raw"].append(n_dvs / w_s / 1e6)
+            b_s, _ = prophesee_run(at, raw_in, dev, None, view_fps=1)
+            walls["Prophesee bulk void"].append(n_dvs / b_s / 1e6)
+            d_s, _ = davis_run(at, path, dev, adder)
+            hold_digest("phase 9 DAVIS 346x260 raw-davis Raw .adder",
+                        file_digest(adder))
+            walls["DAVIS Raw"].append(n_davis / d_s / 1e6)
+        out["mev_per_s"] = walls
+        # each row-route kernel's launches and device time over one run
+        _, per = device_busy_seconds(
+            lambda: prophesee_run(at, raw_in, dev, adder), per_launch=True)
+        out["prophesee_kernels"] = row_kernel_stats(per)
+        _, per = device_busy_seconds(
+            lambda: davis_run(at, path, dev, adder), per_launch=True)
+        out["davis_kernels"] = row_kernel_stats(per)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ptxas_by_kernel(report: dict) -> dict:
+    """`ptxas_report`'s entries keyed by kernel alone: the name of the
+    anonymous namespace each source's kernels sit in carries a hash that
+    differs from tree to tree."""
+    out = {}
+    for k, v in report.items():
+        k = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}",
+                   r"_GLOBAL__N__\1", k)
+        out[re.sub(r"^_ZN\d+", "_ZN", k)] = v
+    return out
+
+
+def rows_turns(parent: str) -> int:
+    """`python3 chip_smoke.py --rows-turns PARENT`: the row route of this
+    tree against the tree unpacked at PARENT (`git archive` of another
+    commit into an ignored directory), each timed by `rows_worker` in its
+    own process, in turns: parent, this tree, this tree, parent. Prints
+    each turn's timings and Mev/s (milliseconds of the routes; the card's
+    name and power limit), and the ptxas lines of every kernel other than
+    the row walks and the rows copy that differ between the two trees.
+    Writes the turns to chiprun_out/rows_turns.json."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    card = card_line()
+    turns = []
+    for root in (parent, here, here, parent):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--rows-worker", root], cwd=root,
+                           capture_output=True, text=True, timeout=1500)
+        if r.returncode:
+            print(r.stdout[-2000:], r.stderr[-6000:], file=sys.stderr)
+            return 1
+        turn = json.loads(r.stdout.strip().splitlines()[-1])
+        turn["tree"] = "parent" if root == parent else "change"
+        turn["wall_s"] = time.perf_counter() - t0
+        turns.append(turn)
+        log(f"# turn {len(turns)}: {turn['tree']} ({root}), build "
+            f"{turn['build_s']:.1f} s, turn {turn['wall_s']:.1f} s [{card}]")
+        for name, rt in turn["routes"].items():
+            log(f"#   {name}: capacity {rt['capacity_ms']} ms, host read "
+                f"{rt['host_read_ms']} ms, void {rt['void_ms']} ms, "
+                f"kernels {rt['kernels_sum_ms']} ms {rt['kernels_ms']}, "
+                f"launches {rt['launches']}")
+        log(f"#   Mev/s: {turn['mev_per_s']}")
+        for run in ("prophesee", "davis"):
+            log(f"#   {run} Raw run under torch.profiler, per launch: "
+                f"{turn[run + '_kernels']}")
+        if len(turns) <= 2:
+            for k, v in sorted(ptxas_by_kernel(turn["ptxas"]).items()):
+                if "adder_lane_rows_kernel" in k:
+                    log(f"#   ptxas {k[-40:]}: {v}")
+            log(f"#   row walks' SASS: {list(turn['row_sass'].values())}")
+    a, b = (ptxas_by_kernel(t["ptxas"]) for t in turns[:2])
+    others = [k for k in a if "adder_lane_rows_kernel" not in k]
+    moved = [k for k in others if a[k] != b.get(k)]
+    log(f"# ptxas: {len(others) - len(moved)} of {len(others)} kernels "
+        f"other than the row walks read the same in both trees; differing: "
+        f"{moved}")
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "rows_turns.json"), "w") as f:
+        json.dump({"card": card, "turns": turns}, f)
+    print(card, flush=True)
+    return 1 if moved else 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--band-job"]:
         sys.exit(band_job(sys.argv[2]))
+    if sys.argv[1:2] == ["--rows-turns"]:
+        sys.exit(rows_turns(sys.argv[2]))
+    if sys.argv[1:2] == ["--rows-worker"]:
+        sys.exit(rows_worker(sys.argv[2]))
     sys.exit(main())

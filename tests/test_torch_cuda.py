@@ -211,8 +211,9 @@ def test_features_video_cuda_equals_cpu(cuda, env, rate, monkeypatch):
 def test_dvs_kernel_matches_plain(cuda):
     """K3 on the raster chunks against its plain version at 346 x 260: the
     bootstrap, a flush of a partial mask, a DAVIS frame (its carrier built
-    on the card) and gap, Normal and Collapse, WRITE and VOID, forced
-    overflow; the raster grouping equal to the glue's, and no glue run."""
+    on the card) and gap, Normal and Collapse, the events staged and
+    copied, and void, forced overflow; the raster grouping equal to the
+    glue's, and no glue run."""
     FR.reset_launch_counts()
     assert testing.check_raster_chunks_against_plain(cuda) == 0.0
     assert FR.LAUNCHES["adder_dvs_rows"] > 0
@@ -220,9 +221,10 @@ def test_dvs_kernel_matches_plain(cuda):
 
 def test_dvs_rows_kernel_matches_plain_and_dense(cuda):
     """The K3 row kernel against its plain version: T = 2, 38 and 128 in
-    two chained groups, Normal and Collapse, WRITE and VOID, a group with no
-    rows, one whose rows sit in one pixel, rows with one half or both off,
-    a forced depth-16 overflow; the state updated in place."""
+    two chained groups, Normal and Collapse, the events staged and copied,
+    and void, a group with no rows, one whose rows sit in one pixel, rows
+    with one half or both off, a forced depth-16 overflow; the state
+    updated in place."""
     FR.reset_launch_counts()
     assert testing.check_dvs_rows_against_plain(cuda) == 0.0
     assert FR.LAUNCHES["adder_dvs_rows"] > 0
@@ -231,8 +233,9 @@ def test_dvs_rows_kernel_matches_plain_and_dense(cuda):
 def test_dvs_rows8_kernel_matches_plain_and_20_byte_route(cuda):
     """K3 on the 8-byte carrier (`adder_dvs_rows8`) against its plain
     version and the 20-byte route on the same rows: T = 2, 38 and 128 in
-    two chained groups, Normal and Collapse, WRITE, VOID and WRITE with the
-    pipeline's capacity, no rows, one pixel's rows, halves off, a
+    two chained groups, Normal and Collapse, the events staged and copied,
+    void, and staged with the pipeline's capacity, no rows, one pixel's
+    rows, halves off, a
     dictionary of 64, gap_n past 2^20, a forced depth-16 overflow, a 61 x
     47 plane and a 640 x 480 one (pb 19); the 8-byte glue against its plain
     version and the 20-byte grouping."""
@@ -303,10 +306,12 @@ def test_prophesee_cuda_bytes_equal_cpu(cuda, tmp_path):
     FR.reset_launch_counts()
     on_card = run(cuda)
     # every chunk by rows: the lane groups on the 8-byte carrier through
-    # the glue, the bootstrap and the flush as 20-byte raster chunks (COUNT
-    # + WRITE each)
-    assert FR.LAUNCHES["adder_dvs_rows8"] >= 2
-    assert FR.LAUNCHES["adder_dvs_rows"] == 4
+    # the glue, the bootstrap and the flush as 20-byte raster chunks (one
+    # walk and one rows copy each)
+    assert FR.LAUNCHES["adder_dvs_rows8"] >= 1
+    assert FR.LAUNCHES["adder_dvs_rows"] == 2
+    assert (FR.LAUNCHES["adder_rows_copy"]
+            == FR.LAUNCHES["adder_dvs_rows8"] + 2)
     assert FR.LAUNCHES["adder_rows_group"] > 0
     assert "adder_dvs_chunk" not in FR.LAUNCHES
     assert on_card == run("cpu")
@@ -374,13 +379,46 @@ def test_prophesee_lane_groups_never_wait_for_the_card(cuda, tmp_path):
 
 def test_davis_kernel_matches_plain(cuda):
     """K4 by rows against its plain version: T = 1, 37 and 128 in two
-    chained groups on a ragged 61 x 47 plane, Normal and Collapse, WRITE and
-    VOID, a group with no rows, one with inactive rows, one whose rows sit
-    in one pixel, forced depth-16 overflow; the glue with one sub-step per
-    lane against its plain version; the state updated in place."""
+    chained groups on a ragged 61 x 47 plane, Normal and Collapse, the
+    events staged and copied, and void, a group with no rows, one with
+    inactive rows, one whose rows sit in one pixel, forced depth-16
+    overflow; the glue with one sub-step per lane against its plain
+    version; the state updated in place."""
     FR.reset_launch_counts()
     assert testing.check_davis_rows_against_plain(cuda) == 0.0
     assert FR.LAUNCHES["adder_davis_rows"] > 0
+
+
+def test_rows_copy_kernel_matches_plain(cuda):
+    """The one-pass walk's compaction, `adder_rows_copy`, against its plain
+    version and the plain route's events on the staging made of them
+    (8-byte DVS T = 2, 38 and 128 chained, DAVIS T = 64, Normal and
+    Collapse, the exact capacity, half of it, none; no rows), and the walk
+    itself: its cell counts, its staged events and its state."""
+    FR.reset_launch_counts()
+    assert testing.check_rows_copy_against_plain(cuda) == 0.0
+    assert FR.LAUNCHES["adder_rows_copy"] > 0
+
+
+@pytest.mark.parametrize("events", [True, False])
+def test_row_walk_launches_once_per_chunk(cuda, events):
+    """A lane chunk walks its rows once: one row kernel launch, and with
+    the events one rows copy; the glue's scan and the cell counts' scan;
+    with the pipeline's capacity nothing is read back in between."""
+    p = testing._dvs_params(1)
+    n = 35
+    plan = testing.lattice_plan(6, n, 3)
+    c8, pb, c20 = testing.carriers(plan, n, cuda)
+    st = FR.ops.init_state(n, cuda, depth=FR.DVS_DEPTH)
+    for fn, carrier, kw, entry in (
+            (FR.dvs_rows8_resident, c8, {"pb": pb}, "adder_dvs_rows8"),
+            (FR.dvs_rows_resident, c20, {}, "adder_dvs_rows")):
+        FR.reset_launch_counts()
+        fn(FR.clone_state(st), carrier, 6, p, events=events, event_cap=19 * 6
+           * n, **kw)
+        assert FR.LAUNCHES[entry] == 1
+        assert FR.LAUNCHES["adder_rows_copy"] == int(events)
+        assert FR.LAUNCHES["adder_exclusive_scan"] == 2
 
 
 def test_davis_rows_wrapper_rejects_bad_input(cuda):
@@ -597,8 +635,12 @@ def test_prophesee_to_adder_tool_cuda_bytes_equal_cpu(cuda, tmp_path):
     FR.reset_launch_counts()
     on_card = _tool_bytes("prophesee_to_adder", ["-i", path, "-o", out],
                           out, "cuda")
-    assert FR.LAUNCHES["adder_dvs_rows8"] >= 2
-    assert FR.LAUNCHES["adder_dvs_rows"] == 4
+    # one walk and one rows copy a chunk: the lane groups on 8 bytes, the
+    # bootstrap and the flush on 20
+    assert FR.LAUNCHES["adder_dvs_rows8"] >= 1
+    assert FR.LAUNCHES["adder_dvs_rows"] == 2
+    assert (FR.LAUNCHES["adder_rows_copy"]
+            == FR.LAUNCHES["adder_dvs_rows8"] + 2)
     assert FR.LAUNCHES["adder_rows_group"] > 0
     assert on_card == _tool_bytes("prophesee_to_adder",
                                   ["-i", path, "-o", out], out, "cpu")

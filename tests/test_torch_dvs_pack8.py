@@ -249,7 +249,7 @@ def test_rows8_plain_matches_pallas_packed8_kernel():
 
 def test_rows8_route_equals_the_20_byte_route_on_cpu():
     """`testing.check_dvs_rows8_against_plain` at a small size: the 8-byte
-    wrapper (WRITE, VOID, with the pipeline's capacity) and its plain
+    wrapper (events, void, with the pipeline's capacity) and its plain
     version equal the 20-byte route on the same rows, and the 8-byte glue
     its plain version and the 20-byte grouping, for planned groups, no
     rows, one pixel's rows, halves off, a dictionary of 64, gap_n past

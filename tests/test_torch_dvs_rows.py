@@ -171,7 +171,7 @@ def test_row_groups_list_each_pixels_rows_in_lane_order(case):
 def test_cell_ranks_place_every_event_of_the_plain_chunk(case):
     """The cell ranks, with the plain version's per-cell event counts and
     `exclusive_scan_plain`, give the position of every event in the plain
-    version's output: what the WRITE pass relies on."""
+    version's output: what the rows copy relies on."""
     make, T = GLUE_CASES[case]
     n = 63
     rows = make(n)

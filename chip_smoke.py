@@ -2,9 +2,6 @@
 """Smoke run of adder_tpu_torch on one NVIDIA GPU: build, check, transcode, time.
 
 Usage, from the repository root:  python3 chip_smoke.py
-To time the row route (K3, K4) against another commit unpacked at DIR (its
-`git archive` in an ignored directory), in turns, each tree in its own
-process:  python3 chip_smoke.py --rows-turns DIR
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
@@ -80,9 +77,10 @@ Phases (any failure raises and the script exits non-zero):
      the 8-byte row route, fetched and void, with and without the grouping
      glue, the glue alone beside its plain version, against plain, with
      their bounds; the one-pass route at the pipeline's capacity (walk,
-     scan, copy), each kernel under torch.profiler, the copy alone, the
-     longest pixel's sub-steps and the chain estimate; the carrier bytes and the h2d copy from pinned and from
-     pageable memory; the host's fused plan + pack against the classic
+     scan, copy), each kernel under torch.profiler, the copy alone (held
+     to its plain version bit for bit on the walk's staging), the longest
+     pixel's sub-steps and the chain estimate; the carrier bytes and the
+     h2d copy from pinned and from pageable memory; the host's fused plan + pack against the classic
      plan and the packs; end-to-end Mev/s (windowed Raw, bulk void) of the
      pipelined 8-byte route and of the synchronous 20-byte route in turns;
      a stage breakdown (utils/tracing, host clock, no synchronise) and the
@@ -374,10 +372,13 @@ def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
     at capacity `cap` (no host read): the walk, the scan and the copy from
     the host (`passes_ms`, each call on its own copy of the state), each
     kernel's device time under torch.profiler, the copy alone on one walk's
-    staging beside its plain version and its bound, the longest pixel's
-    sub-steps (`chain_max`) and the chain estimate: the row kernel's SASS
-    per sub-step (phase 1) x chain_max at one instruction a clock, not a
-    bound."""
+    staging beside its plain version and its bound, the copy held to its
+    plain version bit for bit on that staging (`copy_err`; raises if they
+    differ), the longest pixel's sub-steps (`chain_max`) and the chain
+    estimate: the row kernel's SASS per sub-step (phase 1) x chain_max at
+    one instruction a clock, not a bound."""
+    from adder_tpu_torch import testing
+
     src = (FR.SRC_DVS8 if pb is not None else
            FR.SRC_DAVIS if groups.cell_tick.numel() == 0 else FR.SRC_DVS)
     per_lane = 1 if src == FR.SRC_DAVIS else 2
@@ -395,6 +396,14 @@ def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
                         groups, pb)
     offsets = FR.exclusive_scan(walk.cell_counts)
     n_ev = int(offsets[-1])
+    # the copy's first min(total, cap) entries are the events
+    n_out = min(n_ev, cap)
+    copy_err = max(testing.bitwise_max_err(
+        g[:n_out], w_[:n_out], f"rows copy at the main path's shape {f}")
+        for g, w_, f in zip(
+            FR.rows_copy(walk.stage, walk.cell_counts, offsets, cap),
+            FR.rows_copy_plain(walk.stage, walk.cell_counts, offsets, cap),
+            ("pixd", "t")))
     copy_ms = cuda_ms(lambda: FR.rows_copy(walk.stage, walk.cell_counts,
                                            offsets, cap), 20)
     copy_plain_ms = cuda_ms(lambda: FR.rows_copy_plain(
@@ -408,54 +417,11 @@ def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
     sass = rows_sass.get((src, p.multi_mode == 1, True), {}).get("path", 0)
     return {"passes_ms": passes, "kernels": kernels, "copy_ms": copy_ms,
             "copy_plain_ms": copy_plain_ms, "copy_bound_ms": copy_bound,
+            "copy_err": copy_err,
             "cells": cells, "events": n_ev,
             "n_active": int(groups.n_active), "chain_max": chain_max,
             "sass": sass,
             "chain_estimate_ms": sass * chain_max / sm_clock_hz() * 1e3}
-
-
-def longest_first(groups):
-    """The same grouping with the pixels' runs laid out longest first: the
-    walk's thread j takes the j-th longest pixel instead of the j-th in
-    raster order. Cells, sub-steps and so the output stay as they are.
-    Torch ops on the card, no host read (the proposal measured in phases 7
-    and 10 before the glue would make it)."""
-    start = groups.row_start
-    E = groups.order.numel()
-    runlen = start[1:E + 1] - start[:E]  # 0 past the pixels that have rows
-    j = torch.arange(E, device=start.device)
-    perm = torch.sort((E + 1 - runlen) * (E + 1) + j)[1]
-    new_len = runlen[perm]
-    new_start = torch.cumsum(new_len, 0) - new_len
-    inv = torch.empty_like(perm)
-    inv[perm] = j
-    run_of = torch.searchsorted(start[:E + 1], j, right=True) - 1
-    at = new_start[inv[run_of]] + (j - start[run_of])
-    order = torch.empty_like(groups.order)
-    order[at] = groups.order
-    row_start = torch.cat([new_start, start.new_full((2,), E)])
-    return groups._replace(order=order, row_start=row_start)
-
-
-def order_turns(FR, src, state, carrier, T, p, groups, cap, pb=None,
-                reps: int = 10) -> dict:
-    """The walk + scan + copy at capacity `cap` on the raster grouping and
-    on its longest-first layout, in turns (raster, longest first, longest
-    first, raster), ms per chunk; raises unless both give the same chunk."""
-    lf = longest_first(groups)
-    out = {"raster": [], "longest first": []}
-    res = {}
-    for name in ("raster", "longest first", "longest first", "raster"):
-        g = groups if name == "raster" else lf
-        out[name].append(rows_ms(lambda st: FR._rows_cuda(
-            src, st, carrier, T, p, True, g, pb=pb, event_cap=cap), state,
-            reps, FR.clone_state))
-        res[name] = FR._rows_cuda(src, FR.clone_state(state), carrier, T, p,
-                                  True, g, pb=pb, event_cap=cap)
-    import adder_tpu_torch.testing as testing
-    testing.compare_chunks(res["longest first"], res["raster"],
-                           "longest first against raster order")
-    return out
 
 
 def walk_fields(w: dict) -> dict:
@@ -463,9 +429,7 @@ def walk_fields(w: dict) -> dict:
     return {"passes_ms": w["passes_ms"], "copy_ms": w["copy_ms"],
             "chain_max": w["chain_max"], "n_active": w["n_active"],
             "chain_estimate_ms": w["chain_estimate_ms"],
-            "chain_estimate_sass": w["sass"], "kernels_ms": w["kernels"],
-            **({"order_turns_ms": w["order_turns"]} if "order_turns" in w
-               else {})}
+            "chain_estimate_sass": w["sass"], "kernels_ms": w["kernels"]}
 
 
 def state_bytes(state) -> int:
@@ -1436,8 +1400,6 @@ def dvs_phases(dev, card, rows_sass):
                                   groups8, cap, rows_sass, pb=pb)
         walk20 = rows_walk_timings(FR, st_dvs, carrier, FR.MAX_T, p_dvs,
                                    groups, cap, rows_sass)
-        walk8["order_turns"] = order_turns(FR, FR.SRC_DVS8, st_dvs, carrier8,
-                                           FR.MAX_T, p_dvs, groups8, cap, pb)
         rp_ms = cuda_ms(lambda: FR.dvs_rows_resident_plain(
             st_dvs, carrier, FR.MAX_T, p_dvs), 1)
         log(f"# phase 7: {DVS_W}x{DVS_H} T=128 group [{card}]:")
@@ -1464,15 +1426,14 @@ def dvs_phases(dev, card, rows_sass):
             log(f"#   K3 rows, {name}, the one-pass route at the pipeline's "
                 f"capacity (walk + scan + copy, no glue, no host read): "
                 f"{w['passes_ms']} ms; its kernels under torch.profiler "
-                f"{w['kernels']}; the copy alone {w['copy_ms']} ms (plain "
+                f"{w['kernels']}; the copy alone {w['copy_ms']} ms (== "
+                f"plain, max abs err {w['copy_err']}; plain "
                 f"{w['copy_plain_ms']} ms, bound {w['copy_bound_ms']} ms, "
                 f"{w['cells']} cells, {w['events']} events); {w['n_active']} "
                 f"pixels with rows, the longest {w['chain_max']} sub-steps; "
                 f"chain estimate {w['chain_estimate_ms']} ms ({w['sass']} "
                 f"SASS a sub-step x the longest chain at one a clock; not a "
                 f"bound)")
-        log(f"#   K3 rows, 8 bytes, the same in turns with the pixels' runs "
-            f"laid out longest first (same chunk): {walk8['order_turns']} ms")
         for name, (nbytes, page_ms, pin_ms) in h2d.items():
             log(f"#   {name} carrier h2d {nbytes} bytes: pageable {page_ms} "
                 f"ms ({nbytes / page_ms / 1e3} MB/s), pinned {pin_ms} ms "
@@ -1524,7 +1485,9 @@ def dvs_phases(dev, card, rows_sass):
                  passes_ms=rows8_t["fetched"][1],
                  capacity_ms=rows8_t["fetched, the pipeline's capacity"][0],
                  route20_ms=r_ms, mev=mev, walk=walk8, walk20=walk20,
-                 run_kernels=group_ms, copy_err=copy_err))
+                 run_kernels=group_ms,
+                 copy_err=max(copy_err, walk8["copy_err"],
+                              walk20["copy_err"])))
 
 
 def davis_run(at, path, device, raw_path=None, before=None):
@@ -1780,18 +1743,15 @@ def davis_phases(dev, card, rows_sass):
             f"active rows, the state of their pixels, the events)")
         k4_walk = rows_walk_timings(FR, st, carrier, T, p, groups,
                                     len(want.pixd), rows_sass)
-        k4_walk["order_turns"] = order_turns(FR, FR.SRC_DAVIS, st, carrier,
-                                             T, p, groups, len(want.pixd))
         log(f"#   K4 rows, one pass at the exact capacity (walk + scan + "
             f"copy, no glue, no host read): {k4_walk['passes_ms']} ms; its "
             f"kernels under torch.profiler {k4_walk['kernels']}; the copy "
-            f"alone {k4_walk['copy_ms']} ms (plain {k4_walk['copy_plain_ms']}"
+            f"alone {k4_walk['copy_ms']} ms (== plain, max abs err "
+            f"{k4_walk['copy_err']}; plain {k4_walk['copy_plain_ms']}"
             f" ms, bound {k4_walk['copy_bound_ms']} ms); {k4_walk['n_active']}"
             f" pixels with rows, the longest {k4_walk['chain_max']} "
             f"sub-steps; chain estimate {k4_walk['chain_estimate_ms']} ms "
-            f"({k4_walk['sass']} SASS a sub-step; not a bound); in turns "
-            f"with the runs laid out longest first (same chunk): "
-            f"{k4_walk['order_turns']} ms")
+            f"({k4_walk['sass']} SASS a sub-step; not a bound)")
 
         st1, c1, g1 = (frame_chunk[k] for k in ("state", "carrier", "groups"))
         e, want1 = testing.check_rows_group(st1, c1, 2, p, "frame chunk",
@@ -1817,7 +1777,8 @@ def davis_phases(dev, card, rows_sass):
             f"the frame carrier built on the card {carrier_ms} ms; at the "
             f"exact capacity (no host read) {raster_walk['passes_ms']} ms, "
             f"its kernels {raster_walk['kernels']}, the copy alone "
-            f"{raster_walk['copy_ms']} ms; chain estimate "
+            f"{raster_walk['copy_ms']} ms (== plain, max abs err "
+            f"{raster_walk['copy_err']}); chain estimate "
             f"{raster_walk['chain_estimate_ms']} ms (not a bound)")
         wall, _ = davis_run(at, path, dev, out)
         log(f"# phase 10: end to end (Raw, second run): {n_in / wall / 1e6} "
@@ -1848,7 +1809,8 @@ def davis_phases(dev, card, rows_sass):
     return (dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
                  void_ms=k4_t["void"][0], passes_ms=k4_t["fetched"][1],
                  void_passes_ms=k4_t["void"][1], glue_ms=k4_glue_ms,
-                 walk=k4_walk),
+                 walk=k4_walk,
+                 copy_err=max(k4_walk["copy_err"], raster_walk["copy_err"])),
             dict(ms=raster_ms, void_ms=raster_v_ms, plain_ms=raster_p_ms,
                  bound_ms=raster_bound, walk=raster_walk),
             launches)
@@ -3820,10 +3782,14 @@ def main() -> int:
          "phase6_launches_ms": k3r8["run_kernels"]},
         {"name": "adder_rows_copy", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
-         "replaces": "adder_tpu/ops/fused_resident.py:1214",
+         # no pl.pallas_call: the JAX chunks' events leave through the
+         # host assembler; the copy serves K3 (20 and 8 bytes) and K4
+         "replaces": "adder_tpu/ops/fused_resident.py:1492",
+         "serves": ["adder_dvs_rows", "adder_dvs_rows8", "adder_davis_rows"],
          "launches": (dvs_launches["adder_rows_copy"]
                       + davis_launches["adder_rows_copy"]),
-         "max_abs_err": k3r8["copy_err"], "ms": k3r8["walk"]["copy_ms"],
+         "max_abs_err": max(k3r8["copy_err"], k4["copy_err"]),
+         "ms": k3r8["walk"]["copy_ms"],
          "plain_ms": k3r8["walk"]["copy_plain_ms"],
          "bound_ms": k3r8["walk"]["copy_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "cells": k3r8["walk"]["cells"],
@@ -3867,252 +3833,7 @@ def main() -> int:
     return 0
 
 
-# -- the row route against another tree, in turns -----------------------------
-
-
-def route_times(FR, src, state, carrier, T, p, groups, cap, pb=None,
-                reps: int = 10) -> dict:
-    """One lane chunk's row route on groups made beforehand, through the
-    private entry both trees share (`_rows_cuda`): at capacity `cap` (no
-    host read), with the host read of the total, and void, each call on its
-    own copy of the state; its kernels' device time per call under
-    torch.profiler; the launches of one fetched call."""
-
-    def route(events, ev_cap):
-        return lambda st: FR._rows_cuda(src, st, carrier, T, p, events,
-                                        groups, pb=pb, event_cap=ev_cap)
-
-    FR.reset_launch_counts()
-    route(True, cap)(FR.clone_state(state))
-    launches = {k: v for k, v in FR.LAUNCHES.items() if v}
-    copies = iter([FR.clone_state(state) for _ in range(reps + 1)])
-    kernels = kernel_device_ms(lambda: route(True, cap)(next(copies)), reps,
-                               ("adder_lane_rows_kernel",
-                                "adder_exclusive_scan_kernel",
-                                "adder_rows_copy_kernel"))
-    return {"capacity_ms": rows_ms(route(True, cap), state, reps,
-                                   FR.clone_state),
-            "host_read_ms": rows_ms(route(True, None), state, reps,
-                                    FR.clone_state),
-            "void_ms": rows_ms(route(False, None), state, reps,
-                               FR.clone_state),
-            "kernels_ms": kernels,
-            "kernels_sum_ms": sum(kernels.values()), "launches": launches}
-
-
-def rows_worker(root: str) -> int:
-    """One turn of `--rows-turns`: with the package of the tree at `root`
-    (built there at first use), the row route's timings of phases 7 and 10
-    (the T = 128 Prophesee lane group on both carriers, DAVIS's largest
-    lane chunk and its frame chunk) and the end-to-end Prophesee (windowed
-    Raw, bulk void) and DAVIS (Raw) walls, each run's bytes held to DIGESTS;
-    the build's ptxas lines. Prints one JSON line."""
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
-    import adder_tpu_torch as at
-    from adder_tpu_torch import testing
-    from adder_tpu_torch.ops import cuda_build, dvs_batch
-    from adder_tpu_torch.ops import fused_resident as FR
-    from adder_tpu_torch.transcoder import lanes
-    from adder_tpu_torch.transcoder import prophesee as TP
-
-    if not os.path.abspath(FR.__file__).startswith(root + os.sep):
-        raise AssertionError(f"imported {FR.__file__}, not {root}'s")
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    cuda_build.load()
-    out = {"root": root, "build_s": time.perf_counter() - t0,
-           "ptxas": ptxas_report(cuda_build.build_log()), "routes": {},
-           "row_sass": {}}
-    # each row walk's SASS: instructions, local loads and stores
-    for k in out["ptxas"]:
-        if "adder_lane_rows_kernel" in k:
-            ops_ = [op.split(".")[0] for _, _, op, _ in
-                    sass_lines(cuda_build.library_path(), k)]
-            out["row_sass"][k] = {"instructions": len(ops_),
-                                  "LDL": ops_.count("LDL"),
-                                  "STL": ops_.count("STL")}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_turn_")
-    try:
-        stream = testing.dvs_stream(
-            11, DVS_W, DVS_H, 1_000_000, n_hot=200, hot_events=1000,
-            band_events=1_260_000, background_events=540_000)
-        n_dvs = len(stream[0])
-        raw_in = os.path.join(tmp, "stream.raw")
-        testing.write_prophesee_raw(raw_in, DVS_W, DVS_H, *stream)
-        n = DVS_W * DVS_H
-        src = at.Prophesee(20, raw_in, device=dev)
-        src.crf(3)
-        src.write_out(at.SourceCamera.Dvs, at.TimeMode.AbsoluteT,
-                      at.PixelMultiMode.Collapse, None, at.EncoderType.Empty,
-                      at.EncoderOptions.default(src.plane), None)
-        src.void_events = True
-        src._bootstrap()
-        p_dvs, st_dvs = src._params(), src.state
-        seg_ev = tuple(a[:TP.SEG_EVENTS_DEFAULT] for a in stream)
-        plan = dvs_batch.plan_dvs_compact(
-            *seg_ev, DVS_W, src.dvs_last_timestamps.copy(),
-            src.dvs_last_ln_val.copy(), src.camera_theta, 20,
-            val_cache=np.full(n, np.nan))
-        g = plan.lane_slice(0, TP.LANE_GROUP)
-        c20 = torch.from_numpy(FR.pack_dvs_plan(g)).to(dev)
-        packed8, pb = FR.pack_dvs_plan8(g, n, 20)
-        c8 = torch.from_numpy(packed8).to(dev)
-        cap = lanes.lane_event_cap(int(g.gap_on.sum() + g.tick_on.sum()))
-        g8 = FR.group_dvs_rows(c8, FR.MAX_T, 2, pb)
-        g20 = FR.group_dvs_rows(c20, FR.MAX_T)
-        out["routes"]["K3 8-byte, T=128 group"] = route_times(
-            FR, FR.SRC_DVS8, st_dvs, c8, FR.MAX_T, p_dvs, g8, cap, pb)
-        out["routes"]["K3 20-byte, T=128 group"] = route_times(
-            FR, FR.SRC_DVS, st_dvs, c20, FR.MAX_T, p_dvs, g20, cap)
-
-        events, frames = testing.davis_stream(
-            21, DAVIS_W, DAVIS_H, 1_000_000, n_frames=DAVIS_FRAMES,
-            exposure_us=10_000, n_hot=100, hot_events=1000,
-            edge_events=600_000, background_events=300_000)
-        n_davis = len(events[0])
-        path = os.path.join(tmp, "davis.aedat4")
-        testing.write_davis_aedat4(path, DAVIS_W, DAVIS_H, events, frames)
-        biggest, frame_chunk = {}, {}
-        P = Patches()
-
-        def keep_biggest(orig):
-            def f(state, carrier, T, p, **kw):
-                if T > biggest.get("T", 0):
-                    biggest.update(T=T, state=FR.clone_state(state),
-                                   carrier=carrier)
-                return orig(state, carrier, T, p, **kw)
-            return f
-
-        def keep_frame_chunk(orig):
-            def f(state, carrier, T, p, **kw):
-                if not frame_chunk and carrier.shape[1] == DAVIS_W * DAVIS_H:
-                    frame_chunk.update(state=FR.clone_state(state),
-                                       carrier=carrier, groups=kw["groups"])
-                return orig(state, carrier, T, p, **kw)
-            return f
-
-        P.wrap(FR, "davis_rows_resident", keep_biggest)
-        P.wrap(FR, "dvs_rows_resident", keep_frame_chunk)
-        try:
-            _, davis_src = davis_run(at, path, dev, None)
-        finally:
-            P.restore()
-        p_davis = davis_src._params()
-        st, carrier, T = biggest["state"], biggest["carrier"], biggest["T"]
-        total = int(FR.davis_rows_resident(FR.clone_state(st), carrier, T,
-                                           p_davis).total)
-        out["routes"][f"K4, largest chunk T={T}"] = route_times(
-            FR, FR.SRC_DAVIS, st, carrier, T, p_davis,
-            FR.group_dvs_rows(carrier, T, 1), total)
-        st1, c1, g1 = (frame_chunk[k] for k in ("state", "carrier", "groups"))
-        total = int(FR.dvs_rows_resident(FR.clone_state(st1), c1, 2, p_davis,
-                                         groups=g1).total)
-        out["routes"]["K3 raster, frame chunk"] = route_times(
-            FR, FR.SRC_DVS, st1, c1, 2, p_davis, g1, total, reps=20)
-
-        walls = {"Prophesee windowed Raw": [], "Prophesee bulk void": [],
-                 "DAVIS Raw": []}
-        adder = os.path.join(tmp, "out.adder")
-        for _ in range(2):
-            w_s, _ = prophesee_run(at, raw_in, dev, adder)
-            hold_digest("phase 6 Prophesee 640x480 windowed Raw .adder",
-                        file_digest(adder))
-            walls["Prophesee windowed Raw"].append(n_dvs / w_s / 1e6)
-            b_s, _ = prophesee_run(at, raw_in, dev, None, view_fps=1)
-            walls["Prophesee bulk void"].append(n_dvs / b_s / 1e6)
-            d_s, _ = davis_run(at, path, dev, adder)
-            hold_digest("phase 9 DAVIS 346x260 raw-davis Raw .adder",
-                        file_digest(adder))
-            walls["DAVIS Raw"].append(n_davis / d_s / 1e6)
-        out["mev_per_s"] = walls
-        # each row-route kernel's launches and device time over one run
-        _, per = device_busy_seconds(
-            lambda: prophesee_run(at, raw_in, dev, adder), per_launch=True)
-        out["prophesee_kernels"] = row_kernel_stats(per)
-        _, per = device_busy_seconds(
-            lambda: davis_run(at, path, dev, adder), per_launch=True)
-        out["davis_kernels"] = row_kernel_stats(per)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def ptxas_by_kernel(report: dict) -> dict:
-    """`ptxas_report`'s entries keyed by kernel alone: the name of the
-    anonymous namespace each source's kernels sit in carries a hash that
-    differs from tree to tree."""
-    out = {}
-    for k, v in report.items():
-        k = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}",
-                   r"_GLOBAL__N__\1", k)
-        out[re.sub(r"^_ZN\d+", "_ZN", k)] = v
-    return out
-
-
-def rows_turns(parent: str) -> int:
-    """`python3 chip_smoke.py --rows-turns PARENT`: the row route of this
-    tree against the tree unpacked at PARENT (`git archive` of another
-    commit into an ignored directory), each timed by `rows_worker` in its
-    own process, in turns: parent, this tree, this tree, parent. Prints
-    each turn's timings and Mev/s (milliseconds of the routes; the card's
-    name and power limit), and the ptxas lines of every kernel other than
-    the row walks and the rows copy that differ between the two trees.
-    Writes the turns to chiprun_out/rows_turns.json."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    parent = os.path.abspath(parent)
-    card = card_line()
-    turns = []
-    for root in (parent, here, here, parent):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--rows-worker", root], cwd=root,
-                           capture_output=True, text=True, timeout=1500)
-        if r.returncode:
-            print(r.stdout[-2000:], r.stderr[-6000:], file=sys.stderr)
-            return 1
-        turn = json.loads(r.stdout.strip().splitlines()[-1])
-        turn["tree"] = "parent" if root == parent else "change"
-        turn["wall_s"] = time.perf_counter() - t0
-        turns.append(turn)
-        log(f"# turn {len(turns)}: {turn['tree']} ({root}), build "
-            f"{turn['build_s']:.1f} s, turn {turn['wall_s']:.1f} s [{card}]")
-        for name, rt in turn["routes"].items():
-            log(f"#   {name}: capacity {rt['capacity_ms']} ms, host read "
-                f"{rt['host_read_ms']} ms, void {rt['void_ms']} ms, "
-                f"kernels {rt['kernels_sum_ms']} ms {rt['kernels_ms']}, "
-                f"launches {rt['launches']}")
-        log(f"#   Mev/s: {turn['mev_per_s']}")
-        for run in ("prophesee", "davis"):
-            log(f"#   {run} Raw run under torch.profiler, per launch: "
-                f"{turn[run + '_kernels']}")
-        if len(turns) <= 2:
-            for k, v in sorted(ptxas_by_kernel(turn["ptxas"]).items()):
-                if "adder_lane_rows_kernel" in k:
-                    log(f"#   ptxas {k[-40:]}: {v}")
-            log(f"#   row walks' SASS: {list(turn['row_sass'].values())}")
-    a, b = (ptxas_by_kernel(t["ptxas"]) for t in turns[:2])
-    others = [k for k in a if "adder_lane_rows_kernel" not in k]
-    moved = [k for k in others if a[k] != b.get(k)]
-    log(f"# ptxas: {len(others) - len(moved)} of {len(others)} kernels "
-        f"other than the row walks read the same in both trees; differing: "
-        f"{moved}")
-    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(here, "chiprun_out", "rows_turns.json"), "w") as f:
-        json.dump({"card": card, "turns": turns}, f)
-    print(card, flush=True)
-    return 1 if moved else 0
-
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--band-job"]:
         sys.exit(band_job(sys.argv[2]))
-    if sys.argv[1:2] == ["--rows-turns"]:
-        sys.exit(rows_turns(sys.argv[2]))
-    if sys.argv[1:2] == ["--rows-worker"]:
-        sys.exit(rows_worker(sys.argv[2]))
     sys.exit(main())

@@ -527,17 +527,20 @@ __device__ __forceinline__ unsigned run_interval(
 // slot arrays: the order of the calls below is the slot order. ------------
 
 // Where the row walk puts a cell's events: with STORE its staging slots
-// (pix << 8 | d in the low word, t in the high one), in the order they come;
-// without, their count alone (the void walk).
+// (pix << 8 | d in the low word, t in the high one), in the order they come,
+// slot-major: slot k of cell c at k x C + c (C cells), so the first slots of
+// neighbouring cells share sectors; without, their count alone (the void
+// walk).
 template <bool STORE>
 struct CellEvents {
-  unsigned long long* at;  // STORE: the cell's first staging slot
+  unsigned long long* at;  // STORE: the cell's slot 0
+  long long cells;         // C, the stride from one slot to the next
   unsigned pbase;          // pix << 8
   int n;                   // events so far
   __device__ __forceinline__ void put(int d, unsigned t) {
     if (STORE) {
-      at[n] = (unsigned long long)(pbase | ((unsigned)d & 0xFFu)) |
-              ((unsigned long long)t << 32);
+      at[n * cells] = (unsigned long long)(pbase | ((unsigned)d & 0xFFu)) |
+                      ((unsigned long long)t << 32);
     }
     ++n;
   }
@@ -1073,8 +1076,8 @@ struct AdderRowsArgs {
   const void* cell_tick;  // (E,) DVS: each row's tick cell; DAVIS: unread
   void* cell_counts;      // (C,) i32 events per cell; C = 2 E for DVS (two
                           // sub-steps a row), E for DAVIS
-  void* stage;            // events: (C x (depth + 3),) u64, cell c's events
-                          // in its slots [c (depth + 3), ...)
+  void* stage;            // events: (C x (depth + 3),) u64 slot-major, cell
+                          // c's k-th event at k C + c
   void* flags;            // [max per-cell count, depth overflow]
   int pb;                 // SRC_DVS8: the bits of the pixel field
 };
@@ -1163,9 +1166,9 @@ __device__ __forceinline__ RowWords load_row(const RArgs& a, long long stride,
 // lane order once, scatter its state back. No loop over T and no barrier:
 // each sub-step writes its cell's event count at the cell's rank and, with
 // EVENTS, the cell's events as they are produced into the cell's own
-// staging slots (D + 3 a cell, the most one sub-step emits), in slot order;
-// the exclusive scan of the counts and adder_rows_copy then put them in
-// (sub-step, raster pixel, slot) order. While a row's sub-steps run, the
+// staging slots (D + 3 a cell, the most one sub-step emits; slot k of cell c
+// at k C + c), in slot order; the exclusive scan of the counts and
+// adder_rows_copy then put them in (sub-step, raster pixel, slot) order. While a row's sub-steps run, the
 // next row's words and the index of the one after are on their way. SRC
 // picks what a row holds. SRC_DVS, the carrier of pack_dvs_plan: two
 // sub-steps of run_interval_rows (the gap, then the tick; a half that is off
@@ -1181,7 +1184,6 @@ __global__ void __launch_bounds__(kRowsBlock)
   static_assert(SRC == SRC_DVS || SRC == SRC_DAVIS || SRC == SRC_DVS8,
                 "the row walk takes a DVS (20 or 8 bytes) or a DAVIS carrier");
   static_assert(kRowsBlock >= kDictCap, "one dictionary entry a thread");
-  constexpr int K = D + 3;
   constexpr int SUBSTEPS = SRC == SRC_DAVIS ? 1 : 2;  // per row
   const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * kRowsBlock + threadIdx.x;
@@ -1229,8 +1231,8 @@ __global__ void __launch_bounds__(kRowsBlock)
                             ? ((unsigned)meta >> (a.pb + 6 + h)) & 1u
                             : (meta >> (27 + h)) & 1;
         const long long cell = h ? cur.tick : cur.gap;
-        CellEvents<EVENTS> out{EVENTS ? a.stage + cell * K : nullptr, pbase,
-                               0};
+        CellEvents<EVENTS> out{EVENTS ? a.stage + cell : nullptr,
+                               SUBSTEPS * a.rows, pbase, 0};
         if (on) {
           bool ovf;
           if constexpr (SRC == SRC_DVS || SRC == SRC_DVS8) {

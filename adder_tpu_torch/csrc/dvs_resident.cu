@@ -1,7 +1,7 @@
 // Hopper kernel for one chunk of DVS lane sub-steps (sm_90a): K3, by rows,
 // on the 20-byte carrier (adder_dvs_rows) and on the 8-byte one
-// (adder_dvs_rows8), and the grouping glue the row kernels of K3 and K4
-// share.
+// (adder_dvs_rows8), and the grouping and the rows copy the row kernels of
+// K3 and K4 share.
 //
 // Replaces the TPU kernel adder_tpu/ops/fused_resident.py::make_resident_call
 // in its DVS mode (dvs=True; make_dvs_chunk_resident :1017, reached through
@@ -36,19 +36,19 @@
 //   sub-steps) sets the floor.
 //   What the design does about it (adder_lane_rows_kernel in
 //   adder_interval.cuh):
-//   - glue on the card, without a host read (fused_resident.group_dvs_rows:
-//     two sorts and the ranks of the cells, below): the rows of each pixel in
-//     lane order, and for each row the rank of its gap cell and of its tick
-//     cell among the 2 E cells in (sub-step, pixel) order. A chunk of one row
-//     per pixel in raster order needs none: its grouping is known
-//     (fused_resident.raster_row_groups);
+//   - the grouping on the card, without a host read and without a sort
+//     (fused_resident.group_dvs_rows: bitmaps and one look-back scan,
+//     below): the rows of each pixel in lane order, and for each row the
+//     rank of its gap cell and of its tick cell among the 2 E cells in
+//     (sub-step, pixel) order. A chunk of one row per pixel in raster order
+//     needs none: its grouping is known (fused_resident.raster_row_groups);
 //   - one thread per pixel that has rows walks that pixel's rows only, once
 //     (no loop over T, no barrier, no word read for an inactive cell). Each
 //     sub-step writes its events as they are produced into its cell's own
-//     19 staging slots and its count at the cell's rank; the exclusive scan
-//     of the 2 E counts gives every cell its offset, and adder_rows_copy
-//     moves the staged events there. The state machine runs once per active
-//     cell, where a count pass and a write pass ran it twice;
+//     19 staging slots (slot-major) and its count at the cell's rank; the
+//     exclusive scan of the 2 E counts gives every cell its offset, and
+//     adder_rows_copy moves the staged events there. The state machine runs
+//     once per active cell, where a count pass and a write pass ran it twice;
 //   - the serial sub-step is short: no slot arrays (sd/st) are built and
 //     then stored; pop_best and integrate's tail searches follow the arena's
 //     length (most arenas hold one to three nodes), not its depth; the walk
@@ -89,8 +89,8 @@
 //     the exact i32 product gap_n x ref_time rounded once (__fmul_rn,
 //     __int2float_rn: no contraction), the planner's own definitions, so
 //     the decoded fields equal the 20-byte carrier's bit for bit;
-//   - the glue keys the rows with the same lane << 20 | pix
-//     (rows_keys_kernel<true>), so everything after the keys is shared.
+//   - the grouping reads the 8-byte key's fields (row_key with pb), so
+//     everything after the keys is shared.
 
 #include "adder_interval.cuh"
 
@@ -99,137 +99,347 @@ extern "C" {
 // Mirrored by adder_tpu_torch/ops/fused_resident.py::_RowsCopyArgs.
 struct AdderRowsCopyArgs {
   long long cells;       // C
-  int slots;             // staging slots a cell, depth + 3 <= 32
   long long cap;         // entries of out_pixd / out_t; an event past it is
                          // not written
   const void* counts;    // (C,) i32
-  const void* offsets;   // (C + 1,) i64 exclusive offsets, the total last
-  const void* stage;     // (C x slots,) u64
+  const void* offsets;   // (C + 1,) i64, the exclusive scan of counts, the
+                         // total last
+  const void* stage;     // (19 x C,) u64, slot k of cell c at k C + c
   void* out_pixd;        // (cap,) u32 pix << 8 | d
   void* out_t;           // (cap,) u32 t
+};
+
+// Mirrored by adder_tpu_torch/ops/fused_resident.py::_RowsGroupArgs.
+struct AdderRowsGroupArgs {
+  const void* meta;   // (E,) i32, row 0 of the carrier's rows
+  long long rows;     // E >= 1
+  int pb;             // 0: the key lane << 20 | pix in the low 27 bits (the
+                      // 20-byte DVS and the DAVIS carriers); 1..20: pix in
+                      // the low pb bits, the lane in the 6 above (8 bytes)
+  int per_lane;       // sub-steps a lane: 2 (DVS), 1 (DAVIS)
+  int T;              // sub-steps of the group, per_lane x lanes
+  long long n;        // pixels of the plane
+  void* scratch;      // adder_rows_group_scratch's words, 16-byte aligned;
+                      // the keys entry clears its first part
+  void* order;        // (E,) i64
+  void* row_start;    // (E + 2,) i64
+  void* n_active;     // (1,) i64
+  void* cell_gap;     // (E,) i64
+  void* cell_tick;    // (E,) i64, per_lane 2 only
+  void* sub_start;    // (T + 1,) i64
 };
 
 }  // extern "C"
 
 namespace {
 
-// --- the grouping glue of the row route (fused_resident.group_dvs_rows; its
+// --- the grouping of the row route (fused_resident.group_dvs_rows; its
 // plain version is group_dvs_rows_plain), for the DVS and the DAVIS carrier
-// alike: the low 27 bits of row 0 are lane << 20 | pix in both. Three small
-// kernels around two sorts and one exclusive scan, so a group costs a dozen
-// launches and no host read. Keys: pix << 7 | lane sorts the rows by pixel,
-// then lane; lane << 20 | pix ranks them in output order. The planners give
-// each (lane, pixel) at most one row, so the keys are unique and the sorts
-// need not be stable. -----------------------------------------------------
+// alike. The JAX package builds dense planes in XLA glue instead
+// (build_dvs_planes, adder_tpu/ops/fused_resident.py:1115), no pl.pallas_call
+// of its own. What it must give: the rows of each pixel in lane order
+// (order, row_start, n_active) and each row's cells ranked in (sub-step,
+// raster pixel) order (cell_gap, cell_tick, sub_start). What bounds it: not
+// operations, and bytes only at E x 36 (the keys read, four i64 arrays
+// written); a comparison sort of the keys needs several passes and
+// launches, and binary searches of about 18 dependent steps a row. Design:
+// the keys are dense and small (lane < 128, pix < n <= 2^20) and each
+// (lane, pixel) holds at most one row (the planners guarantee it), so both
+// orders come from counting, in three launches and no sort:
+//   keys  one thread a row sets its bit in a lane-major bitmap
+//         bits[lane][pix / 32] and its lane's bit in the pixel's lane mask
+//         masks[pix] (64 or 128 bits);
+//   scan  one decoupled look-back (lookback_exclusive) over two sequences
+//         at once, warp 0 publishing the one and warp 1 the other: the
+//         popcounts of the bitmap's words in lane-major order (a word's
+//         rank in (lane, pixel) order, each lane's first rank), and per
+//         pixel rows << 21 | active (its first row in (pixel, lane) order
+//         and its index among the pixels that have rows). A non-zero word
+//         or mask leaves with its prefix in the scratch's second part;
+//   rank  one thread a row reads its word and its mask from there and
+//         writes order[first row + popc(mask below its lane)], the head's
+//         row_start, its cells (rank + lane start, + next lane start for
+//         the tick) and, for its index, sub_start and the tail of row_start.
+// The keys entry clears the bitmap, the masks and the look-back words with
+// one cudaMemsetAsync before its kernel; they stay in L2 (2.5 MB each at
+// 640 x 480 x 64 lanes).
+// A row whose pixel is past the plane or whose lane is past the group's is
+// left out (its outputs undefined): no key the 27-bit field can hold writes
+// outside the scratch. -------------------------------------------------
 
 constexpr int kGlueBlock = 256;
+constexpr int kScanWords = 4;   // bitmap words a thread of the scan
+constexpr int kScanPixels = 2;  // pixels a thread of the scan
+constexpr long long kActiveBits = 21;  // rows << 21 | active pixels
 
-// EIGHT: row 0 of pack_dvs_plan8's carrier, pix in the low pb bits and the
-// lane in the 6 above; else the low 27 bits of the 20-byte carriers.
-template <bool EIGHT>
+// Where each part of the scratch lies, in 64-bit words, for a plane of n
+// pixels and a group of `lanes` lanes: first the parts the keys entry
+// clears, then those the scan writes.
+struct GroupLayout {
+  long long nw;    // bitmap words a lane, a multiple of kScanWords
+  int mw;          // 64-bit words of a pixel's lane mask
+  int nblk;        // blocks of the scan
+  long long bits;  // lanes x nw u32
+  long long masks;  // n x mw u64
+  long long look;  // the block ticket, then 2 x nblk look-back words
+  long long cleared;  // the words cleared
+  long long pa;    // lanes x nw u64, a non-zero word << 32 | its rank
+  long long pm;    // n x (mw + 1) u64, an active pixel's mask words, then
+                   // its rows << 21 | active prefix
+  long long ls;    // lanes + 1 i64, each lane's first rank, the total
+  long long words;
+};
+
+inline GroupLayout group_layout(long long n, int lanes) {
+  GroupLayout g;
+  g.nw = (n + 32 * kScanWords - 1) / (32 * kScanWords) * kScanWords;
+  g.mw = lanes > 64 ? 2 : 1;
+  const long long ta = (long long)kGlueBlock * kScanWords;
+  const long long tp = (long long)kGlueBlock * kScanPixels;
+  const long long ba = (lanes * g.nw + ta - 1) / ta, bp = (n + tp - 1) / tp;
+  g.nblk = (int)(ba > bp ? ba : bp);
+  g.bits = 0;
+  g.masks = lanes * g.nw / 2;
+  g.look = g.masks + n * g.mw;
+  g.cleared = g.look + 1 + 2LL * g.nblk;
+  g.pa = g.cleared;
+  g.pm = g.pa + lanes * g.nw;
+  g.ls = g.pm + n * (g.mw + 1);
+  g.words = g.ls + lanes + 1;
+  return g;
+}
+
+struct GArgs {
+  GroupLayout L;
+  const int* meta;
+  long long rows, n;
+  int pb, per_lane, T, lanes;
+  unsigned* bits;
+  unsigned long long* masks;
+  unsigned long long* look;
+  unsigned long long* pa;
+  unsigned long long* pm;
+  long long* ls;
+  long long *order, *row_start, *n_active, *cell_gap, *cell_tick, *sub_start;
+};
+
+// Row i's lane and pixel; false for a row outside the plane or the group.
+__device__ __forceinline__ bool row_key(const GArgs& g, long long i, int& lane,
+                                        long long& pix) {
+  const unsigned w = (unsigned)g.meta[i];
+  if (g.pb == 0) {
+    pix = w & 0xFFFFFu;
+    lane = (int)((w >> 20) & 127u);
+  } else {
+    pix = w & ((1u << g.pb) - 1u);
+    lane = (int)((w >> g.pb) & 63u);
+  }
+  return pix < g.n && lane < g.lanes;
+}
+
 __global__ void __launch_bounds__(kGlueBlock)
-    rows_keys_kernel(const int* __restrict__ meta, long long rows, int pb,
-                     int* __restrict__ key_pl, int* __restrict__ key_lp) {
+    rows_group_keys_kernel(const GArgs g) {
   const long long i = (long long)blockIdx.x * kGlueBlock + threadIdx.x;
-  if (i < rows) {
-    const unsigned w = (unsigned)meta[i];
-    const int k =
-        EIGHT ? (int)((((w >> pb) & 63u) << 20) | (w & ((1u << pb) - 1u)))
-              : (int)(w & 0x7FFFFFFu);
-    key_lp[i] = k;
-    key_pl[i] = ((k & 0xFFFFF) << 7) | (k >> 20);
+  int lane;
+  long long pix;
+  if (i < g.rows && row_key(g, i, lane, pix)) {
+    atomicOr(&g.bits[lane * g.L.nw + (pix >> 5)], 1u << (pix & 31));
+    atomicOr(&g.masks[pix * g.L.mw + (lane >> 6)], 1ull << (lane & 63));
   }
 }
 
-// First index of the sorted keys `a` that holds a value >= v.
-__device__ __forceinline__ long long lower_bound(const int* a, long long n,
-                                                 int v) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (a[mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+template <int MW>
+__global__ void __launch_bounds__(kGlueBlock)
+    rows_group_scan_kernel(const GArgs g) {
+  constexpr int kWarps = kGlueBlock / 32;
+  __shared__ int s_blk;
+  __shared__ long long s_pre[2][kWarps];
+  if (threadIdx.x == 0) s_blk = (int)atomicAdd(g.look, 1ull);
+  __syncthreads();
+  const int blk = s_blk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long t = (long long)blk * kGlueBlock + threadIdx.x;
+  // the bitmap's words, lane-major (16-byte loads: nw is a multiple of 4)
+  const long long words = g.lanes * g.L.nw, w0 = t * kScanWords;
+  uint4 wv = make_uint4(0u, 0u, 0u, 0u);
+  if (w0 < words) wv = *reinterpret_cast<const uint4*>(g.bits + w0);
+  const int ca = __popc(wv.x) + __popc(wv.y) + __popc(wv.z) + __popc(wv.w);
+  // the pixels' lane masks
+  const long long p0 = t * kScanPixels;
+  unsigned long long m[kScanPixels][MW];
+  long long cb = 0;
+#pragma unroll
+  for (int q = 0; q < kScanPixels; ++q) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+      m[q][k] = p0 + q < g.n ? g.masks[(p0 + q) * MW + k] : 0ull;
+      c += __popcll(m[q][k]);
+    }
+    cb += ((long long)c << kActiveBits) | (c > 0);
+  }
+  const long long xa = warp_inclusive_scan((long long)ca, lane);
+  const long long xb = warp_inclusive_scan(cb, lane);
+  if (lane == 31) {
+    s_pre[0][warp] = xa;
+    s_pre[1][warp] = xb;
+  }
+  __syncthreads();
+  if (warp < 2) {  // warp 0 the words, warp 1 the pixels, side by side
+    const long long v = lane < kWarps ? s_pre[warp][lane] : 0;
+    const long long y = warp_inclusive_scan(v, lane);
+    const long long total = __shfl_sync(kFull, y, 31);
+    const long long excl = lookback_exclusive(
+        g.look + 1 + (long long)warp * g.L.nblk, blk, total, 0, lane);
+    if (lane < kWarps) s_pre[warp][lane] = excl + y - v;
+    if (blk == g.L.nblk - 1 && lane == 0) {
+      if (warp == 0) {
+        g.ls[g.lanes] = excl + total;
+      } else {
+        *g.n_active = (excl + total) & ((1LL << kActiveBits) - 1);
+      }
     }
   }
-  return lo;
+  __syncthreads();
+  if (w0 < words) {
+    long long ra = s_pre[0][warp] + xa - ca;
+    // a lane's first word starts a thread's words (nw is a multiple of 4)
+    if (w0 % g.L.nw == 0) g.ls[w0 / g.L.nw] = ra;
+    const unsigned wk[kScanWords] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int k = 0; k < kScanWords; ++k) {
+      if (wk[k]) {
+        g.pa[w0 + k] = ((unsigned long long)wk[k] << 32) | (unsigned)ra;
+      }
+      ra += __popc(wk[k]);
+    }
+  }
+  long long rb = s_pre[1][warp] + xb - cb;
+#pragma unroll
+  for (int q = 0; q < kScanPixels; ++q) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < MW; ++k) c += __popcll(m[q][k]);
+    if (c) {
+      const long long p = p0 + q;
+#pragma unroll
+      for (int k = 0; k < MW; ++k) g.pm[p * (MW + 1) + k] = m[q][k];
+      g.pm[p * (MW + 1) + MW] = (unsigned long long)rb;
+    }
+    rb += ((long long)c << kActiveBits) | (c > 0);
+  }
 }
 
-// skey: the sorted pix << 7 | lane keys; lkey, lorder: the sorted
-// lane << 20 | pix keys and the rows they came from; per_lane: the sub-steps
-// of a lane, 2 for DVS (gap, tick), 1 for DAVIS. Writes the run heads of
-// skey (a pixel's first row) for the scan, each row's cells, and the first
-// cell of each of the T sub-steps, then per_lane x E. Lane k's rows are
-// ranks [ls, le) of lkey. DVS: its gap cells are 2 ls + (rank - ls), its
-// tick cells follow them. DAVIS: a row's one cell is its rank.
+template <int MW>
 __global__ void __launch_bounds__(kGlueBlock)
-    rows_rank_kernel(const int* __restrict__ skey,
-                     const int* __restrict__ lkey,
-                     const long long* __restrict__ lorder, long long rows,
-                     int T, int per_lane, int* __restrict__ head,
-                     long long* __restrict__ cell_gap,
-                     long long* __restrict__ cell_tick,
-                     long long* __restrict__ sub_start) {
+    rows_group_rank_kernel(const GArgs g) {
   const long long i = (long long)blockIdx.x * kGlueBlock + threadIdx.x;
-  if (i < rows) {
-    head[i] = i == 0 || (skey[i] >> 7) != (skey[i - 1] >> 7);
-    const long long row = lorder[i];
-    if (per_lane == 1) {
-      cell_gap[row] = i;
+  const long long total = g.ls[g.lanes];
+  int lane;
+  long long pix;
+  if (i < g.rows && row_key(g, i, lane, pix)) {
+    const unsigned long long a = g.pa[lane * g.L.nw + (pix >> 5)];
+    const long long rank =
+        (long long)(unsigned)a +
+        __popc((unsigned)(a >> 32) & ((1u << (pix & 31)) - 1u));
+    if (g.per_lane == 1) {
+      g.cell_gap[i] = rank;
     } else {
-      const int lane = lkey[i] >> 20;
-      cell_gap[row] = i + lower_bound(lkey, rows, lane << 20);
-      cell_tick[row] = i + lower_bound(lkey, rows, (lane + 1) << 20);
+      g.cell_gap[i] = rank + g.ls[lane];
+      g.cell_tick[i] = rank + g.ls[lane + 1];
+    }
+    const unsigned long long* e = g.pm + pix * (MW + 1);
+    int below = 0;
+#pragma unroll
+    for (int k = 0; k < MW; ++k) {
+      const int bit = lane - 64 * k;
+      const unsigned long long mk = e[k];
+      below += bit >= 64 ? __popcll(mk)
+               : bit > 0 ? __popcll(mk & ((1ull << bit) - 1ull))
+                         : 0;
+    }
+    const unsigned long long pre = e[MW];
+    const long long first = (long long)(pre >> kActiveBits);
+    g.order[first + below] = i;
+    if (below == 0) {  // the pixel's first row heads its run
+      g.row_start[pre & ((1ull << kActiveBits) - 1)] = first;
     }
   }
-  if (i < T) {
-    const int lane = (int)(i / per_lane);
-    const long long ls = lower_bound(lkey, rows, lane << 20);
-    if (per_lane == 1) {
-      sub_start[i] = ls;
-    } else {
-      const long long le = lower_bound(lkey, rows, (lane + 1) << 20);
-      sub_start[i] = (i & 1) ? ls + le : 2 * ls;
-    }
-  } else if (i == T) {
-    sub_start[i] = per_lane * rows;
+  if (i < g.T) {
+    const int l = (int)(i / g.per_lane);
+    g.sub_start[i] = g.per_lane == 1 ? g.ls[l]
+                     : (i & 1)       ? g.ls[l] + g.ls[l + 1]
+                                     : 2 * g.ls[l];
+  } else if (i == g.T) {
+    g.sub_start[i] = g.per_lane * total;
   }
-}
-
-// pos: the exclusive scan of head, its total (the number of pixels that
-// have rows) last. row_start[j] is the first sorted row of the j-th such
-// pixel; every later entry, up to row_start[rows + 1], is `rows`.
-__global__ void __launch_bounds__(kGlueBlock)
-    rows_starts_kernel(const int* __restrict__ head,
-                       const long long* __restrict__ pos, long long rows,
-                       long long* __restrict__ row_start) {
-  const long long i = (long long)blockIdx.x * kGlueBlock + threadIdx.x;
-  if (i < rows && head[i]) row_start[pos[i]] = i;
-  if (i >= pos[rows] && i <= rows + 1) row_start[i] = rows;
+  if (i >= *g.n_active && i <= g.rows + 1) g.row_start[i] = total;
 }
 
 inline int glue_grid(long long threads) {
   return (int)((threads + kGlueBlock - 1) / kGlueBlock);
 }
 
+// The group's arguments, checked; false for arguments the kernels refuse.
+inline bool group_args(const AdderRowsGroupArgs* a, GArgs& g) {
+  if (a->rows < 1 || a->rows >= (1LL << 30) || a->n < 1 ||
+      a->n > (1LL << 20) || a->pb < 0 || a->pb > 20 ||
+      (a->per_lane != 1 && a->per_lane != 2) || a->T < a->per_lane ||
+      a->T > kMaxT || a->T % a->per_lane != 0 ||
+      (a->pb > 0 && a->per_lane != 2) || a->meta == nullptr ||
+      a->scratch == nullptr || a->order == nullptr ||
+      a->row_start == nullptr || a->n_active == nullptr ||
+      a->cell_gap == nullptr || a->sub_start == nullptr ||
+      (a->per_lane == 2 && a->cell_tick == nullptr) ||
+      ((uintptr_t)a->scratch & 15) != 0) {
+    return false;
+  }
+  g.lanes = a->T / a->per_lane;
+  g.L = group_layout(a->n, g.lanes);
+  g.meta = (const int*)a->meta;
+  g.rows = a->rows;
+  g.n = a->n;
+  g.pb = a->pb;
+  g.per_lane = a->per_lane;
+  g.T = a->T;
+  unsigned long long* s = (unsigned long long*)a->scratch;
+  g.bits = (unsigned*)(s + g.L.bits);
+  g.masks = s + g.L.masks;
+  g.look = s + g.L.look;
+  g.pa = s + g.L.pa;
+  g.pm = s + g.L.pm;
+  g.ls = (long long*)(s + g.L.ls);
+  g.order = (long long*)a->order;
+  g.row_start = (long long*)a->row_start;
+  g.n_active = (long long*)a->n_active;
+  g.cell_gap = (long long*)a->cell_gap;
+  g.cell_tick = (long long*)a->cell_tick;
+  g.sub_start = (long long*)a->sub_start;
+  return true;
+}
+
 // --- the compaction of the row walk (adder_rows_copy; its plain version is
 // fused_resident.rows_copy_plain), for K3 and K4 alike. In the JAX package
 // the resident chunk's events leave through its host assembler
 // (assemble_resident_events), with no pl.pallas_call of their own; here the
-// walk stages each cell's events in the cell's own slots, and this kernel
-// moves them to the cell's exclusive offset, so they leave in (sub-step,
-// raster pixel, slot) order. What bounds it: bytes (each cell's count and
-// offset read, each event's 8 staged bytes read and 8 output bytes
-// written). Design: each warp takes 32 consecutive cells, reads their
-// counts and offsets once (coalesced), and copies each non-empty cell's
-// events with its lanes, one event a lane, from the cell's contiguous slots
-// to its contiguous output; an event past `cap` is not written. ---------
+// walk stages each cell's events in the cell's own slots, slot-major, and
+// this kernel moves them to the cell's exclusive offset, so they leave in
+// (sub-step, raster pixel, slot) order. What bounds it: bytes (each cell's
+// count read, one offset a warp of 32 cells, each event's 8 staged bytes
+// read and 8 output bytes written).
+// Design: each warp takes 32 consecutive cells; one coalesced load of their
+// counts, a warp prefix of them and one broadcast load of the first cell's
+// offset give every cell its place. The warp's events are then one run of
+// outputs: lane l takes the warp's events l, l + 32, ..., finds its cell by
+// a binary search of the prefix through shuffles (5 steps) and its slot
+// from the cell's exclusive prefix, so every lane works in every step and
+// the stores are contiguous; a slot-major staging puts the first events of
+// neighbouring cells in the same sectors. An event past `cap` is not
+// written. ------------------------------------------------------------------
 constexpr int kCopyBlock = 256;
 
 __global__ void __launch_bounds__(kCopyBlock)
-    adder_rows_copy_kernel(const long long cells, const int slots,
-                           const long long cap,
+    adder_rows_copy_kernel(const long long cells, const long long cap,
                            const int* __restrict__ counts,
                            const long long* __restrict__ offsets,
                            const unsigned long long* __restrict__ stage,
@@ -238,21 +448,26 @@ __global__ void __launch_bounds__(kCopyBlock)
   const int lane = threadIdx.x & 31;
   const long long base = ((long long)blockIdx.x * kCopyBlock + threadIdx.x)
                          & ~31LL;
-  const long long cell = base + lane;
-  int cnt = 0;
-  long long off = 0;
-  if (cell < cells) {
-    cnt = counts[cell];
-    off = offsets[cell];
-  }
-  unsigned busy = __ballot_sync(kFull, cnt > 0);
-  while (busy) {
-    const int b = __ffs(busy) - 1;
-    busy &= busy - 1;
-    const int c = __shfl_sync(kFull, cnt, b);
-    const long long o = __shfl_sync(kFull, off, b) + lane;
-    if (lane < c && o < cap) {
-      const unsigned long long v = stage[(base + b) * slots + lane];
+  if (base >= cells) return;  // the whole warp
+  const int cnt = base + lane < cells ? counts[base + lane] : 0;
+  const int incl = warp_inclusive_scan(cnt, lane);
+  const int excl = incl - cnt;
+  const int total = __shfl_sync(kFull, incl, 31);
+  if (total == 0) return;
+  const long long off = offsets[base];
+  if (off >= cap) return;
+  for (int r = 0; r < total; r += 32) {
+    const int e = r + lane;
+    // j: the number of the warp's cells whose inclusive prefix is <= e
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(kFull, incl, j + step - 1) <= e) j += step;
+    }
+    const int k = e - __shfl_sync(kFull, excl, j);
+    const long long o = off + e;
+    if (e < total && o < cap) {
+      const unsigned long long v = stage[k * cells + base + j];
       out_pixd[o] = (unsigned)v;
       out_t[o] = (unsigned)(v >> 32);
     }
@@ -260,7 +475,7 @@ __global__ void __launch_bounds__(kCopyBlock)
 }
 
 inline int launch_rows_copy(const AdderRowsCopyArgs* c, void* stream) {
-  if (c->cells < 1 || c->slots < 1 || c->slots > 32 || c->cap < 0 ||
+  if (c->cells < 1 || c->cap < 0 ||
       c->counts == nullptr || c->offsets == nullptr ||
       c->stage == nullptr ||
       (c->cap > 0 && (c->out_pixd == nullptr || c->out_t == nullptr))) {
@@ -269,9 +484,9 @@ inline int launch_rows_copy(const AdderRowsCopyArgs* c, void* stream) {
   const long long grid = (c->cells + kCopyBlock - 1) / kCopyBlock;
   adder_rows_copy_kernel<<<(unsigned)grid, kCopyBlock, 0,
                            (cudaStream_t)stream>>>(
-      c->cells, c->slots, c->cap, (const int*)c->counts,
-      (const long long*)c->offsets, (const unsigned long long*)c->stage,
-      (unsigned*)c->out_pixd, (unsigned*)c->out_t);
+      c->cells, c->cap, (const int*)c->counts, (const long long*)c->offsets,
+      (const unsigned long long*)c->stage, (unsigned*)c->out_pixd,
+      (unsigned*)c->out_t);
   return (int)cudaGetLastError();
 }
 
@@ -279,55 +494,54 @@ inline int launch_rows_copy(const AdderRowsCopyArgs* c, void* stream) {
 
 extern "C" {
 
-
-
-int adder_rows_keys(const void* meta, long long rows, void* key_pl,
-                    void* key_lp, void* stream) {
-  if (rows < 1 || rows >= (1LL << 30)) return (int)cudaErrorInvalidValue;
-  rows_keys_kernel<false>
-      <<<glue_grid(rows), kGlueBlock, 0, (cudaStream_t)stream>>>(
-          (const int*)meta, rows, 0, (int*)key_pl, (int*)key_lp);
-  return (int)cudaGetLastError();
-}
-
-// The keys of an 8-byte carrier's rows (row 0 of pack_dvs_plan8's, whose
-// pixel field has pb <= 20 bits, so lane << 20 | pix keeps both).
-int adder_rows_keys8(const void* meta, long long rows, int pb, void* key_pl,
-                     void* key_lp, void* stream) {
-  if (rows < 1 || rows >= (1LL << 30) || pb < 1 || pb > 20) {
+// The 64-bit words of the grouping's scratch for a plane of n pixels and a
+// group of `lanes` lanes, into *words.
+int adder_rows_group_scratch(long long n, int lanes, void* words) {
+  if (n < 1 || n > (1LL << 20) || lanes < 1 || lanes > kMaxT ||
+      words == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  rows_keys_kernel<true>
-      <<<glue_grid(rows), kGlueBlock, 0, (cudaStream_t)stream>>>(
-          (const int*)meta, rows, pb, (int*)key_pl, (int*)key_lp);
+  *(long long*)words = group_layout(n, lanes).words;
+  return 0;
+}
+
+// The grouping's three launches, in this order on one stream.
+int adder_rows_group_keys(const AdderRowsGroupArgs* a, void* stream) {
+  GArgs g;
+  if (!group_args(a, g)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaMemsetAsync(a->scratch, 0, (size_t)g.L.cleared * 8,
+                      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  rows_group_keys_kernel<<<glue_grid(g.rows), kGlueBlock, 0,
+                           (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-// cell_tick is written only for per_lane == 2 (the DVS carrier).
-int adder_rows_rank(const void* skey, const void* lkey, const void* lorder,
-                    long long rows, int T, int per_lane, void* head,
-                    void* cell_gap, void* cell_tick, void* sub_start,
-                    void* stream) {
-  if (rows < 1 || rows >= (1LL << 30) || T < 1 || T > 256 ||
-      (per_lane != 1 && per_lane != 2) ||
-      (per_lane == 2 && cell_tick == nullptr)) {
-    return (int)cudaErrorInvalidValue;
+int adder_rows_group_scan(const AdderRowsGroupArgs* a, void* stream) {
+  GArgs g;
+  if (!group_args(a, g)) return (int)cudaErrorInvalidValue;
+  if (g.L.mw == 1) {
+    rows_group_scan_kernel<1>
+        <<<g.L.nblk, kGlueBlock, 0, (cudaStream_t)stream>>>(g);
+  } else {
+    rows_group_scan_kernel<2>
+        <<<g.L.nblk, kGlueBlock, 0, (cudaStream_t)stream>>>(g);
   }
-  const long long threads = rows > T + 1 ? rows : T + 1;
-  rows_rank_kernel<<<glue_grid(threads), kGlueBlock, 0,
-                     (cudaStream_t)stream>>>(
-      (const int*)skey, (const int*)lkey, (const long long*)lorder, rows, T,
-      per_lane, (int*)head, (long long*)cell_gap, (long long*)cell_tick,
-      (long long*)sub_start);
   return (int)cudaGetLastError();
 }
 
-int adder_rows_starts(const void* head, const void* pos, long long rows,
-                      void* row_start, void* stream) {
-  if (rows < 1 || rows >= (1LL << 30)) return (int)cudaErrorInvalidValue;
-  rows_starts_kernel<<<glue_grid(rows + 2), kGlueBlock, 0,
-                       (cudaStream_t)stream>>>(
-      (const int*)head, (const long long*)pos, rows, (long long*)row_start);
+int adder_rows_group_rank(const AdderRowsGroupArgs* a, void* stream) {
+  GArgs g;
+  if (!group_args(a, g)) return (int)cudaErrorInvalidValue;
+  const long long threads = g.rows + 2 > g.T + 1 ? g.rows + 2 : g.T + 1;
+  if (g.L.mw == 1) {
+    rows_group_rank_kernel<1><<<glue_grid(threads), kGlueBlock, 0,
+                                (cudaStream_t)stream>>>(g);
+  } else {
+    rows_group_rank_kernel<2><<<glue_grid(threads), kGlueBlock, 0,
+                                (cudaStream_t)stream>>>(g);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -22,8 +22,9 @@ Each entry point has two implementations:
   reference's single-thread order (interval, raster pixel, slot);
 - the hand-written Hopper kernels of `csrc/` (`adder_resident_chunk`,
   `adder_segment_copy` and `adder_exclusive_scan` in fused_resident.cu,
-  `adder_dvs_rows`, `adder_dvs_rows8`, the grouping glue and
-  `adder_rows_copy` in dvs_resident.cu, `adder_davis_rows` in
+  `adder_dvs_rows`, `adder_dvs_rows8`, the grouping
+  (`adder_rows_group_keys`, `_scan`, `_rank`) and `adder_rows_copy` in
+  dvs_resident.cu, `adder_davis_rows` in
   davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
   `group_chunk_resident`, `dvs_rows_resident`, `dvs_rows8_resident` and
   `davis_rows_resident` (and `segment_copy` and `rows_copy`, whose plain
@@ -421,58 +422,82 @@ class RowGroups(NamedTuple):
 
 
 def group_dvs_rows(carrier: torch.Tensor, T: int, per_lane: int = 2,
-                   pb: Optional[int] = None) -> RowGroups:
+                   pb: Optional[int] = None, *,
+                   n: Optional[int] = None) -> RowGroups:
     """Group the rows of a (5, E >= 1) carrier of T / per_lane lanes by
     pixel and rank their cells in output order: `pack_dvs_plan`'s with
     per_lane 2, `pack_davis_plan`'s with per_lane 1 (the low 27 bits of row
     0 are lane << 20 | pix in both); with `pb`, the (2, E + DICT_CAP)
     carrier of `pack_dvs_plan8` (per_lane 2), whose row 0 holds pix in its
     low pb bits and the lane in the 6 above. Each (lane, pixel) holds at
-    most one row, as the planners guarantee (the sorts are not stable); the
-    rows may come in any order. For a CUDA carrier two `torch.sort`s, the
-    glue kernels of csrc/dvs_resident.cu (`adder_rows_keys` or
-    `adder_rows_keys8`, `adder_rows_rank`, `adder_rows_starts`, counted as
-    LAUNCHES["adder_rows_group"]) and one `exclusive_scan`; for a CPU
-    carrier `group_dvs_rows_plain`."""
+    most one row, as the planners guarantee; the rows may come in any
+    order. For a CUDA carrier the three kernels of csrc/dvs_resident.cu
+    (`adder_rows_group_keys`, `_scan`, `_rank`, each counted in
+    LAUNCHES["adder_rows_group"]), which need the plane's pixel count `n`
+    (pixels below n, lanes below T / per_lane; a row outside them is left
+    out) and sort nothing; for a CPU carrier `group_dvs_rows_plain`."""
     if per_lane not in (1, 2) or (pb is not None and per_lane != 2):
-        raise ValueError(f"{per_lane} sub-steps a lane; the glue takes 1 or "
-                         f"2, and 2 for the 8-byte carrier")
+        raise ValueError(f"{per_lane} sub-steps a lane; the grouping takes 1 "
+                         f"or 2, and 2 for the 8-byte carrier")
     if not carrier.is_cuda:
         return group_dvs_rows_plain(carrier, T, per_lane, pb)
+    if n is None or not 1 <= n <= 1 << 20:
+        raise ValueError(f"the grouping on the card needs the plane's pixel "
+                         f"count n in 1..2^20, got {n}")
     meta = _row0(carrier, pb)
     E, dev = meta.shape[0], meta.device
     lib = cuda_build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch(fn, *args) -> None:
-        err = fn(*args, stream)
+    # every output in one allocation: order, row_start, n_active, cell_gap,
+    # cell_tick, sub_start
+    sizes = (E, E + 2, 1, E, E if per_lane == 2 else 0, T + 1)
+    out = torch.empty(sum(sizes), dtype=torch.int64, device=dev).split(sizes)
+    a = _RowsGroupArgs()
+    a.meta, a.rows, a.pb = meta.data_ptr(), E, pb or 0
+    a.per_lane, a.T, a.n = per_lane, T, n
+    a.order, a.row_start, a.n_active, a.cell_gap = (x.data_ptr()
+                                                    for x in out[:4])
+    a.cell_tick = out[4].data_ptr() if per_lane == 2 else None
+    a.sub_start = out[5].data_ptr()
+    words = ctypes.c_longlong()
+    err = lib.adder_rows_group_scratch(n, T // per_lane,
+                                       ctypes.addressof(words))
+    if err:
+        raise ValueError(f"the grouping's scratch for {n} pixels and "
+                         f"{T // per_lane} lanes: "
+                         f"{cuda_build.error_string(err)}")
+    # the keys entry clears the part that must start at zero; freed on
+    # return, it is reused only by work queued after these launches
+    scratch = torch.empty(words.value, dtype=torch.int64, device=dev)
+    a.scratch = scratch.data_ptr()
+    for fn in (lib.adder_rows_group_keys, lib.adder_rows_group_scan,
+               lib.adder_rows_group_rank):
+        err = fn(ctypes.addressof(a), stream)
         if err:
             raise RuntimeError(f"the row grouping's launch failed: "
                                f"{cuda_build.error_string(err)}")
         LAUNCHES["adder_rows_group"] += 1
+    return RowGroups(*out)
 
-    keys = torch.empty((2, E), dtype=torch.int32, device=dev)
-    if pb is None:
-        launch(lib.adder_rows_keys, meta.data_ptr(), E, keys[0].data_ptr(),
-               keys[1].data_ptr())
-    else:
-        launch(lib.adder_rows_keys8, meta.data_ptr(), E, pb,
-               keys[0].data_ptr(), keys[1].data_ptr())
-    skey, order = torch.sort(keys[0])
-    lkey, lorder = torch.sort(keys[1])
-    head = torch.empty(E, dtype=torch.int32, device=dev)
-    cells = torch.empty((per_lane, E), dtype=torch.int64, device=dev)
-    sub_start = torch.empty(T + 1, dtype=torch.int64, device=dev)
-    launch(lib.adder_rows_rank, skey.data_ptr(), lkey.data_ptr(),
-           lorder.data_ptr(), E, T, per_lane, head.data_ptr(),
-           cells[0].data_ptr(), cells[1].data_ptr() if per_lane == 2 else None,
-           sub_start.data_ptr())
-    pos = exclusive_scan(head)
-    row_start = torch.empty(E + 2, dtype=torch.int64, device=dev)
-    launch(lib.adder_rows_starts, head.data_ptr(), pos.data_ptr(), E,
-           row_start.data_ptr())
-    return RowGroups(order, row_start, pos[E:], cells[0],
-                     cells[1] if per_lane == 2 else cells[0, :0], sub_start)
+
+class _RowsGroupArgs(ctypes.Structure):
+    """Mirror of `struct AdderRowsGroupArgs` in csrc/dvs_resident.cu."""
+
+    _fields_ = [
+        ("meta", ctypes.c_void_p),
+        ("rows", ctypes.c_longlong),
+        ("pb", ctypes.c_int),
+        ("per_lane", ctypes.c_int),
+        ("T", ctypes.c_int),
+        ("n", ctypes.c_longlong),
+        ("scratch", ctypes.c_void_p),
+        ("order", ctypes.c_void_p),
+        ("row_start", ctypes.c_void_p),
+        ("n_active", ctypes.c_void_p),
+        ("cell_gap", ctypes.c_void_p),
+        ("cell_tick", ctypes.c_void_p),
+        ("sub_start", ctypes.c_void_p),
+    ]
 
 
 def _row0(carrier: torch.Tensor, pb: Optional[int]) -> torch.Tensor:
@@ -537,7 +562,7 @@ def raster_row_groups(E: int, device) -> RowGroups:
     order, all in lane 0 (the Prophesee bootstrap and end-of-stream flush,
     DAVIS's frame and the gap to it), known without a sort: what
     `group_dvs_rows` makes of such a carrier, from four small torch ops and
-    no glue kernel."""
+    no grouping kernel."""
     ar = torch.arange(E, dtype=torch.int64, device=device)
     return RowGroups(ar, torch.cat([ar, ar.new_full((2,), E)]),
                      ar.new_full((1,), E), ar, ar + E,
@@ -714,7 +739,7 @@ def dvs_rows_resident(state, carrier, T: int, p, events: bool = True,
     `dvs_chunk_resident_plain` on the planes `build_dvs_planes` makes of
     that carrier. For a CUDA carrier the grouping (`groups` where the
     caller knows it, as `raster_row_groups` for one row per pixel in raster
-    order; else the glue `group_dvs_rows`), then the K3 row kernel
+    order; else `group_dvs_rows`), then the K3 row kernel
     `adder_dvs_rows` once: with `events` it stages each cell's events, and
     the scan of the cell counts and `rows_copy` put them in order; without,
     it counts them; for a CPU carrier `dvs_rows_resident_plain`, which needs
@@ -745,7 +770,7 @@ def dvs_rows8_resident(state, carrier, T: int, p, events: bool = True,
     """`dvs_rows_resident` for a lane group given as the (2, E + DICT_CAP)
     int32 carrier of `pack_dvs_plan8` (or of the fused native planner),
     whose pixel field has `pb` bits (`pix_bits` of the plane): for a CUDA
-    carrier the glue `group_dvs_rows` on the 8-byte keys, then the K3 row
+    carrier `group_dvs_rows` on the 8-byte keys, then the K3 row
     kernel `adder_dvs_rows8`, which decodes each row's two words and the
     dictionary as `unpack_dvs_carrier8` does; for a CPU carrier
     `dvs_rows8_resident_plain`. The same events, counts, flags and state
@@ -764,7 +789,7 @@ def davis_rows_resident(state, carrier, T: int, p,
     (5, E) int32 carrier (`pack_davis_plan`): the events in (sub-step,
     raster pixel, slot) order, the per-sub-step counts and the flags of
     `davis_chunk_resident_plain` on the planes `build_davis_planes` makes of
-    that carrier. For a CUDA carrier the glue `group_dvs_rows` with one
+    that carrier. For a CUDA carrier `group_dvs_rows` with one
     sub-step per lane, then the K4 row kernel `adder_davis_rows` once, its
     events staged and copied as in `dvs_rows_resident` when `events`; for a
     CPU carrier `davis_rows_resident_plain`. The state is updated in place, as
@@ -1077,7 +1102,6 @@ class _RowsCopyArgs(ctypes.Structure):
 
     _fields_ = [
         ("cells", ctypes.c_longlong),
-        ("slots", ctypes.c_int),
         ("cap", ctypes.c_longlong),
         ("counts", ctypes.c_void_p),
         ("offsets", ctypes.c_void_p),
@@ -1097,10 +1121,11 @@ _ROW_ENTRIES = {SRC_DVS: ("adder_dvs_rows", 2, 5),
 class RowWalk(NamedTuple):
     """What one launch of a row kernel leaves on the card: per cell (a
     pixel's sub-step, in (sub-step, raster pixel) order) its event count,
-    and with the events its staged events; the flags; the grouping."""
+    and with the events its staged events, slot-major (cell c's k-th event
+    at k C + c); the flags; the grouping."""
 
     cell_counts: torch.Tensor  # (C,) int32
-    stage: Optional[torch.Tensor]  # (C x ROW_SLOTS,) int64, or None
+    stage: Optional[torch.Tensor]  # (ROW_SLOTS x C,) int64, or None
     flags: torch.Tensor  # (2,) int32: max per-cell count, depth overflow
     groups: RowGroups
 
@@ -1171,7 +1196,7 @@ def rows_walk(src: int, state, carrier, T: int, p, events: bool,
         return None
     if groups is None:
         g = group_dvs_rows(carrier, T, per_lane,
-                           pb if src == SRC_DVS8 else None)
+                           pb if src == SRC_DVS8 else None, n=n)
     else:
         g = groups
         shapes = ((E,), (E + 2,), (1,), (E,), (E if per_lane == 2 else 0,),
@@ -1212,9 +1237,9 @@ def rows_copy(stage, counts, offsets, cap: int):
     min(total, cap) entries are the events. The plain version for CPU
     tensors, `adder_rows_copy` for CUDA tensors.
 
-    stage    (C x ROW_SLOTS,) int64: cell c's events in entries
-             [c ROW_SLOTS, c ROW_SLOTS + counts[c]), pix << 8 | d in the
-             low 32 bits, t above;
+    stage    (ROW_SLOTS x C,) int64, slot-major: cell c's k-th event
+             (k < counts[c]) in entry k C + c, pix << 8 | d in the low 32
+             bits, t above;
     counts   (C,) int32 events per cell;
     offsets  (C + 1,) int64 their exclusive scan, the total last."""
     if not stage.is_cuda:
@@ -1234,7 +1259,7 @@ def rows_copy(stage, counts, offsets, cap: int):
     pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
     t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
     c = _RowsCopyArgs()
-    c.cells, c.slots, c.cap = cells, ROW_SLOTS, cap
+    c.cells, c.cap = cells, cap
     c.counts, c.offsets = counts.data_ptr(), offsets.data_ptr()
     c.stage = stage.data_ptr()
     c.out_pixd, c.out_t = pixd.data_ptr(), t.data_ptr()
@@ -1254,7 +1279,7 @@ def rows_copy_plain(stage, counts, offsets, cap: int):
         return pixd, t
     o = torch.arange(n, dtype=torch.int64, device=dev)
     cell = torch.searchsorted(offsets, o, right=True) - 1
-    words = stage[cell * ROW_SLOTS + (o - offsets[cell])]
+    words = stage[(o - offsets[cell]) * counts.numel() + cell]
     words = words.view(torch.int32).view(-1, 2)
     pixd[:n], t[:n] = words[:, 0], words[:, 1]
     return pixd, t

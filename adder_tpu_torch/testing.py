@@ -680,7 +680,8 @@ def check_rows_group(state: ops.PixelState, carrier: torch.Tensor, T: int,
     err = 0.0
     if E:  # the grouping against the glue's plain version
         glue_plain = FR.group_dvs_rows_plain(carrier, T, per_lane)
-        made = [("glue", FR.group_dvs_rows(carrier, T, per_lane))]
+        made = [("glue", FR.group_dvs_rows(carrier, T, per_lane,
+                                           n=state.length.shape[0]))]
         if groups is not None:
             made.append(("given grouping", groups))
         for name, g in made:
@@ -830,7 +831,7 @@ def check_rows8_group(state: ops.PixelState, plan, n: int, T: int,
     E = len(plan.pix)
     if E:  # the 8-byte grouping: its plain version, the 20-byte one's
         g20 = FR.group_dvs_rows_plain(c20, T)
-        for name, g in (("glue", FR.group_dvs_rows(c8, T, 2, pb)),
+        for name, g in (("glue", FR.group_dvs_rows(c8, T, 2, pb, n=n)),
                         ("plain glue", FR.group_dvs_rows_plain(c8, T, 2,
                                                                pb))):
             for field, a, b in zip(g._fields, g, g20):
@@ -1159,6 +1160,140 @@ def check_davis_rows_against_plain(device, H: int = 47, W: int = 61,
     return max(err, e)
 
 
+# --- the grouping of the row route -------------------------------------------
+
+
+def group_keys_carrier(lane, pix, form: str, n: int, seed: int = 0):
+    """Rows at (lane, pix) as a carrier whose row 0 holds their keys and
+    whose other words are seeded garbage: form "20" the (5, E) DVS carrier
+    (lane << 20 | pix, random on bits above), "davis" the (5, E) DAVIS
+    carrier (one sub-step a lane), "8" the (2, E + DICT_CAP) 8-byte carrier
+    of a plane of n pixels (pix in its pb bits, the lane in the 6 above,
+    random bits past them). Returns (CPU carrier, per_lane, pb or None)."""
+    rng = np.random.default_rng(seed)
+    lane = np.asarray(lane, np.int64)
+    pix = np.asarray(pix, np.int64)
+    E = len(lane)
+    if form == "8":
+        pb = FR.pix_bits(n)
+        hi = pb + 6
+        w0 = pix | lane << pb | rng.integers(0, 1 << (32 - hi), E) << hi
+        width, per_lane = E + FR.DICT_CAP, 2
+    else:
+        pb = None
+        w0 = pix | lane << 20 | rng.integers(0, 32, E) << 27
+        width, per_lane = E, 1 if form == "davis" else 2
+    c = rng.integers(-2 ** 31, 2 ** 31, (5 if pb is None else 2, width))
+    c[0, :E] = w0
+    c = (c & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(c), per_lane, pb
+
+
+def group_reference(lane, pix, T: int, per_lane: int, n: int) -> tuple:
+    """The fields of `FR.RowGroups` for rows at (lane, pix), as numpy
+    int64, from their definitions alone: `order` by np.lexsort on (pixel,
+    lane), the runs of each pixel, and every cell (a row's sub-step
+    per_lane x lane + h, h < per_lane) ranked by (sub-step, pixel) with
+    `sub_start` the first rank of each sub-step. row_start's last slot
+    (scratch) is E here."""
+    lane = np.asarray(lane, np.int64)
+    pix = np.asarray(pix, np.int64)
+    E = len(lane)
+    order = np.lexsort((lane, pix))
+    sp = pix[order]
+    starts = np.flatnonzero(np.r_[True, sp[1:] != sp[:-1]])
+    row_start = np.full(E + 2, E, np.int64)
+    row_start[:len(starts)] = starts
+    sub = np.concatenate([per_lane * lane + h for h in range(per_lane)])
+    keys = sub * n + np.tile(pix, per_lane)
+    rank = np.empty(per_lane * E, np.int64)
+    rank[np.argsort(keys)] = np.arange(per_lane * E)
+    tick = rank[E:] if per_lane == 2 else np.zeros(0, np.int64)
+    sub_start = np.searchsorted(np.sort(sub), np.arange(T + 1))
+    return (order, row_start, np.array([len(starts)], np.int64), rank[:E],
+            tick, sub_start.astype(np.int64))
+
+
+# The grouping's cases: (form, n, T, how the rows are drawn)
+ROW_GROUP_CASES = {
+    "20-byte": ("20", 300, 128, "random"),
+    "8-byte pb 8": ("8", 256, 20, "random"),
+    "8-byte pb 19": ("8", 640 * 480, 128, "random"),
+    "8-byte pb 20": ("8", 1 << 20, 128, "last pixel"),
+    "DAVIS lanes to 127": ("davis", 97, 128, "random"),
+    "E = 1 20-byte": ("20", 50, 6, "one row"),
+    "E = 1 8-byte": ("8", 50, 6, "one row"),
+    "E = 1 DAVIS": ("davis", 50, 128, "one row"),
+    "one pixel": ("20", 40, 128, "one pixel"),
+    "one pixel DAVIS": ("davis", 40, 128, "one pixel"),
+    "one lane": ("8", 200, 64, "one lane"),
+    "every lane and pixel": ("20", 13, 16, "full"),
+    "every lane and pixel DAVIS": ("davis", 13, 128, "full"),
+    "pixel n - 1": ("8", 777, 128, "last pixel"),
+    "shuffled DAVIS": ("davis", 500, 100, "random"),
+    "T = 128 group": ("8", 640 * 480, 128, "group"),
+    "T = 128 group, 20 bytes": ("20", 640 * 480, 128, "group"),
+}
+
+
+def row_group_rows(case: str, seed: int = 0):
+    """(lane, pix, T, form, n) of a grouping case: each (lane, pixel) at
+    most once, the rows in a seeded random order."""
+    form, n, T, how = ROW_GROUP_CASES[case]
+    lanes = T // (1 if form == "davis" else 2)
+    rng = np.random.default_rng(seed)
+    if how == "one row":
+        lane, pix = [lanes - 1], [n - 1]
+    elif how == "one pixel":
+        lane, pix = np.arange(lanes), np.full(lanes, n // 2)
+    elif how == "one lane":
+        lane, pix = np.full(n, 3), np.arange(n)
+    elif how == "full":
+        lane, pix = np.divmod(np.arange(lanes * n), n)
+    else:
+        # random unique (lane, pixel); "group": about 250,000 rows, as the
+        # main path's T = 128 group at 640 x 480; "last pixel": pixel n - 1
+        # in every lane as well
+        E = {"group": 250_000, "random": min(lanes * n // 3, 20_000),
+             "last pixel": 20_000}[how]
+        flat = rng.choice(lanes * n, E, replace=False)
+        if how == "last pixel":
+            flat = np.union1d(flat, np.arange(lanes) * n + n - 1)
+        else:  # the last lane too
+            flat = np.union1d(flat, (lanes - 1) * n + np.arange(min(n, 5)))
+        lane, pix = np.divmod(flat, n)
+    lane, pix = np.asarray(lane, np.int64), np.asarray(pix, np.int64)
+    perm = rng.permutation(len(lane))
+    return lane[perm], pix[perm], T, form, n
+
+
+def check_group_against_reference(device, case: str, seed: int = 0) -> float:
+    """`FR.group_dvs_rows` on `device` (the grouping kernels on the card,
+    the plain version on the CPU) and `FR.group_dvs_rows_plain` against
+    `group_reference`, every field bit for bit (row_start's last slot is
+    scratch); on the card with the plane's n. Raises on a difference;
+    returns the largest absolute difference (0.0)."""
+    lane, pix, T, form, n = row_group_rows(case, seed)
+    carrier, per_lane, pb = group_keys_carrier(lane, pix, form, n, seed)
+    carrier = carrier.to(device)
+    want = group_reference(lane, pix, T, per_lane, n)
+    E = len(lane)
+    err = 0.0
+    for name, g in (("kernel", FR.group_dvs_rows(carrier, T, per_lane, pb,
+                                                  n=n)),
+                    ("plain", FR.group_dvs_rows_plain(carrier, T, per_lane,
+                                                      pb))):
+        for field, a, b in zip(FR.RowGroups._fields, g, want):
+            if a.dtype != torch.int64 or a.device != carrier.device:
+                raise AssertionError(f"{case} {name} {field}: {a.dtype} on "
+                                     f"{a.device}")
+            if field == "row_start":
+                a, b = a[: E + 1], b[: E + 1]
+            err = max(err, bitwise_max_err(a, torch.from_numpy(b).to(device),
+                                           f"{case} {name} {field}"))
+    return err
+
+
 # --- the row walk's compaction (one pass: stage, scan, copy) -----------------
 
 
@@ -1177,9 +1312,9 @@ def row_cell_keys(carrier: torch.Tensor, n: int, per_lane: int,
 def stage_rows(want: FR.ChunkResult, carrier: torch.Tensor, n: int,
                per_lane: int, pb: Optional[int] = None, seed: int = 0):
     """What the one-pass row walk leaves for a lane group whose plain result
-    is `want`: (stage, counts) as CPU tensors, cell c's events in stage
-    entries [c ROW_SLOTS, c ROW_SLOTS + counts[c]) in slot order (pix << 8
-    | d in the low 32 bits, t above), every other entry seeded garbage."""
+    is `want`: (stage, counts) as CPU tensors, the staging slot-major, cell
+    c's k-th event (k < counts[c]) in entry k C + c (pix << 8 | d in the
+    low 32 bits, t above), every other entry seeded garbage."""
     keys = row_cell_keys(carrier.cpu(), n, per_lane, pb)
     C = keys.numel()
     T = want.per_interval.numel()
@@ -1193,7 +1328,7 @@ def stage_rows(want: FR.ChunkResult, carrier: torch.Tensor, n: int,
         raise AssertionError("an event outside the carrier's cells")
     counts = torch.bincount(cell, minlength=C).to(torch.int32)
     first = torch.cumsum(counts.to(torch.int64), 0) - counts
-    at = cell * FR.ROW_SLOTS + torch.arange(len(cell)) - first[cell]
+    at = (torch.arange(len(cell)) - first[cell]) * C + cell
     rng = np.random.default_rng(seed)
     stage = torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62,
                                           C * FR.ROW_SLOTS))
@@ -1260,8 +1395,8 @@ def check_rows_copy_against_plain(device, H: int = 13, W: int = 19,
                                          f"{counts.numel()} cells")
             else:
                 slot = torch.arange(FR.ROW_SLOTS, device=dev)
-                filled = (slot[None, :]
-                          < walk.cell_counts[:, None]).reshape(-1)
+                filled = (slot[:, None]
+                          < walk.cell_counts[None, :]).reshape(-1)
                 e = max(e, bitwise_max_err(walk.cell_counts, counts.to(dev),
                                            f"{what} walk cell counts"),
                         bitwise_max_err(walk.stage[filled],
@@ -1291,6 +1426,44 @@ def check_rows_copy_against_plain(device, H: int = 13, W: int = 19,
         _, e = check(sd, davis_group_carrier(dplan, 0, L, dev), L, pd,
                      f"multi {multi} DAVIS T {L}", FR.SRC_DAVIS)
         err = max(err, e)
+    return err
+
+
+def check_rows_copy_counts(device, cells: int = 4099, seed: int = 0) -> float:
+    """`FR.rows_copy` (the kernel on the card, the plain version on the CPU)
+    and `FR.rows_copy_plain` against a numpy copy of a seeded slot-major
+    staging whose cells hold 0 to ROW_SLOTS events (every count, in a
+    shuffled order, warps of empty cells among them), at the exact
+    capacity, at capacities that fall inside a cell and between two, at
+    none, and past the total. Raises on a difference; returns the largest
+    absolute difference (0.0)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.permutation(np.arange(cells) % (FR.ROW_SLOTS + 1))
+    counts[64:160] = 0  # three whole warps of empty cells
+    stage = rng.integers(-2 ** 63, 2 ** 63 - 1, cells * FR.ROW_SLOTS)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    total = int(offsets[-1])
+    cell = np.repeat(np.arange(cells), counts)
+    slot = np.arange(total) - offsets[cell]
+    words = stage[slot * cells + cell].view(np.int32).reshape(-1, 2)
+    mid = int(np.flatnonzero(counts > 4)[len(counts) // 3])
+    dev = torch.device(device)
+    args = (torch.from_numpy(stage).to(dev),
+            torch.from_numpy(counts.astype(np.int32)).to(dev),
+            torch.from_numpy(offsets.astype(np.int64)).to(dev))
+    err = 0.0
+    for cap in (total, int(offsets[mid]) + 3, int(offsets[mid]), 0,
+                total + 7, 1):
+        n = min(cap, total)
+        for copy in (FR.rows_copy, FR.rows_copy_plain):
+            got = copy(*args, cap)
+            for f, a, want in zip(("pixd", "t"), got, words.T):
+                if a.numel() != cap:
+                    raise AssertionError(f"{copy.__name__} cap {cap}: "
+                                         f"{a.numel()} entries")
+                err = max(err, bitwise_max_err(
+                    a[:n], torch.from_numpy(np.ascontiguousarray(want[:n]))
+                    .to(dev), f"{copy.__name__} cap {cap} {f}"))
     return err
 
 

@@ -47,8 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      lane groups on a ragged 200x150 plane: T = 2, 38 and 128 in two
      chained groups planned from a seeded stream, Normal and Collapse, a
      group with no rows, one whose rows sit in one pixel, rows with one
-     half or both off, the forced overflow; the grouping glue's kernels
-     (adder_rows_group) equal to their plain version in torch ops; then K3
+     half or both off, the forced overflow; the grouping's three kernels
+     (adder_rows_group: bitmaps and one look-back scan, no sort) equal to
+     their plain version in torch ops; then K3
      on the 8-byte carrier (adder_dvs_rows8) against its plain version and
      against the 20-byte route on the same rows, bit for bit, in the same
      cases and with a dictionary of exactly 64 entries, gap_n past 2^20, a
@@ -56,7 +57,10 @@ Phases (any failure raises and the script exits non-zero):
      pipeline's capacity; its glue equal to its plain version and to the
      20-byte grouping; the one-pass walk's compaction (adder_rows_copy)
      against its plain version and the plain route's events, and the
-     walk's own cell counts, staging and state;
+     walk's own cell counts, staging (slot-major) and state; the copy on a
+     staging of 0 to 19 events a cell with the capacity mid-cell, and the
+     grouping against a numpy definition on every key form and edge case
+     and a T = 128 group of 250,000 rows;
   6. the Prophesee path at 640x480 (the DSEC Gen3.1 VGA sensor) with the
      CLI defaults (ref_time 20, crf 3, Collapse, AbsoluteT, Raw sink,
      view_fps 60) on a seeded 1.0 s, 2,000,000-event stream, through
@@ -71,11 +75,14 @@ Phases (any failure raises and the script exits non-zero):
      fallback: the classic plan, packed per group into 8 bytes) must hash
      to the same constant; the first 0.025 s must give the same bytes on
      the card and on the CPU; a bulk run (view_fps 1, Empty sink, void)
-     must run segmented windows and T = 128 groups; each row walk, copy and
-     scan of the windowed run timed under torch.profiler (count, mean, max);
+     must run segmented windows and T = 128 groups; each row walk, copy,
+     scan and grouping kernel of the windowed run timed under
+     torch.profiler (count, mean, max), and the run's device busy time
+     split into walks, copies, scans, grouping and the rest;
   7. timings on one 64-lane group at 640x480 (T = 128): the 20-byte and
-     the 8-byte row route, fetched and void, with and without the grouping
-     glue, the glue alone beside its plain version, against plain, with
+     the 8-byte row route, fetched and void, with and without the
+     grouping, the grouping alone (from the host, on the card alone, its
+     kernels) beside its plain version, against plain, with
      their bounds; the one-pass route at the pipeline's capacity (walk,
      scan, copy), each kernel under torch.profiler, the copy alone (held
      to its plain version bit for bit on the walk's staging), the longest
@@ -102,9 +109,10 @@ Phases (any failure raises and the script exits non-zero):
      the first 2 packets must give the same bytes on the card and on the
      CPU; a void run must end in the fetched run's state;
   10. timings: K4 by rows on the largest packet's chunk, fetched and void,
-     with and without its glue, against plain, and the one-pass fields of
-     phase 7; the raster T = 2 K3 chunk at the frame chunk's shape; end-to-end Mev/s and APS frames/s; a stage
-     breakdown; the device's busy share;
+     with and without its grouping, against plain, and the one-pass fields
+     of phase 7; the raster T = 2 K3 chunk at the frame chunk's shape;
+     end-to-end Mev/s and APS frames/s; a stage breakdown; the device's
+     busy share, split as in phase 6;
   11. the fused one-interval kernel (K5) against its plain version, bit for
      bit: a ragged 200x150 plane, 2 chained chunks of T = 8 written from a
      non-zero offset, all 8 mode cases, depth 6 and 8, pack 4 and 16, plane
@@ -374,7 +382,7 @@ def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
     kernel's device time under torch.profiler, the copy alone on one walk's
     staging beside its plain version and its bound, the copy held to its
     plain version bit for bit on that staging (`copy_err`; raises if they
-    differ), the longest pixel's sub-steps (`chain_max`) and the chain
+    differ), and on the card alone (`copy_queued_ms`), the longest pixel's sub-steps (`chain_max`) and the chain
     estimate: the row kernel's SASS per sub-step (phase 1) x chain_max at
     one instruction a clock, not a bound."""
     from adder_tpu_torch import testing
@@ -406,16 +414,20 @@ def rows_walk_timings(FR, state, carrier, T, p, groups, cap, rows_sass,
             ("pixd", "t")))
     copy_ms = cuda_ms(lambda: FR.rows_copy(walk.stage, walk.cell_counts,
                                            offsets, cap), 20)
+    copy_q_ms = cuda_ms_queued(lambda: FR.rows_copy(
+        walk.stage, walk.cell_counts, offsets, cap), 20)
     copy_plain_ms = cuda_ms(lambda: FR.rows_copy_plain(
         walk.stage, walk.cell_counts, offsets, cap), 2)
     cells = walk.cell_counts.numel()
-    # each cell's count and offset read, each event's 8 staged bytes read
-    # and its 8 output bytes written
-    copy_bound = bound(12 * cells + 16 * n_ev)
+    # each cell's count read, one offset a warp of 32 cells (the offsets
+    # are the scan of the counts), each event's 8 staged bytes read and its
+    # 8 output bytes written
+    copy_bound = bound(4 * cells + 8 * -(-cells // 32) + 16 * n_ev)
     run = groups.row_start[1:] - groups.row_start[:-1]
     chain_max = per_lane * int(run.max())
     sass = rows_sass.get((src, p.multi_mode == 1, True), {}).get("path", 0)
     return {"passes_ms": passes, "kernels": kernels, "copy_ms": copy_ms,
+            "copy_queued_ms": copy_q_ms,
             "copy_plain_ms": copy_plain_ms, "copy_bound_ms": copy_bound,
             "copy_err": copy_err,
             "cells": cells, "events": n_ev,
@@ -503,6 +515,8 @@ def kernel_source(name: str) -> str:
         return "segment copy"
     if "adder_rows_copy_kernel" in name:
         return "rows copy"
+    if "rows_group_" in name:
+        return "grouping"
     return "other"
 
 
@@ -802,9 +816,22 @@ def row_walk_src(name: str) -> str:
     return m.group(1) if m else ""
 
 
+# the row route's other kernels by name: the copy, the scan, the grouping's
+# three and the memset that clears its scratch (the only cudaMemsetAsync of
+# csrc/; no library kernel is left in the grouping)
+ROUTE_KERNELS = {"rows copy": "adder_rows_copy_kernel",
+                 "scan": "adder_exclusive_scan_kernel",
+                 "grouping keys": "rows_group_keys_kernel",
+                 "grouping scan": "rows_group_scan_kernel",
+                 "grouping rank": "rows_group_rank_kernel",
+                 "grouping memset": "Memset"}
+GROUPING = ("grouping keys", "grouping scan", "grouping rank")
+
+
 def row_kernel_stats(per_launch: dict) -> dict:
     """{kernel: {launches, mean_ms, max_ms, sum_ms}} of the row walks (by
-    carrier), the rows copy and the scan among per-launch device times."""
+    carrier), the rows copy, the scan and the grouping's kernels among
+    per-launch device times."""
     out = {}
 
     def add(what, us):
@@ -816,10 +843,40 @@ def row_kernel_stats(per_launch: dict) -> dict:
     for what, src in ROW_KERNELS.items():
         add(what, [u for name, us in per_launch.items()
                    if row_walk_src(name) == src for u in us])
-    for what, key in (("rows copy", "adder_rows_copy_kernel"),
-                      ("scan", "adder_exclusive_scan_kernel")):
+    for what, key in ROUTE_KERNELS.items():
         add(what, [u for name, us in per_launch.items() if key in name
                    for u in us])
+    return out
+
+
+def grouping_memset(stats: dict) -> float:
+    """The device ms of the grouping's scratch memsets over a run, from
+    `row_kernel_stats`: the run's memsets when there is one for each keys
+    launch, else 0 (another memset ran, and they all go to "other")."""
+    m, k = stats.get("grouping memset"), stats.get("grouping keys")
+    return m["sum_ms"] if m and k and m["launches"] == k["launches"] else 0.0
+
+
+def grouping_total(stats: dict) -> dict:
+    """The grouping's kernel launches and device ms (its memsets
+    included) over a run, from `row_kernel_stats`."""
+    return {"launches": sum(stats[k]["launches"] for k in GROUPING
+                            if k in stats),
+            "sum_ms": sum(stats[k]["sum_ms"] for k in GROUPING if k in stats)
+            + grouping_memset(stats)}
+
+
+def busy_split(busy_s: float, stats: dict) -> dict:
+    """A run's device busy time (s) split into ms of the row walks, the
+    copies, the scans, the grouping and the rest ("other": the carrier
+    and event copies, the framed and raster glue, memsets), from
+    `row_kernel_stats`."""
+    part = {"walks": [k for k in ROW_KERNELS], "copies": ["rows copy"],
+            "scans": ["scan"]}
+    out = {what: sum(stats[k]["sum_ms"] for k in keys if k in stats)
+           for what, keys in part.items()}
+    out["grouping"] = grouping_total(stats)["sum_ms"]
+    out["other"] = busy_s * 1e3 - sum(out.values())
     return out
 
 
@@ -1113,7 +1170,25 @@ def dvs_phases(dev, card, rows_sass):
         f"harness's and plain (max abs err {copy_err}); launches "
         f"{FR.LAUNCHES['adder_rows_copy']}; "
         f"{time.perf_counter() - t0:.1f} s")
-    rows_err = max(rows_err, copy_err)
+    t0 = time.perf_counter()
+    FR.reset_launch_counts()
+    copy_err = max(copy_err, testing.check_rows_copy_counts(dev))
+    group_err = max(testing.check_group_against_reference(dev, case)
+                    for case in testing.ROW_GROUP_CASES)
+    torch.cuda.synchronize()
+    if (FR.LAUNCHES["adder_rows_group"] != 3 * len(testing.ROW_GROUP_CASES)
+            or FR.LAUNCHES["adder_rows_copy"] < 1):
+        raise AssertionError(f"the grouping and copy checks: {FR.LAUNCHES}")
+    log(f"# phase 5: the rows copy == plain == numpy on a slot-major staging "
+        f"of 0 to {FR.ROW_SLOTS} events a cell, the capacity mid-cell, "
+        f"between cells, none, past the total; the grouping (3 kernels, no "
+        f"sort) == plain == the numpy definition on "
+        f"{len(testing.ROW_GROUP_CASES)} cases (20-, 8-byte and DAVIS keys, "
+        f"pb 8/19/20, lanes to 127, E = 1, one pixel, one lane, every (lane,"
+        f" pixel), pixel n - 1, shuffled, T = 128 groups of 250,000 rows at "
+        f"640x480) (max abs err {max(copy_err, group_err)}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows_err = max(rows_err, copy_err, group_err)
 
     # -- phase 6: the Prophesee path at 640x480 ------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dvs_")
@@ -1218,10 +1293,12 @@ def dvs_phases(dev, card, rows_sass):
             f"second run's wall [{card}]" if busy else
             "# phase 6: device busy share not measured (the profiler saw "
             "no device time)")
-        # each row walk, scan and copy of the run: count, mean and max (ms)
+        # each row walk, scan, copy and grouping kernel of the run: count,
+        # mean and max (ms), and the busy time by part
         group_ms = row_kernel_stats(per_kernel)
         log(f"# phase 6: the run's row-route kernels under torch.profiler, "
-            f"each launch's device time: {group_ms} [{card}]" if group_ms
+            f"each launch's device time: {group_ms}; the busy time by part "
+            f"(ms): {busy_split(busy, group_ms)} [{card}]" if group_ms
             else "# phase 6: per-launch times not measured (the profiler "
             "saw no device time)")
 
@@ -1334,8 +1411,8 @@ def dvs_phases(dev, card, rows_sass):
         e8, _ = testing.check_rows8_group(st_dvs, g, n, FR.MAX_T, p_dvs,
                                           "T=128 group", want=want8)
         rows8_err = max(rows8_err, e8)
-        groups = FR.group_dvs_rows(carrier, FR.MAX_T)
-        groups8 = FR.group_dvs_rows(carrier8, FR.MAX_T, 2, pb)
+        groups = FR.group_dvs_rows(carrier, FR.MAX_T, n=n)
+        groups8 = FR.group_dvs_rows(carrier8, FR.MAX_T, 2, pb, n=n)
         log(f"# phase 7: K3 rows (20 and 8 bytes) == plain on the "
             f"{DVS_W}x{DVS_H} T=128 group ({len(g.pix)} planned rows, "
             f"{int(groups.n_active)} pixels with rows, longest "
@@ -1359,13 +1436,19 @@ def dvs_phases(dev, card, rows_sass):
                                  10))
         # the row routes: the whole wrapper (glue + passes), the passes alone
         # on groups made before the clock starts, the glue alone
-        glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
+        glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, FR.MAX_T, n=n),
+                          20)
         glue_p_ms = cuda_ms(lambda: FR.group_dvs_rows_plain(carrier,
                                                             FR.MAX_T), 20)
         glue_q_ms = cuda_ms_queued(
-            lambda: FR.group_dvs_rows(carrier, FR.MAX_T), 20)
+            lambda: FR.group_dvs_rows(carrier, FR.MAX_T, n=n), 20)
         glue8_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier8, FR.MAX_T, 2,
-                                                     pb), 20)
+                                                     pb, n=n), 20)
+        glue8_q_ms = cuda_ms_queued(
+            lambda: FR.group_dvs_rows(carrier8, FR.MAX_T, 2, pb, n=n), 20)
+        glue_k = kernel_device_ms(
+            lambda: FR.group_dvs_rows(carrier8, FR.MAX_T, 2, pb, n=n), 20,
+            tuple(ROUTE_KERNELS.values())[2:])
         sort_ms = cuda_ms(lambda: torch.sort(carrier[0]), 20)
         E = carrier.shape[1]
         # carrier row 0 read; order, row_start, the two cell arrays written
@@ -1409,10 +1492,11 @@ def dvs_phases(dev, card, rows_sass):
         for what, (with_glue, alone) in rows8_t.items():
             log(f"#   K3 rows, 8 bytes, {what}: {with_glue} ms with glue, "
                 f"{alone} ms the passes alone")
-        log(f"#   row grouping glue: {glue_ms} ms ({glue_q_ms} ms on the "
-            f"card alone), its plain version in torch ops {glue_p_ms} ms, "
-            f"one torch.sort of {E} int32 keys {sort_ms} ms, bound "
-            f"{glue_bound} ms; on the 8-byte keys {glue8_ms} ms")
+        log(f"#   row grouping: {glue_ms} ms ({glue_q_ms} ms on the card "
+            f"alone), its plain version in torch ops {glue_p_ms} ms, one "
+            f"torch.sort of {E} int32 keys {sort_ms} ms, bound {glue_bound} "
+            f"ms; on the 8-byte keys {glue8_ms} ms ({glue8_q_ms} ms alone; "
+            f"its kernels under torch.profiler {glue_k})")
         log(f"#   K3 rows, 20 bytes: plain {rp_ms} ms; bound {k3_bound} ms, "
             f"void bound {k3v_bound} ms (the carrier's active rows, the "
             f"state of their pixels, the events); the wrapper {r_ms} ms "
@@ -1426,7 +1510,8 @@ def dvs_phases(dev, card, rows_sass):
             log(f"#   K3 rows, {name}, the one-pass route at the pipeline's "
                 f"capacity (walk + scan + copy, no glue, no host read): "
                 f"{w['passes_ms']} ms; its kernels under torch.profiler "
-                f"{w['kernels']}; the copy alone {w['copy_ms']} ms (== "
+                f"{w['kernels']}; the copy alone {w['copy_ms']} ms, "
+                f"{w['copy_queued_ms']} ms on the card alone (== "
                 f"plain, max abs err {w['copy_err']}; plain "
                 f"{w['copy_plain_ms']} ms, bound {w['copy_bound_ms']} ms, "
                 f"{w['cells']} cells, {w['events']} events); {w['n_active']} "
@@ -1479,7 +1564,9 @@ def dvs_phases(dev, card, rows_sass):
 
     return (rows_err, dvs_launches,
             dict(ms=r_ms, plain_ms=rp_ms, bound_ms=k3_bound),
-            dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound),
+            dict(ms=glue_ms, plain_ms=glue_p_ms, bound_ms=glue_bound,
+                 queued_ms=glue_q_ms, ms8=glue8_ms, queued_ms8=glue8_q_ms,
+                 kernels_ms=glue_k),
             dict(ms=r8_ms, plain_ms=r8p_ms, bound_ms=k38_bound,
                  max_abs_err=rows8_err, void_ms=rows8_t["void"][0],
                  passes_ms=rows8_t["fetched"][1],
@@ -1715,7 +1802,7 @@ def davis_phases(dev, card, rows_sass):
         e, want = testing.check_rows_group(st, carrier, T, p,
                                            "largest DAVIS chunk", FR.SRC_DAVIS)
         k4_err = max(k4_err, e)
-        groups = FR.group_dvs_rows(carrier, T, 1)
+        groups = FR.group_dvs_rows(carrier, T, 1, n=DAVIS_W * DAVIS_H)
         k4_t = {}
         for events in (True, False):
             k4_t["fetched" if events else "void"] = (
@@ -1727,7 +1814,10 @@ def davis_phases(dev, card, rows_sass):
         k4_ms = k4_t["fetched"][0]  # the wrapper's own time, glue included
         k4p_ms = cuda_ms(lambda: FR.davis_rows_resident_plain(
             st, carrier, T, p), 1)
-        k4_glue_ms = cuda_ms(lambda: FR.group_dvs_rows(carrier, T, 1), 20)
+        k4_glue_ms = cuda_ms(lambda: FR.group_dvs_rows(
+            carrier, T, 1, n=DAVIS_W * DAVIS_H), 20)
+        k4_glue_q_ms = cuda_ms_queued(lambda: FR.group_dvs_rows(
+            carrier, T, 1, n=DAVIS_W * DAVIS_H), 20)
         k4_bound = rows_bound(st, carrier, len(want.pixd))
         k4v_bound = rows_bound(st, carrier, 0)
         run = groups.row_start[1:] - groups.row_start[:-1]
@@ -1738,7 +1828,8 @@ def davis_phases(dev, card, rows_sass):
         for what, (with_glue, alone) in k4_t.items():
             log(f"#   K4 rows, {what}: {with_glue} ms with glue, {alone} ms "
                 f"the passes alone")
-        log(f"#   K4 rows: glue alone {k4_glue_ms} ms; plain {k4p_ms} ms; "
+        log(f"#   K4 rows: the grouping alone {k4_glue_ms} ms ({k4_glue_q_ms} "
+            f"ms on the card alone); plain {k4p_ms} ms; "
             f"bound {k4_bound} ms, void bound {k4v_bound} ms (the carrier's "
             f"active rows, the state of their pixels, the events)")
         k4_walk = rows_walk_timings(FR, st, carrier, T, p, groups,
@@ -1746,7 +1837,8 @@ def davis_phases(dev, card, rows_sass):
         log(f"#   K4 rows, one pass at the exact capacity (walk + scan + "
             f"copy, no glue, no host read): {k4_walk['passes_ms']} ms; its "
             f"kernels under torch.profiler {k4_walk['kernels']}; the copy "
-            f"alone {k4_walk['copy_ms']} ms (== plain, max abs err "
+            f"alone {k4_walk['copy_ms']} ms, {k4_walk['copy_queued_ms']} ms "
+            f"on the card alone (== plain, max abs err "
             f"{k4_walk['copy_err']}; plain {k4_walk['copy_plain_ms']}"
             f" ms, bound {k4_walk['copy_bound_ms']} ms); {k4_walk['n_active']}"
             f" pixels with rows, the longest {k4_walk['chain_max']} "
@@ -1791,10 +1883,12 @@ def davis_phases(dev, card, rows_sass):
             f"for {n_pk} packets [{card}]")
         busy, per_kernel = device_busy_seconds(
             lambda: davis_run(at, path, dev, out), per_launch=True)
+        run_kernels = row_kernel_stats(per_kernel)
         log(f"# phase 10: Raw run under torch.profiler: device busy {busy} s "
             f"(kernels and copies), {busy / wall:.2%} of the second run's "
-            f"wall; the row-route kernels per launch "
-            f"{row_kernel_stats(per_kernel)} [{card}]" if busy else
+            f"wall; the row-route kernels per launch {run_kernels}; the "
+            f"busy time by part (ms): {busy_split(busy, run_kernels)} "
+            f"[{card}]" if busy else
             "# phase 10: device busy share not measured (the profiler saw "
             "no device time)")
         wall, stages = staged_davis_run(at, path, dev, out, dvs_batch, FR)
@@ -1809,6 +1903,7 @@ def davis_phases(dev, card, rows_sass):
     return (dict(err=k4_err, ms=k4_ms, plain_ms=k4p_ms, bound_ms=k4_bound,
                  void_ms=k4_t["void"][0], passes_ms=k4_t["fetched"][1],
                  void_passes_ms=k4_t["void"][1], glue_ms=k4_glue_ms,
+                 glue_queued_ms=k4_glue_q_ms, run_kernels=run_kernels,
                  walk=k4_walk,
                  copy_err=max(k4_walk["copy_err"], raster_walk["copy_err"])),
             dict(ms=raster_ms, void_ms=raster_v_ms, plain_ms=raster_p_ms,
@@ -3453,7 +3548,8 @@ def main() -> int:
     ptx = ptxas_report(cuda_build.build_log())
     for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
                  "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
-                 "DAVIS rows (K4)", "rows copy", "fused interval (K5)",
+                 "DAVIS rows (K4)", "rows copy", "grouping",
+                 "fused interval (K5)",
                  "interval slots (K6)"):
         ks = {k: v for k, v in ptx.items()
               if "_kernel" in k and kernel_source(k) == what}
@@ -3794,7 +3890,10 @@ def main() -> int:
          "bound_ms": k3r8["walk"]["copy_bound_ms"], "bound_by": "bytes",
          "library_ms": None, "cells": k3r8["walk"]["cells"],
          "events": k3r8["walk"]["events"],
+         "queued_ms": k3r8["walk"]["copy_queued_ms"],
+         "kernel_ms": k3r8["walk"]["kernels"].get("adder_rows_copy_kernel"),
          "k4_ms": k4["walk"]["copy_ms"],
+         "k4_queued_ms": k4["walk"]["copy_queued_ms"],
          "k4_bound_ms": k4["walk"]["copy_bound_ms"]},
         {"name": "adder_rows_group", "route": "cuda",
          "source": "adder_tpu_torch/csrc/dvs_resident.cu",
@@ -3803,7 +3902,13 @@ def main() -> int:
                       + davis_launches["adder_rows_group"]),
          "max_abs_err": max(rows_err, k4["err"]), "ms": glue["ms"],
          "plain_ms": glue["plain_ms"], "bound_ms": glue["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "queued_ms": glue["queued_ms"], "ms_8byte": glue["ms8"],
+         "queued_ms_8byte": glue["queued_ms8"],
+         "kernels_ms": glue["kernels_ms"], "k4_ms": k4["glue_ms"],
+         "k4_queued_ms": k4["glue_queued_ms"],
+         "run_totals": {"phase 6": grouping_total(k3r8["run_kernels"]),
+                        "phase 10": grouping_total(k4["run_kernels"])}},
         {"name": "adder_davis_rows", "route": "cuda",
          "source": "adder_tpu_torch/csrc/davis_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:1411",

@@ -400,11 +400,85 @@ def test_rows_copy_kernel_matches_plain(cuda):
     assert FR.LAUNCHES["adder_rows_copy"] > 0
 
 
+@pytest.mark.parametrize("case", testing.ROW_GROUP_CASES)
+def test_rows_group_kernels_match_definition(cuda, case):
+    """The grouping's kernels (`adder_rows_group_keys`, `_scan`, `_rank`)
+    and the plain version on the card against the numpy definition, every
+    RowGroups field: the 20-byte key, the 8-byte key at pb 8, 19 and 20,
+    the DAVIS key with lanes up to 127, E = 1, one pixel, one lane, every
+    (lane, pixel) of a small plane, pixel n - 1, shuffled rows, and a T =
+    128 group of about 250,000 rows at 640 x 480 on both DVS keys."""
+    FR.reset_launch_counts()
+    assert testing.check_group_against_reference(cuda, case) == 0.0
+    assert FR.LAUNCHES["adder_rows_group"] == 3
+
+
+def test_rows_group_runs_no_sort(cuda, monkeypatch):
+    """With every torch sort and search patched to raise, the grouping on
+    the card still equals its plain version (made before the patch), in
+    three launches, on each key form; a whole lane chunk runs too."""
+    cases = [testing.row_group_rows(c) for c in (
+        "20-byte", "8-byte pb 19", "DAVIS lanes to 127")]
+    inputs = []
+    for lane, pix, T, form, n in cases:
+        c, per_lane, pb = testing.group_keys_carrier(lane, pix, form, n)
+        c = c.to(cuda)
+        inputs.append((c, T, per_lane, pb, n,
+                       FR.group_dvs_rows_plain(c, T, per_lane, pb)))
+    p = testing._dvs_params(1)
+    m = 35
+    c8, pb8, _ = testing.carriers(testing.lattice_plan(6, m, 3), m, cuda)
+    st = FR.ops.init_state(m, cuda, depth=FR.DVS_DEPTH)
+    want = FR.dvs_rows8_resident_plain(st, c8, 6, p, pb=pb8)
+
+    def refuse(*a, **k):
+        raise AssertionError("a sort or search ran")
+
+    for owner in (torch, torch.Tensor):
+        for name in ("sort", "argsort", "searchsorted", "msort"):
+            if hasattr(owner, name):
+                monkeypatch.setattr(owner, name, refuse)
+    for c, T, per_lane, pb, n, plain in inputs:
+        FR.reset_launch_counts()
+        got = FR.group_dvs_rows(c, T, per_lane, pb, n=n)
+        assert FR.LAUNCHES["adder_rows_group"] == 3
+        E = c.shape[1] - (FR.DICT_CAP if pb else 0)
+        for field, a, b in zip(FR.RowGroups._fields, got, plain):
+            if field == "row_start":
+                a, b = a[: E + 1], b[: E + 1]
+            assert torch.equal(a, b), field
+    got = FR.dvs_rows8_resident(FR.clone_state(st), c8, 6, p, pb=pb8,
+                                event_cap=19 * 6 * m)
+    monkeypatch.undo()
+    n_ev = int(got.total)
+    assert torch.equal(got.pixd[:n_ev], want.pixd)
+    assert torch.equal(got.t[:n_ev], want.t)
+
+
+def test_rows_group_needs_the_planes_pixel_count(cuda):
+    c, per_lane, pb = testing.group_keys_carrier([0, 1], [3, 4], "20", 10)
+    with pytest.raises(ValueError):
+        FR.group_dvs_rows(c.to(cuda), 4, per_lane, pb)
+    with pytest.raises(ValueError):
+        FR.group_dvs_rows(c.to(cuda), 4, per_lane, pb, n=(1 << 20) + 1)
+
+
+def test_rows_copy_kernel_every_count_and_capacity(cuda):
+    """`adder_rows_copy` against its plain version and a numpy copy of a
+    slot-major staging holding 0 to ROW_SLOTS events a cell, with the
+    capacity falling mid-cell, between cells, at none and past the
+    total."""
+    FR.reset_launch_counts()
+    assert testing.check_rows_copy_counts(cuda) == 0.0
+    assert FR.LAUNCHES["adder_rows_copy"] > 0
+
+
 @pytest.mark.parametrize("events", [True, False])
 def test_row_walk_launches_once_per_chunk(cuda, events):
     """A lane chunk walks its rows once: one row kernel launch, and with
-    the events one rows copy; the glue's scan and the cell counts' scan;
-    with the pipeline's capacity nothing is read back in between."""
+    the events one rows copy; the grouping's three kernels and the cell
+    counts' scan; with the pipeline's capacity nothing is read back in
+    between."""
     p = testing._dvs_params(1)
     n = 35
     plan = testing.lattice_plan(6, n, 3)
@@ -418,7 +492,8 @@ def test_row_walk_launches_once_per_chunk(cuda, events):
            * n, **kw)
         assert FR.LAUNCHES[entry] == 1
         assert FR.LAUNCHES["adder_rows_copy"] == int(events)
-        assert FR.LAUNCHES["adder_exclusive_scan"] == 2
+        assert FR.LAUNCHES["adder_rows_group"] == 3
+        assert FR.LAUNCHES["adder_exclusive_scan"] == 1
 
 
 def test_davis_rows_wrapper_rejects_bad_input(cuda):

@@ -2,7 +2,7 @@
 
 On the card a lane chunk's row kernel walks every pixel's rows once,
 staging each cell's events (a cell is one pixel's sub-step) in the cell's
-own ROW_SLOTS slots; the exclusive scan of the cell counts and the rows
+own ROW_SLOTS slots, slot-major; the exclusive scan of the cell counts and the rows
 copy (`adder_rows_copy`) then put them in (sub-step, raster pixel, slot)
 order. Here, on the CPU: the copy's plain version (`rows_copy_plain`) on
 the staging `testing.stage_rows` makes of the plain route's events, held
@@ -62,18 +62,19 @@ def test_rows_copy_reads_only_a_cells_events(multi):
 def test_rows_stage_puts_each_cells_events_in_its_slots():
     """`stage_rows` against a direct count: cell c (its rank among the
     carrier's (sub-step, pixel) cells) holds the events of its sub-step and
-    pixel, in their order."""
+    pixel, in their order, slot k in entry k C + c (slot-major)."""
     want, c8, pb, n = _group(1, lanes=3)
     stage, counts = testing.stage_rows(want, c8, n, 2, pb)
     keys = testing.row_cell_keys(c8, n, 2, pb).numpy()
     T = want.per_interval.numel()
     sub = np.repeat(np.arange(T), want.per_interval.numpy())
     pix = want.pixd.numpy().view(np.uint32) >> 8
-    words = stage.numpy().reshape(-1, FR.ROW_SLOTS)
+    words = stage.numpy().reshape(FR.ROW_SLOTS, len(keys))
     for c, key in enumerate(keys):
         mine = np.flatnonzero(sub * n + pix == key)
         assert counts[c] == len(mine)
-        got = words[c, :len(mine)].view(np.uint32).reshape(-1, 2)
+        got = np.ascontiguousarray(words[:len(mine), c]).view(
+            np.uint32).reshape(-1, 2)
         np.testing.assert_array_equal(got[:, 0],
                                       want.pixd.numpy()[mine].view(np.uint32))
         np.testing.assert_array_equal(got[:, 1],
@@ -116,6 +117,7 @@ def _c_fields(source: str, struct: str):
 @pytest.mark.parametrize("source, struct, mirror", [
     ("adder_interval.cuh", "AdderRowsArgs", FR._RowsArgs),
     ("dvs_resident.cu", "AdderRowsCopyArgs", FR._RowsCopyArgs),
+    ("dvs_resident.cu", "AdderRowsGroupArgs", FR._RowsGroupArgs),
     ("adder_interval.cuh", "AdderChunkArgs", FR._ChunkArgs),
     ("fused_resident.cu", "AdderCopyArgs", FR._CopyArgs),
     ("adder_interval.cuh", "AdderIntervalArgs", PK.IntervalArgs),

@@ -391,9 +391,10 @@ class Video:
             )
         if time_spanned is None:
             time_spanned = float(self.ref_time)
-        frames_t = torch.from_numpy(
-            np.ascontiguousarray(flat, dtype=np.uint8)
-        ).to(self.device)
+        with tracing.stage("video.upload", items=T * self.n):
+            frames_t = torch.from_numpy(
+                np.ascontiguousarray(flat, dtype=np.uint8)
+            ).to(self.device)
         if self.in_interval_count == 0:
             self.state = ops.set_initial_d(self.state, frames_t[0].to(torch.int32))
         self._apply_roi()
@@ -466,7 +467,8 @@ class Video:
             # them all, in order, at full depth (which then sticks: the
             # depth is the state's).
             st = ops.pad_state_depth(pending["state_before"], ops.DEPTH)
-            outs = pending["outs"] = self._run_chunk(st, pending)
+            with tracing.stage("video.rerun"):
+                outs = pending["outs"] = self._run_chunk(st, pending)
             self.state = self._rerun_inflight(outs)
         elif not self._inflight:
             # the newest chunk: its own state, without the rate adjustment
@@ -518,7 +520,9 @@ class Video:
                 mult *= 2
                 self._cap_mult = mult
                 pending["cap"] = min(mult, ops.K_SLOTS) * self.n * T
-            pending["outs"] = self._run_chunk(pending["state_before"], pending)
+            with tracing.stage("video.rerun"):
+                pending["outs"] = self._run_chunk(pending["state_before"],
+                                                  pending)
         if depth_rerun and self._inflight:
             self.state = self._rerun_inflight(outs)
         elif not self._inflight:
@@ -538,7 +542,8 @@ class Video:
             p2["pack"] = self._pack
             if self._emit_running:
                 p2["run0"] = self._runnings(prev)[-1]
-            p2["outs"] = self._run_chunk(st, p2)
+            with tracing.stage("video.rerun"):
+                p2["outs"] = self._run_chunk(st, p2)
             st, prev = p2["outs"].state, p2["outs"]
         return st
 
@@ -579,9 +584,10 @@ class Video:
     def _encode(self, pixd: np.ndarray, t: np.ndarray) -> EventArray:
         """Host wire events (uint32 `pix << 8 | d`, t) to an EventArray,
         fed to the encoder."""
-        events = self._events_from_flat(
-            (pixd >> 8).astype(np.int64), (pixd & 0xFF).astype(np.uint8), t
-        )
+        with tracing.stage(f"{self._trace}.unpack", items=len(pixd)):
+            events = self._events_from_flat(
+                (pixd >> 8).astype(np.int64), (pixd & 0xFF).astype(np.uint8),
+                t)
         with tracing.stage(f"{self._trace}.encode", items=len(events)):
             self.encoder.ingest_event_array(events)
         return events

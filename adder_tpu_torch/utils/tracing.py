@@ -1,16 +1,21 @@
-"""Per-stage tracing: wall time and call counts by stage name.
+"""Per-stage tracing: wall time and call counts by stage name, each stage
+also a torch.profiler range of its own name.
 
 Copy of `adder_tpu/utils/tracing.py` with two changes, both where the
-device is touched: `hard_sync` synchronises the CUDA device of the tensor
-it is given (torch.cuda.synchronize), and `device_trace` records a
-torch.profiler trace (CPU and CUDA activities) into a directory as a
-Chrome trace. The registry, `stage`, `add_items`, `report`, `reset`,
-`summary_table` and the `ADDER_TPU_TRACE` gate are the original's.
+device is touched: an enabled `stage` opens
+`torch.profiler.record_function(name)` around its body, so a profiler
+trace of the port (torch's CPU and CUDA activities) labels the host's
+time by stage; and `device_trace` records such a trace into a directory
+as a Chrome trace, the operator's labelled timeline. The registry,
+`add_items`, `report`, `reset`, `summary_table` and the `ADDER_TPU_TRACE`
+gate are the original's; the original's `hard_sync` has no counterpart.
 
 Enable with ADDER_TPU_TRACE=1 (read at import; `set_enabled` switches it
-later). Disabled, a stage does nothing but test one flag; enabled, it reads
-the host clock twice and never the device, so a stage around a chunk's
-launches adds no host read inside the chunk.
+later). Disabled, a stage does nothing but test one flag; enabled, it opens
+the profiler range (which records nothing unless a profiler runs), reads
+the host clock twice
+and never the device, so a stage around a chunk's launches adds no host
+read inside the chunk. The registry times the body inside the range.
 
 Where the port records the JAX package's stage names:
 - transcoder/video.py: `video.submit_chunk` (the chunk's launches),
@@ -18,11 +23,16 @@ Where the port records the JAX package's stage names:
   scalars), `video.collect.event_fetch`, `video.encode`,
   `video.features.mask_lookup`. The JAX `video.collect.assemble` has no
   counterpart: the port's kernels write the reference order, and there is
-  no host assembler to time;
+  no host assembler to time. New here, siblings of those (none nests in
+  another): `video.upload` (the frames' host-to-device copy; items: the
+  bytes), `video.unpack` (the wire events to an EventArray before
+  `video.encode`; items: the events) and `video.rerun` (one span per
+  relaunch of a chunk: a capacity, pack or depth rerun, or a chunk in
+  flight recomputed after a depth rerun);
 - transcoder/sharded.py: `sharded.submit_chunk`,
   `sharded.collect.control_fetch`, `sharded.collect.event_fetch`,
   `sharded.collect.assemble` (the bands' streams merged into the global
-  order), `sharded.encode`;
+  order), `sharded.unpack` (Video's), `sharded.encode`;
 - transcoder/prophesee.py and transcoder/lanes.py: `dvs.plan` (the fused
   plan + 8-byte pack, or the classic plan), `dvs.pack`, `dvs.upload` (the
   pinned copy and the h2d enqueue), `dvs.dispatch`, `dvs.event_fetch` (on
@@ -48,6 +58,8 @@ import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
+
+import torch
 
 _ENABLED = os.environ.get("ADDER_TPU_TRACE", "0") not in ("", "0")
 _LOCK = threading.Lock()
@@ -80,21 +92,23 @@ def set_enabled(on: bool) -> None:
 @contextlib.contextmanager
 def stage(name: str, items: int = 0):
     """Accumulate wall time under `name`; `items` adds to a unit counter
-    so report() can derive rates (px/s, events/s)."""
+    so report() can derive rates (px/s, events/s). Enabled, the body also
+    runs inside a torch.profiler range named `name`."""
     if not _ENABLED:
         yield
         return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _LOCK:
-            s = _REGISTRY.setdefault(name, StageStats())
-            s.calls += 1
-            s.total_s += dt
-            s.max_s = max(s.max_s, dt)
-            s.items += items
+    with torch.profiler.record_function(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with _LOCK:
+                s = _REGISTRY.setdefault(name, StageStats())
+                s.calls += 1
+                s.total_s += dt
+                s.max_s = max(s.max_s, dt)
+                s.items += items
 
 
 def add_items(name: str, items: int) -> None:
@@ -128,41 +142,15 @@ def summary_table() -> str:
     return "\n".join(rows)
 
 
-def _first_tensor(tree):
-    import torch
-
-    if isinstance(tree, torch.Tensor):
-        return tree
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for leaf in tree:
-            found = _first_tensor(leaf)
-            if found is not None:
-                return found
-    return None
-
-
-def hard_sync(tree) -> None:
-    """Wait until the CUDA device of the first tensor in `tree` (a tensor,
-    or nested tuples, lists, NamedTuples and dicts of them) has finished
-    its queued work; nothing for CPU tensors."""
-    import torch
-
-    leaf = _first_tensor(tree)
-    if leaf is not None and leaf.is_cuda:
-        torch.cuda.synchronize(leaf.device)
-
-
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str] = None):
     """torch.profiler trace (CPU and, where there is a card, CUDA
     activities) around a region, written to `log_dir` as a Chrome trace;
-    no-op when log_dir is None."""
+    no-op when log_dir is None. With tracing enabled, each stage run in
+    the region is a range of its name on the trace's timeline."""
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

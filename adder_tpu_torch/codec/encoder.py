@@ -1,7 +1,8 @@
 """Encoder container: header emission, event pre-processing, backend dispatch.
 
 Copy of `adder_tpu/codec/encoder.py`; the port keeps its own copy and imports nothing of
-the JAX package.
+the JAX package. New here: `Encoder.writes_records_unchanged` and
+`Encoder.ingest_records`, for events already serialised as raw records.
 
 ref: adder-codec-core/src/codec/encoder.rs (container),
      codec/mod.rs:262-314 (EncoderOptions / EventDrop / EventOrder),
@@ -200,6 +201,24 @@ class Encoder:
             events = self._interleave(events)
         if len(events):
             self.output.ingest_event_array(events)
+
+    def writes_records_unchanged(self) -> bool:
+        """Whether this encoder writes each event as its raw record, as it
+        comes: a Raw backend, no event drop, the Unchanged order."""
+        return (isinstance(self.output, RawOutput)
+                and self.options.event_drop.mode == "none"
+                and self.options.event_order == EventOrder.Unchanged)
+
+    def ingest_records(self, records: np.ndarray) -> None:
+        """Events already serialised as this stream's raw records (uint8,
+        `raw.encode_events`'s bytes), handed to the writer as they are (the
+        writer may keep the buffer). Only an encoder that
+        `writes_records_unchanged` takes them."""
+        if not self.writes_records_unchanged():
+            raise ValueError("raw records go only to a Raw backend with no "
+                             "event drop and the Unchanged order")
+        if len(records):
+            self.output.write_bytes(records)
 
     def _apply_event_drop(self, events: EventArray) -> EventArray:
         """EMA rate limiter (ref: encoder.rs:234-253). Wall-clock based, like

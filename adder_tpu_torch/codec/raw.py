@@ -1,7 +1,7 @@
 """Raw (uncompressed) ADDER event wire codec — vectorized.
 
 Copy of `adder_tpu/codec/raw.py`; the port keeps its own copy and imports nothing of
-the JAX package.
+the JAX package. New here: `WireEvents`, a batch held as its records.
 
 Wire format per event, big-endian (matches the reference's bincode
 fixint/big-endian serialization, ref: adder-codec-core/src/codec/raw/stream.rs):
@@ -69,6 +69,41 @@ def decode_events(buf: bytes | np.ndarray, channels: int) -> EventArray:
         rec["d"].astype(np.uint8),
         rec["t"].astype(np.uint32),
     )
+
+
+class WireEvents(EventArray):
+    """A batch of events held as their raw records (`records`: uint8, as
+    `encode_events` writes them), decoded into the EventArray fields by
+    `decode_events` on the first access to one. Its length needs no
+    decode."""
+
+    __slots__ = ("records", "channels", "_n", "_fields")
+
+    def __init__(self, records: np.ndarray, channels: int):
+        size = (MONO_DTYPE if channels == 1 else COLOR_DTYPE).itemsize
+        if records.dtype != np.uint8 or records.ndim != 1 or len(records) % size:
+            raise ValueError(f"records must be whole {size}-byte records "
+                             f"(uint8), got {records.dtype} {records.shape}")
+        self.records, self.channels = records, channels
+        self._n = len(records) // size
+        self._fields = None
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _decoded(self) -> EventArray:
+        if self._fields is None:
+            self._fields = decode_events(self.records, self.channels)
+        return self._fields
+
+    x = property(lambda self: self._decoded().x)
+    y = property(lambda self: self._decoded().y)
+    c = property(lambda self: self._decoded().c)
+    d = property(lambda self: self._decoded().d)
+    t = property(lambda self: self._decoded().t)
+
+    def __repr__(self):
+        return f"WireEvents(n={self._n})"
 
 
 def eof_event_bytes(channels: int) -> bytes:

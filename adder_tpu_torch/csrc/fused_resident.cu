@@ -11,7 +11,10 @@
 // adder_interval.cuh (which also lists the exactness rules); the plain
 // PyTorch versions the kernels are held against are
 // adder_tpu_torch/ops/fused_resident.py::fused_chunk_resident_plain,
-// group_chunk_resident_plain and segment_copy_plain.
+// group_chunk_resident_plain and segment_copy_plain. adder_wire_pack (below
+// the segment copy) has no TPU counterpart: it writes a chunk's events as
+// .adder records on the card, in place of the host's encode_events; its
+// plain version is wire_pack_plain.
 //
 // The display (emit_running=True, fused_resident.py:336-357, :890-899): when
 // the caller passes run0 and runnings, the chunk kernel also writes the
@@ -217,6 +220,76 @@ __global__ void __launch_bounds__(kCopyBlock)
   }
 }
 
+// --- the .adder wire records of a chunk's events. Replaces no TPU kernel:
+// the JAX package, and the port's host route, fetch the (pixd, t) pairs and
+// serialise them on the host (codec/raw.py::encode_events, after Video.
+// _events_from_flat splits pix into x, y and c). This writes the same bytes
+// on the card, so the host fetches finished records. Each event's record,
+// big-endian, R bytes:
+//   R = 9  (mono):   x:u16 y:u16 d:u8 t:u32
+//   R = 11 (colour): x:u16 y:u16 tag:u8 (= 1) c:u8 d:u8 t:u32
+// with c = pix % C, x = (pix / C) % W, y = (pix / C) / W.
+// What bounds it: bytes, 8 read and R written an event (a 1080p Raw chunk,
+// 4.3 M events, 73 MB: 0.022 ms at 3.35 TB/s); a few integer operations an
+// event. The records are not word-aligned, so a thread's byte stores would
+// be scattered and narrow: instead each block builds its kPackEvents records
+// in shared memory (one thread an event, coalesced 4-byte loads), then the
+// block stores its kPackEvents x R contiguous bytes with aligned 16-byte
+// stores (kPackEvents is a multiple of 16, so every block's first byte is
+// 16-byte aligned when `out` is). -------------------------------------------
+
+constexpr int kPackThreads = 256;
+constexpr int kPackItems = 4;  // events a thread
+constexpr int kPackEvents = kPackThreads * kPackItems;
+
+template <int R>
+__global__ void __launch_bounds__(kPackThreads)
+    adder_wire_pack_kernel(const unsigned* __restrict__ pixd,
+                           const unsigned* __restrict__ t,
+                           unsigned char* __restrict__ out, long long n,
+                           unsigned width, unsigned channels) {
+  static_assert(R == 9 || R == 11, "mono or colour records");
+  __shared__ __align__(16) unsigned char rec[kPackEvents * R];
+  const long long e0 = (long long)blockIdx.x * kPackEvents;
+  const int m = (int)min((long long)kPackEvents, n - e0);
+#pragma unroll
+  for (int q = 0; q < kPackItems; ++q) {
+    const int i = q * kPackThreads + threadIdx.x;
+    if (i < m) {
+      const unsigned pd = pixd[e0 + i], tt = t[e0 + i];
+      unsigned xy = pd >> 8, c = 0;
+      if (R == 11) {
+        c = xy % channels;
+        xy /= channels;
+      }
+      const unsigned y = xy / width, x = xy - y * width;
+      unsigned char* r = rec + i * R;
+      r[0] = (unsigned char)(x >> 8);
+      r[1] = (unsigned char)x;
+      r[2] = (unsigned char)(y >> 8);
+      r[3] = (unsigned char)y;
+      if (R == 11) {
+        r[4] = 1;
+        r[5] = (unsigned char)c;
+      }
+      r[R - 5] = (unsigned char)pd;
+      r[R - 4] = (unsigned char)(tt >> 24);
+      r[R - 3] = (unsigned char)(tt >> 16);
+      r[R - 2] = (unsigned char)(tt >> 8);
+      r[R - 1] = (unsigned char)tt;
+    }
+  }
+  __syncthreads();
+  const int bytes = m * R, words = bytes / 16;
+  unsigned char* dst = out + e0 * R;
+  for (int i = threadIdx.x; i < words; i += kPackThreads) {
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(rec)[i];
+  }
+  for (int i = words * 16 + threadIdx.x; i < bytes; i += kPackThreads) {
+    dst[i] = rec[i];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -334,6 +407,31 @@ int adder_exclusive_scan(const void* counts, void* out, long long count,
   }
   return launch_scan<256, 8>(counts, out, count, scratch,
                              (cudaStream_t)stream);
+}
+
+// The first n events of a chunk (pixd = pix << 8 | d and t, u32 each) to
+// their .adder records in `out` (n x 9 bytes when channels is 1, else n x
+// 11; 16-byte aligned), for a plane `width` pixels wide. n = 0 launches
+// nothing.
+int adder_wire_pack(const void* pixd, const void* t, void* out, long long n,
+                    int width, int channels, void* stream) {
+  if (n < 0 || width < 1 || channels < 1 || ((uintptr_t)out & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  const long long grid = (n + kPackEvents - 1) / kPackEvents;
+  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (channels == 1) {
+    adder_wire_pack_kernel<9><<<(int)grid, kPackThreads, 0, st>>>(
+        (const unsigned*)pixd, (const unsigned*)t, (unsigned char*)out, n,
+        (unsigned)width, 1u);
+  } else {
+    adder_wire_pack_kernel<11><<<(int)grid, kPackThreads, 0, st>>>(
+        (const unsigned*)pixd, (const unsigned*)t, (unsigned char*)out, n,
+        (unsigned)width, (unsigned)channels);
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* adder_cuda_error_string(int code) {

@@ -28,7 +28,9 @@ Each entry point has two implementations:
   davis_resident.cu), reached through the wrappers `fused_chunk_resident`,
   `group_chunk_resident`, `dvs_rows_resident`, `dvs_rows8_resident` and
   `davis_rows_resident` (and `segment_copy` and `rows_copy`, whose plain
-  versions are `segment_copy_plain` and `rows_copy_plain`).
+  versions are `segment_copy_plain` and `rows_copy_plain`), and
+  `wire_pack` (`adder_wire_pack` in fused_resident.cu; plain version
+  `wire_pack_plain`), which turns a chunk's events into `.adder` records.
 
 A wrapper runs the plain version for CPU tensors and launches the kernels
 for CUDA tensors; a failed launch raises, there is no fallback.
@@ -101,7 +103,8 @@ DICT_CAP = 64  # the 8-byte carrier's shared (value, fv) dictionary
 LAUNCHES = {"adder_resident_chunk": 0, "adder_segment_copy": 0,
             "adder_exclusive_scan": 0, "adder_dvs_rows": 0,
             "adder_dvs_rows8": 0, "adder_rows_group": 0,
-            "adder_davis_rows": 0, "adder_rows_copy": 0}
+            "adder_davis_rows": 0, "adder_rows_copy": 0,
+            "adder_wire_pack": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1312,3 +1315,53 @@ def exclusive_scan(counts: torch.Tensor) -> torch.Tensor:
                            f"{cuda_build.error_string(err)}")
     LAUNCHES["adder_exclusive_scan"] += 1
     return out
+
+
+def wire_pack(pixd: torch.Tensor, t: torch.Tensor, width: int,
+              channels: int) -> torch.Tensor:
+    """A chunk's events (`pixd` = pix << 8 | d and `t`, int32 holding u32
+    patterns, one entry an event) as the `.adder` raw records that
+    `codec/raw.py::encode_events` writes for them, on their device: (n x 9,)
+    uint8 for a mono plane, (n x 11,) for colour. The plain version for CPU
+    tensors, `adder_wire_pack` for CUDA tensors (no launch for n = 0)."""
+    if pixd.dtype != torch.int32 or t.dtype != torch.int32 or (
+            pixd.dim() != 1 or pixd.shape != t.shape):
+        raise ValueError(f"pixd and t must be (n,) int32, got {pixd.dtype} "
+                         f"{tuple(pixd.shape)}, {t.dtype} {tuple(t.shape)}")
+    if width < 1 or channels < 1:
+        raise ValueError(f"plane width {width}, {channels} channels")
+    if not pixd.is_cuda:
+        return wire_pack_plain(pixd, t, width, channels)
+    dev = pixd.device
+    if t.device != dev or not (pixd.is_contiguous() and t.is_contiguous()):
+        raise ValueError(f"pixd and t must be contiguous on {dev}")
+    n = pixd.numel()
+    # 9 or 11 bytes a record (codec/header.py::event_size_for_plane)
+    out = torch.empty(n * (9 if channels == 1 else 11), dtype=torch.uint8,
+                      device=dev)
+    if n == 0:
+        return out
+    err = cuda_build.load().adder_wire_pack(
+        pixd.data_ptr(), t.data_ptr(), out.data_ptr(), n, width, channels,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"adder_wire_pack launch failed: "
+                           f"{cuda_build.error_string(err)}")
+    LAUNCHES["adder_wire_pack"] += 1
+    return out
+
+
+def wire_pack_plain(pixd: torch.Tensor, t: torch.Tensor, width: int,
+                    channels: int) -> torch.Tensor:
+    """Plain version of `wire_pack`, with torch ops on the inputs' device:
+    each field's big-endian bytes as a column of an (n, record) table."""
+    pd = pixd.to(torch.int64) & 0xFFFFFFFF
+    tt = t.to(torch.int64) & 0xFFFFFFFF
+    pix, d = pd >> 8, pd & 0xFF
+    xy = pix // channels
+    x, y = xy % width, xy // width
+    cols = [x >> 8, x, y >> 8, y]
+    if channels > 1:
+        cols += [torch.ones_like(pix), pix % channels]
+    cols += [d, tt >> 24, tt >> 16, tt >> 8, tt]
+    return (torch.stack(cols, dim=1) & 0xFF).to(torch.uint8).reshape(-1)

@@ -21,6 +21,7 @@ from ..codec.encoder import (
     EncoderType,
     RawOutput,
 )
+from ..codec import raw as rawcodec
 from ..codec.header import LATEST_CODEC_VERSION, CodecMetadata
 from ..codec.rate_controller import Crf
 from ..core.types import (
@@ -132,6 +133,16 @@ class Video:
     rate adjustment: a new tensor, never written in place) and clusters
     them (`cluster`). With features on, events are fetched even for the
     Empty sink, as in the JAX package.
+
+    The events' way to the writer (`_collect_interval`): where the encoder
+    writes each event's raw record as it comes (a Raw sink, no event drop,
+    the Unchanged order) and feature detection is off, a chunk's events
+    become `.adder` records on its device (`fused_resident.wire_pack`), the
+    host copies the finished bytes into fresh pinned memory and hands them
+    to the writer, and `collect_chunk` returns them as a
+    `codec.raw.WireEvents` (its fields decoded on first access). Otherwise
+    the host fetches the (pix << 8 | d, t) pairs, unpacks them into an
+    EventArray and the encoder serialises that.
 
     Two chunks may be in flight: `submit_chunk` launches a chunk on the state
     the previous one left, before that one's events are fetched.
@@ -527,9 +538,13 @@ class Video:
             self.state = self._rerun_inflight(outs)
         elif not self._inflight:
             self.state = outs.state
-        return self._finish_chunk(
-            outs, None if self.void_events and not self.feature_detection
-            else self._fetch(outs.pixd[:total], outs.t[:total]))
+        if self.void_events and not self.feature_detection:
+            wire = None
+        elif self._packs_records():
+            wire = self._fetch_records(outs.pixd[:total], outs.t[:total])
+        else:
+            wire = self._fetch(outs.pixd[:total], outs.t[:total])
+        return self._finish_chunk(outs, wire)
 
     def _rerun_inflight(self, outs):
         """After a depth rerun: the chunks submitted on top of the rerun one
@@ -548,9 +563,10 @@ class Video:
         return st
 
     def _finish_chunk(self, outs, wire) -> EventArray:
-        """The collected chunk's display frame, then its events (`wire`,
-        the host pair `_fetch` gives, or None when they stay on the device)
-        fed to the encoder, then the features (video.py:656-693)."""
+        """The collected chunk's display frame, then its events (`wire`:
+        the host pair `_fetch` gives, the records `_fetch_records` gives, or
+        None when they stay on the device) fed to the encoder, then the
+        features (video.py:656-693)."""
         self._last_runnings = outs.runnings
         if self._emit_running:
             self._last_runnings = self._runnings(outs)
@@ -558,6 +574,8 @@ class Video:
             ).reshape(self.plane.shape)
         if wire is None:
             return EventArray.empty()
+        if isinstance(wire, rawcodec.WireEvents):
+            return self._write_records(wire)
         events = self._encode(*wire)
         if self.feature_detection:
             self._handle_features(events, outs.per_interval.cpu().numpy(),
@@ -580,6 +598,40 @@ class Video:
         with tracing.stage("video.collect.event_fetch", items=pixd.numel()):
             return (pixd.cpu().numpy().view(np.uint32),
                     t.cpu().numpy().view(np.uint32))
+
+    def _packs_records(self) -> bool:
+        """Whether a chunk's events reach the writer as `.adder` records
+        made on the chunk's device (`_fetch_records`): the encoder writes
+        each event's record as it comes (a Raw sink, no event drop, the
+        Unchanged order) and no feature detection reads the host events."""
+        return (self.encoder.writes_records_unchanged()
+                and not self.feature_detection)
+
+    def _fetch_records(self, pixd: torch.Tensor,
+                       t: torch.Tensor) -> rawcodec.WireEvents:
+        """Wire events (`pix << 8 | d`, t) to their `.adder` records on
+        their device (`fused_resident.wire_pack`), then into fresh host
+        memory, pinned from a card: a writer may keep the buffer it is
+        handed, so none is reused. A chunk without events launches
+        nothing."""
+        n = pixd.numel()
+        with tracing.stage(f"{self._trace}.unpack", items=n):
+            records = fused_resident.wire_pack(pixd, t, self.plane.width,
+                                               self.plane.channels)
+            if n:
+                tracing.add_items(f"{self._trace}.wire_pack", 1)
+        with tracing.stage("video.collect.event_fetch", items=n):
+            if records.is_cuda:
+                pinned = torch.empty(records.numel(), dtype=torch.uint8,
+                                     pin_memory=True)
+                records = pinned.copy_(records)  # waits for the copy
+        return rawcodec.WireEvents(records.numpy(), self.plane.channels)
+
+    def _write_records(self, events: rawcodec.WireEvents) -> EventArray:
+        """A chunk's `.adder` records to the writer, as they are."""
+        with tracing.stage(f"{self._trace}.encode", items=len(events)):
+            self.encoder.ingest_records(events.records)
+        return events
 
     def _encode(self, pixd: np.ndarray, t: np.ndarray) -> EventArray:
         """Host wire events (uint32 `pix << 8 | d`, t) to an EventArray,

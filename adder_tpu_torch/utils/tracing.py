@@ -28,7 +28,15 @@ Where the port records the JAX package's stage names:
   bytes), `video.unpack` (the wire events to an EventArray before
   `video.encode`; items: the events) and `video.rerun` (one span per
   relaunch of a chunk: a capacity, pack or depth rerun, or a chunk in
-  flight recomputed after a depth rerun);
+  flight recomputed after a depth rerun). Where the encoder writes each
+  event's raw record as it comes (a Raw sink, no event drop, the
+  Unchanged order) and feature detection is off, a chunk's events are
+  packed into `.adder` records on its device (`Video._packs_records`), and
+  the same names time that route: `video.unpack` the host side of the
+  pack's launch (items: the events), `video.collect.event_fetch` the copy
+  of the records into pinned memory and its wait, `video.encode` the
+  writer's call (items: the events); the counter `video.wire_pack` (items
+  only, no calls) adds 1 for each chunk so packed;
 - transcoder/sharded.py: `sharded.submit_chunk`,
   `sharded.collect.control_fetch`, `sharded.collect.event_fetch`,
   `sharded.collect.assemble` (the bands' streams merged into the global

@@ -26,14 +26,17 @@ Phases (any failure raises and the script exits non-zero):
   3. the main path: 1080p mono, the reference's bench config, 64 frames of
      a seeded moving-blob scene, FramedArray(device="cuda") -> Video
      submit/collect -> Raw .adder in a temporary directory. The launch
-     counters must rise (the one-pass kernel and the copy once per chunk),
+     counters must rise (the one-pass kernel, the copy and the .adder
+     record pack once per chunk),
      no chunk call may wait for the card, the decoded event count must
      equal the kernel's, and the first 8 frames must give the same bytes on
      the card and on the CPU;
   4. timings: K1 fetched and K2 against plain at 1080p mono, T = 16, from
      the host and on the card alone, the kernels of a fetched chunk under
      torch.profiler, the byte bound and an issue-rate estimate; the
-     segment copy alone; the scan at (16, 64800) counts (one per interval
+     segment copy alone; the .adder record pack (adder_wire_pack) against
+     its plain version and alone, on the chunk's events and on 4.3 M of
+     them; the scan at (16, 64800) counts (one per interval
      and warp) beside torch.cumsum, and at 524,288, each timed from the
      host and on the card alone; the Empty-sink (void) path at 1080p mono
      and colour;
@@ -513,6 +516,8 @@ def kernel_source(name: str) -> str:
                 else "framed (K1/K2)")
     if "adder_segment_copy_kernel" in name:
         return "segment copy"
+    if "adder_wire_pack_kernel" in name:
+        return "wire pack"
     if "adder_rows_copy_kernel" in name:
         return "rows copy"
     if "rows_group_" in name:
@@ -524,7 +529,8 @@ def kernel_source(name: str) -> str:
 # chunk wrapper it has: the lane chunks go by rows only.
 CHUNK_KERNELS = {"adder_resident_chunk", "adder_segment_copy",
                  "adder_exclusive_scan", "adder_dvs_rows", "adder_dvs_rows8",
-                 "adder_rows_group", "adder_davis_rows", "adder_rows_copy"}
+                 "adder_rows_group", "adder_davis_rows", "adder_rows_copy",
+                 "adder_wire_pack"}
 CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows8_resident",
                   "dvs_rows_resident", "fused_chunk_resident",
                   "group_chunk_resident"]
@@ -3547,7 +3553,7 @@ def main() -> int:
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
     for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
-                 "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
+                 "wire pack", "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
                  "DAVIS rows (K4)", "rows copy", "grouping",
                  "fused interval (K5)",
                  "interval slots (K6)"):
@@ -3641,12 +3647,14 @@ def main() -> int:
                launches["adder_exclusive_scan"]) < 1:
             raise AssertionError(f"main path missed a kernel: {launches}")
         # one pass over the state machine per chunk (no COUNT and WRITE
-        # passes: the argument block has no pass to choose) and one copy
+        # passes: the argument block has no pass to choose), one copy and
+        # one pack of the .adder records
         if (launches["adder_resident_chunk"] != N_FRAMES // T_CHUNK
                 or launches["adder_segment_copy"] != N_FRAMES // T_CHUNK
+                or launches["adder_wire_pack"] != N_FRAMES // T_CHUNK
                 or "pass_" in dict(FR._ChunkArgs._fields_)):
-            raise AssertionError(f"not one pass and one copy per chunk: "
-                                 f"{launches}")
+            raise AssertionError(f"not one pass, one copy and one pack per "
+                                 f"chunk: {launches}")
         dec = at.open_file_decoder(path)
         events = dec.digest_all()
         n_decoded = len(events)
@@ -3730,6 +3738,21 @@ def main() -> int:
     # counts and offsets read, the starts of non-empty segments read, each
     # event's 8 staged bytes read and its 8 output bytes written
     c_bound = bound(seg[2].numel() * 12 + nonempty * 8 + 16 * n_ev)
+    # the .adder record pack alone, on the events of the chunk above and on
+    # their first 4.3 M (a Raw benchmark chunk's count): 8 bytes read and 9
+    # written an event
+    wp, wp_err = {}, 0.0
+    for k in (n_ev, min(n_ev, 4_300_000)):
+        ev = (got.pixd[:k], got.t[:k], W, 1)
+        wp_err = max(wp_err, testing.bitwise_max_err(
+            FR.wire_pack(*ev), FR.wire_pack_plain(*ev), f"wire pack of {k}"))
+        wp[k] = {
+            "ms": cuda_ms(lambda ev=ev: FR.wire_pack(*ev), 20),
+            "queued_ms": cuda_ms_queued(lambda ev=ev: FR.wire_pack(*ev), 20),
+            "kernel_ms": kernel_device_ms(lambda ev=ev: FR.wire_pack(*ev), 10,
+                                          ("adder_wire_pack_kernel",)),
+            "plain_ms": cuda_ms(lambda ev=ev: FR.wire_pack_plain(*ev), 2),
+            "bound_ms": bound(17 * k)}
     # the scan beside the library yardstick, one torch.cumsum of the same
     # counts (int64): each the best of two loops, the scan's around cumsum's
     s_lib_ms = cuda_ms(lambda: torch.cumsum(counts.reshape(-1), 0), 50)
@@ -3770,6 +3793,11 @@ def main() -> int:
     log(f"#   segment copy ({seg[2].numel()} segments, {nonempty} non-empty, "
         f"{n_ev} events): {c_ms} ms from the host, {c_q_ms} ms on the card "
         f"alone, plain {cp_ms} ms, bound {c_bound} ms")
+    for k, w in wp.items():
+        log(f"#   wire pack of {k} events (9-byte records; == plain, max abs "
+            f"err {wp_err}): {w['ms']} ms from the host, {w['queued_ms']} ms "
+            f"on the card alone, the kernel {w['kernel_ms']}, plain "
+            f"{w['plain_ms']} ms, bound {w['bound_ms']} ms")
     log(f"#   scan of {tuple(counts.shape)} counts, {FR.SCAN_TILE} a block: "
         f"{s_ms} ms "
         f"(best of two loops of 50; its scratch memset included, alone "
@@ -3842,6 +3870,13 @@ def main() -> int:
          "max_abs_err": copy_err, "ms": c_ms, "plain_ms": cp_ms,
          "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
          "queued_ms": c_q_ms},
+        {"name": "adder_wire_pack", "route": "cuda",
+         "source": "adder_tpu_torch/csrc/fused_resident.cu",
+         # no TPU kernel: the JAX package serialises the events on the host
+         "replaces": "adder_tpu_torch/codec/raw.py encode_events (host)",
+         "launches": launches["adder_wire_pack"], "max_abs_err": wp_err,
+         "bound_by": "bytes", "library_ms": None,
+         "by_events": {str(k): w for k, w in wp.items()}},
         {"name": "adder_exclusive_scan", "route": "cuda",
          "source": "adder_tpu_torch/csrc/fused_resident.cu",
          "replaces": "adder_tpu/ops/fused_resident.py:676",

@@ -8,6 +8,7 @@ Tolerance: none; every comparison is bit for bit.
 
 import io
 
+import numpy as np
 import pytest
 import torch
 
@@ -72,11 +73,70 @@ def test_video_cuda_bytes_equal_cpu(cuda, channels):
     frames = frames.reshape(12, 17, 33, channels)
     FR.reset_launch_counts()
     on_card = _raw_bytes(frames, cuda)
-    # one pass and one segment copy per chunk, x 3
+    # one pass, one segment copy and one record pack per chunk, x 3
     assert FR.LAUNCHES["adder_resident_chunk"] == 3
     assert FR.LAUNCHES["adder_segment_copy"] == 3
+    assert FR.LAUNCHES["adder_wire_pack"] == 3
     assert on_card == _raw_bytes(frames, "cpu")
     assert len(on_card) > 1000
+
+
+@pytest.mark.parametrize("C", [1, 3], ids=["mono", "color"])
+def test_wire_pack_matches_plain_at_1080p(cuda, C):
+    """`adder_wire_pack` against `wire_pack_plain` (run on the card), bit
+    for bit, at 1080p: the Raw cell's 4.3 M events a chunk (no multiple of
+    the kernel's block) drawn over the plane with the edges of every field
+    first, and a chunk with no events, which launches nothing."""
+    rng = np.random.default_rng(C)
+    W, n, last = 1920, 4_300_001, 1920 * 1080 * C - 1
+    pix = rng.integers(0, last + 1, n)
+    d = rng.integers(0, 256, n)
+    t = rng.integers(0, 2 ** 32, n)
+    pix[:4], d[:4] = [0, last, last, 0], [0, 255, 0, 255]
+    t[:4] = [0, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
+    pixd = torch.from_numpy(((pix << 8) | d).astype(np.uint32).view(np.int32))
+    tt = torch.from_numpy(t.astype(np.uint32).view(np.int32))
+    pixd, tt = pixd.to(cuda), tt.to(cuda)
+    FR.reset_launch_counts()
+    for k in (n, 1025, 0):
+        got = FR.wire_pack(pixd[:k], tt[:k], W, C)
+        want = FR.wire_pack_plain(pixd[:k], tt[:k], W, C)
+        assert got.is_cuda and got.numel() == k * (9 if C == 1 else 11)
+        assert torch.equal(got, want), k
+    assert FR.LAUNCHES["adder_wire_pack"] == 2
+
+
+def test_video_cuda_writer_keeps_each_chunks_records(cuda):
+    """On the card the records reach the writer in fresh pinned buffers: a
+    writer that keeps every buffer still holds each chunk's bytes after the
+    later chunks, and the events returned equal the CPU route's."""
+    frames = testing.walk_frames(5, 16, 33 * 17 * 3).reshape(16, 17, 33, 3)
+    plane = at.PlaneSize(33, 17, 3)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        kept, copies, events = [], [], []
+
+        class Keep:
+            def write(self, data):
+                kept.append(data)
+                copies.append(bytes(memoryview(data).cast("B")))
+
+            def flush(self):
+                pass
+
+        v = at.Video(plane, at.Mode.FramePerfect, chunk_frames=4, device=dev)
+        v.write_out(at.SourceCamera.FramedU8, at.TimeMode.AbsoluteT,
+                    at.PixelMultiMode.Collapse, None, at.EncoderType.Raw,
+                    at.EncoderOptions.default(plane), Keep())
+        for i in range(0, 16, 4):
+            events.append(v.integrate_matrix_batch(frames[i:i + 4]))
+        v.end_write_stream()
+        assert all(bytes(memoryview(a).cast("B")) == b
+                   for a, b in zip(kept, copies))
+        runs[str(dev)] = (b"".join(copies), events)
+    (on_card, ev_card), (on_cpu, ev_cpu) = runs.values()
+    assert on_card == on_cpu and len(on_card) > 1000
+    assert all(a == b for a, b in zip(ev_card, ev_cpu))
 
 
 def test_segment_copy_matches_plain(cuda):

@@ -33,8 +33,11 @@
 //     DAVIS sub-step; min(..., 255) stays here.
 //   - Bitcasts (_d_from_intensity / _dshift_f32, :219-235) are
 //     __float_as_int / __int_as_float.
-//   - The 24-bit pixel field: pix << 8 | d aliases planes of 2^24
-//     pixel-channels or more; the wrappers and the entry points refuse them.
+//   - The pixel field: pix << 8 | d in 32 bits aliases planes of 2^24
+//     pixel-channels or more. The framed chunk (K1, the segment copy, the
+//     wire pack) has a wide layout for them (WIDE, below: a 64-bit pixd out
+//     of the copy); K3-K6 keep the 24-bit field, and their wrappers and entry
+//     points refuse such planes.
 //   - state.overflow is passed through unchanged, as the resident TPU kernel
 //     does (fused_resident.py:836); the depth flag reports overflow instead.
 //   - Depth is a template parameter; a caller compares state at equal depth.
@@ -800,16 +803,23 @@ __device__ __forceinline__ long long lookback_exclusive(
 // fused_resident.py's emit_running (:336-357, carried at :890-899): the
 // pixel's display value stays in a register from run0[pix]; after each
 // interval a pixel whose root holds a best event takes its
-// running_intensity, and runnings[t, pix] gets the value. ------------------
+// running_intensity, and runnings[t, pix] gets the value. WIDE is the wide
+// event layout (planes of 2^24 pixel-channels and more, whose index
+// pix << 8 | d cannot hold): the staged word keeps the event's lane in the
+// warp in place of its pixel, lane << 8 | d in the low 32 bits, and
+// adder_segment_copy's wide kernel restores pix = 32 x warp + lane from the
+// segment it copies, so the staging stays 8 bytes an event. ----------------
 
 template <int D>
 __host__ __device__ constexpr int chunk_slab() {
   return 32 * (D + 3);
 }
 
-template <int D, bool FP, bool COLLAPSE, bool ABS, bool EVENTS, bool RUN>
+template <int D, bool FP, bool COLLAPSE, bool ABS, bool EVENTS, bool RUN,
+          bool WIDE = false>
 __global__ void __launch_bounds__(kChunkBlock)
     adder_resident_chunk_kernel(const KArgs a) {
+  static_assert(!WIDE || (EVENTS && !RUN), "the wide layout stages events");
   constexpr int K = D + 3;
   constexpr int SLAB = chunk_slab<D>();
   const int lane = threadIdx.x & 31;
@@ -829,7 +839,9 @@ __global__ void __launch_bounds__(kChunkBlock)
   long long cur = 0;
   int room = 0;
   bool staging = true;
-  const unsigned pbase = (unsigned)pix << 8;
+  // the staged word's low 32 bits: pix << 8 | d, or in the wide layout
+  // lane << 8 | d (the segment names the warp, so the copy restores pix)
+  const unsigned pbase = WIDE ? (unsigned)lane << 8 : (unsigned)pix << 8;
   // each interval's frame byte is loaded one interval ahead
   int fv_next = valid ? a.frames[pix] : 0;
 
@@ -946,6 +958,7 @@ struct AdderChunkArgs {
   float pdm;         // display, D view: f32(log2(255 * dtm / ref))
   const void* run0;  // display: (n,) u8, or null: no display
   void* runnings;    // display: (T, n) u8
+  int wide;          // events: 1 for the wide layout (lane << 8 | d staged)
 };
 
 }  // extern "C"
@@ -955,9 +968,14 @@ namespace {
 // The checks of adder_resident_chunk that do not depend on the mode; the
 // entry point adds its own on depth and view mode. (make_rargs also maps the
 // row walk's state through make_kargs.)
+// The staged events of the narrow layout carry pix << 8 | d, so a chunk
+// with events takes planes below 2^24 pixel-channels there; the wide layout
+// and the counts alone take planes below 2^32 (the pack's u32 pixel index).
 inline bool chunk_args_ok(const AdderChunkArgs* a) {
-  return a->T >= 1 && a->T <= kMaxT && a->n >= 1 && a->n < (1LL << 24) &&
-         a->ref_time >= 1 && (a->run0 == nullptr) == (a->runnings == nullptr);
+  const bool narrow = a->events != 0 && a->wide == 0;
+  return a->T >= 1 && a->T <= kMaxT && a->n >= 1 &&
+         a->n < (narrow ? (1LL << 24) : (1LL << 32)) && a->ref_time >= 1 &&
+         (a->run0 == nullptr) == (a->runnings == nullptr);
 }
 
 inline KArgs make_kargs(const AdderChunkArgs* a) {
@@ -1016,12 +1034,15 @@ inline KArgs make_kargs(const AdderChunkArgs* a) {
 }
 
 // One launch of the chunk kernel for one mode case: the events staged or
-// not, the display written or not.
+// not (in the wide layout: staged, no display), the display written or not.
 template <int D, bool FP, bool CO, bool AB>
-void launch_chunk(const KArgs& k, bool events, cudaStream_t st) {
+void launch_chunk(const KArgs& k, bool events, bool wide, cudaStream_t st) {
   const bool run = k.runnings != nullptr;
   const long long grid = (k.n + kChunkBlock - 1) / kChunkBlock;
-  if (events) {
+  if (wide) {
+    adder_resident_chunk_kernel<D, FP, CO, AB, true, false, true>
+        <<<(int)grid, kChunkBlock, 0, st>>>(k);
+  } else if (events) {
     if (run) {
       adder_resident_chunk_kernel<D, FP, CO, AB, true, true>
           <<<(int)grid, kChunkBlock, 0, st>>>(k);

@@ -69,6 +69,18 @@
 // (kChunkBlock, 128 threads) so that the registers, not the block, set the
 // warps per SM. The staging adds 8 bytes per event written and read
 // once more, and the scan and the copy are short launches beside it.
+//
+// The event layout. Below 2^24 pixel-channels an event leaves the copy as
+// two u32 words, pix << 8 | d and t (8 bytes), as the TPU kernel's do. At
+// 2^24 and above (3840 x 2160 x 3 is 24,883,200) that index cannot hold
+// the pixel, and the chunk takes the wide layout, a template parameter of
+// K1's pass (WIDE, whose narrow instantiations compile as they did) and of
+// the segment copy's and the wire pack's bodies (their wide kernels are
+// their own, so the narrow ones keep their code and names): the staged word
+// stays 8 bytes
+// (lane << 8 | d, t), the copy writes a u64 pix << 8 | d beside the u32 t
+// (12 bytes), and the pack reads the u64. Every slot count, capacity and
+// byte offset on the path is 64-bit: K_SLOTS x N x T passes 2^31 at 4K.
 
 #include "adder_interval.cuh"
 
@@ -169,7 +181,9 @@ int launch_scan(const void* counts, void* out, long long count, void* scratch,
 // entries i, i + 32, ..., so loads and stores are coalesced. Entries at or
 // past `cap` are not written; after a staging overflow (flags[2]) nothing
 // is, since the chunk's events outgrew the capacity and the caller reruns
-// it. ----------------------------------------------------------------------
+// it. WIDE, the wide layout: the staged low word is lane << 8 | d, and the
+// segment (interval, warp), warp = segment % n_warps, gives the pixel, so
+// the copy writes a u64 pix << 8 | d, (32 warp << 8) + the low word. -----
 
 constexpr int kCopyBlock = 256;
 
@@ -180,25 +194,28 @@ struct CopyArgs {
   const int* link;              // (pool / slab,) i32
   const unsigned long long* stage;
   const int* flags;
-  unsigned* out_pixd;           // (cap,)
+  unsigned* out_pixd;           // (cap,); WIDE: (cap,) u64
   unsigned* out_t;              // (cap,)
   long long segments, cap;
   int slab;
 };
 
-__global__ void __launch_bounds__(kCopyBlock)
-    adder_segment_copy_kernel(const CopyArgs a) {
+template <bool WIDE>
+__device__ __forceinline__ void segment_copy(const CopyArgs& a,
+                                             long long n_warps) {
   if (a.flags[2]) return;
   const int lane = threadIdx.x & 31;
   const long long j =
       (long long)blockIdx.x * kCopyBlock + threadIdx.x;  // this lane's segment
   int c = 0;
   long long off = 0, start = 0;
+  unsigned long long pbase = 0;  // WIDE: the segment's 32 warp << 8
   if (j < a.segments) {
     c = a.counts[j];
     if (c) {
       off = a.offsets[j];
       start = a.seg_start[j];
+      if (WIDE) pbase = (unsigned long long)(j % n_warps) << 13;
     }
   }
   unsigned todo = __ballot_sync(kFull, c > 0);
@@ -211,13 +228,30 @@ __global__ void __launch_bounds__(kCopyBlock)
     const int first = min(cs, a.slab - (int)(ss % a.slab));
     const long long next =
         cs > first ? (long long)a.link[ss / a.slab] * a.slab : 0;
+    unsigned long long pb = 0;
+    if (WIDE) pb = __shfl_sync(kFull, pbase, src);
     for (int i = lane; i < cs && os + i < a.cap; i += 32) {
       const unsigned long long e =
           a.stage[i < first ? ss + i : next + (i - first)];
-      a.out_pixd[os + i] = (unsigned)e;
+      if (WIDE) {
+        reinterpret_cast<unsigned long long*>(a.out_pixd)[os + i] =
+            pb + (unsigned)e;
+      } else {
+        a.out_pixd[os + i] = (unsigned)e;
+      }
       a.out_t[os + i] = (unsigned)(e >> 32);
     }
   }
+}
+
+__global__ void __launch_bounds__(kCopyBlock)
+    adder_segment_copy_kernel(const CopyArgs a) {
+  segment_copy<false>(a, 0);
+}
+
+__global__ void __launch_bounds__(kCopyBlock)
+    adder_segment_copy_wide_kernel(const CopyArgs a, long long n_warps) {
+  segment_copy<true>(a, n_warps);
 }
 
 // --- the .adder wire records of a chunk's events. Replaces no TPU kernel:
@@ -229,9 +263,9 @@ __global__ void __launch_bounds__(kCopyBlock)
 //   R = 9  (mono):   x:u16 y:u16 d:u8 t:u32
 //   R = 11 (colour): x:u16 y:u16 tag:u8 (= 1) c:u8 d:u8 t:u32
 // with c = pix % C, x = (pix / C) % W, y = (pix / C) / W.
-// What bounds it: bytes, 8 read and R written an event (a 1080p Raw chunk,
-// 4.3 M events, 73 MB: 0.022 ms at 3.35 TB/s); a few integer operations an
-// event. The records are not word-aligned, so a thread's byte stores would
+// What bounds it: bytes, 8 read (12 in the wide layout) and R written an
+// event (a 1080p Raw chunk, 4.3 M events, 73 MB: 0.022 ms at 3.35 TB/s); a
+// few integer operations an event. The records are not word-aligned, so a thread's byte stores would
 // be scattered and narrow: instead each block builds its kPackEvents records
 // in shared memory (one thread an event, coalesced 4-byte loads), then the
 // block stores its kPackEvents x R contiguous bytes with aligned 16-byte
@@ -242,12 +276,12 @@ constexpr int kPackThreads = 256;
 constexpr int kPackItems = 4;  // events a thread
 constexpr int kPackEvents = kPackThreads * kPackItems;
 
-template <int R>
-__global__ void __launch_bounds__(kPackThreads)
-    adder_wire_pack_kernel(const unsigned* __restrict__ pixd,
-                           const unsigned* __restrict__ t,
-                           unsigned char* __restrict__ out, long long n,
-                           unsigned width, unsigned channels) {
+template <int R, typename PD>
+__device__ __forceinline__ void wire_pack(const PD* __restrict__ pixd,
+                                          const unsigned* __restrict__ t,
+                                          unsigned char* __restrict__ out,
+                                          long long n, unsigned width,
+                                          unsigned channels) {
   static_assert(R == 9 || R == 11, "mono or colour records");
   __shared__ __align__(16) unsigned char rec[kPackEvents * R];
   const long long e0 = (long long)blockIdx.x * kPackEvents;
@@ -256,8 +290,9 @@ __global__ void __launch_bounds__(kPackThreads)
   for (int q = 0; q < kPackItems; ++q) {
     const int i = q * kPackThreads + threadIdx.x;
     if (i < m) {
-      const unsigned pd = pixd[e0 + i], tt = t[e0 + i];
-      unsigned xy = pd >> 8, c = 0;
+      const PD pd = pixd[e0 + i];
+      const unsigned tt = t[e0 + i];
+      unsigned xy = (unsigned)(pd >> 8), c = 0;
       if (R == 11) {
         c = xy % channels;
         xy /= channels;
@@ -290,6 +325,25 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
+template <int R>
+__global__ void __launch_bounds__(kPackThreads)
+    adder_wire_pack_kernel(const unsigned* __restrict__ pixd,
+                           const unsigned* __restrict__ t,
+                           unsigned char* __restrict__ out, long long n,
+                           unsigned width, unsigned channels) {
+  wire_pack<R>(pixd, t, out, n, width, channels);
+}
+
+// The wide layout's records: pixd is u64 pix << 8 | d (pix below 2^32).
+template <int R>
+__global__ void __launch_bounds__(kPackThreads)
+    adder_wire_pack_wide_kernel(const unsigned long long* __restrict__ pixd,
+                                const unsigned* __restrict__ t,
+                                unsigned char* __restrict__ out, long long n,
+                                unsigned width, unsigned channels) {
+  wire_pack<R>(pixd, t, out, n, width, channels);
+}
+
 }  // namespace
 
 extern "C" {
@@ -307,6 +361,8 @@ struct AdderCopyArgs {
   const void* flags;
   void* out_pixd;
   void* out_t;
+  int wide;           // 1: the wide layout, out_pixd (cap,) u64
+  long long n_warps;  // wide: the segments of one interval
 };
 
 }  // extern "C"
@@ -316,31 +372,32 @@ namespace {
 // --- host-side dispatch over the template parameters ------------------------
 
 template <int D, bool FP, bool CO>
-void launch_time(const KArgs& k, bool events, bool abs_time, cudaStream_t st) {
+void launch_time(const KArgs& k, bool events, bool wide, bool abs_time,
+                 cudaStream_t st) {
   if (abs_time) {
-    launch_chunk<D, FP, CO, true>(k, events, st);
+    launch_chunk<D, FP, CO, true>(k, events, wide, st);
   } else {
-    launch_chunk<D, FP, CO, false>(k, events, st);
+    launch_chunk<D, FP, CO, false>(k, events, wide, st);
   }
 }
 
 template <int D, bool FP>
-void launch_multi(const KArgs& k, bool events, bool collapse, bool abs_time,
-                  cudaStream_t st) {
+void launch_multi(const KArgs& k, bool events, bool wide, bool collapse,
+                  bool abs_time, cudaStream_t st) {
   if (collapse) {
-    launch_time<D, FP, true>(k, events, abs_time, st);
+    launch_time<D, FP, true>(k, events, wide, abs_time, st);
   } else {
-    launch_time<D, FP, false>(k, events, abs_time, st);
+    launch_time<D, FP, false>(k, events, wide, abs_time, st);
   }
 }
 
 template <int D>
-void launch_mode(const KArgs& k, bool events, bool fp, bool collapse,
-                 bool abs_time, cudaStream_t st) {
+void launch_mode(const KArgs& k, bool events, bool wide, bool fp,
+                 bool collapse, bool abs_time, cudaStream_t st) {
   if (fp) {
-    launch_multi<D, true>(k, events, collapse, abs_time, st);
+    launch_multi<D, true>(k, events, wide, collapse, abs_time, st);
   } else {
-    launch_multi<D, false>(k, events, collapse, abs_time, st);
+    launch_multi<D, false>(k, events, wide, collapse, abs_time, st);
   }
 }
 
@@ -349,10 +406,10 @@ void launch_mode(const KArgs& k, bool events, bool fp, bool collapse,
 extern "C" {
 
 int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
-  const bool events = a->events != 0;
+  const bool events = a->events != 0, wide = a->wide != 0;
   if (!chunk_args_ok(a) || (a->depth != 6 && a->depth != 8) ||
       a->view_mode < 0 || a->view_mode > 3 || a->seg_counts == nullptr ||
-      a->flags == nullptr ||
+      a->flags == nullptr || (wide && (!events || a->run0 != nullptr)) ||
       (events && (a->seg_start == nullptr || a->link == nullptr ||
                   a->stage == nullptr || a->cursor == nullptr ||
                   a->pool < 1 || a->pool % (32 * (a->depth + 3)) != 0))) {
@@ -363,18 +420,20 @@ int adder_resident_chunk(const AdderChunkArgs* a, void* stream) {
   const bool fp = a->mode == 0, collapse = a->multi_mode == 1;
   const bool abs_time = a->abs_time != 0;
   if (a->depth == 6) {
-    launch_mode<6>(k, events, fp, collapse, abs_time, st);
+    launch_mode<6>(k, events, wide, fp, collapse, abs_time, st);
   } else {
-    launch_mode<8>(k, events, fp, collapse, abs_time, st);
+    launch_mode<8>(k, events, wide, fp, collapse, abs_time, st);
   }
   return (int)cudaGetLastError();
 }
 
 // The staged events of a chunk to their offsets: (segments + 1) offsets
 // from adder_exclusive_scan over the chunk's seg_counts, `slab` the chunk
-// kernel's (32 x (depth + 3)), `cap` the length of out_pixd and out_t.
+// kernel's (32 x (depth + 3)), `cap` the length of out_pixd and out_t; in
+// the wide layout out_pixd is u64 and the segments are (T, n_warps).
 int adder_segment_copy(const AdderCopyArgs* a, void* stream) {
-  if (a->segments < 1 || a->cap < 0 || a->slab < 1) {
+  if (a->segments < 1 || a->cap < 0 || a->slab < 1 ||
+      (a->wide && (a->n_warps < 1 || a->segments % a->n_warps != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   CopyArgs c;
@@ -391,8 +450,13 @@ int adder_segment_copy(const AdderCopyArgs* a, void* stream) {
   c.slab = a->slab;
   const long long grid = (a->segments + kCopyBlock - 1) / kCopyBlock;
   if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  adder_segment_copy_kernel<<<(int)grid, kCopyBlock, 0,
-                              (cudaStream_t)stream>>>(c);
+  if (a->wide) {
+    adder_segment_copy_wide_kernel<<<(int)grid, kCopyBlock, 0,
+                                     (cudaStream_t)stream>>>(c, a->n_warps);
+  } else {
+    adder_segment_copy_kernel<<<(int)grid, kCopyBlock, 0,
+                                (cudaStream_t)stream>>>(c);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -409,12 +473,12 @@ int adder_exclusive_scan(const void* counts, void* out, long long count,
                              (cudaStream_t)stream);
 }
 
-// The first n events of a chunk (pixd = pix << 8 | d and t, u32 each) to
-// their .adder records in `out` (n x 9 bytes when channels is 1, else n x
-// 11; 16-byte aligned), for a plane `width` pixels wide. n = 0 launches
-// nothing.
+// The first n events of a chunk (pixd = pix << 8 | d and t, u32 each; with
+// `wide`, pixd u64) to their .adder records in `out` (n x 9 bytes when
+// channels is 1, else n x 11; 16-byte aligned), for a plane `width` pixels
+// wide. n = 0 launches nothing.
 int adder_wire_pack(const void* pixd, const void* t, void* out, long long n,
-                    int width, int channels, void* stream) {
+                    int width, int channels, int wide, void* stream) {
   if (n < 0 || width < 1 || channels < 1 || ((uintptr_t)out & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -422,7 +486,19 @@ int adder_wire_pack(const void* pixd, const void* t, void* out, long long n,
   const long long grid = (n + kPackEvents - 1) / kPackEvents;
   if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (channels == 1) {
+  const unsigned w = (unsigned)width, ch = (unsigned)channels;
+  unsigned char* o = (unsigned char*)out;
+  const unsigned* tt = (const unsigned*)t;
+  if (wide) {
+    const unsigned long long* pd = (const unsigned long long*)pixd;
+    if (channels == 1) {
+      adder_wire_pack_wide_kernel<9>
+          <<<(int)grid, kPackThreads, 0, st>>>(pd, tt, o, n, w, 1u);
+    } else {
+      adder_wire_pack_wide_kernel<11>
+          <<<(int)grid, kPackThreads, 0, st>>>(pd, tt, o, n, w, ch);
+    }
+  } else if (channels == 1) {
     adder_wire_pack_kernel<9><<<(int)grid, kPackThreads, 0, st>>>(
         (const unsigned*)pixd, (const unsigned*)t, (unsigned char*)out, n,
         (unsigned)width, 1u);

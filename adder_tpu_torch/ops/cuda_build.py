@@ -125,7 +125,7 @@ SIGNATURES = {
         "adder_dvs_rows8", "adder_davis_rows", "adder_rows_copy",
         "adder_fused_interval", "adder_interval_slots")},
     "adder_exclusive_scan": [_PTR, _PTR, _I64, _PTR, _PTR],
-    "adder_wire_pack": [_PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR],
+    "adder_wire_pack": [_PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _PTR],
     **{entry: [_PTR, _PTR] for entry in (
         "adder_rows_group_keys", "adder_rows_group_scan",
         "adder_rows_group_rank")},

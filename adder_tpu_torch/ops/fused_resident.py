@@ -62,7 +62,10 @@ Outputs (`ChunkResult`):
                unchanged, as the resident kernel does);
   pixd, t      int32 holding u32 bit patterns: `pix << 8 | d` and the
                event time (None on the Empty-sink path); a framed chunk on
-               the card gives its (event_cap,) buffers, the events first;
+               the card gives its (event_cap,) buffers, the events first.
+               In the framed chunk's wide layout (`wide_layout`: planes of
+               2^24 pixel-channels and more, or forced by `wide=True`)
+               `pixd` is int64 pix << 8 | d, 12 bytes an event with `t`;
   per_interval (T,) int64 event counts;
   pmax         0-d int64: bits 0-15 the largest per-(interval, pixel) event
                count, bit 16 arena-depth overflow (`fused_resident.py:409-413`);
@@ -90,6 +93,9 @@ from . import integrate as ops
 BLOCK = 256  # pixels per block of K5 and K6; kBlock in adder_interval.cuh
 MAX_T = 128  # intervals per chunk; kMaxT in adder_interval.cuh
 MAX_PIXELS = 1 << 24  # pix << 8 | d keeps 24 bits of pixel index
+# The framed chunk's wide event layout (planes of MAX_PIXELS pixel-channels
+# and more): `pixd` int64 pix << 8 | d; the pack's pixel index is a u32
+MAX_WIDE_PIXELS = 1 << 32
 
 DVS_DEPTH = 16  # the arena depth of the DVS and DAVIS paths (K3, K4)
 # staging slots of one cell of the row walk: the most events one sub-step
@@ -99,12 +105,14 @@ ROW_SLOTS = DVS_DEPTH + 3
 SRC_DVS, SRC_DAVIS, SRC_DVS8 = 1, 2, 3
 DICT_CAP = 64  # the 8-byte carrier's shared (value, fv) dictionary
 
-# Launches of each kernel, counted where the wrapper launches it.
+# Launches of each kernel, counted where the wrapper launches it; the
+# framed chunk's wide layout counts under its own keys (`_wide`).
 LAUNCHES = {"adder_resident_chunk": 0, "adder_segment_copy": 0,
             "adder_exclusive_scan": 0, "adder_dvs_rows": 0,
             "adder_dvs_rows8": 0, "adder_rows_group": 0,
             "adder_davis_rows": 0, "adder_rows_copy": 0,
-            "adder_wire_pack": 0}
+            "adder_wire_pack": 0, "adder_resident_chunk_wide": 0,
+            "adder_segment_copy_wide": 0, "adder_wire_pack_wide": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,11 +133,18 @@ class ChunkResult(NamedTuple):
 # --- plain PyTorch versions -------------------------------------------------
 
 
+def wide_layout(n: int) -> bool:
+    """Whether a framed chunk of n pixel-channels takes the wide event
+    layout: its pixel index does not fit the 24 bits of pix << 8 | d."""
+    return n >= MAX_PIXELS
+
+
 def _chunk_plain(state: ops.PixelState, T: int, step,
-                 events: bool) -> ChunkResult:
+                 events: bool, wide: bool = False) -> ChunkResult:
     """The loop every plain chunk shares: `step(s, i)` runs sub-step i on
     the unstacked state `s` and returns its K slots; the slots are
-    compacted in (sub-step, raster pixel, slot) order."""
+    compacted in (sub-step, raster pixel, slot) order. `wide`: `pixd` as
+    int64 (the framed chunk's wide layout)."""
     n = state.length.shape[0]
     dev = state.length.device
     s = ops._S.unstack(state)
@@ -146,7 +161,8 @@ def _chunk_plain(state: ops.PixelState, T: int, step,
         if events:
             d = torch.stack([x[0] for x in slots], dim=1).to(torch.int64)
             tt = torch.stack([x[1] for x in slots], dim=1).to(torch.int64)
-            pixd_parts.append(((pix << 8) | (d & 0xFF))[m].to(torch.int32))
+            pixd = ((pix << 8) | (d & 0xFF))[m]
+            pixd_parts.append(pixd if wide else pixd.to(torch.int32))
             t_parts.append(tt[m].to(torch.int32))
     new_state = s.restack()._replace(overflow=state.overflow)
     pmax = max_cnt | ((s.overflow > 0).to(torch.int64) << 16)
@@ -162,7 +178,7 @@ def _chunk_plain(state: ops.PixelState, T: int, step,
 
 
 def _framed_plain(state, frames, time, p, events: bool,
-                  run0=None) -> ChunkResult:
+                  run0=None, wide: bool = False) -> ChunkResult:
     time = float(np.float32(time))
     run, runnings = run0, []
 
@@ -176,18 +192,18 @@ def _framed_plain(state, frames, time, p, events: bool,
             runnings.append(run)
         return slots
 
-    res = _chunk_plain(state, frames.shape[0], step, events)
+    res = _chunk_plain(state, frames.shape[0], step, events, wide)
     if run0 is None:
         return res
     return res._replace(runnings=torch.stack(runnings))
 
 
-def fused_chunk_resident_plain(state, frames, time, p,
-                               run0=None) -> ChunkResult:
+def fused_chunk_resident_plain(state, frames, time, p, run0=None,
+                               wide: bool = False) -> ChunkResult:
     """Plain version of the fetched-events chunk: state after T intervals
-    and the chunk's events in reference order; with `run0`, the display
-    frames too."""
-    return _framed_plain(state, frames, time, p, True, run0)
+    and the chunk's events in reference order (`wide`: in the wide layout);
+    with `run0`, the display frames too."""
+    return _framed_plain(state, frames, time, p, True, run0, wide)
 
 
 def group_chunk_resident_plain(state, frames, time, p,
@@ -704,7 +720,7 @@ def davis_rows_resident_plain(state: ops.PixelState, carrier: torch.Tensor,
 
 
 def fused_chunk_resident(state, frames, time, p, run0=None, *,
-                         event_cap: int) -> ChunkResult:
+                         event_cap: int, wide: bool = False) -> ChunkResult:
     """One chunk with its events (and, given the display frame `run0`, the
     display frames after each interval): the plain version for CPU
     tensors; for CUDA tensors the one-pass chunk kernel, the scan of its
@@ -716,11 +732,24 @@ def fused_chunk_resident(state, frames, time, p, run0=None, *,
     exactly, whatever the capacity; the first `total` entries of `pixd` and
     `t` are the events when `total <= event_cap`. Past the capacity the
     buffers are incomplete and the caller reruns the chunk with more. The
-    plain version's buffers hold exactly the chunk's events."""
+    plain version's buffers hold exactly the chunk's events.
+
+    `wide`: the wide event layout, which the caller picks (`Video` from
+    `wide_layout` of its plane) and which any plane may take: int64 `pixd`;
+    on the card the staging stays 8 bytes an event and the copy writes 12.
+    Planes of 2^24 pixel-channels and more need it. The wide layout has no
+    display output: `run0` must be None there."""
     _check_run0(run0, frames)
+    n = frames.shape[-1]
+    if wide and run0 is not None:
+        raise ValueError(f"the wide event layout ({n} pixel-channels) has no "
+                         f"display output")
+    if not wide and n >= MAX_PIXELS:
+        raise ValueError(f"{n} pixel-channels do not fit the 24-bit pixel "
+                         f"field of the narrow event layout")
     if not frames.is_cuda:
-        return fused_chunk_resident_plain(state, frames, time, p, run0)
-    return _chunk_cuda(state, frames, time, p, True, run0, event_cap)
+        return fused_chunk_resident_plain(state, frames, time, p, run0, wide)
+    return _chunk_cuda(state, frames, time, p, True, run0, event_cap, wide)
 
 
 def group_chunk_resident(state, frames, time, p, run0=None) -> ChunkResult:
@@ -850,6 +879,7 @@ class _ChunkArgs(ctypes.Structure):
         ("pdm", ctypes.c_float),
         ("run0", ctypes.c_void_p),
         ("runnings", ctypes.c_void_p),
+        ("wide", ctypes.c_int),
     ]
 
 
@@ -868,6 +898,8 @@ class _CopyArgs(ctypes.Structure):
         ("flags", ctypes.c_void_p),
         ("out_pixd", ctypes.c_void_p),
         ("out_t", ctypes.c_void_p),
+        ("wide", ctypes.c_int),
+        ("n_warps", ctypes.c_longlong),
     ]
 
 
@@ -876,7 +908,10 @@ class _CopyArgs(ctypes.Structure):
 _KERNEL_FIELDS = ops.PixelState._fields[:-1]
 
 
-def _check_plane(x: torch.Tensor, dtype, what: str) -> None:
+def _check_plane(x: torch.Tensor, dtype, what: str,
+                 limit: int = MAX_PIXELS) -> None:
+    """A (T, N) plane of `dtype`, contiguous, T in 1..MAX_T and N below
+    `limit` (the 24-bit pixel field unless the caller takes wider)."""
     if x.dtype != dtype or x.dim() != 2:
         raise ValueError(f"{what} must be (T, N) {dtype}, got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -885,8 +920,10 @@ def _check_plane(x: torch.Tensor, dtype, what: str) -> None:
     T, n = x.shape
     if not 1 <= T <= MAX_T:
         raise ValueError(f"chunk of {T} intervals; the kernel takes 1..{MAX_T}")
-    if n >= MAX_PIXELS:
-        raise ValueError(f"{n} pixel-channels do not fit the 24-bit pixel field")
+    if n >= limit:
+        field = ("24-bit pixel field" if limit == MAX_PIXELS
+                 else f"pixel field of the wide event layout (below {limit})")
+        raise ValueError(f"{n} pixel-channels do not fit the {field}")
 
 
 def _check_run0(run0: Optional[torch.Tensor], frames: torch.Tensor) -> None:
@@ -926,23 +963,35 @@ def slab_entries(depth: int) -> int:
     return 32 * (depth + 3)
 
 
-def _launch(entry: str, args: ctypes.Structure, dev) -> None:
+def _launch(entry: str, args: ctypes.Structure, dev,
+            wide: bool = False) -> None:
     """One launch of a C entry point taking an argument block; adds one to
-    its LAUNCHES entry."""
+    its LAUNCHES entry (the `_wide` one for the wide layout's kernel)."""
     fn = getattr(cuda_build.load(), entry)
     err = fn(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: "
                            f"{cuda_build.error_string(err)}")
-    LAUNCHES[entry] += 1
+    LAUNCHES[entry + "_wide" if wide else entry] += 1
+
+
+def staging_pool(event_cap: int, n: int, depth: int) -> int:
+    """The chunk kernel's staging entries for a capacity of `event_cap`
+    events over n pixel-channels: the capacity in whole slabs plus one slab
+    per warp (a Python int; at 4K colour it passes 2^31)."""
+    slab = slab_entries(depth)
+    return (-(-event_cap // slab) + -(-n // 32)) * slab
 
 
 def _chunk_cuda(state, frames, time, p, events: bool, run0=None,
-                event_cap: int = 0) -> ChunkResult:
+                event_cap: int = 0, wide: bool = False) -> ChunkResult:
     """`adder_resident_chunk` once: the state machine over the chunk, the
     per-(interval, warp) counts and, with `events`, the staged events; then
-    for the events the scan of the counts and `adder_segment_copy`."""
-    _check_plane(frames, torch.uint8, "frames")
+    for the events the scan of the counts and `adder_segment_copy` (`wide`:
+    both in the wide layout). Planes of 2^24 pixel-channels and more take
+    the wide layout, or no events (the Empty sink's counts)."""
+    _check_plane(frames, torch.uint8, "frames",
+                 MAX_PIXELS if events and not wide else MAX_WIDE_PIXELS)
     _check_state(state, frames, (6, 8))
     T, n = frames.shape
     dev = frames.device
@@ -979,22 +1028,23 @@ def _chunk_cuda(state, frames, time, p, events: bool, run0=None,
     ctl = torch.zeros(3, dtype=torch.int64, device=dev)
     flags = ctl[:2].view(torch.int32)
     a.seg_counts, a.flags = seg_counts.data_ptr(), flags.data_ptr()
+    a.wide = int(wide)
     if not events:
         _launch("adder_resident_chunk", a, dev)
         per_interval = seg_counts.sum(dim=1, dtype=torch.int64)
         return ChunkResult(out_state, None, None, per_interval, _pmax(flags),
                            runnings, per_interval.sum())
     slab = slab_entries(depth)
-    pool = (-(-event_cap // slab) + n_warps) * slab
+    pool = staging_pool(event_cap, n, depth)
     seg_start = torch.empty((T, n_warps), dtype=torch.int64, device=dev)
     link = torch.empty(pool // slab, dtype=torch.int32, device=dev)
     stage = torch.empty(pool, dtype=torch.int64, device=dev)
     a.seg_start, a.link = seg_start.data_ptr(), link.data_ptr()
     a.stage, a.pool, a.cursor = stage.data_ptr(), pool, ctl[2:].data_ptr()
-    _launch("adder_resident_chunk", a, dev)
+    _launch("adder_resident_chunk", a, dev, wide)
     offsets = exclusive_scan(seg_counts)
     pixd, t = segment_copy(stage, seg_start, seg_counts, offsets, link, slab,
-                           event_cap, flags)
+                           event_cap, flags, wide=wide)
     per_interval = offsets[::n_warps].diff()
     return ChunkResult(out_state, pixd, t, per_interval, _pmax(flags),
                        runnings, offsets[-1])
@@ -1005,11 +1055,14 @@ def _pmax(flags: torch.Tensor) -> torch.Tensor:
 
 
 def segment_copy(stage, seg_start, counts, offsets, link, slab: int,
-                 cap: int, flags):
+                 cap: int, flags, *, wide: bool = False):
     """The staged events of a chunk to their offsets, in reference order:
     (cap,) int32 `pixd` and `t` whose first min(total, cap) entries are the
     events (nothing is written after a staging overflow, flags[2]). The
     plain version for CPU tensors, `adder_segment_copy` for CUDA tensors.
+    `wide`: the wide layout, whose staged low word is lane << 8 | d (the
+    event's lane in its warp; the segment (t, w) names warp w), and whose
+    `pixd` comes out int64 pix << 8 | d, pix = 32 w + lane.
 
     stage      (pool,) int64: pix << 8 | d in the low 32 bits, t above;
     seg_start  (T, W) int64: the entry of each non-empty segment's first
@@ -1019,7 +1072,7 @@ def segment_copy(stage, seg_start, counts, offsets, link, slab: int,
     offsets    (T W + 1,) int64 their exclusive scan, the total last."""
     if not stage.is_cuda:
         return segment_copy_plain(stage, seg_start, counts, offsets, link,
-                                  slab, cap, flags)
+                                  slab, cap, flags, wide=wide)
     dev = stage.device
     segments = counts.numel()
     for name, x, dtype, numel in (
@@ -1036,25 +1089,30 @@ def segment_copy(stage, seg_start, counts, offsets, link, slab: int,
     if slab < 1 or stage.numel() % slab or cap < 0 or segments < 1:
         raise ValueError(f"slab {slab}, pool {stage.numel()}, capacity {cap}"
                          f", {segments} segments")
-    pixd = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+    if wide and counts.dim() != 2:
+        raise ValueError("the wide layout's counts must be (T, W)")
+    pixd = torch.empty(max(cap, 1),
+                       dtype=torch.int64 if wide else torch.int32, device=dev)
     t = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
     c = _CopyArgs()
     c.segments, c.cap, c.slab = counts.numel(), cap, slab
+    c.wide, c.n_warps = int(wide), counts.shape[-1]
     c.counts, c.offsets = counts.data_ptr(), offsets.data_ptr()
     c.seg_start, c.link = seg_start.data_ptr(), link.data_ptr()
     c.stage, c.flags = stage.data_ptr(), flags.data_ptr()
     c.out_pixd, c.out_t = pixd.data_ptr(), t.data_ptr()
-    _launch("adder_segment_copy", c, dev)
+    _launch("adder_segment_copy", c, dev, wide)
     return pixd[:cap], t[:cap]
 
 
 def segment_copy_plain(stage, seg_start, counts, offsets, link, slab: int,
-                       cap: int, flags):
+                       cap: int, flags, *, wide: bool = False):
     """Plain version of `segment_copy`, with torch ops on the inputs'
     device: each output entry finds its segment by a search of the offsets
     and reads its staging entry."""
     dev = stage.device
-    pixd = torch.zeros(cap, dtype=torch.int32, device=dev)
+    pixd = torch.zeros(cap, dtype=torch.int64 if wide else torch.int32,
+                       device=dev)
     t = torch.zeros(cap, dtype=torch.int32, device=dev)
     n = min(int(offsets[-1]), cap)
     if n == 0 or int(flags[2]):
@@ -1069,6 +1127,9 @@ def segment_copy_plain(stage, seg_start, counts, offsets, link, slab: int,
     at = torch.where(i < first, start + i, nxt * slab + (i - first))
     words = stage[at].view(torch.int32).view(-1, 2)
     pixd[:n], t[:n] = words[:, 0], words[:, 1]
+    if wide:  # lane << 8 | d, and the segment's warp
+        warp = seg % counts.shape[-1]
+        pixd[:n] = (warp << 13) + (pixd[:n] & 0xFFFFFFFF)
     return pixd, t
 
 
@@ -1320,14 +1381,17 @@ def exclusive_scan(counts: torch.Tensor) -> torch.Tensor:
 def wire_pack(pixd: torch.Tensor, t: torch.Tensor, width: int,
               channels: int) -> torch.Tensor:
     """A chunk's events (`pixd` = pix << 8 | d and `t`, int32 holding u32
-    patterns, one entry an event) as the `.adder` raw records that
-    `codec/raw.py::encode_events` writes for them, on their device: (n x 9,)
-    uint8 for a mono plane, (n x 11,) for colour. The plain version for CPU
-    tensors, `adder_wire_pack` for CUDA tensors (no launch for n = 0)."""
-    if pixd.dtype != torch.int32 or t.dtype != torch.int32 or (
-            pixd.dim() != 1 or pixd.shape != t.shape):
-        raise ValueError(f"pixd and t must be (n,) int32, got {pixd.dtype} "
-                         f"{tuple(pixd.shape)}, {t.dtype} {tuple(t.shape)}")
+    patterns, one entry an event; in the wide layout `pixd` int64) as the
+    `.adder` raw records that `codec/raw.py::encode_events` writes for
+    them, on their device: (n x 9,) uint8 for a mono plane, (n x 11,) for
+    colour. The plain version for CPU tensors, `adder_wire_pack` for CUDA
+    tensors (no launch for n = 0). The pixel index is held below 2^32."""
+    if pixd.dtype not in (torch.int32, torch.int64) or (
+            t.dtype != torch.int32 or pixd.dim() != 1
+            or pixd.shape != t.shape):
+        raise ValueError(f"pixd (n,) int32 or int64 and t (n,) int32, got "
+                         f"{pixd.dtype} {tuple(pixd.shape)}, {t.dtype} "
+                         f"{tuple(t.shape)}")
     if width < 1 or channels < 1:
         raise ValueError(f"plane width {width}, {channels} channels")
     if not pixd.is_cuda:
@@ -1343,11 +1407,13 @@ def wire_pack(pixd: torch.Tensor, t: torch.Tensor, width: int,
         return out
     err = cuda_build.load().adder_wire_pack(
         pixd.data_ptr(), t.data_ptr(), out.data_ptr(), n, width, channels,
+        int(pixd.dtype == torch.int64),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"adder_wire_pack launch failed: "
                            f"{cuda_build.error_string(err)}")
-    LAUNCHES["adder_wire_pack"] += 1
+    LAUNCHES["adder_wire_pack_wide" if pixd.dtype == torch.int64
+             else "adder_wire_pack"] += 1
     return out
 
 
@@ -1355,7 +1421,9 @@ def wire_pack_plain(pixd: torch.Tensor, t: torch.Tensor, width: int,
                     channels: int) -> torch.Tensor:
     """Plain version of `wire_pack`, with torch ops on the inputs' device:
     each field's big-endian bytes as a column of an (n, record) table."""
-    pd = pixd.to(torch.int64) & 0xFFFFFFFF
+    pd = pixd.to(torch.int64)
+    if pixd.dtype == torch.int32:  # the u32 pattern
+        pd = pd & 0xFFFFFFFF
     tt = t.to(torch.int64) & 0xFFFFFFFF
     pix, d = pd >> 8, pd & 0xFF
     xy = pix // channels

@@ -27,8 +27,11 @@ kernel writes every slot and has no packed lanes. One host read of the
 control scalars per chunk serves all bands: their totals, flags and
 interval counts are stacked on the first device before one `.cpu()`.
 
-The 24-bit pixel index (`fused_resident.MAX_PIXELS`) guards the whole
-plane, not a band: the merged events carry global ids.
+The bands keep the narrow event layout, pix << 8 | d in 32 bits: the
+24-bit pixel index (`fused_resident.MAX_PIXELS`) guards the whole plane, not
+a band, since the merged events carry global ids. A plane of 2^24
+pixel-channels or more (4K colour) is refused; the single-device `Video`'s
+resident engine takes it in its wide layout.
 
 `pixels=(p0, p1)` makes the Video one process's part of a multi-process
 job (`parallel/multihost.py`): it transcodes the plane's pixels [p0, p1)
@@ -64,8 +67,13 @@ class ShardedVideo(Video):
     def __init__(self, plane: PlaneSize, pixel_tree_mode: Mode,
                  chunk_frames: int = 8, mesh=None, *,
                  pixels: Optional[tuple] = None):
-        self.mesh = sh.make_mesh(mesh)
         n = plane.volume()
+        if n >= FR.MAX_PIXELS:
+            raise ValueError(
+                f"plane of {n} pixel-channels: the bands' events pack the "
+                f"global pixel index into 24 bits (at most "
+                f"{FR.MAX_PIXELS - 1}); the single-device Video takes it")
+        self.mesh = sh.make_mesh(mesh)
         p0, p1 = (0, n) if pixels is None else (int(pixels[0]),
                                                  int(pixels[1]))
         if not 0 <= p0 < p1 <= n:

@@ -50,6 +50,13 @@ RESIDENT, FUSED, SLOTS = "resident", "fused", "slots"
 FULL_CAP_VOLUME = 1 << 20
 
 
+def event_capacity(mult: int, n: int, T: int) -> int:
+    """A chunk's event buffers: `mult` (at most K_SLOTS, the most events a
+    pixel-interval emits) x n x T events, as a Python int: at 4K colour,
+    K_SLOTS x 24,883,200 x 8 = 2,189,721,600 passes 2^31."""
+    return min(mult, ops.K_SLOTS) * n * T
+
+
 def engine_from_env() -> str:
     """`ADDER_TPU_FUSED=0` selects the interval-slot engine (K6 and the
     torch compaction), else `ADDER_TPU_RESIDENT=0` the fused one-interval
@@ -144,6 +151,16 @@ class Video:
     the host fetches the (pix << 8 | d, t) pairs, unpacks them into an
     EventArray and the encoder serialises that.
 
+    The event layout (`_wide`, chosen once from the plane): below 2^24
+    pixel-channels an event is the u32 pair (pix << 8 | d, t); at 2^24 and
+    above (`fused_resident.wide_layout`: 4K colour is 24,883,200) its
+    pixel-and-d word is int64, on the resident engine only, with every sink
+    and route; each such chunk adds its events to the counter
+    `video.wide_events`. The fused and slot engines, whose kernels keep the
+    24-bit field, refuse such planes, and so does the display frame (and
+    with it feature detection), which the wide layout does not write. Planes
+    of 2^32 pixel-channels and more are refused.
+
     Two chunks may be in flight: `submit_chunk` launches a chunk on the state
     the previous one left, before that one's events are fetched.
     `save_checkpoint` / `load_checkpoint` write and read the JAX package's
@@ -157,11 +174,11 @@ class Video:
         self.device = resolve_device(device)
         self.plane = plane
         self.n = plane.volume()
-        if self.n >= fused_resident.MAX_PIXELS:
-            raise ValueError(
-                f"plane of {self.n} pixel-channels: events pack the pixel "
-                f"index into 24 bits (at most {fused_resident.MAX_PIXELS - 1})"
-            )
+        self.engine = engine_from_env()
+        self._check_plane_size(self.n, self.engine)
+        # the event layout, once from the plane (tests may force it True
+        # before the first chunk)
+        self._wide = fused_resident.wide_layout(self.n)
         self.pixel_tree_mode = pixel_tree_mode
         self.pixel_multi_mode = PixelMultiMode.Collapse
         self.delta_t_max = 7650
@@ -171,7 +188,6 @@ class Video:
         self.in_interval_count = 0
         self.chunk_frames = chunk_frames
         self.roi: Optional[Roi] = None
-        self.engine = engine_from_env()
         self.state = self._new_state(
             ops.DEPTH if self.engine == SLOTS else SHALLOW_DEPTH)
         self._cap_mult = 1  # event capacity = _cap_mult * N * T per chunk
@@ -194,6 +210,22 @@ class Video:
         # With an Empty encoder, events can stay on the device ("the void",
         # matching the reference's EmptyOutput bench mode)
         self.void_events = False
+
+    @staticmethod
+    def _check_plane_size(n: int, engine: str) -> None:
+        """Refuse, before anything is allocated, a plane the engine's event
+        layout cannot index: 2^24 pixel-channels and more on the fused and
+        slot engines (pix << 8 | d), 2^32 and more on the resident one."""
+        if engine != RESIDENT and n >= fused_resident.MAX_PIXELS:
+            raise ValueError(
+                f"plane of {n} pixel-channels: the {engine} engine packs the "
+                f"pixel index into 24 bits (at most "
+                f"{fused_resident.MAX_PIXELS - 1}); the resident engine takes "
+                f"such planes")
+        if n >= fused_resident.MAX_WIDE_PIXELS:
+            raise ValueError(
+                f"plane of {n} pixel-channels: the wide event layout holds "
+                f"at most {fused_resident.MAX_WIDE_PIXELS - 1}")
 
     def _new_state(self, depth: int):
         """The initial state of every pixel, at arena depth `depth`."""
@@ -367,7 +399,7 @@ class Video:
                     state, frames, t, p, pending["run0"])
             return fused_resident.fused_chunk_resident(
                 state, frames, t, p, pending["run0"],
-                event_cap=pending["cap"])
+                event_cap=pending["cap"], wide=self._wide)
         if self.engine == FUSED:
             return fused_kernel.fused_chunk(
                 state, frames, t, pending["run0"], p, pending["cap"],
@@ -402,6 +434,11 @@ class Video:
             )
         if time_spanned is None:
             time_spanned = float(self.ref_time)
+        if self._wide and self._emit_running:
+            raise ValueError(
+                f"plane of {self.n} pixel-channels: the wide event layout "
+                f"writes no display frame, so neither the display nor "
+                f"feature detection runs on it")
         with tracing.stage("video.upload", items=T * self.n):
             frames_t = torch.from_numpy(
                 np.ascontiguousarray(flat, dtype=np.uint8)
@@ -428,7 +465,8 @@ class Video:
             mult = min(self._cap_mult, ops.K_SLOTS)
             if self.n * T <= FULL_CAP_VOLUME:
                 mult = ops.K_SLOTS
-            pending.update(mult=mult, cap=mult * self.n * T, pack=self._pack)
+            pending.update(mult=mult, cap=event_capacity(mult, self.n, T),
+                           pack=self._pack)
         with tracing.stage("video.submit_chunk", items=T * self.n):
             pending["outs"] = self._run_chunk(self.state, pending)
         self.state = pending["outs"].state
@@ -530,7 +568,7 @@ class Video:
             else:  # capacity overflow: grow the buffer
                 mult *= 2
                 self._cap_mult = mult
-                pending["cap"] = min(mult, ops.K_SLOTS) * self.n * T
+                pending["cap"] = event_capacity(mult, self.n, T)
             with tracing.stage("video.rerun"):
                 pending["outs"] = self._run_chunk(pending["state_before"],
                                                   pending)
@@ -540,10 +578,13 @@ class Video:
             self.state = outs.state
         if self.void_events and not self.feature_detection:
             wire = None
-        elif self._packs_records():
-            wire = self._fetch_records(outs.pixd[:total], outs.t[:total])
         else:
-            wire = self._fetch(outs.pixd[:total], outs.t[:total])
+            if self._wide:
+                tracing.add_items(f"{self._trace}.wide_events", total)
+            if self._packs_records():
+                wire = self._fetch_records(outs.pixd[:total], outs.t[:total])
+            else:
+                wire = self._fetch(outs.pixd[:total], outs.t[:total])
         return self._finish_chunk(outs, wire)
 
     def _rerun_inflight(self, outs):
@@ -594,9 +635,10 @@ class Video:
 
     def _fetch(self, pixd: torch.Tensor, t: torch.Tensor) -> tuple:
         """Wire events (`pix << 8 | d`, t as int32 u32 patterns) to the
-        host, as uint32 arrays."""
+        host, as uint32 arrays; in the wide layout pixd is int64 on both."""
         with tracing.stage("video.collect.event_fetch", items=pixd.numel()):
-            return (pixd.cpu().numpy().view(np.uint32),
+            pd = pixd.cpu().numpy()
+            return (pd if pd.dtype == np.int64 else pd.view(np.uint32),
                     t.cpu().numpy().view(np.uint32))
 
     def _packs_records(self) -> bool:
@@ -634,8 +676,8 @@ class Video:
         return events
 
     def _encode(self, pixd: np.ndarray, t: np.ndarray) -> EventArray:
-        """Host wire events (uint32 `pix << 8 | d`, t) to an EventArray,
-        fed to the encoder."""
+        """Host wire events (`pix << 8 | d`: uint32, or int64 in the wide
+        layout; t uint32) to an EventArray, fed to the encoder."""
         with tracing.stage(f"{self._trace}.unpack", items=len(pixd)):
             events = self._events_from_flat(
                 (pixd >> 8).astype(np.int64), (pixd & 0xFF).astype(np.uint8),

@@ -215,7 +215,15 @@ Phases (any failure raises and the script exits non-zero):
   23. the scalar oracle (batched=False, transcoder/pixel_oracle.py, on the
      host) on a 48x32 Prophesee stream of 20,000 events and a 48x32 DAVIS
      stream (3 APS frames and their events), each also through the card
-     route: every pixel's event stream must be equal; the walls of both.
+     route: every pixel's event stream must be equal; the walls of both;
+  24. the wide event layout at 3840 x 2160 x 3 (the benchmark's 4K colour
+     plane, past the 24 bits of pix << 8 | d): 24 frames through Video
+     with the Raw sink, the launch counts set to 0 just before (the wide
+     K1 pass, copy and pack once a chunk, no narrow one; one record an
+     event in the file); the wide chunk, K2 on the 4K plane, the wide copy
+     and the wide pack against their plain versions on one chunk, bit for
+     bit; their times, kernel times and byte bounds (`--wide` runs phase
+     1's build and this phase alone).
 The sha256 of each whole output of a full-size run (the .adder files of
 phases 3, 6, 9, 17, 20, 21 and 22; the feature set and display frame of
 phase 15; the reconstructed frames of phases 17, 18 and 22) is logged and held to a
@@ -512,12 +520,20 @@ def kernel_source(name: str) -> str:
                 "3": "DVS rows 8-byte (K3)"}.get(m.group(1) if m else "",
                                                  "other")
     if "adder_resident_chunk_kernel" in name:
-        return ("framed display (K1)" if re.search(r"ELb1E+v", name)
+        # the last two template arguments: RUN (the display), WIDE
+        m = re.search(r"ELb([01])ELb([01])E+v", name)
+        if m and m.group(2) == "1":
+            return "framed wide (K1)"
+        return ("framed display (K1)" if m and m.group(1) == "1"
                 else "framed (K1/K2)")
     if "adder_segment_copy_kernel" in name:
         return "segment copy"
+    if "adder_segment_copy_wide_kernel" in name:
+        return "segment copy wide"
     if "adder_wire_pack_kernel" in name:
         return "wire pack"
+    if "adder_wire_pack_wide_kernel" in name:
+        return "wire pack wide"
     if "adder_rows_copy_kernel" in name:
         return "rows copy"
     if "rows_group_" in name:
@@ -530,7 +546,8 @@ def kernel_source(name: str) -> str:
 CHUNK_KERNELS = {"adder_resident_chunk", "adder_segment_copy",
                  "adder_exclusive_scan", "adder_dvs_rows", "adder_dvs_rows8",
                  "adder_rows_group", "adder_davis_rows", "adder_rows_copy",
-                 "adder_wire_pack"}
+                 "adder_wire_pack", "adder_resident_chunk_wide",
+                 "adder_segment_copy_wide", "adder_wire_pack_wide"}
 CHUNK_WRAPPERS = ["davis_rows_resident", "dvs_rows8_resident",
                   "dvs_rows_resident", "fused_chunk_resident",
                   "group_chunk_resident"]
@@ -741,20 +758,22 @@ def no_sync_in_chunks(video) -> None:
     video._run_chunk = chunk
 
 
-def copy_inputs(FR, st, frames, p, cap: int):
-    """The arguments of `segment_copy` for one chunk: what the chunk kernel
-    staged, its counts and their scan (one launch each, as the wrapper
-    makes them)."""
+def copy_inputs(FR, st, frames, p, cap: int, wide: bool = False):
+    """The positional arguments of `segment_copy` for one chunk (in the
+    `wide` layout: pass wide=True with them): what the chunk kernel staged,
+    its counts and their scan (one launch each, as the wrapper makes
+    them)."""
     staged = {}
     orig = FR.segment_copy
 
-    def keep(*a):
+    def keep(*a, **k):
         staged["args"] = a
-        return orig(*a)
+        return orig(*a, **k)
 
     FR.segment_copy = keep
     try:
-        FR.fused_chunk_resident(st, frames, 255.0, p, event_cap=cap)
+        FR.fused_chunk_resident(st, frames, 255.0, p, event_cap=cap,
+                                wide=wide)
     finally:
         FR.segment_copy = orig
     return staged["args"]
@@ -3525,6 +3544,224 @@ def viz_play_once(adder_viz, path) -> bytes:
         srv.server_close()
         thread.join()
 
+# phase 24: the plane of the benchmark's 4K colour configuration
+# (portbench/configs/framed-2160p-color.json)
+W4K, H4K, C4K = 3840, 2160, 3
+
+
+def wide_bound(state, planes, n_events: int) -> float:
+    """As `chunk_bound`, for a chunk in the wide event layout: each event
+    written as the int64 pix << 8 | d beside the u32 t (12 bytes)."""
+    return bound(sum(x.numel() * x.element_size() for x in planes)
+                 + 2 * state_bytes(state) + 12 * n_events)
+
+
+def wide_phase(at, FR, ops, dev, card) -> list:
+    """Phase 24: the wide event layout at 3840 x 2160 x 3 (24,883,200
+    pixel-channels, past the 24 bits of pix << 8 | d). The main path first:
+    24 frames of a colour scene through Video (submit_chunk, collect_chunk,
+    the Raw sink's packed route into a file), the launch counts set to 0
+    just before: each chunk must launch the wide K1 pass, the wide copy and
+    the wide pack, and no narrow one, and the file must hold one record an
+    event. Then, on one mid-stream chunk of T = 8, each wide wrapper
+    against its plain version on the same inputs, bit for bit: the chunk
+    (K1's wide pass, the scan, the wide copy), K2 (the Empty sink's pass)
+    on the 4K plane, the wide copy alone on what the pass staged, the wide
+    pack on the chunk's events. Their times from the host and on the card
+    alone, the kernels' device times (torch.profiler), the plain versions'
+    and the byte bounds. Returns the kernels' record entries."""
+    from adder_tpu_torch import testing
+
+    T = 8
+    n = W4K * H4K * C4K
+    t0 = time.perf_counter()
+    scene = torch.stack(
+        [testing.moving_blobs(H4K, W4K, 3 * T, seed=s, device=dev)
+         for s in (7, 8, 9)], dim=-1)  # (24, H, W, 3) u8
+    frames = scene.cpu().numpy()
+    log(f"# phase 24: 4K colour scene {frames.shape} made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wide.adder")
+        FR.reset_launch_counts()
+        raw_s, n_kernel, video = transcode_raw(at, frames, dev, path, T)
+        launches = dict(FR.LAUNCHES)
+        chunks = len(frames) // T
+        narrow = [launches[k] for k in ("adder_resident_chunk",
+                                        "adder_segment_copy",
+                                        "adder_wire_pack")]
+        if (not video._wide or any(narrow)
+                or launches["adder_wire_pack_wide"] != chunks
+                or launches["adder_resident_chunk_wide"] < chunks
+                or launches["adder_segment_copy_wide"]
+                != launches["adder_resident_chunk_wide"]):
+            raise AssertionError(f"4K colour Raw: not the wide route once a "
+                                 f"chunk: {launches}")
+        del video
+        meta = at.open_file_decoder(path).meta
+        size = os.path.getsize(path)
+        # the header, one record an event, the EOF record
+        if size != meta.header_size + meta.event_size * (n_kernel + 1):
+            raise AssertionError(f"4K colour Raw: {size} bytes for "
+                                 f"{n_kernel} events of {meta.event_size}")
+        raw_s2, _, _ = transcode_raw(at, frames, dev, path, T)
+    log(f"# phase 24: 4K colour Raw: {len(frames)} frames, {n_kernel} events"
+        f", {size} bytes, {raw_s:.3f} s (first run), launches {launches}; "
+        f"{W4K * H4K * len(frames) / raw_s2 / 1e6} Mpx/s ({raw_s2} s, "
+        f"second run) [{card}]")
+
+    p = ops.TranscodeParams(mode=0, multi_mode=1, time_mode=0, ref_time=255,
+                            delta_t_max=255 * 24, c_thresh_max=0,
+                            c_increase_velocity=1)
+    f0 = scene[:T].reshape(T, -1).contiguous()
+    f8 = scene[T:2 * T].reshape(T, -1).contiguous()
+    del scene, frames
+    st = ops.set_initial_d(ops.init_state(n, dev, c_thresh=0, depth=6),
+                           f0[0].to(torch.int32))
+    st = FR.group_chunk_resident(st, f0, 255.0, p).state  # mid-stream
+    cap = n * T  # the capacity Video gives a first 4K chunk
+    want = FR.fused_chunk_resident_plain(st, f8, 255.0, p, wide=True)
+    n_ev = int(want.total)
+    FR.reset_launch_counts()
+    got = FR.fused_chunk_resident(st, f8, 255.0, p, event_cap=cap, wide=True)
+    void = FR.group_chunk_resident(st, f8, 255.0, p)
+    chunk_launches = dict(FR.LAUNCHES)
+    k1_err = testing.compare_chunks(got, want, "4K wide chunk")
+    k2_err = testing.compare_chunks(void, want._replace(pixd=None, t=None),
+                                    "4K void chunk")
+    # events in the plane's last quarter: at 4K, indices past 24 bits
+    if (got.pixd.dtype != torch.int64 or not n_ev
+            or int(want.pixd.max()) >> 8 < n - n // 4):
+        raise AssertionError("4K wide chunk: no event in the plane's last "
+                             "quarter")
+    del want, void
+    seg = copy_inputs(FR, st, f8, p, cap, wide=True)
+    copy_err = max(testing.bitwise_max_err(
+        g[:n_ev], w_[:n_ev], f"4K wide segment copy {f}") for g, w_, f in zip(
+            FR.segment_copy(*seg, wide=True),
+            FR.segment_copy_plain(*seg, wide=True), ("pixd", "t")))
+    ev = (got.pixd[:n_ev], got.t[:n_ev], W4K, C4K)
+    pack_err = testing.bitwise_max_err(FR.wire_pack(*ev),
+                                       FR.wire_pack_plain(*ev),
+                                       "4K wide wire pack")
+    log(f"# phase 24: at 4K colour T={T}, {n_ev} events: the wide chunk "
+        f"(max abs err {k1_err}), K2 ({k2_err}), the wide copy ({copy_err}) "
+        f"and the wide pack ({pack_err}) == plain; launches {chunk_launches}")
+
+    def fetched():
+        return FR.fused_chunk_resident(st, f8, 255.0, p, event_cap=cap,
+                                       wide=True)
+
+    def void():
+        return FR.group_chunk_resident(st, f8, 255.0, p)
+
+    k_ms, k_q_ms = cuda_ms(fetched, 5), cuda_ms_queued(fetched, 5)
+    parts = kernel_device_ms(fetched, 5, (
+        "adder_resident_chunk_kernel", "adder_exclusive_scan_kernel",
+        "adder_segment_copy_wide_kernel"))
+    p_ms = cuda_ms(lambda: FR.fused_chunk_resident_plain(st, f8, 255.0, p,
+                                                         wide=True), 1)
+    v_ms, v_q_ms = cuda_ms(void, 5), cuda_ms_queued(void, 5)
+    v_kernel = kernel_device_ms(void, 5, ("adder_resident_chunk_kernel",))
+    vp_ms = cuda_ms(lambda: FR.group_chunk_resident_plain(st, f8, 255.0, p),
+                    1)
+    k_bound, v_bound = wide_bound(st, [f8], n_ev), chunk_bound(st, [f8], 0)
+
+    def copy():
+        return FR.segment_copy(*seg, wide=True)
+
+    c_ms, c_q_ms = cuda_ms(copy, 20), cuda_ms_queued(copy, 20)
+    c_kernel = kernel_device_ms(copy, 10, ("adder_segment_copy_wide_kernel",))
+    cp_ms = cuda_ms(lambda: FR.segment_copy_plain(*seg, wide=True), 1)
+    nonempty = int((seg[2] > 0).sum())
+    # counts and offsets read, the starts of non-empty segments read, each
+    # event's 8 staged bytes read and its 12 output bytes written
+    c_bound = bound(seg[2].numel() * 12 + nonempty * 8 + 20 * n_ev)
+
+    def pack():
+        return FR.wire_pack(*ev)
+
+    w_ms, w_q_ms = cuda_ms(pack, 20), cuda_ms_queued(pack, 20)
+    w_kernel = kernel_device_ms(pack, 10, ("adder_wire_pack_wide_kernel",))
+    wp_ms = cuda_ms(lambda: FR.wire_pack_plain(*ev), 1)
+    w_bound = bound(23 * n_ev)  # 12 bytes read, an 11-byte record written
+    log(f"# phase 24: 4K colour T={T} chunk, {n_ev} events [{card}]:")
+    log(f"#   wide chunk (pass + scan + wide copy): from the host {k_ms} ms,"
+        f" on the card alone {k_q_ms} ms, plain {p_ms} ms, bytes bound "
+        f"{k_bound} ms; its kernels (torch.profiler, per chunk) {parts}")
+    log(f"#   K2 void chunk: from the host {v_ms} ms, on the card alone "
+        f"{v_q_ms} ms, the kernel {v_kernel}, plain {vp_ms} ms, bytes bound "
+        f"{v_bound} ms")
+    log(f"#   wide segment copy ({seg[2].numel()} segments, {nonempty} "
+        f"non-empty): {c_ms} ms from the host, {c_q_ms} ms on the card "
+        f"alone, the kernel {c_kernel}, plain {cp_ms} ms, bound {c_bound} ms")
+    log(f"#   wide wire pack (11-byte records): {w_ms} ms from the host, "
+        f"{w_q_ms} ms on the card alone, the kernel {w_kernel}, plain "
+        f"{wp_ms} ms, bound {w_bound} ms")
+    src = "adder_tpu_torch/csrc/fused_resident.cu"
+    # the JAX package's chunk aliases such planes (its 24-bit field)
+    return [
+        {"name": "adder_resident_chunk_wide", "route": "cuda", "source": src,
+         "replaces": "adder_tpu/ops/fused_resident.py:676",
+         "launches": launches["adder_resident_chunk_wide"],
+         "max_abs_err": k1_err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k_bound, "bound_by": "bytes", "library_ms": None,
+         "queued_ms": k_q_ms,
+         "kernel_ms": parts.get("adder_resident_chunk_kernel"),
+         "events": n_ev, "void_max_abs_err": k2_err, "void_ms": v_ms,
+         "void_queued_ms": v_q_ms,
+         "void_kernel_ms": v_kernel.get("adder_resident_chunk_kernel"),
+         "void_plain_ms": vp_ms, "void_bound_ms": v_bound},
+        {"name": "adder_segment_copy_wide", "route": "cuda", "source": src,
+         "replaces": "adder_tpu/ops/fused_resident.py:676",
+         "launches": launches["adder_segment_copy_wide"],
+         "max_abs_err": copy_err, "ms": c_ms, "plain_ms": cp_ms,
+         "bound_ms": c_bound, "bound_by": "bytes", "library_ms": None,
+         "queued_ms": c_q_ms,
+         "kernel_ms": c_kernel.get("adder_segment_copy_wide_kernel"),
+         "events": n_ev},
+        {"name": "adder_wire_pack_wide", "route": "cuda", "source": src,
+         "replaces": "adder_tpu_torch/codec/raw.py encode_events (host)",
+         "launches": launches["adder_wire_pack_wide"],
+         "max_abs_err": pack_err, "ms": w_ms, "plain_ms": wp_ms,
+         "bound_ms": w_bound, "bound_by": "bytes", "library_ms": None,
+         "queued_ms": w_q_ms,
+         "kernel_ms": w_kernel.get("adder_wire_pack_wide_kernel"),
+         "events": n_ev},
+    ]
+
+
+def wide_only() -> int:
+    """`chip_smoke.py --wide`: phase 1's build with the ptxas lines of the
+    framed chunk's kernels, then phase 24 alone; the same last lines as the
+    whole run."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs "
+              "one NVIDIA GPU", file=sys.stderr)
+        return 2
+    import adder_tpu_torch as at
+    from adder_tpu_torch.ops import cuda_build
+    from adder_tpu_torch.ops import fused_resident as FR
+    from adder_tpu_torch.ops import integrate as ops
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"# card: {card}")
+    t0 = time.perf_counter()
+    cuda_build.load()
+    log(f"# phase 1: kernels loaded in {time.perf_counter() - t0:.2f} s")
+    for k, v in ptxas_report(cuda_build.build_log()).items():
+        what = kernel_source(k)
+        if what.startswith(("framed", "segment copy", "wire pack")):
+            log(f"#   {what}: {k}: {v}")
+    record = {"kernels": wide_phase(at, FR, ops, dev, card)}
+    print(json.dumps(record), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3552,8 +3789,9 @@ def main() -> int:
     log(f"# phase 1: kernels {'built' if fresh else 'loaded (cached)'} in "
         f"{build_s:.2f} s: {cuda_build.library_path().name}")
     ptx = ptxas_report(cuda_build.build_log())
-    for what in ("framed (K1/K2)", "framed display (K1)", "segment copy",
-                 "wire pack", "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
+    for what in ("framed (K1/K2)", "framed display (K1)", "framed wide (K1)",
+                 "segment copy", "segment copy wide", "wire pack",
+                 "wire pack wide", "scan", "DVS rows (K3)", "DVS rows 8-byte (K3)",
                  "DAVIS rows (K4)", "rows copy", "grouping",
                  "fused interval (K5)",
                  "interval slots (K6)"):
@@ -3589,7 +3827,7 @@ def main() -> int:
     k1_sass = {}
     for k in ptx:
         m = re.search(r"adder_resident_chunk_kernelILi6ELb1ELb1ELb0ELb([01])"
-                      r"ELb0E", k)
+                      r"ELb0ELb0E", k)
         if m:
             k1_sass["fetched" if m.group(1) == "1" else "void"] = \
                 loop_issue_estimate(cuda_build.library_path(), k)
@@ -3834,6 +4072,7 @@ def main() -> int:
     band_records = multihost_phase(card)
     tools = tools_phase(at, FR, dev, card, frames, clip_adder)
     oracle_phase(at, card)
+    wide = wide_phase(at, FR, ops, dev, card)
     k5_k6[0]["sharded_launches"] = {k: sharded[f"k5_{k}"]
                                     for k in ("k2", "k4")}
     k5_k6[1]["sharded_launches"] = {k: sharded[f"k6_{k}"]
@@ -3954,6 +4193,7 @@ def main() -> int:
          **walk_fields(k4["walk"]),
          "passes_host_read_ms": k4["passes_ms"]},
         *k5_k6,
+        *wide,
     ]}
     # phase 22: what each tool launched of each kernel
     for k in record["kernels"]:
@@ -3976,4 +4216,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--band-job"]:
         sys.exit(band_job(sys.argv[2]))
+    if sys.argv[1:2] == ["--wide"]:
+        sys.exit(wide_only())
     sys.exit(main())

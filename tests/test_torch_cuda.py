@@ -826,3 +826,277 @@ def test_decode_benchmark_device_frames_fillers_past_delta_t_max(cuda,
     assert len(device) == len(host) > 50
     for a, b_ in zip(host, device):
         assert (a == b_).all()
+
+
+# --- the wide event layout (planes of 2^24 pixel-channels and more) --------
+
+
+@pytest.mark.parametrize("depth", [6, 8])
+def test_wide_chunk_kernels_match_narrow_every_mode(cuda, depth):
+    """K1's wide pass and the wide segment copy give, in every mode case,
+    the narrow kernels' events as int64 pix << 8 | d, and the same state,
+    counts and flags, on a ragged plane (its last warp part full)."""
+    n, T8 = 47 * 61, 8
+    frames = torch.from_numpy(testing.walk_frames(depth, 2 * T8, n)).to(cuda)
+    for p in testing.MODE_CASES:
+        st = FR.ops.set_initial_d(
+            FR.ops.init_state(n, cuda, c_thresh=3, depth=depth),
+            frames[0].to(torch.int32))
+        for c in range(2):
+            f = frames[c * T8:(c + 1) * T8].contiguous()
+            FR.reset_launch_counts()
+            a = FR.fused_chunk_resident(st, f, 255.0, p, event_cap=11 * n * T8)
+            b = FR.fused_chunk_resident(st, f, 255.0, p, event_cap=11 * n * T8,
+                                        wide=True)
+            for key in ("adder_resident_chunk", "adder_segment_copy"):
+                assert FR.LAUNCHES[key] == FR.LAUNCHES[key + "_wide"] == 1
+            k = int(a.total)
+            assert k > 0 and int(b.total) == k and b.pixd.dtype == torch.int64
+            assert torch.equal(b.pixd[:k], a.pixd[:k].to(torch.int64)
+                               & 0xFFFFFFFF), (tuple(p[:3]), c)
+            assert torch.equal(b.t[:k], a.t[:k])
+            for name in ("per_interval", "pmax"):
+                assert torch.equal(getattr(b, name), getattr(a, name)), name
+            for fld in FR._KERNEL_FIELDS:
+                assert torch.equal(getattr(b.state, fld),
+                                   getattr(a.state, fld)), fld
+            st = a.state
+
+
+def test_wide_segment_copy_matches_plain(cuda):
+    """The wide copy kernel against its plain version on staging that
+    `testing.stage_segments` lays out, its low words in lane form, at the
+    full capacity and at half the events."""
+    for name, res, n in testing.segment_copy_cases(1):
+        if not int(res.total):
+            continue
+        slab = FR.slab_entries(6)
+        stage, seg_start, counts, link = testing.stage_segments(res, n, slab)
+        low = stage & 0xFFFFFFFF
+        lane_word = (((low >> 8) & 31) << 8) | (low & 0xFF)
+        stage = torch.where(stage >= 0, (stage & ~0xFFFFFFFF) | lane_word,
+                            stage)
+        offsets = FR.exclusive_scan_plain(counts)
+        flags = torch.zeros(3, dtype=torch.int32)
+        for cap in (int(res.total), int(res.total) // 2):
+            want = FR.segment_copy_plain(stage, seg_start, counts, offsets,
+                                         link, slab, cap, flags, wide=True)
+            got = FR.segment_copy(stage.to(cuda), seg_start.to(cuda),
+                                  counts.to(cuda), offsets.to(cuda),
+                                  link.to(cuda), slab, cap, flags.to(cuda),
+                                  wide=True)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (name, cap)
+
+
+def test_wide_wire_pack_matches_plain_at_52m_events(cuda):
+    """`adder_wire_pack`'s wide kernel against its plain version on 52 M
+    events of a 3840 x 2160 x 3 plane in pixel order (a 4K colour Raw
+    chunk's count), the indices past 2^24 and the last pixel-channel among
+    them."""
+    n, last = 52_000_000, 3840 * 2160 * 3 - 1
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    pix = torch.randint(0, last + 1, (n,), generator=gen, device=cuda,
+                        dtype=torch.int64).sort().values
+    pix[-1] = last
+    d = torch.randint(0, 256, (n,), generator=gen, device=cuda,
+                      dtype=torch.int64)
+    t = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen, device=cuda,
+                      dtype=torch.int64).to(torch.int32)
+    pixd = (pix << 8) | d
+    FR.reset_launch_counts()
+    got = FR.wire_pack(pixd, t, 3840, 3)
+    assert FR.LAUNCHES["adder_wire_pack_wide"] == 1
+    assert FR.LAUNCHES["adder_wire_pack"] == 0
+    assert got.numel() == 11 * n
+    want = FR.wire_pack_plain(pixd, t, 3840, 3)
+    assert torch.equal(got, want)
+
+
+def _reference_chunks(frames, config, device, events=True):
+    """reference_wide over the chunks of `frames` ((k, 8, n) u8 on the
+    card) from its own initial state: the chunks' results."""
+    from portbench import reference_wide as R
+
+    p = R.params_of(config)
+    st = R.first_frame(R.initial_state(frames.shape[-1], p, device),
+                       frames[0, 0])
+    out = []
+    for f in frames:
+        res = R.run_chunk(st, f, p, events)
+        out.append(res)
+        st = res.state
+    return out
+
+
+def _events_of(pixd: np.ndarray, t: np.ndarray, width: int, channels: int):
+    """The reference's events (int64 pix << 8 | d, u32 t) as the
+    EventArray an encoder takes, unpacked with numpy."""
+    from adder_tpu_torch.core.types import EventArray
+
+    pix = pixd >> 8
+    xy = pix // channels
+    return EventArray((xy % width).astype(np.uint16),
+                      (xy // width).astype(np.uint16),
+                      (pix % channels).astype(np.uint8),
+                      (pixd & 0xFF).astype(np.uint8), t.view(np.uint32))
+
+
+@pytest.mark.parametrize("sink", ["raw", "empty", "compressed"])
+def test_video_4k_color_equals_reference_wide(cuda, sink):
+    """Two chunks of 8 frames at 3840 x 2160 x 3 through `Video` (the
+    resident engine, the wide layout) against `reference_wide` on the card:
+    the state after each chunk, its per-frame counts and pmax, and the
+    `.adder` bytes. Raw: the packed route (the wide K1 pass, copy and
+    pack), the bytes against `reference_wide.event_bytes`, header
+    included. Empty, as the benchmark drives it (`void_events`): the
+    events-free pass (K2) on the 4K plane, no bytes. Compressed: the host
+    route (the wide copy, the int64 fetch and unpack), the bytes against
+    the same encoder fed the reference's events; there the scene moves only
+    in the plane's last 120 rows (indices past 2^24; constant pixels emit
+    nothing over 16 frames), which keeps the host coder's work small."""
+    import json
+    import pathlib
+
+    from adder_tpu_torch.codec import raw as rawcodec
+    from adder_tpu_torch.codec.encoder import Encoder
+    from portbench import reference_wide as R
+    from portbench import scene
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "portbench"
+    config = json.loads((root / "configs" / "framed-2160p-color.json")
+                        .read_text())
+    traffic = json.loads((root / "traffic" / "raw-moving-2160p.json")
+                         .read_text())
+    Wp, Hp, C = 3840, 2160, 3
+    n = Wp * Hp * C
+    frames = scene.render(traffic["scene"], Wp, Hp, C, 16, cuda)
+    if sink == "compressed":
+        band = torch.zeros_like(frames)
+        band[:, Hp - 120:] = frames[:, Hp // 2 - 60:Hp // 2 + 60]
+        frames = band
+    frames = frames.reshape(2, 8, n)
+    plane = at.PlaneSize(Wp, Hp, C)
+    v = at.Video(plane, at.Mode.FramePerfect, chunk_frames=8, device=cuda)
+    assert v._wide
+    v.time_parameters(config["tps"], config["ref_time"],
+                      config["delta_t_max"], at.TimeMode.DeltaT)
+    kind = {"raw": at.EncoderType.Raw, "empty": at.EncoderType.Empty,
+            "compressed": at.EncoderType.Compressed}[sink]
+    buf = io.BytesIO()
+    options = at.EncoderOptions.default(plane)
+    v.write_out(at.SourceCamera.FramedU8, at.TimeMode.DeltaT,
+                at.PixelMultiMode.Collapse, None, kind, options, buf)
+    v.void_events = sink == "empty"
+    v.update_quality_manual(0, 0, config["delta_t_max"] // config["ref_time"],
+                            1, 0)
+    header = len(buf.getvalue())
+    FR.reset_launch_counts()
+    got = []
+    for f in frames:
+        p = v.submit_chunk(f.cpu().numpy().reshape(8, Hp, Wp, C),
+                           float(config["ref_time"]))
+        ev = v.collect_chunk(p)
+        got.append((p["outs"], len(ev)))
+    v.end_write_stream()
+    wide_keys = ("adder_resident_chunk_wide", "adder_segment_copy_wide",
+                 "adder_wire_pack_wide")
+    want_launches = {
+        "raw": dict.fromkeys(wide_keys, 2),
+        "empty": {"adder_resident_chunk": 2},
+        "compressed": {"adder_resident_chunk_wide": 2,
+                       "adder_segment_copy_wide": 2}}[sink]
+    assert {k: c for k, c in FR.LAUNCHES.items()
+            if c and k != "adder_exclusive_scan"} == want_launches
+    data = buf.getvalue()
+    want = _reference_chunks(frames, config, cuda, sink != "empty")
+    for (outs, k), ref in zip(got, want):
+        assert int(ref.total) > (1_000_000 if sink != "compressed"
+                                 else 10_000)
+        assert torch.equal(outs.per_interval, ref.per_interval)
+        assert int(outs.pmax) == int(ref.pmax)
+        for fld in R.State._fields:
+            a, b = getattr(outs.state, fld), getattr(ref.state, fld)
+            assert a.shape == b.shape and a.dtype == b.dtype, fld
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), fld
+        if sink == "empty":
+            continue
+        assert k == int(ref.total)
+        assert int(ref.pixd.min()) >> 8 >= 1 << 24 or sink == "raw"
+        assert int(ref.pixd.max()) >> 8 >= 1 << 24  # indices past 24 bits
+    if sink == "raw":
+        assert data[:header] == R.header_bytes(
+            dict(config, plane=dict(width=Wp, height=Hp, channels=C)))
+        body = b"".join(R.event_bytes(ref.pixd.cpu().numpy(),
+                                      ref.t.cpu().numpy(), Wp, C)
+                        for ref in want)
+        assert data[header:] == body + rawcodec.eof_event_bytes(C)
+    elif sink == "compressed":
+        meta = v._make_meta(at.SourceCamera.FramedU8, 0)
+        meta.time_mode = at.TimeMode.DeltaT
+        ref_buf = io.BytesIO()
+        enc = Encoder.new_compressed(meta, ref_buf, options)
+        for ref in want:
+            enc.ingest_event_array(_events_of(
+                ref.pixd.cpu().numpy(), ref.t.cpu().numpy(), Wp, C))
+        enc.close_writer()
+        assert len(data) > header and data == ref_buf.getvalue()
+
+
+def _ptxas_by_kernel(log: str) -> dict:
+    """-Xptxas=-v output -> {kernel<template args>: [registers, stack frame,
+    spill stores, spill loads]} for the framed chunk's kernels, the
+    anonymous namespace's hash left out of the name."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(adder_[a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                          line)
+            args = re.findall(r"L[ib](\d+)E", (m.group(2) or "") if m else "")
+            cur = None
+            if m:
+                cur = m.group(1) + (f"<{','.join(args)}>" if args else "")
+                out[cur] = [0, 0, 0, 0]
+        elif cur and "spill stores" in line:
+            w = line.replace(",", "").split()
+            out[cur][1:] = [int(w[0]), int(w[w.index("spill") - 2]),
+                            int(w[-4])]
+        elif cur and "Used" in line and "registers" in line:
+            w = line.split()
+            out[cur][0] = int(w[w.index("Used") + 1])
+    return out
+
+
+def test_narrow_chunk_kernels_ptxas_unchanged(cuda):
+    """The narrow instantiations of K1's pass (WIDE false, its last
+    template argument), the segment copy and the wire pack compile to the
+    registers, stack frame and spills the kernels had before the wide
+    layout (tests/narrow_ptxas_sm90a.json: the build before it, on the H100
+    toolchain); the wide kernels spill nothing."""
+    import json
+    import pathlib
+
+    from adder_tpu_torch.ops import cuda_build
+
+    cuda_build.load()
+    got = _ptxas_by_kernel(cuda_build.build_log())
+    want = json.loads((pathlib.Path(__file__).with_name(
+        "narrow_ptxas_sm90a.json")).read_text())
+    narrow, wide = {}, {}
+    for k, v in got.items():
+        if k.startswith("adder_resident_chunk_kernel<"):
+            *args, flag = k[:-1].split("<")[1].split(",")
+            name = f"adder_resident_chunk_kernel<{','.join(args)}>"
+            (wide if flag == "1" else narrow)[name] = v
+        elif "_wide_kernel" in k:
+            wide[k] = v
+        elif k.split("<")[0] in ("adder_segment_copy_kernel",
+                                 "adder_wire_pack_kernel"):
+            narrow[k] = v
+    assert narrow == want
+    assert len(wide) == 8 * 2 + 1 + 2
+    assert all(v[2] == v[3] == 0 for v in wide.values()), wide

@@ -18,6 +18,7 @@ from adder_tpu.core.types import (
 from adder_tpu.transcoder.framed import FramedArray as JaxFramedArray
 from adder_tpu.transcoder.video import Video as JaxVideo
 from adder_tpu_torch import FramedArray, Video, convert
+from adder_tpu_torch.ops import fused_resident
 
 
 def synth_frames(T, H, W, C=1, seed=0):
@@ -133,8 +134,12 @@ def test_void_path_and_device_contract():
     src.video.void_events = True
     assert len(src.consume_batch()) == 0
     assert src.video.state.running_t.device.type == "cpu"
+    # 4096 x 2160 x 2 is past the 24-bit pixel field: the resident engine
+    # takes it in its wide layout (tests/test_torch_wide_plane.py holds the
+    # engines that refuse it); a plane of 2^32 or more is refused
+    assert fused_resident.wide_layout(4096 * 2160 * 2)
     with pytest.raises(ValueError):
-        Video(PlaneSize(4096, 2160, 2), Mode.FramePerfect, device="cpu")
+        Video(PlaneSize(65535, 65535, 3), Mode.FramePerfect, device="cpu")
     assert src.detect_features(True) is src  # features are ported
     assert src.video.feature_detection
     if not torch.cuda.is_available():

@@ -164,8 +164,9 @@ def test_resident_capacity_rerun(monkeypatch):
     caps = []
     orig = TV.fused_resident.fused_chunk_resident
 
-    def chunk(state, frames, time, p, run0=None, *, event_cap):
-        res = orig(state, frames, time, p, run0, event_cap=event_cap)
+    def chunk(state, frames, time, p, run0=None, *, event_cap, wide):
+        res = orig(state, frames, time, p, run0, event_cap=event_cap,
+                   wide=wide)
         caps.append((event_cap, int(res.total)))
         return res
 

@@ -84,8 +84,10 @@ def test_wire_pack_plain_writes_the_encoders_bytes(C, n):
 
 def test_wire_pack_rejects_bad_input():
     pixd, t = _edge_pairs(1, 4, seed=0)
-    for args in ((pixd.to(torch.int64), t, W, 1), (pixd, t[:3], W, 1),
-                 (pixd, t, 0, 1), (pixd, t, W, 0)):
+    # int64 pixd is the wide layout's (tests/test_torch_wide_plane.py)
+    for args in ((pixd.to(torch.int16), t, W, 1), (pixd, t.to(torch.int64),
+                                                   W, 1),
+                 (pixd, t[:3], W, 1), (pixd, t, 0, 1), (pixd, t, W, 0)):
         with pytest.raises(ValueError):
             FR.wire_pack(*args)
 
